@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and bind them through ctypes.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` at first use, one
+``nvcc`` per source, all started together, and the objects are linked
+into one shared library with a plain C interface in
 ``build/ksw2_tpu_torch/`` beside the package.  The library's file name
 carries a hash of the sources and flags, so an edited source rebuilds,
 and a file lock serialises concurrent first uses.  Only the sources in
@@ -25,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "ksw2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Counter = Counter()
 
@@ -34,9 +35,12 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, mat0, kb, right, cig,
-    # threads, D, Dq, hl, d8, stream
-    "ksw2t_strips_fwd": [_P] * 5 + [_I] * 11 + [_P] * 5,
+    # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, q2, e2, lt, ld, mat0,
+    # kb, right, cig, two, threads, D, Dq, hl, d8, stream
+    "ksw2t_strips_fwd": [_P] * 5 + [_I] * 16 + [_P] * 5,
+    # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, mat0, kb, D, Dq, hl,
+    # stream
+    "ksw2t_rows_fwd": [_P] * 5 + [_I] * 8 + [_P] * 4,
     # d8, starts, B, tv, Lq, wr, res, runs, stream
     "ksw2t_strips_walk": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
@@ -66,6 +70,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libksw2t_{h.hexdigest()[:16]}.so"
 
 
+def _compile_and_link(out: Path) -> None:
+    """One ``nvcc -c`` per source, all running at once, then one link
+    into ``out``; the compilers' reports go to ``<out>.log``."""
+    nvcc = _nvcc()
+    tag = f"{out.stem}.tmp{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(s), "-o", str(o)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = BUILD_DIR / f"{tag}.so"
+    try:
+        failed = [f"{s.name} ({p.returncode}):\n{log}" for s, p, log
+                  in zip(srcs, procs, logs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n{link.stdout}")
+        out.with_suffix(".log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
+
+
 def build() -> Path:
     """Compile the kernels unless a library of these sources exists;
     returns its path.  The compiler's resource report (``-Xptxas -v``)
@@ -79,15 +117,7 @@ def build() -> Path:
         try:
             if out.exists():
                 return out
-            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, out)
+            _compile_and_link(out)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return out

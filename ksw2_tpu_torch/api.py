@@ -1,20 +1,21 @@
 """High-level alignment API: configure once, align many.
 
-Port of ``ksw2_tpu/api.py`` for one-piece costs on the strips route.
-Costs and flags are bound at construction; the methods accept raw DNA
-strings or encoded arrays and return
-:class:`~ksw2_tpu_torch.core.result.ExtzResult` records with the exact
-``ksw_extz_t`` field contract.
+Port of ``ksw2_tpu/api.py`` for one-piece (extz) and two-piece (extd)
+costs on the strips and rows routes.  Costs and flags are bound at
+construction; the methods accept raw DNA strings or encoded arrays and
+return :class:`~ksw2_tpu_torch.core.result.ExtzResult` records with the
+exact ``ksw_extz_t`` field contract.
 
     >>> from ksw2_tpu_torch import Aligner
-    >>> aln = Aligner(a=2, b=4, q=4, e=2, zdrop=100)      # device="cuda"
-    >>> ezs = aln.extend_batch(pairs)
+    >>> aln = Aligner(a=2, b=4, q=4, e=2, q2=13, e2=1, zdrop=100)
+    >>> ezs = aln.extend_batch(pairs)                     # device="cuda"
 
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain PyTorch
-versions.  Two-piece and splice costs, global alignment, meshes and
-pluggable engines raise ``NotImplementedError`` naming the ROADMAP.md
-item that brings them.
+versions.  Splice costs, global alignment, meshes, pluggable engines,
+and two-piece SCORE_ONLY batches with ``end_bonus`` or EXTZ_ONLY raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them;
+so does any job outside the strips envelope.
 """
 from __future__ import annotations
 
@@ -38,13 +39,14 @@ def _enc(s: Seq) -> np.ndarray:
 
 
 class Aligner:
-    """Pairwise extension aligner with fixed one-piece scoring.
+    """Pairwise extension aligner with fixed scoring.
 
     Parameters mirror ``ksw2_tpu.Aligner``: match ``a``, mismatch ``b``
-    (positive), gap open/extend ``q``/``e``, band ``w``, Z-drop
-    ``zdrop``, ``end_bonus`` and ``flag``.  A custom ``mat`` (m*m int8)
-    overrides ``a``/``b`` and implies GENERIC_SC unless it is a simple
-    matrix.  ``device`` selects the CUDA kernels or their plain versions.
+    (positive), gap open/extend ``q``/``e``, optional two-piece
+    ``q2``/``e2`` (extd2), band ``w``, Z-drop ``zdrop``, ``end_bonus``
+    and ``flag``.  A custom ``mat`` (m*m int8) overrides ``a``/``b`` and
+    implies GENERIC_SC unless it is a simple matrix.  ``device`` selects
+    the CUDA kernels or their plain versions.
     """
 
     def __init__(self, a: int = 2, b: int = 4, q: int = 4, e: int = 2,
@@ -56,10 +58,10 @@ class Aligner:
         if splice:
             raise NotImplementedError(
                 "splice (exts) costs: strips prm.spl (ROADMAP item 9)")
-        if q2 is not None or e2 is not None:
-            raise NotImplementedError(
-                "two-piece (extd) costs: strips prm.two and the 5-state "
-                "walker (ROADMAP items 4, 5)")
+        if (q2 is None) != (e2 is None):
+            raise ValueError("two-piece costs need both q2 and e2")
+        self.q2 = None if q2 is None else int(q2)
+        self.e2 = None if e2 is None else int(e2)
         self.device = resolve_device(device)
         self.m = int(m)
         self.flag = Flag(int(flag))
@@ -112,7 +114,7 @@ class Aligner:
         if juncs is not None:
             raise NotImplementedError("junction tracks (ROADMAP item 9)")
         return align_batch(self._jobs(pairs, w), self.m, self.mat, self.q,
-                           self.e, zdrop=self.zdrop,
+                           self.e, q2=self.q2, e2=self.e2, zdrop=self.zdrop,
                            end_bonus=self.end_bonus, flag=self.flag,
                            device=self.device)
 
@@ -124,9 +126,9 @@ class Aligner:
         if juncs is not None:
             raise NotImplementedError("junction tracks (ROADMAP item 9)")
         return align_batch_async(self._jobs(pairs, w), self.m, self.mat,
-                                 self.q, self.e, zdrop=self.zdrop,
-                                 end_bonus=self.end_bonus, flag=self.flag,
-                                 device=self.device)
+                                 self.q, self.e, q2=self.q2, e2=self.e2,
+                                 zdrop=self.zdrop, end_bonus=self.end_bonus,
+                                 flag=self.flag, device=self.device)
 
 
 __all__ = ["Aligner"]

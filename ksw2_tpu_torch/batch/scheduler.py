@@ -1,9 +1,11 @@
-"""Pair-batch scheduler for the one-piece strips route.
+"""Pair-batch scheduler for the strips and rows routes.
 
-Port of ``ksw2_tpu/batch/scheduler.py``'s one-piece score and CIGAR
-paths: jobs are bucketed by shape, each bucket is checked against the
-strips envelope, and every launch is enqueued on the current CUDA stream
-before anything waits.  A handle's ``result()`` synchronises on the
+Port of ``ksw2_tpu/batch/scheduler.py``'s score and CIGAR paths for one-
+and two-piece costs: jobs are bucketed by shape, each bucket is checked
+against the strips envelope, one-piece score buckets that
+``rows_eligible`` accepts run the rows kernel (the JAX route's priority),
+and every launch is enqueued on the current CUDA stream before anything
+waits.  A handle's ``result()`` synchronises on the
 event recorded after the batch's device-to-host copies, so several
 batches in flight overlap one batch's host work with the next one's
 device work.  On ``device="cpu"`` the same path runs the kernels' plain
@@ -23,9 +25,13 @@ import torch
 from ..core.flags import NEG_INF, Flag
 from ..core.result import ExtzResult
 from ..ops.records import NFIELDS
-from ..ops.strips import (TMAX, QMAX, strips_ineligible_reason,
-                          strips_prep, strips_records)
-from ..ops.strips_walker import (strips_cigar_ineligible_reason,
+from ..ops.rows import rows_eligible, rows_records
+from ..ops.strips import (TMAX, QMAX, canonical_costs,
+                          strips_extd_ineligible_reason,
+                          strips_ineligible_reason, strips_prep,
+                          strips_records)
+from ..ops.strips_walker import (strips_cigar_extd_ineligible_reason,
+                                 strips_cigar_ineligible_reason,
                                  strips_cigar_launch, unpack_cigars)
 
 _SCORES_LT = (128, 256, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072)
@@ -80,15 +86,16 @@ def _heaviest_first(buckets: Dict[Tuple[int, int], List[int]], jobs):
     return sorted(buckets.items(), key=cost)
 
 
-def _route(jobs, mat, q, e, results, reason_fn, what: str):
-    """Reset empty and degenerate-scoring jobs; bucket the rest, check
-    every bucket against the envelope and return the buckets'
-    (idxs, qlen, tlen) heaviest first.  Raises before anything runs."""
+def _route(jobs, mat, qe: int, results, reason_fn, what: str):
+    """Reset empty jobs, and every job when scoring is degenerate
+    (``-min_sc > 2 * qe``); bucket the rest, check every bucket against
+    the envelope and return the buckets' (idxs, qlen, tlen, w) heaviest
+    first.  Raises before anything runs."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
         if len(job.query) == 0 or len(job.target) == 0 or \
-                -min_sc > 2 * (q + e):
+                -min_sc > 2 * qe:
             ez = ExtzResult()
             ez.reset()
             results[i] = ez
@@ -111,7 +118,7 @@ def _route(jobs, mat, q, e, results, reason_fn, what: str):
         reason = reason_fn(qlen, tlen, wv)
         if reason is not None:
             raise NotImplementedError(f"{what}: {reason}")
-        out.append((idxs, qlen, tlen))
+        out.append((idxs, qlen, tlen, wv))
     return out
 
 
@@ -127,14 +134,17 @@ def _to_host(tensors: List[torch.Tensor], dev: torch.device):
 
 
 class PendingScores:
-    """Handle for an in-flight :func:`align_batch_scores_async` batch:
-    every launch and device-to-host copy is enqueued; :meth:`result`
-    waits on the batch's event."""
+    """Handle for an in-flight :func:`align_batch_scores_async` or
+    :func:`align_batch_scores2_async` batch: every launch and
+    device-to-host copy is enqueued; :meth:`result` waits on the batch's
+    event.  With ``guard`` (the reference's degenerate-scoring test on
+    the cheaper arm) every launched job reads as reset."""
 
-    def __init__(self, results, pieces, event):
+    def __init__(self, results, pieces, event, guard: bool = False):
         self._results = results
         self._pieces = pieces          # [(idxs, host (B, 9) records)]
         self._event = event
+        self._guard = guard
         self._done = False
 
     def _wait(self):
@@ -149,6 +159,11 @@ class PendingScores:
                 arr = rec.numpy()
                 for k, i in enumerate(idxs):
                     r = arr[k]
+                    if self._guard:
+                        ez = ExtzResult()
+                        ez.reset()
+                        self._results[i] = ez
+                        continue
                     self._results[i] = ExtzResult(
                         max=int(r[0]), max_t=int(r[1]), max_q=int(r[2]),
                         mqe=int(r[3]), mqe_t=int(r[4]), mte=int(r[5]),
@@ -168,8 +183,9 @@ class PendingScores:
         out[:, (0, 8)] = 0
         out[:, (1, 2, 4, 6)] = -1
         out[:, (3, 5, 7)] = NEG_INF
-        for idxs, rec in self._pieces:
-            out[np.asarray(idxs)] = rec.numpy()
+        if not self._guard:
+            for idxs, rec in self._pieces:
+                out[np.asarray(idxs)] = rec.numpy()
         self._done = True
         return out
 
@@ -184,29 +200,46 @@ def align_batch_scores_async(
     flag: Flag | int = Flag.SCORE_ONLY,
     device="cuda",
 ) -> PendingScores:
-    """Submit a one-piece score batch without waiting."""
+    """Submit a one-piece score batch without waiting.  A bucket that
+    ``rows_eligible`` accepts runs the rows kernel, every other bucket
+    the strips kernel (``scheduler.py:242-247`` in the JAX package)."""
     dev = resolve_device(device)
     flag = Flag(int(flag)) | Flag.SCORE_ONLY
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
     buckets = _route(
-        jobs, mat, q, e, results,
+        jobs, mat, q + e, results,
         lambda ql, tl, w: strips_ineligible_reason(ql, tl, w, flag, m, mat,
                                                    zdrop, q, e),
         "score route")
     pieces = []
-    for idxs, qlen, tlen in buckets:
+    for idxs, qlen, tlen, wv in buckets:
+        run = rows_records if rows_eligible(qlen, tlen, wv, flag, zdrop, m,
+                                            mat) else strips_records
         launches = strips_prep([jobs[i].query for i in idxs],
                                [jobs[i].target for i in idxs], qlen, tlen,
                                m, mat, q, e, zdrop, flag)
-        pos = 0
-        for ln in launches:
-            B = len(ln.qlen)
-            pieces.append((idxs[pos:pos + B], strips_records(ln, dev)))
-            pos += B
+        pieces += _run_launches(idxs, launches, lambda ln: run(ln, dev))
+    return _pending_scores(results, pieces, dev, False)
+
+
+def _run_launches(idxs, launches, run):
+    """[(the launch's job indices, run(launch))] over a bucket's
+    launches."""
+    out = []
+    pos = 0
+    for ln in launches:
+        B = len(ln.qlen)
+        out.append((idxs[pos:pos + B], run(ln)))
+        pos += B
+    return out
+
+
+def _pending_scores(results, pieces, dev, guard) -> PendingScores:
     host, ev = _to_host([p[1] for p in pieces], dev)
     return PendingScores(results,
-                         [(p[0], h) for p, h in zip(pieces, host)], ev)
+                         [(p[0], h) for p, h in zip(pieces, host)], ev,
+                         guard)
 
 
 def align_batch_scores(jobs, m, mat, q, e, zdrop=-1,
@@ -215,6 +248,54 @@ def align_batch_scores(jobs, m, mat, q, e, zdrop=-1,
     """Score a batch of one-piece extension jobs, bucketed by shape."""
     return align_batch_scores_async(jobs, m, mat, q, e, zdrop=zdrop,
                                     flag=flag, device=device).result()
+
+
+def align_batch_scores2_async(
+    jobs: Sequence[AlignJob],
+    m: int,
+    mat: np.ndarray,
+    q: int,
+    e: int,
+    q2: int,
+    e2: int,
+    zdrop: int = -1,
+    flag: Flag | int = Flag.SCORE_ONLY,
+    device="cuda",
+) -> PendingScores:
+    """Submit a two-piece (extd) score batch without waiting; the same
+    handle as :func:`align_batch_scores_async`.  As in the JAX package
+    (``scheduler.py:463-465, 526-528``) a job is reset when scoring is
+    degenerate against the PRE-swap ``q + e``, and the handle's guard
+    tests the cheaper arm; the two differ when the costs swap."""
+    dev = resolve_device(device)
+    flag = Flag(int(flag)) | Flag.SCORE_ONLY
+    mat = np.asarray(mat, dtype=np.int8).reshape(-1)
+    results: List[Optional[ExtzResult]] = [None] * len(jobs)
+    buckets = _route(
+        jobs, mat, q + e, results,
+        lambda ql, tl, w: strips_extd_ineligible_reason(
+            ql, tl, w, flag, m, mat, zdrop, q, e, q2, e2),
+        "two-piece score route")
+    pieces = []
+    for idxs, qlen, tlen, _ in buckets:
+        launches = strips_prep([jobs[i].query for i in idxs],
+                               [jobs[i].target for i in idxs], qlen, tlen,
+                               m, mat, q, e, zdrop, flag, two=True, q2=q2,
+                               e2=e2)
+        pieces += _run_launches(idxs, launches,
+                                lambda ln: strips_records(ln, dev))
+    qc, ec = canonical_costs(q, e, q2, e2)[:2]
+    min_sc = int(mat[1:].min())
+    return _pending_scores(results, pieces, dev, -min_sc > 2 * (qc + ec))
+
+
+def align_batch_scores2(jobs, m, mat, q, e, q2, e2, zdrop=-1,
+                        flag: Flag | int = Flag.SCORE_ONLY,
+                        device="cuda") -> List[ExtzResult]:
+    """Score a batch of two-piece extension jobs, bucketed by shape."""
+    return align_batch_scores2_async(jobs, m, mat, q, e, q2, e2,
+                                     zdrop=zdrop, flag=flag,
+                                     device=device).result()
 
 
 class PendingAligns:
@@ -244,44 +325,67 @@ def align_batch_async(
     flag: Flag | int = Flag.NONE,
     device="cuda",
 ) -> PendingAligns:
-    """Submit a one-piece full-alignment batch (scores + CIGARs) without
-    waiting; SCORE_ONLY batches take the score path."""
-    if q2 is not None or e2 is not None:
-        raise NotImplementedError(
-            "two-piece costs: the strips prm.two forward and the 5-state "
-            "walker (ROADMAP items 4, 5)")
+    """Submit a full-alignment batch (scores + CIGARs) without waiting.
+
+    One-piece (``q2 is None``) SCORE_ONLY batches take the score path;
+    two-piece SCORE_ONLY batches with ``end_bonus == 0`` and no
+    EXTZ_ONLY take the two-piece score path; every other batch takes the
+    strips CIGAR route (``scheduler.py:564-577, 609-617, 651-663`` in
+    the JAX package)."""
+    two = q2 is not None
+    if two and e2 is None:
+        raise ValueError("two-piece costs need both q2 and e2")
     dev = resolve_device(device)
     flag = Flag(int(flag))
     if flag & Flag.SCORE_ONLY:
-        h = align_batch_scores_async(jobs, m, mat, q, e, zdrop=zdrop,
-                                     flag=flag, device=dev)
+        if not two:
+            h = align_batch_scores_async(jobs, m, mat, q, e, zdrop=zdrop,
+                                         flag=flag, device=dev)
+        elif end_bonus == 0 and not flag & Flag.EXTZ_ONLY:
+            h = align_batch_scores2_async(jobs, m, mat, q, e, q2, e2,
+                                          zdrop=zdrop, flag=flag,
+                                          device=dev)
+        else:
+            raise NotImplementedError(
+                "two-piece SCORE_ONLY batches with end_bonus or EXTZ_ONLY "
+                "run on the band and batched extd engines (ROADMAP items "
+                "10, 11)")
         return PendingAligns(h.result)
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
-    buckets = _route(
-        jobs, mat, q, e, results,
-        lambda ql, tl, w: strips_cigar_ineligible_reason(
-            ql, tl, w, flag, m, mat, zdrop, q, e),
-        "CIGAR route")
+    if two:
+        # the reference resets after its swap (ksw2_extd2_sse.c:93-100)
+        qc, ec = canonical_costs(q, e, q2, e2)[:2]
+        buckets = _route(
+            jobs, mat, qc + ec, results,
+            lambda ql, tl, w: strips_cigar_extd_ineligible_reason(
+                ql, tl, w, flag, m, mat, zdrop, q, e, q2, e2),
+            "two-piece CIGAR route")
+    else:
+        buckets = _route(
+            jobs, mat, q + e, results,
+            lambda ql, tl, w: strips_cigar_ineligible_reason(
+                ql, tl, w, flag, m, mat, zdrop, q, e),
+            "CIGAR route")
     pieces = []
-    for idxs, qlen, tlen in buckets:
+    for idxs, qlen, tlen, _ in buckets:
         launches = strips_prep([jobs[i].query for i in idxs],
                                [jobs[i].target for i in idxs], qlen, tlen,
-                               m, mat, q, e, zdrop, flag, cig=True)
-        pos = 0
-        for ln in launches:
-            B = len(ln.qlen)
-            pieces.append((idxs[pos:pos + B],
-                           strips_cigar_launch(ln, end_bonus, dev)))
-            pos += B
-    host, ev = _to_host([t for _, ts in pieces for t in ts], dev)
+                               m, mat, q, e, zdrop, flag, cig=True, two=two,
+                               q2=q2 or 0, e2=e2 or 0)
+        pieces += _run_launches(
+            idxs, launches,
+            lambda ln: (ln.prm, strips_cigar_launch(ln, end_bonus, dev)))
+    host, ev = _to_host([t for _, (_, ts) in pieces for t in ts], dev)
 
     def finish() -> List[ExtzResult]:
         if ev is not None:
             ev.synchronize()
-        for k, (idxs, _) in enumerate(pieces):
+        for k, (idxs, (prm, _)) in enumerate(pieces):
             rec, res, runs = (t.numpy() for t in host[3 * k:3 * k + 3])
-            ezs = unpack_cigars(rec, res, runs, mat, q, e, end_bonus, flag)
+            # the launch's params carry the POST-swap costs
+            ezs = unpack_cigars(rec, res, runs, mat, prm.q, prm.e,
+                                end_bonus, flag)
             for i, ez in zip(idxs, ezs):
                 results[i] = ez
         return results
@@ -292,12 +396,14 @@ def align_batch_async(
 def align_batch(jobs, m, mat, q, e, q2=None, e2=None, zdrop=-1,
                 end_bonus=0, flag: Flag | int = Flag.NONE,
                 device="cuda") -> List[ExtzResult]:
-    """Full alignment (scores + CIGARs) for a batch of one-piece jobs."""
+    """Full alignment (scores + CIGARs) for a batch of jobs; one-piece
+    when ``q2`` is None, else two-piece."""
     return align_batch_async(jobs, m, mat, q, e, q2=q2, e2=e2, zdrop=zdrop,
                              end_bonus=end_bonus, flag=flag,
                              device=device).result()
 
 
 __all__ = ["AlignJob", "PendingScores", "PendingAligns", "resolve_device",
-           "align_batch_scores", "align_batch_scores_async", "align_batch",
+           "align_batch_scores", "align_batch_scores_async",
+           "align_batch_scores2", "align_batch_scores2_async", "align_batch",
            "align_batch_async"]

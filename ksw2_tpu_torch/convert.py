@@ -17,8 +17,9 @@ from .ops.strips import StripParams
 def aligner_from_jax(cfg: dict, device="cuda") -> Aligner:
     """The port's :class:`Aligner` for the attributes of a
     ``ksw2_tpu.Aligner`` given as plain values: ``m``, ``mat`` (int8,
-    m*m), ``q``, ``e``, ``w``, ``zdrop``, ``end_bonus`` and ``flag``
-    (``q2``/``e2``/``splice`` when present must be unset)."""
+    m*m), ``q``, ``e``, ``q2``/``e2`` (None for one-piece), ``w``,
+    ``zdrop``, ``end_bonus`` and ``flag`` (``splice`` when present must
+    be unset: splice costs are not ported, ROADMAP item 9)."""
     return Aligner(q=int(cfg["q"]), e=int(cfg["e"]), q2=cfg.get("q2"),
                    e2=cfg.get("e2"), w=int(cfg["w"]),
                    zdrop=int(cfg["zdrop"]), end_bonus=int(cfg["end_bonus"]),
@@ -28,13 +29,12 @@ def aligner_from_jax(cfg: dict, device="cuda") -> Aligner:
 
 
 def strip_params_from_jax(d: dict) -> StripParams:
-    """The port's :class:`StripParams` for a one-piece
+    """The port's :class:`StripParams` for a one- or two-piece
     ``ksw2_tpu.ops.wavefront_strips.StripParams._asdict()``.  The TPU
     layout fields (``n_rows``, ``s``, ``t_pad``, ``t_real``) have no
-    counterpart; two-piece and splice params raise."""
-    if d.get("two") or d.get("spl") or d.get("off0"):
-        raise NotImplementedError(
-            "two-piece and splice strips params (ROADMAP items 4, 9)")
+    counterpart; splice params raise."""
+    if d.get("spl"):
+        raise NotImplementedError("splice strips params (ROADMAP item 9)")
     return StripParams(**{k: d[k] for k in StripParams._fields})
 
 

@@ -1,10 +1,12 @@
 // Strips walker: ksw_backtrack over the forward's direction bytes.
 //
-// Replaces ksw2_tpu/ops/strips_walker.py:_walk_kernel (3-state, one-piece
-// bytes).  It runs the reference's backtrack state machine (ksw2.h:129-161,
-// is_rot = 0; the strips store is effectively unbanded, so there are no
-// band-edge force states) from each pair's start cell over the row-major
-// byte store d8[b][i][j] that strips_fwd.cu writes, and emits BAM runs
+// Replaces ksw2_tpu/ops/strips_walker.py:_walk_kernel (3-state one-piece
+// and 5-state two-piece bytes).  It runs the reference's backtrack state
+// machine (ksw2.h:129-161, is_rot = 0, min_intron_len = 0; the strips
+// store is effectively unbanded, so there are no band-edge force states)
+// from each pair's start cell over the row-major byte store d8[b][i][j]
+// that strips_fwd.cu writes; states 3 and 4 and their 0x20 / 0x40
+// continuation bits take the same path as 1 and 2.  It emits BAM runs
 // `len << 4 | op` in walk order plus (i_end, j_end, run count).  The host
 // then adds the tail D and I runs, merges and reverses
 // (ops/strips_walker.py:finish_runs_batch).

@@ -1,16 +1,24 @@
-"""Strips route, one-piece: host prep, forward kernel, record replay.
+"""Strips route: host prep, forward kernel, record replay.
 
-Port of ``ksw2_tpu/ops/wavefront_strips.py`` for one-piece (extz) costs,
-score-only and with direction bytes (``cig``).  The forward is the
-row-major extension DP that ``spec/strips.py:strips_forward`` and
-``spec/strips_cigar.py:strips_forward_cigar`` specify; it emits per pair
+Port of ``ksw2_tpu/ops/wavefront_strips.py`` for one-piece (extz) and
+two-piece (extd, ``two``) costs, score-only and with direction bytes
+(``cig``).  The forward is the row-major extension DP that
+``spec/strips.py:strips_forward`` and ``spec/strips_cigar.py`` specify
+(two-piece: ``spec/strips_extd.py:strips_forward_extd`` and
+``strips_forward_cigar_extd``); it emits per pair
 
 * ``D[r]``: the packed ``H * KB + (KB - 1 - merge_key)`` maximum over the
   cells of global diagonal ``r = i + j``,
 * ``Dq[r]``: H of the query-end cell on ``r`` (``SENT`` where none),
 * ``hl[j]``: H of the last target row,
 * with ``cig``, the reference's direction byte of every cell, row-major
-  ``d8[b, i, j]`` (the bytes ``spec/strips_cigar.py``'s ``dmat`` holds).
+  ``d8[b, i, j]`` (the bytes ``spec/strips_cigar.py``'s ``dmat`` holds;
+  7-bit bytes for two-piece costs).
+
+Two-piece launches carry the POST-swap costs (the reference swaps the
+pieces when ``q2 + e2 < q + e``, ksw2_extd2_sse.c:78) and ``off0``, the
+offset of the reference's pre-swap H seed, which the replay adds.  The
+splice form (``spl``) is not ported.
 
 :func:`replay_records` then replays the reference's per-diagonal ez
 automaton from those streams (``_postprocess`` in the JAX package).
@@ -46,11 +54,11 @@ TLENP_LADDER = (32, 64, 128, 256, 384, 512, 768, 1024, 1280, 1536,
 
 
 class StripParams(NamedTuple):
-    """One launch's scalar parameters (the one-piece fields of the JAX
-    package's ``StripParams``)."""
+    """One launch's scalar parameters (the JAX package's ``StripParams``
+    without its TPU layout fields and the splice fields)."""
     tv: int                # t-capacity of the merge key (>= max tlen)
     m: int
-    q: int
+    q: int                 # post-swap when two
     e: int
     mat0: int              # mat[0]: the reference per-cell clamp
     sc_mis: int
@@ -58,6 +66,12 @@ class StripParams(NamedTuple):
     zdrop: int
     flag: int
     matt: tuple = ()       # flattened matrix when GENERIC_SC
+    two: int = 0           # two-piece (extd) mode
+    q2: int = 0
+    e2: int = 0
+    lt: int = 0            # long_thres (boundary-condition crossover)
+    ld: int = 0            # long_diff
+    off0: int = 0          # reference pre-swap H-seed offset (extd quirk)
     cig: int = 0           # emit per-cell direction bytes
 
 
@@ -163,15 +177,76 @@ def strips_eligible(qlen, tlen, w, flag, m, mat, zdrop,
                                     q, e) is None
 
 
-def make_params(m, mat, q, e, zdrop, flag, tv, cig=False) -> StripParams:
+def long_params(q: int, e: int, q2: int, e2: int) -> Tuple[int, int]:
+    """(long_thres, long_diff) of post-swap two-piece costs (a copy of
+    ``spec/strips_extd.py:long_params``; ksw2_extd2_sse.c:88-92)."""
+    if e != e2:
+        long_thres = (q2 - q + (e - e2) - 1) // (e - e2) - 1
+    else:
+        long_thres = 0
+    if q2 + e2 + long_thres * e2 > q + e + long_thres * e:
+        long_thres += 1
+    long_diff = long_thres * (e - e2) - (q2 - q) - e2
+    return long_thres, long_diff
+
+
+def canonical_costs(q: int, e: int, q2: int, e2: int):
+    """The reference's canonicalisation swap (ksw2_extd2_sse.c:78): the
+    piece with the smaller ``q + e`` comes first.  Returns the post-swap
+    ``(q, e, q2, e2)`` and ``off0 = (q + e)_post - (q + e)_pre``."""
+    q, e, q2, e2 = int(q), int(e), int(q2), int(e2)
+    qe_pre = q + e
+    if q2 + e2 < q + e:
+        q, q2, e, e2 = q2, q, e2, e
+    return q, e, q2, e2, (q + e) - qe_pre
+
+
+def strips_extd_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
+                                  q, e, q2, e2) -> Optional[str]:
+    """Why a two-piece bucket cannot run on the strips route, or None.
+
+    ``wavefront_strips.strips_extd_eligible``: after the swap the chains
+    decouple only when ``e >= e2``, ``q, q2 >= 0`` and ``e, e2 >= 1``
+    (``spec/strips_extd.py``); then the one-piece envelope with the
+    post-swap ``q, e``."""
+    q, e, q2, e2, _ = canonical_costs(q, e, q2, e2)
+    if e < e2 or min(q, q2) < 0 or min(e, e2) < 1:
+        return ("two-piece costs with e < e2 after the swap (or a negative "
+                "q or a zero e) run on the batched and band extd engines "
+                "(ROADMAP items 10, 11)")
+    return strips_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop, q, e)
+
+
+def strips_extd_eligible(qlen, tlen, w, flag, m, mat, zdrop,
+                         q, e, q2, e2) -> bool:
+    """True when every pair can run on the two-piece strips route (score
+    mode; the envelope of ``wavefront_strips.strips_extd_eligible``)."""
+    if not (int(flag) & int(Flag.SCORE_ONLY)):
+        return False
+    return strips_extd_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
+                                         q, e, q2, e2) is None
+
+
+def make_params(m, mat, q, e, zdrop, flag, tv, cig=False, two=False,
+                q2=0, e2=0) -> StripParams:
+    """A launch's params; two-piece callers pass PRE-swap costs."""
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
-    sc_N = -int(e) if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
+    q, e = int(q), int(e)
+    lt = ld = off0 = 0
+    if two:
+        q, e, q2, e2, off0 = canonical_costs(q, e, q2, e2)
+        lt, ld = long_params(q, e, q2, e2)
+    else:
+        q2 = e2 = 0
+    eN = e2 if two else e
+    sc_N = -eN if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
     generic = bool(int(flag) & int(Flag.GENERIC_SC))
     return StripParams(
-        tv=int(tv), m=int(m), q=int(q), e=int(e), mat0=int(mat[0]),
+        tv=int(tv), m=int(m), q=q, e=e, mat0=int(mat[0]),
         sc_mis=int(mat[1]), sc_N=sc_N, zdrop=int(zdrop), flag=int(flag),
         matt=tuple(int(v) for v in mat) if generic else (),
-        cig=int(bool(cig)))
+        two=int(bool(two)), q2=int(q2), e2=int(e2), lt=lt, ld=ld,
+        off0=off0, cig=int(bool(cig)))
 
 
 def score_table(prm: StripParams) -> np.ndarray:
@@ -189,14 +264,15 @@ def score_table(prm: StripParams) -> np.ndarray:
 
 
 def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
-                cig: bool = False) -> List[Launch]:
+                cig: bool = False, two: bool = False, q2: int = 0,
+                e2: int = 0) -> List[Launch]:
     """Plan and pad one bucket's launches (host only, no device work).
 
     ``query``/``target`` are lists of per-job 1-D symbol arrays.  A
     launch holds as many pairs as fit in ``LAUNCH_BYTES`` of outputs;
     its query width is the launch's longest query (rounded to 32) and
-    its target capacity the canonical ``tv``.  Callers must have checked
-    eligibility.
+    its target capacity the canonical ``tv``.  Two-piece callers pass
+    PRE-swap costs.  Callers must have checked eligibility.
     """
     qlen = np.asarray(qlen, np.int32)
     tlen = np.asarray(tlen, np.int32)
@@ -205,7 +281,7 @@ def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
     tv = _canon_tlenp(int(tlen.max()))
     per_pair = 12 * (Lq + tv) + (tv * Lq if cig else 0)
     bmax = max(1, LAUNCH_BYTES // per_pair)
-    prm = make_params(m, mat, q, e, zdrop, flag, tv, cig)
+    prm = make_params(m, mat, q, e, zdrop, flag, tv, cig, two, q2, e2)
     launches = []
     for i0 in range(0, B, bmax):
         ql = qlen[i0:i0 + bmax]
@@ -225,10 +301,40 @@ def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
 # Kernel A: the forward, its plain version and its wrapper
 
 
+def boundary_h(prm: StripParams, i):
+    """H(i, -1) (and H(-1, i)): the reference's virtual boundary.  One-
+    piece: -(q + e + e*i).  Two-piece: -e steps until long_thres,
+    long_diff at it, -e2 after (ksw2_extd2_sse.c:156-163).  ``i`` is an
+    int or an int32 tensor."""
+    early = -(prm.q + prm.e + prm.e * i)
+    if not prm.two:
+        return early
+    late = (-(prm.q + prm.e + prm.e * (prm.lt - 1)) + prm.ld
+            - prm.e2 * (i - prm.lt))
+    if isinstance(i, torch.Tensor):
+        return torch.where(i < prm.lt, early, late)
+    return early if i < prm.lt else late
+
+
+def _chain(seed: int, A, j, e: int):
+    """One F prefix chain along the row: ``max(seed, max_{k<j} A(k)) -
+    j*e`` (spec/strips.py:17-21), with ``torch.cummax`` for the scan."""
+    B = A.shape[0]
+    s = torch.full((B, 1), seed, dtype=A.dtype, device=A.device)
+    return torch.cummax(torch.cat([s, A[:, :-1]], dim=1), dim=1).values \
+        - j * e
+
+
 def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
     """Plain PyTorch version of ``csrc/strips_fwd.cu`` (same inputs and
     outputs): batched over the pairs, one Python step per target row,
-    ``torch.cummax`` for the F prefix scan and ``scatter_reduce`` for D.
+    ``torch.cummax`` for the F prefix scans and ``scatter_reduce`` for D.
+
+    Two-piece rows (``spec/strips_extd.py``): ``hnof = max(M, E, E2)``;
+    F opens from ``min(hnof, cv)``; ``Hc1 = min(max(hnof, F), cv)``; F2
+    opens from Hc1 with (q2, e2); ``H = min(max(Hc1, F2), cv)``.  With
+    ``cig`` a third chain ``Fb``, opened from the full clamped H, gives
+    the bytes the DP's own F (``spec/strips_cigar.py:181-187``).
     """
     dev = qs.device
     i32 = torch.int32
@@ -237,7 +343,9 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
     nd = Lq + tv
     KB, _ = key_params(prm.tv)
     m, q, e, mat0 = prm.m, prm.q, prm.e, prm.mat0
-    gapoe = q + e
+    q2, e2 = prm.q2, prm.e2
+    two = bool(prm.two)
+    gapoe, gapoe2 = q + e, q2 + e2
     right = bool(prm.flag & int(Flag.RIGHT))
     j = torch.arange(Lq, dtype=i32, device=dev)[None, :]
     qlc = qlen.to(i32)[:, None]
@@ -248,8 +356,9 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
     rows = torch.arange(B, device=dev)
     qlast = (qlen.long() - 1).clamp(min=0)
 
-    H = (-(gapoe + e * j)).expand(B, Lq).clone()     # H(-1, j)
+    H = boundary_h(prm, j).expand(B, Lq).clone()     # H(-1, j)
     E = H - gapoe
+    E2 = H - gapoe2 if two else None
     D = torch.full((B, nd + 1), SENT, dtype=i32, device=dev)  # +1: sink
     Dq = torch.full((B, nd), SENT, dtype=i32, device=dev)
     hl = torch.full((B, Lq), SENT, dtype=i32, device=dev)
@@ -257,32 +366,58 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
           if prm.cig else None)
     for i in range(int(tlen.max())):
         sc = tab[ts[:, i].long()[:, None] * m + qsl]
-        hb = 0 if i == 0 else -(gapoe + e * (i - 1))
+        hb = 0 if i == 0 else boundary_h(prm, i - 1)
+        ci = boundary_h(prm, i)                      # H(i, -1)
         Hd = torch.cat([torch.full((B, 1), hb, dtype=i32, device=dev),
                         H[:, :-1]], dim=1)
         Mv = Hd + sc
         hnof = torch.maximum(Mv, E)
+        if two:
+            hnof = torch.maximum(hnof, E2)
         cv = Hd + mat0
         hnofc = torch.minimum(hnof, cv)
-        A = hnofc + j * e - q
-        seed = torch.full((B, 1), -(2 * gapoe + e * i), dtype=i32,
-                          device=dev)
-        S = torch.cummax(torch.cat([seed, A[:, :-1]], dim=1), dim=1).values
-        F = S - j * e
-        Hn = torch.minimum(torch.maximum(hnof, F), cv)
+        F = _chain(ci - gapoe, hnofc + j * e - q, j, e)
+        if two:
+            Hc1 = torch.minimum(torch.maximum(hnof, F), cv)
+            F2 = _chain(ci - gapoe2, Hc1 + j * e2 - q2, j, e2)
+            Hn = torch.minimum(torch.maximum(Hc1, F2), cv)
+        else:
+            Hn = torch.minimum(torch.maximum(hnof, F), cv)
         En = torch.maximum(E - e, Hn - gapoe)
         if prm.cig:
+            # argmax in candidate order M, E, F, E2, F2 on the unclamped
+            # values; continuation bits against the clamped H
+            # (wavefront_strips.py:289-340)
+            Fb = _chain(ci - gapoe, Hn + j * e - q, j, e) if two else F
             z = torch.maximum(Mv, E)
             if right:
                 d = torch.where(Mv > E, 0, 1)
-                d = torch.where(z > F, d, 2)
-                ca, cb = E >= Hn - q, F >= Hn - q
+                d = torch.where(z > Fb, d, 2)
+                if two:
+                    z = torch.maximum(z, Fb)
+                    d = torch.where(z > E2, d, 3)
+                    z = torch.maximum(z, E2)
+                    d = torch.where(z > F2, d, 4)
+                ca, cb = E >= Hn - q, Fb >= Hn - q
             else:
                 d = torch.where(E > Mv, 1, 0)
-                d = torch.where(F > z, 2, d)
-                ca, cb = E > Hn - q, F > Hn - q
+                d = torch.where(Fb > z, 2, d)
+                if two:
+                    z = torch.maximum(z, Fb)
+                    d = torch.where(E2 > z, 3, d)
+                    z = torch.maximum(z, E2)
+                    d = torch.where(F2 > z, 4, d)
+                ca, cb = E > Hn - q, Fb > Hn - q
             d = d | torch.where(ca, 0x08, 0) | torch.where(cb, 0x10, 0)
+            if two:
+                if right:
+                    ca2, cb2 = E2 >= Hn - q2, F2 >= Hn - q2
+                else:
+                    ca2, cb2 = E2 > Hn - q2, F2 > Hn - q2
+                d = d | torch.where(ca2, 0x20, 0) | torch.where(cb2, 0x40, 0)
             d8[:, i] = d.to(torch.uint8)
+        if two:
+            E2 = torch.maximum(E2 - e2, Hn - gapoe2)
         live = jmask & (i < tlc)
         r = i + j
         st0 = torch.clamp(r - qlc + 1, min=0)
@@ -315,6 +450,17 @@ def _check_cuda(t: torch.Tensor, dtype, shape, name: str,
         raise ValueError(f"{name} must be contiguous")
 
 
+def fwd_smem_bytes(Lq: int, tv: int, prm: StripParams) -> int:
+    """Dynamic shared memory of one kernel-A block (the layout at the
+    head of ``csrc/strips_fwd.cu``): D, two H rows, E, the score table,
+    the scans' warp totals and the query; two-piece adds E2 and one row
+    of scratch and a warp-total array per extra scan."""
+    if not prm.two:
+        return 4 * (Lq + tv + 3 * Lq + 64 + 32) + Lq
+    nscan = 3 if prm.cig else 2
+    return 4 * (Lq + tv + 5 * Lq + 64 + 32 * nscan) + Lq
+
+
 def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
     """Launch ``csrc/strips_fwd.cu`` on the current stream; same
     contract as :func:`strips_forward_plain` (outputs from torch.empty:
@@ -330,7 +476,7 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
     _check_cuda(table, torch.int32, (prm.m * prm.m,), "table", dev)
     if prm.m > 8:
         raise ValueError("the forward kernel takes m <= 8")
-    smem = 4 * (nd + 3 * Lq + 96) + Lq
+    smem = fwd_smem_bytes(Lq, tv, prm)
     if smem > SMEM_MAX:
         raise ValueError(f"launch needs {smem} B of shared memory")
     D = torch.empty((B, nd), dtype=torch.int32, device=dev)
@@ -344,8 +490,9 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
     with torch.cuda.device(dev):
         err = lib.ksw2t_strips_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-            table.data_ptr(), B, Lq, tv, prm.m, prm.q, prm.e, prm.mat0, KB,
-            int(bool(prm.flag & int(Flag.RIGHT))), prm.cig,
+            table.data_ptr(), B, Lq, tv, prm.m, prm.q, prm.e, prm.q2,
+            prm.e2, prm.lt, prm.ld, prm.mat0, KB,
+            int(bool(prm.flag & int(Flag.RIGHT))), prm.cig, prm.two,
             min(512, round_up(Lq, 32)),
             D.data_ptr(), Dq.data_ptr(), hl.data_ptr(),
             d8.data_ptr() if d8 is not None else None,
@@ -375,7 +522,9 @@ def replay_records(prm: StripParams, D, Dq, hl, qlen, tlen):
     D, Dq: (B, ND) over global diagonals; hl: (B, Lq); qlen/tlen: (B,)
     int32.  Returns (B, 9) int32 records in ``FIELD_ORDER``.  Mirrors
     ``spec/strips.py:replay_records`` (mte -> mqe -> zdrop order,
-    strict-``>`` automaton, ``mte_q = r - en`` 16-rounding quirk).
+    strict-``>`` automaton, ``mte_q = r - en`` 16-rounding quirk).  Two-
+    piece launches add ``off0`` to every live H and drop with the e2
+    slope (``wavefront_strips.py:497, 533-540, 563-576``).
     """
     dev = D.device
     i32 = torch.int32
@@ -387,7 +536,7 @@ def replay_records(prm: StripParams, D, Dq, hl, qlen, tlen):
     ndc = qlc + tlc - 1
     valid = (r < ndc) & (qlc > 0) & (tlc > 0)
 
-    M = D >> KBITS
+    M = (D >> KBITS) + prm.off0        # extd pre-swap H-seed offset
     kstar = (KB - 1) - (D & (KB - 1))
     en0 = torch.minimum(tlc - 1, r)
     j1 = torch.remainder(kstar - 1, prm.tv)
@@ -414,10 +563,12 @@ def replay_records(prm: StripParams, D, Dq, hl, qlen, tlen):
     mqp = torch.cat([zero - 1, mq[:, :-1]], dim=1)
 
     BIG = 2 ** 30
+    # Z-drop gap slope: e2 for extd (ksw2_extd2_sse.c:364), e one-piece
+    ze = prm.e2 if prm.two else prm.e
     if prm.zdrop >= 0:
         ln = torch.abs((maxt - mtp) - ((r - maxt) - mqp))
         trig = (valid & ~(M > mxp) & (maxt >= mtp) & ((r - maxt) >= mqp)
-                & ((mxp - M) > prm.zdrop + ln * prm.e))
+                & ((mxp - M) > prm.zdrop + ln * ze))
         rdrop = torch.where(trig, r, BIG).min(dim=1).values
         dropped = rdrop < BIG
     else:
@@ -439,7 +590,9 @@ def replay_records(prm: StripParams, D, Dq, hl, qlen, tlen):
     kmask = (r <= rcc) & valid
 
     # mqe: query-end H per diagonal; earliest diagonal wins ties
+    # (off0 only on live records: SENT + off0 would wrap int32)
     hasdq = Dq > SENT // 2
+    Dq = torch.where(hasdq, Dq + prm.off0, Dq)
     qpk = torch.where(kmask & hasdq,
                       torch.clamp(Dq, min=-(1 << 17)) * 8192 + (8191 - r),
                       SENT)
@@ -451,6 +604,7 @@ def replay_records(prm: StripParams, D, Dq, hl, qlen, tlen):
     # mte from the last-row capture; mte_q keeps the 16-rounded `r - en`
     # quirk (ksw2_extz2_sse.c:264)
     jl = torch.arange(hl.shape[1], dtype=i32, device=dev)[None, :]
+    hl = torch.where(hl > SENT // 2, hl + prm.off0, hl)
     tmask = ((jl <= rcc - (tlc - 1)) & (jl < qlc) & (tlc > 0)
              & (hl > SENT // 2))
     pt = torch.where(tmask,
@@ -499,7 +653,9 @@ def strips_records(launch: Launch, device):
 
 __all__ = ["StripParams", "Launch", "SENT", "QMAX", "TMAX",
            "TLENP_LADDER", "key_params", "strips_eligible",
-           "strips_ineligible_reason", "make_params", "score_table",
-           "strips_prep", "strips_forward", "strips_forward_plain",
+           "strips_ineligible_reason", "long_params", "canonical_costs",
+           "strips_extd_eligible", "strips_extd_ineligible_reason",
+           "make_params", "score_table", "strips_prep", "boundary_h",
+           "fwd_smem_bytes", "strips_forward", "strips_forward_plain",
            "strips_forward_cuda", "replay_records", "upload",
            "strips_records"]

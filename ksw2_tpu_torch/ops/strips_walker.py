@@ -1,12 +1,17 @@
-"""Strips CIGARs, one-piece: start cells, the walker, CIGAR assembly.
+"""Strips CIGARs: start cells, the walker, CIGAR assembly.
 
-Port of ``ksw2_tpu/ops/strips_walker.py`` for the 3-state (one-piece)
-walker.  The forward (``ops/strips.py`` with ``cig``) writes the
-reference's direction bytes row-major, ``d8[b, i, j]``; the walker runs
-``ksw_backtrack`` (ksw2.h:129-161, ``is_rot = 0``, no band force states)
-from each pair's start cell and emits BAM runs ``len << 4 | op`` in walk
+Port of ``ksw2_tpu/ops/strips_walker.py`` for one-piece (3-state) and
+two-piece (5-state) bytes.  The forward (``ops/strips.py`` with ``cig``)
+writes the reference's direction bytes row-major, ``d8[b, i, j]``; the
+walker runs ``ksw_backtrack`` (ksw2.h:129-161, ``is_rot = 0``, no band
+force states, ``min_intron_len = 0`` as ``ksw_extd2_sse`` calls it) from
+each pair's start cell and emits BAM runs ``len << 4 | op`` in walk
 order with ``(i_end, j_end, count)``; :func:`finish_runs_batch` adds the
 tail D and I runs, merges adjacent runs and reverses unless REV_CIGAR.
+States 3 and 4 and their 0x20 / 0x40 continuation bits need no code of
+their own: ``(byte >> (state + 2)) & 1`` reads them and states 1, 3 map
+to D and 2, 4 to I.  The JAX walker's 5-state I-run suffix scan, which
+only cuts the cells a serial TPU core visits, is not ported.
 
 The walker has two implementations: ``csrc/strips_walk.cu`` for CUDA
 tensors and :func:`strips_walk_plain` for CPU tensors.  Its runs buffer
@@ -24,8 +29,8 @@ from .._build import LAUNCHES, check, library
 from ..core.flags import CigarOp, Flag
 from ..core.result import ExtzResult
 from .records import unpack_records
-from .strips import (Launch, strips_forward, strips_ineligible_reason,
-                     replay_records, upload)
+from .strips import (Launch, replay_records, strips_extd_ineligible_reason,
+                     strips_forward, strips_ineligible_reason, upload)
 
 
 def strips_cigar_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
@@ -40,6 +45,22 @@ def strips_cigar_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
         return "EQX CIGARs (ROADMAP item 5)"
     return strips_ineligible_reason(qlen, tlen, w, f | int(Flag.SCORE_ONLY),
                                     m, mat, zdrop, q, e)
+
+
+def strips_cigar_extd_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
+                                        q, e, q2, e2) -> Optional[str]:
+    """Why a two-piece CIGAR bucket cannot run on the strips route, or
+    None: ``strips_walker.strips_cigar_extd_eligible`` without its TPU
+    cost model (EQX is refused; the envelope is checked on the post-swap
+    costs).  Degenerate scoring is reset by the scheduler first."""
+    f = int(flag)
+    if f & int(Flag.SCORE_ONLY):
+        raise ValueError("CIGAR eligibility is checked in CIGAR mode")
+    if f & int(Flag.EQX):
+        return "EQX CIGARs (ROADMAP item 5)"
+    return strips_extd_ineligible_reason(qlen, tlen, w,
+                                         f | int(Flag.SCORE_ONLY), m, mat,
+                                         zdrop, q, e, q2, e2)
 
 
 def start_cells(rec, qlen, tlen, flag, end_bonus: int):
@@ -210,8 +231,9 @@ def unpack_cigars(rec: np.ndarray, res: np.ndarray, runs: np.ndarray,
                   ) -> List[ExtzResult]:
     """One launch's host records, walker results and runs -> per-pair
     ExtzResults (``unpack_cigar_flat`` without the overflow re-walk).
-    Degenerate scoring never gets here: the scheduler resets those jobs
-    before routing."""
+    ``q``/``e`` are the launch's POST-swap costs, as in
+    ``strips_walker.py:1064-1066``.  Degenerate scoring never gets here:
+    the scheduler resets those jobs before routing."""
     flag = Flag(int(flag))
     is_rev = bool(flag & Flag.REV_CIGAR)
     extz_only = bool(flag & Flag.EXTZ_ONLY)
@@ -256,6 +278,7 @@ def strips_cigar_launch(launch: Launch, end_bonus: int, device):
     return rec, res, runs
 
 
-__all__ = ["strips_cigar_ineligible_reason", "start_cells",
+__all__ = ["strips_cigar_ineligible_reason",
+           "strips_cigar_extd_ineligible_reason", "start_cells",
            "strips_walk", "strips_walk_plain", "strips_walk_cuda",
            "finish_runs_batch", "unpack_cigars", "strips_cigar_launch"]

@@ -151,8 +151,11 @@ def test_out_of_envelope_raises():
                 device="cpu").extend_batch([(q, t)])
     with pytest.raises(NotImplementedError, match="EQX"):
         Aligner(flag=Flag.EQX, device="cpu").extend_batch([(q, t)])
-    with pytest.raises(NotImplementedError, match="ROADMAP items 4, 5"):
-        Aligner(q2=24, e2=1, device="cpu")
+    with pytest.raises(ValueError, match="both q2 and e2"):
+        Aligner(q2=24, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP items 10, 11"):
+        Aligner(q2=24, e2=1, end_bonus=5, flag=Flag.SCORE_ONLY,
+                device="cpu").extend_batch([(q, t)])
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         Aligner(splice=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -161,3 +164,33 @@ def test_out_of_envelope_raises():
         aln.extend_batch([(q, t)], mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         aln.extend_batch([(q, t)], juncs=[None])
+
+
+def test_two_piece_out_of_envelope_raises():
+    q, t = encode_dna("ACGT" * 8), encode_dna("ACGA" * 8)
+    # e < e2 after the swap: the chains do not decouple
+    with pytest.raises(NotImplementedError, match="ROADMAP items 10, 11"):
+        Aligner(q=4, e=1, q2=13, e2=2, device="cpu").extend_batch([(q, t)])
+    with pytest.raises(NotImplementedError, match="ROADMAP items 10, 11"):
+        Aligner(q2=13, e2=1, flag=Flag.SCORE_ONLY | Flag.EXTZ_ONLY,
+                device="cpu").extend_batch([(q, t)])
+    with pytest.raises(NotImplementedError, match="EQX"):
+        Aligner(q2=13, e2=1, flag=Flag.EQX,
+                device="cpu").extend_batch([(q, t)])
+    with pytest.raises(NotImplementedError, match="ROADMAP items 7, 12"):
+        Aligner(q2=13, e2=1, device="cpu").extend_batch(
+            [(q, encode_dna("A" * 3073))])
+
+
+@pytest.mark.parametrize("flag", [Flag.SCORE_ONLY, Flag.NONE])
+def test_one_and_two_piece_handles_in_flight(flag):
+    """Handles of one- and two-piece batches in flight together give what
+    each batch gives alone."""
+    pairs = _mixed(16, 8)
+    one = Aligner(zdrop=100, flag=flag, device="cpu")
+    two = Aligner(q2=13, e2=1, zdrop=100, flag=flag, device="cpu")
+    hs = [a.extend_batch_async(pairs) for a in (one, two, one, two)]
+    want = [[_row(ez) for ez in a.extend_batch(pairs)] for a in (one, two)]
+    assert want[0] != want[1]
+    for k, h in enumerate(hs):
+        assert [_row(ez) for ez in h.result()] == want[k % 2]

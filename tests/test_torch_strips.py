@@ -139,8 +139,8 @@ def test_launch_params_match_jax_prep():
         (ln,) = S.strips_prep([q for q, _ in pairs], [t for _, t in pairs],
                               ql, tl, 5, mat, 4, 2, 100, flag)
         assert strip_params_from_jax(jl[0]._asdict()) == ln.prm
-    with pytest.raises(NotImplementedError):
-        strip_params_from_jax(jl[0]._replace(two=1)._asdict())
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        strip_params_from_jax(jl[0]._replace(spl=1)._asdict())
 
 
 def test_eligibility_matches_jax():
