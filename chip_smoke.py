@@ -21,6 +21,13 @@ Phases, each printing one JSON line:
    their plain version, records and direction bytes exactly, in score,
    CIG and APPROX forms with bands from 1 to 1472, and kernel D (band
    walker) against its plain version on the kernels' bytes;
+5c. batch: kernels E / E2 (batched forward, one- and two-piece, one warp
+   a pair) against their plain version, records and direction bytes
+   exactly, in score, CIG and APPROX forms with w 0, 1, 16, 100 and
+   unbanded on targets up to 3072 (P = 1-24 rows a pair on the TPU),
+   zdrop -1/100, RIGHT, GENERIC_SC, default and swapped two-piece costs,
+   and on the launches the scheduler makes of the short-banded workload
+   (below); kernel D on their bytes;
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -29,13 +36,20 @@ Phases, each printing one JSON line:
    seeded workload (seed 778, q and t <= 128) that takes the rows route,
    the band route on the seeded long-banded workload (seed 779, 128
    pairs of 4-16 kb at -w751 -z400: extz, extd and approx scores, extz
-   and extd CIGARs; no strips kernel may launch) and the mixed workload
-   at -w751 (strips and band in one batch).  Each anchor or spec pin is
-   asserted, each path must have launched its kernels, and sampled pairs
-   are held against the port's plain CPU route;
+   and extd CIGARs; no strips kernel may launch), the mixed workload
+   at -w751 (strips and band in one batch) and the batched route on the
+   seeded short-banded workload (seed 780, 4096 pairs of 150-512 bp at
+   -w100 -z100: extz, extd and approx scores, extz and extd CIGARs; EQX
+   CIGARs and two-piece end_bonus scores on the mixed workload's pairs
+   of 1536 bp or less; only kernels E, E2 and D may launch).  Each
+   anchor or spec pin is asserted, each path must have launched its
+   kernels, and sampled pairs are held against the port's plain CPU
+   route;
 7. times: every kernel and its plain version at main-path shapes (CUDA
-   events) beside its bound, the main paths' walls and Gcells/s (band
-   cells on the band route), and a profile of the long-banded batches.
+   events; the batched kernels on the main path's own launches of the
+   short-banded workload) beside its bound, the main paths' walls and
+   Gcells/s (band cells on the band and batched routes), and a profile
+   of the long- and short-banded batches.
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
@@ -80,6 +94,22 @@ BAND_PINS = {
     "mixed751_cigar": ((165978, 29596), (20406, 3560)),
 }
 
+SHORT_BANDED_W = 100          # minimap2 -x sr's -r100
+SHORT_BANDED_PREFIX = 64
+# the batched route's pins on short_banded_jobs() at w = 100, z100,
+# computed with the byte-parity spec ksw2_tpu.spec.diagdiff.extz2 / extd2:
+# name -> (the whole workload's, the first SHORT_BANDED_PREFIX pairs');
+# sums of max for scores, (sum of max, CIGAR ops) for CIGARs.
+# tests/test_torch_batch_pins.py recomputes them.
+BATCH_PINS = {
+    "short_banded_score": (891388, 13632),
+    "short_banded_extd_score": (893688, 13675),
+    "short_banded_approx_score": (890466, 13622),
+    "short_banded_cigar": ((891388, 160448), (13632, 2451)),
+    "short_banded_extd_cigar": ((893688, 159256), (13675, 2429)),
+}
+END_BONUS = 10
+
 EXTD = (4, 2, 13, 1)          # minimap2's -O4,13 -E2,1: no swap
 SWAPPED = (24, 1, 4, 2)       # swaps the pieces: off0 = -19
 
@@ -88,19 +118,26 @@ WALK_SRC = "ksw2_tpu_torch/csrc/strips_walk.cu"
 ROWS_SRC = "ksw2_tpu_torch/csrc/rows_fwd.cu"
 BAND_SRC = "ksw2_tpu_torch/csrc/band_fwd.cu"
 BAND_WALK_SRC = "ksw2_tpu_torch/csrc/band_walk.cu"
+BATCH_SRC = "ksw2_tpu_torch/csrc/batch_fwd.cu"
 FWD_REPLACES = "ksw2_tpu/ops/wavefront_strips.py:110"
 WALK_REPLACES = "ksw2_tpu/ops/strips_walker.py:72"
 ROWS_REPLACES = "ksw2_tpu/ops/wavefront_rows.py:84"
 BAND_REPLACES = "ksw2_tpu/ops/wavefront_band.py:93"
 BAND_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_band_extd.py:60"
 BAND_WALK_REPLACES = "ksw2_tpu/ops/traceback_band.py:56"
+BATCH_REPLACES = "ksw2_tpu/ops/wavefront_batch.py:108"
+BATCH_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_batch_extd.py:56"
 
-# integer operations per cell (per step for the walkers), counted from
-# the kernels' inner loops (loads, arithmetic, compares and stores of one
-# cell's update, its byte and its share of the argmax); the bound of a
-# kernel is the larger of ops / the card's int32 rate and bytes / HBM rate
+# integer operations per cell (per step for the walkers) that the
+# function needs: one cell's update of the recurrence, its direction byte
+# and its share of the argmax, not a kernel's own overhead (its score
+# fill, neighbour shuffles or state loads); the bound of a kernel is the
+# larger of ops / the card's int32 rate and bytes / HBM rate.  The band
+# and batched forwards compute the same anti-diagonal recurrence (one
+# plain version serves both), so they share one count a cell.
 OPS = {"strips_fwd": 33, "strips_walk": 15, "rows_fwd": 25,
        "band_fwd": 45, "band_extd_fwd": 65, "band_walk": 20}
+OPS["batch_fwd"], OPS["batch_extd_fwd"] = OPS["band_fwd"], OPS["band_extd_fwd"]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 
 
@@ -174,6 +211,36 @@ def long_banded_jobs(seed: int = 779, n: int = 128):
     return jobs
 
 
+def short_banded_jobs(seed: int = 780, n: int = 4096):
+    """The seeded short-banded workload: ``n`` ``random_pair`` draws with
+    targets uniform in 150-512 bp, 15% divergence and 6% indels, the
+    short-read extensions a mapper bands at ``-r100`` (minimap2 ``-x
+    sr``); every pair's band clips at ``w = 100``."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(150, 513, n)
+    jobs = []
+    for L in lens:
+        t, q = random_pair(rng, int(L), divergence=0.15, indel=0.06)
+        jobs.append((encode_dna(q), encode_dna(t)))
+    return jobs
+
+
+def merge_eqx(cigar):
+    """A CIGAR with its =/X runs merged back into M runs (BAM words
+    ``len << 4 | op``): the M-op CIGAR the reference's extz2 prints."""
+    out = []
+    for word in cigar:
+        op, n = word & 0xF, word >> 4
+        op = 0 if op in (7, 8) else op
+        if out and out[-1] & 0xF == op:
+            out[-1] += n << 4
+        else:
+            out.append(n << 4 | op)
+    return out
+
+
 def band_cells(pairs, w: int) -> int:
     """Cells inside the true band [st0, en0] over every diagonal of each
     pair (``bench/suite.py:266-269``): the work Gcells/s counts on the
@@ -194,28 +261,46 @@ def emit(obj) -> None:
 # ~50 ms of GPU sleep, long enough for the host to enqueue a timed run
 SLEEP_CYCLES = 10 ** 8
 
+# milliseconds of each plain-version run in the kernel phases, by (case,
+# "fwd" / "walk" / "rows"); phase 7 reports them beside the kernels'
+# times on the same launches instead of running the plain versions again
+PLAIN_MS = {}
 
-def cuda_ms(fn, reps: int, hide_host: bool = False) -> float:
+
+def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` over ``reps`` calls after one
-    warm-up, by CUDA events on the current stream.  With ``hide_host``
-    the stream first sleeps while the host enqueues the calls, so a
-    kernel shorter than its wrapper's host work is timed on the device,
-    not at the host's enqueue rate (kernels; a plain version's host work
-    is part of its cost, so it is timed without)."""
+    warm-up, by CUDA events on the current stream.  The stream first
+    sleeps while the host enqueues the calls, so a kernel shorter than
+    its wrapper's host work is timed on the device, not at the host's
+    enqueue rate (a plain version's host work is its cost: it is timed
+    by ``plain_run``)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    if hide_host:
-        torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def plain_run(key, fn, *args):
+    """``fn(*args)`` once, its milliseconds recorded in ``PLAIN_MS[key]``
+    (host clock with the device drained before and after: a plain
+    version's host work is its cost)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    PLAIN_MS[key] = (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def phase_device():
@@ -357,8 +442,8 @@ def phase_kernel_a(cases):
     for name, ln in cases:
         qs, ts, ql, tl, tab = S.upload(ln, "cuda")
         kd = S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm)
-        pd = S.strips_forward_plain(qs, ts, ql, tl, tab, ln.prm)
-        torch.cuda.synchronize()
+        pd = plain_run((name, "fwd"), S.strips_forward_plain, qs, ts, ql, tl,
+                       tab, ln.prm)
         errs = {k: _max_err(a, b)
                 for k, a, b in zip(("D", "Dq", "hl"), kd[:3], pd[:3])}
         ra = S.replay_records(ln.prm, *kd[:3], ql, tl)
@@ -396,8 +481,8 @@ def phase_kernel_b(cases):
         rec = S.replay_records(ln.prm, D, Dq, hl, ql, tl)
         starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)
         kr, kruns = W.strips_walk_cuda(d8, starts)
-        pr, pruns = W.strips_walk_plain(d8, starts)
-        torch.cuda.synchronize()
+        pr, pruns = plain_run((name, "walk"), W.strips_walk_plain, d8,
+                              starts)
         err = _max_err(kr, pr)
         n = kr[:, 2].cpu().numpy()
         ka, pa = kruns.cpu().numpy(), pruns.cpu().numpy()
@@ -427,7 +512,8 @@ def phase_rows(cases):
     for name, ln in cases:
         qs, ts, ql, tl, tab = S.upload(ln, "cuda")
         kd = R.rows_forward_cuda(qs, ts, ql, tl, tab, ln.prm)
-        pd = R.rows_forward_plain(qs, ts, ql, tl, tab, ln.prm)
+        pd = plain_run((name, "rows"), R.rows_forward_plain, qs, ts, ql, tl,
+                       tab, ln.prm)
         ad = S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm)
         torch.cuda.synchronize()
         errs = {k: _max_err(a, b)
@@ -447,8 +533,9 @@ def phase_rows(cases):
 
 
 def band_launch(pairs, w, flag, zdrop, costs=None, mat=None):
-    """One band launch of ``pairs`` at bands ``w`` (an int or one per
-    pair): A2 B4 (or ``mat``) with O4 E2, or the two-piece ``costs``."""
+    """One band (or batched) launch of ``pairs`` at bands ``w`` (an int
+    or one per pair): A2 B4 (or ``mat``) with O4 E2, or the two-piece
+    ``costs``."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops.band import band_prep
@@ -463,6 +550,33 @@ def band_launch(pairs, w, flag, zdrop, costs=None, mat=None):
                       cig=not int(flag) & int(Flag.SCORE_ONLY),
                       two=costs is not None, q2=q2, e2=e2)
     return ln
+
+
+def short_banded_launches(sb, flag, costs=None, choose=None):
+    """The launches the scheduler makes of the short-banded workload
+    (-w100 -z100) in one form: its buckets as ``scheduler._route`` makes
+    them (the bucket ladder, longest pairs first, routed by ``choose``;
+    by default every bucket takes the batched route, as phase 6 checks),
+    each split by ``band_prep`` as the scheduler splits it.  Returns the
+    launches and the host seconds of the routing and of the prep."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.band import band_prep
+
+    mat = simple_mat(5, 2, -4)
+    q, e, q2, e2 = (4, 2, 0, 0) if costs is None else costs
+    jobs = [sched.AlignJob(a, b, SHORT_BANDED_W) for a, b in sb]
+    t0 = time.perf_counter()
+    buckets = sched._route(jobs, mat, q + e, [None] * len(jobs),
+                           choose or (lambda *_: "batch"), "short-banded")
+    t1 = time.perf_counter()
+    launches = [ln for bk in buckets for ln in band_prep(
+        [jobs[i].query for i in bk.idxs], [jobs[i].target for i in bk.idxs],
+        bk.qlen, bk.tlen, bk.w, 5, mat, q, e, 100, flag,
+        cig=not int(flag) & int(Flag.SCORE_ONLY), two=costs is not None,
+        q2=q2, e2=e2)]
+    return launches, t1 - t0, time.perf_counter() - t1
 
 
 def band_cases(long):
@@ -523,15 +637,16 @@ def phase_band(cases):
     for name, ln in cases:
         args = BD.band_upload(ln, "cuda")
         krec, kp = BD.band_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
-        prec, pp = BD.band_forward_plain(*args, ln.prm, ln.nd, ln.ncol)
-        torch.cuda.synchronize()
+        prec, pp = plain_run((name, "fwd"), BD.band_forward_plain, *args,
+                             ln.prm, ln.nd, ln.ncol)
         errs = {"records": _max_err(krec, prec)}
         if ln.prm.cig:
             errs["bytes"] = _max_err(kp, pp)
             _, _, ql, tl, w, _ = args
             starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)
             kres, kruns = BW.band_walk_cuda(kp, starts, ql, tl, w)
-            pres, pruns = BW.band_walk_plain(kp, starts, ql, tl, w)
+            pres, pruns = plain_run((name, "walk"), BW.band_walk_plain, kp,
+                                    starts, ql, tl, w)
             werr = _max_err(kres, pres)
             for b in range(len(ln.qlen)):
                 n = int(kres[b, 2])
@@ -547,6 +662,114 @@ def phase_band(cases):
             emit({"phase": "band", "case": name, "FAIL": errs})
             raise AssertionError(f"the band kernels differ on {name}")
     emit({"phase": "band", "max_abs_err": worst, "cases": out})
+    return worst
+
+
+def batch_cases(sb):
+    """(name, launch) cases for kernels E and E2: seeded launches on
+    targets up to 512 (P = 1-4 rows a pair on the TPU; N bases, one
+    clipped query) with w 0, 1, 16, 100 and unbanded in score, CIG and
+    APPROX forms, zdrop -1/100, RIGHT and GENERIC_SC, one-piece,
+    two-piece and swapped costs; two wide launches on targets up to 3072
+    (P = 8, 12, 24), score and CIG; and the launches the main path makes
+    of the short-banded workload's 4096 pairs, one- and two-piece score
+    and two-piece CIG."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(10)
+    small, wide = [], []
+    for L in (60, 150, 300, 500, 240):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        small.append((encode_dna(q), encode_dna(t)))
+    small[2] = (small[2][0][:120], small[2][1])
+    for L in (1000, 1500, 3000):
+        t, q = random_pair(rng, L, divergence=0.15, indel=0.06)
+        wide.append((encode_dna(q), encode_dna(t)))
+    w_small = [0, 1, 16, 100, 600]          # 600: unbanded
+    w_wide = [100, 1600, 3100]              # the last two unbanded
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    forms = [
+        ("extz_score_z100", Flag.SCORE_ONLY, 100, None),
+        ("extz_cig_right_zm1", Flag.RIGHT, -1, None),
+        ("extz_approx_score_zm1", Flag.SCORE_ONLY | Flag.APPROX_MAX, -1,
+         None),
+        ("extz_approxdrop_cig_z100", approx, 100, None),
+        ("extz_generic_cig_z100", Flag.GENERIC_SC, 100, None),
+        ("extd_cig_z100", Flag.NONE, 100, EXTD),
+        ("extd_approxdrop_score_zm1", Flag.SCORE_ONLY | approx, -1, EXTD),
+        ("extd_generic_cig_right_z100", Flag.GENERIC_SC | Flag.RIGHT, 100,
+         EXTD),
+        ("swapped_cig_z100", Flag.NONE, 100, SWAPPED),
+        ("swapped_score_right_zm1", Flag.SCORE_ONLY | Flag.RIGHT, -1,
+         SWAPPED),
+    ]
+    cases = [(f"small_{name}",
+              band_launch(small, w_small, flag, zdrop, costs,
+                          _generic_mat() if flag & Flag.GENERIC_SC
+                          else None))
+             for name, flag, zdrop, costs in forms]
+    cases += [
+        ("wide_extz_score_z100",
+         band_launch(wide, w_wide, Flag.SCORE_ONLY, 100)),
+        ("wide_extd_cig_right_zm1",
+         band_launch(wide, w_wide, Flag.RIGHT, -1, EXTD)),
+    ]
+    for name, flag, costs in (("sb_extz_score_z100", Flag.SCORE_ONLY, None),
+                              ("sb_extd_score_z100", Flag.SCORE_ONLY, EXTD),
+                              ("sb_extd_cig_z100", Flag.NONE, EXTD)):
+        launches, _, _ = short_banded_launches(sb, flag, costs)
+        cases += [(f"{name}_launch{k}", ln) for k, ln in enumerate(launches)]
+    return cases
+
+
+def phase_batch(cases):
+    """Kernels E / E2 (batch_fwd, batch_extd_fwd) against the plain
+    forward on every case, records and direction bytes exactly; kernel D
+    (band_walk) against the plain walker on the kernels' bytes (the
+    first 256 pairs of a launch)."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch as BT
+    from ksw2_tpu_torch.ops import strips_walker as W
+
+    worst = {"batch_fwd": 0, "batch_extd_fwd": 0, "band_walk": 0}
+    out = {}
+    for name, ln in cases:
+        args = BD.band_upload(ln, "cuda")
+        krec, kp = BT.batch_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
+        prec, pp = plain_run((name, "fwd"), BD.band_forward_plain, *args,
+                             ln.prm, ln.nd, ln.ncol)
+        errs = {"records": _max_err(krec, prec)}
+        if ln.prm.cig:
+            errs["bytes"] = _max_err(kp, pp)
+            del pp
+            _, _, ql, tl, w, _ = args
+            n = min(256, len(ln.qlen))
+            starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)[:n]
+            sub = (kp[:n].contiguous(), starts, ql[:n], tl[:n], w[:n])
+            kres, kruns = BW.band_walk_cuda(*sub)
+            pres, pruns = BW.band_walk_plain(*sub)
+            werr = _max_err(kres, pres)
+            for b in range(n):
+                k = int(kres[b, 2])
+                werr = max(werr, _max_err(kruns[b, :k], pruns[b, :k]))
+            errs["walk"] = werr
+            worst["band_walk"] = max(worst["band_walk"], werr)
+        kname = "batch_extd_fwd" if ln.prm.two else "batch_fwd"
+        worst[kname] = max(worst[kname], errs["records"],
+                           errs.get("bytes", 0))
+        out[name] = {"pairs": len(ln.qlen), "nd": ln.nd, "ncol": ln.ncol,
+                     "Lt": int(ln.target.shape[1]),
+                     "w": sorted({int(x) for x in ln.w})[:8],
+                     "max_abs_err": errs}
+        del kp
+        torch.cuda.empty_cache()
+        if any(errs.values()):
+            emit({"phase": "batch", "case": name, "FAIL": errs})
+            raise AssertionError(f"the batched kernels differ on {name}")
+    emit({"phase": "batch", "max_abs_err": worst, "cases": out})
     return worst
 
 
@@ -568,6 +791,8 @@ def _timed(fn, reps=3):
 
 
 def _got(out, kind):
+    if callable(kind):
+        return kind(out)
     if kind == "stream":
         return out
     if kind == "cigar":
@@ -578,10 +803,11 @@ def _got(out, kind):
 def run(name, fn, pairs, anchor, kind="score", aln=None, batches=1,
         cells=None, prefix=None, sample=None):
     """One run of a main path: ``kind`` "score" sums max, "stream" gives
-    a list of per-batch sums, "cigar" gives [sum max, CIGAR ops];
+    a list of per-batch sums, "cigar" gives [sum max, CIGAR ops], a
+    callable gives what it returns for the results;
     ``prefix`` = (n, anchor) also pins the first n results; a run with an
-    ``aln`` has the pairs ``sample`` (8 random ones by default) held
-    against the CPU route; ``cells`` (qlen x tlen by default) feed
+    ``aln`` has the pairs ``sample`` (8 random ones by default, none for
+    ``[]``) held against the CPU route; ``cells`` (qlen x tlen by default) feed
     Gcells/s."""
     return dict(name=name, fn=fn, pairs=pairs, anchor=anchor, kind=kind,
                 aln=aln, batches=batches,
@@ -640,7 +866,20 @@ def _path(path, runs_spec, needs, never=()):
     return counts, runs, results
 
 
-def phase_main_path(jobs, short, long):
+def _fields9(ez):
+    return (ez.max, ez.max_t, ez.max_q, ez.mqe, ez.mqe_t, ez.mte, ez.mte_q,
+            ez.score, ez.zdropped)
+
+
+def _eqx_merged(out):
+    """[sum of max, CIGAR ops once =/X runs merge into M, M ops left]:
+    the batched route converts, so no M op may remain."""
+    return [sum(ez.max for ez in out),
+            sum(len(merge_eqx(ez.cigar)) for ez in out),
+            sum(1 for ez in out for c in ez.cigar if c & 0xF == 0)]
+
+
+def phase_main_path(jobs, short, long, sb):
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
 
@@ -682,8 +921,41 @@ def phase_main_path(jobs, short, long):
                    prefix=(n, list(pre) if kind == "cigar" else pre),
                    sample=sample)
 
-    # the CPU route takes seconds a long pair: sample the shortest one
+    # the CPU route takes seconds a long pair: sample the shortest one,
+    # in the CIGAR runs (whose forward gives the score runs' records too)
+    # and the approx run
     shortest = [int(np.argmin([len(t) for _, t in long]))]
+
+    # the batched route on the short-banded workload (-w100 -z100), EQX
+    # CIGARs and two-piece end_bonus scores on the mixed pairs <= 1536 bp;
+    # the end_bonus run is held against the same pairs' two-piece scores
+    # without end_bonus on the strips route, taken here, before the path
+    SW = SHORT_BANDED_W
+    sbat = {
+        "short_banded_score": Aligner(w=SW, zdrop=100, flag=Flag.SCORE_ONLY),
+        "short_banded_extd_score": Aligner(q2=q2, e2=e2, w=SW, zdrop=100,
+                                           flag=Flag.SCORE_ONLY),
+        "short_banded_approx_score": Aligner(w=SW, zdrop=100,
+                                             flag=Flag.SCORE_ONLY | approx),
+        "short_banded_cigar": Aligner(w=SW, zdrop=100),
+        "short_banded_extd_cigar": Aligner(q2=q2, e2=e2, w=SW, zdrop=100),
+    }
+    eqx = Aligner(zdrop=100, flag=Flag.EQX)
+    bonus = Aligner(q=q, e=e, q2=q2, e2=e2, zdrop=100, end_bonus=END_BONUS,
+                    flag=Flag.SCORE_ONLY)
+    ref_bonus = [_fields9(ez) for ez in scorer2.extend_batch(short1536)]
+
+    def same9(out):
+        return sum(_fields9(a) == b for a, b in zip(out, ref_bonus))
+
+    def sb_run(name, kind):
+        aln = sbat[name]
+        full, pre = BATCH_PINS[name]
+        cig = kind == "cigar"
+        return run(name, lambda: aln.extend_batch(sb), sb,
+                   list(full) if cig else full, kind, aln,
+                   cells=band_cells(sb, SW),
+                   prefix=(SHORT_BANDED_PREFIX, list(pre) if cig else pre))
     paths = [
         ("extz", [
             run("mixed512_score", lambda: scorer.extend_batch(jobs), jobs,
@@ -710,8 +982,8 @@ def phase_main_path(jobs, short, long):
                 short, SHORT_ROWS_SCORE, aln=scorer)],
          ("rows_fwd",), ("strips_fwd",)),
         ("band", [
-            band_run("long_score", long, "score", shortest),
-            band_run("long_extd_score", long, "score", shortest),
+            band_run("long_score", long, "score", []),
+            band_run("long_extd_score", long, "score", []),
             band_run("long_approx_score", long, "score", shortest),
             band_run("long_cigar", long, "cigar", shortest),
             band_run("long_extd_cigar", long, "cigar", shortest)],
@@ -721,6 +993,20 @@ def phase_main_path(jobs, short, long):
             band_run("mixed751_score", jobs, "score"),
             band_run("mixed751_cigar", jobs, "cigar")],
          ("strips_fwd", "strips_walk", "band_fwd", "band_walk"), ()),
+        ("batch", [
+            sb_run("short_banded_score", "score"),
+            sb_run("short_banded_extd_score", "score"),
+            sb_run("short_banded_approx_score", "score"),
+            sb_run("short_banded_cigar", "cigar"),
+            sb_run("short_banded_extd_cigar", "cigar"),
+            run("short1536_eqx_cigar", lambda: eqx.extend_batch(short1536),
+                short1536, list(SHORT_CIGAR) + [0], _eqx_merged, eqx),
+            run("short1536_extd_end_bonus_score",
+                lambda: bonus.extend_batch(short1536), short1536,
+                len(short1536), same9, bonus)],
+         ("batch_fwd", "batch_extd_fwd", "band_walk"),
+         ("strips_fwd", "strips_walk", "rows_fwd", "band_fwd",
+          "band_extd_fwd")),
     ]
     counts = {}
     runs = {}
@@ -738,9 +1024,12 @@ def phase_main_path(jobs, short, long):
     checked = 0
     for name, (pairs, ezs, aln, sample) in results.items():
         cpu = Aligner(a=2, b=4, q=aln.q, e=aln.e, q2=aln.q2, e2=aln.e2,
-                      w=aln.w, zdrop=aln.zdrop, flag=aln.flag, device="cpu")
+                      w=aln.w, zdrop=aln.zdrop, end_bonus=aln.end_bonus,
+                      flag=aln.flag, device="cpu")
         idx = sample if sample is not None else \
             rng.choice(len(pairs), min(8, len(pairs)), replace=False)
+        if len(idx) == 0:
+            continue
         ref = cpu.extend_batch([pairs[i] for i in idx])
         for i, r in zip(idx, ref):
             g = ezs[i]
@@ -758,9 +1047,10 @@ def phase_main_path(jobs, short, long):
     return counts, runs
 
 
-def phase_profile(long):
-    """Device time by kernel over one long-banded score batch and one
-    CIGAR batch (torch.profiler), beside the batch's host wall."""
+def phase_profile(long, sb):
+    """Device time by kernel over one score batch and one CIGAR batch of
+    the long-banded (-w751 -z400) and of the short-banded (-w100 -z100)
+    workloads (torch.profiler), beside the batch's host wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -768,15 +1058,20 @@ def phase_profile(long):
     from ksw2_tpu_torch.core.flags import Flag
 
     out = {}
-    for name, aln in (("long_score", Aligner(w=BAND_W, zdrop=400,
-                                             flag=Flag.SCORE_ONLY)),
-                      ("long_cigar", Aligner(w=BAND_W, zdrop=400))):
-        aln.extend_batch(long)
+    for name, aln, pairs in (
+            ("long_score", Aligner(w=BAND_W, zdrop=400,
+                                   flag=Flag.SCORE_ONLY), long),
+            ("long_cigar", Aligner(w=BAND_W, zdrop=400), long),
+            ("short_banded_score", Aligner(w=SHORT_BANDED_W, zdrop=100,
+                                           flag=Flag.SCORE_ONLY), sb),
+            ("short_banded_cigar", Aligner(w=SHORT_BANDED_W, zdrop=100),
+             sb)):
+        aln.extend_batch(pairs)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            aln.extend_batch(long)
+            aln.extend_batch(pairs)
             wall = time.perf_counter() - t0
         rows = {}
         for ev in prof.key_averages():
@@ -828,9 +1123,10 @@ def band_work(ln, rec):
     return cells, nbytes
 
 
-def phase_times(cases, rcases, long, int_rate):
+def phase_times(cases, rcases, long, sb, int_rate):
     import torch
     from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import band_walker as BW
     from ksw2_tpu_torch.ops import rows as R
@@ -845,10 +1141,8 @@ def phase_times(cases, rcases, long, int_rate):
         B, Lq = qs.shape
         row = {"pairs": int(B), "Lq": int(Lq), "tv": ln.prm.tv}
         row["fwd_ms"] = cuda_ms(
-            lambda: S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 5,
-            True)
-        row["fwd_plain_ms"] = cuda_ms(
-            lambda: S.strips_forward_plain(qs, ts, ql, tl, tab, ln.prm), 1)
+            lambda: S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 5)
+        row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
         row["cells"] = int((ql.long() * tl.long()).sum())
         nbytes = B * (Lq + ln.prm.tv + 8 + 4 * Lq + 8 * (Lq + ln.prm.tv)
                       + (ln.prm.tv * Lq if ln.prm.cig else 0))
@@ -860,9 +1154,8 @@ def phase_times(cases, rcases, long, int_rate):
             rec = S.replay_records(ln.prm, D, Dq, hl, ql, tl)
             starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)
             row["walk_ms"] = cuda_ms(lambda: W.strips_walk_cuda(d8, starts),
-                                     5, True)
-            row["walk_plain_ms"] = cuda_ms(
-                lambda: W.strips_walk_plain(d8, starts), 1)
+                                     5)
+            row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
             res, runs = W.strips_walk_cuda(d8, starts)
             steps = _walk_steps(res, runs)
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
@@ -876,13 +1169,10 @@ def phase_times(cases, rcases, long, int_rate):
         B, Lq = qs.shape
         row = {"pairs": int(B), "Lq": int(Lq), "tv": ln.prm.tv}
         row["rows_ms"] = cuda_ms(
-            lambda: R.rows_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20,
-            True)
-        row["rows_plain_ms"] = cuda_ms(
-            lambda: R.rows_forward_plain(qs, ts, ql, tl, tab, ln.prm), 1)
+            lambda: R.rows_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20)
+        row["rows_plain_ms"] = PLAIN_MS[(name, "rows")]
         row["fwd_ms"] = cuda_ms(
-            lambda: S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20,
-            True)
+            lambda: S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20)
         row["cells"] = int((ql.long() * tl.long()).sum())
         row["rows_bound_ms"], row["rows_bound_by"] = bound(
             "rows_fwd", row["cells"],
@@ -893,26 +1183,26 @@ def phase_times(cases, rcases, long, int_rate):
 
     # the band kernels at the long-banded shapes: the workload's shortest
     # pair for kernel against plain (the plain forward takes milliseconds
-    # a diagonal), the whole workload's one score launch for the kernels
-    # alone
+    # a diagonal; phase 5b ran it on the same launches: case ``plain``),
+    # the whole workload's one score launch for the kernels alone
     sub = [min(long, key=lambda p: len(p[1]))]
     approx = Flag.APPROX_MAX | Flag.APPROX_DROP
     for name, pairs, flag, costs, plain in (
-            ("long1_extz_score", sub, Flag.SCORE_ONLY, None, True),
-            ("long1_extd_score", sub, Flag.SCORE_ONLY, EXTD, True),
-            ("long1_extz_cig", sub, Flag.NONE, None, True),
-            ("long128_extz_score", long, Flag.SCORE_ONLY, None, False),
-            ("long128_extd_score", long, Flag.SCORE_ONLY, EXTD, False),
+            ("long1_extz_score", sub, Flag.SCORE_ONLY, None, None),
+            ("long1_extd_score", sub, Flag.SCORE_ONLY, EXTD,
+             "long1_extd_score_z400"),
+            ("long1_extz_cig", sub, Flag.NONE, None, "long1_extz_cig_z400"),
+            ("long128_extz_score", long, Flag.SCORE_ONLY, None, None),
+            ("long128_extd_score", long, Flag.SCORE_ONLY, EXTD, None),
             ("long128_approx_score", long, Flag.SCORE_ONLY | approx, None,
-             False)):
+             None)):
         ln = band_launch(pairs, BAND_W, flag, 400, costs)
         args = BD.band_upload(ln, "cuda")
         kname = "band_extd_fwd" if costs else "band_fwd"
         row = {"pairs": len(pairs), "nd": ln.nd, "ncol": ln.ncol,
                "kernel": kname}
         row["fwd_ms"] = cuda_ms(
-            lambda: BD.band_forward_cuda(*args, ln.prm, ln.nd, ln.ncol), 3,
-            True)
+            lambda: BD.band_forward_cuda(*args, ln.prm, ln.nd, ln.ncol), 3)
         rec, p = BD.band_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
         cells, nbytes = band_work(ln, rec)
         row["computed_cells"] = cells
@@ -921,16 +1211,13 @@ def phase_times(cases, rcases, long, int_rate):
         row["band_cells"] = band_cells(pairs, BAND_W)
         row["fwd_band_gcells_per_s"] = row["band_cells"] / row["fwd_ms"] / 1e6
         if plain:
-            row["fwd_plain_ms"] = cuda_ms(
-                lambda: BD.band_forward_plain(*args, ln.prm, ln.nd, ln.ncol),
-                1)
+            row["fwd_plain_ms"] = PLAIN_MS[(plain, "fwd")]
         if ln.prm.cig:
             _, _, ql, tl, w, _ = args
             starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)
             row["walk_ms"] = cuda_ms(
-                lambda: BW.band_walk_cuda(p, starts, ql, tl, w), 3, True)
-            row["walk_plain_ms"] = cuda_ms(
-                lambda: BW.band_walk_plain(p, starts, ql, tl, w), 1)
+                lambda: BW.band_walk_cuda(p, starts, ql, tl, w), 3)
+            row["walk_plain_ms"] = PLAIN_MS[(plain, "walk")]
             res, runs = BW.band_walk_cuda(p, starts, ql, tl, w)
             steps = _walk_steps(res, runs)
             row["walk_steps"] = steps
@@ -938,6 +1225,67 @@ def phase_times(cases, rcases, long, int_rate):
                 "band_walk", steps, steps + 4 * steps + 20 * len(pairs),
                 int_rate)
         del p
+        out[name] = row
+        torch.cuda.empty_cache()
+
+    # the batched kernels at the main path's shape: the launches the
+    # scheduler makes of the short-banded workload's 4096 pairs
+    # (-w100 -z100), timed together as the path runs them; the plain
+    # forward's time on the same launches (phase 5c) for the score forms
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.ops import batch as BT
+    for name, flag, costs, plain in (
+            ("sb_extz_score", Flag.SCORE_ONLY, None, "sb_extz_score_z100"),
+            ("sb_extd_score", Flag.SCORE_ONLY, EXTD, "sb_extd_score_z100"),
+            ("sb_approx_score", Flag.SCORE_ONLY | approx, None, None),
+            ("sb_extz_cig", Flag.NONE, None, None),
+            ("sb_extd_cig", Flag.NONE, EXTD, None)):
+        lns, _, _ = short_banded_launches(sb, flag, costs)
+        args = [BD.band_upload(ln, "cuda") for ln in lns]
+        kname = "batch_extd_fwd" if costs else "batch_fwd"
+        row = {"pairs": len(sb), "kernel": kname,
+               "launches": [{"pairs": len(ln.qlen), "nd": ln.nd,
+                             "ncol": ln.ncol, "Lt": int(ln.target.shape[1])}
+                            for ln in lns]}
+
+        def fwd(lns=lns, args=args):
+            return [BT.batch_forward_cuda(*a, ln.prm, ln.nd, ln.ncol)
+                    for a, ln in zip(args, lns)]
+        row["fwd_ms"] = cuda_ms(fwd, 5)
+        outs = fwd()
+        work = [band_work(ln, rec) for ln, (rec, _) in zip(lns, outs)]
+        row["computed_cells"] = sum(c for c, _ in work)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            kname, row["computed_cells"], sum(b for _, b in work), int_rate)
+        row["band_cells"] = band_cells(sb, SHORT_BANDED_W)
+        row["fwd_band_gcells_per_s"] = row["band_cells"] / row["fwd_ms"] / 1e6
+        if plain:
+            row["fwd_plain_ms"] = sum(PLAIN_MS[(f"{plain}_launch{k}", "fwd")]
+                                      for k in range(len(lns)))
+        if plain and costs is None:
+            # host work of the score batch before its launches (host
+            # clock): the route table on every bucket (rows, strips and
+            # band refuse them), and the buckets' padding
+            _, route_s, prep_s = short_banded_launches(
+                sb, flag, costs,
+                sched._score_chooser(flag, 5, simple_mat(5, 2, -4), 100, 4,
+                                     2))
+            row["host_route_ms"] = route_s * 1e3
+            row["host_prep_ms"] = prep_s * 1e3
+        if lns[0].prm.cig:
+            walks = []
+            for (rec, p), (_, _, ql, tl, w, _), ln in zip(outs, args, lns):
+                walks.append((p, W.start_cells(rec, ql, tl, ln.prm.flag, 0),
+                              ql, tl, w))
+            row["walk_ms"] = cuda_ms(
+                lambda: [BW.band_walk_cuda(*a) for a in walks], 5)
+            steps = sum(_walk_steps(*BW.band_walk_cuda(*a)) for a in walks)
+            row["walk_steps"] = steps
+            row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                "band_walk", steps, steps + 4 * steps + 20 * len(sb),
+                int_rate)
+            del walks
+        del outs
         out[name] = row
         torch.cuda.empty_cache()
     emit({"phase": "times", "cases": out})
@@ -977,13 +1325,14 @@ def main() -> int:
     err_b = timed("kernel_b", phase_kernel_b, cases)
     err_r = timed("rows", phase_rows, rcases)
     err_band = timed("band", phase_band, band_cases(long))
-    counts, _ = timed("main_path", phase_main_path, jobs, short, long)
-    times = timed("times", phase_times, cases, rcases, long, int_rate)
-    timed("profile", phase_profile, long)
+    sb = short_banded_jobs()
+    err_batch = timed("batch", phase_batch, batch_cases(sb))
+    counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb)
+    times = timed("times", phase_times, cases, rcases, long, sb, int_rate)
+    timed("profile", phase_profile, long, sb)
     emit({"phase": "clock", "seconds": clock})
     whale = times["whale_cig_z100"]
     rows = times["short_score_z100"]
-    lz = times["long1_extz_score"]
     ld = times["long1_extd_score"]
     lc = times["long1_extz_cig"]
     print(json.dumps({"kernels": [
@@ -994,12 +1343,19 @@ def main() -> int:
         _kernel("rows_fwd", ROWS_SRC, ROWS_REPLACES, counts["rows_fwd"],
                 err_r, rows, "rows"),
         _kernel("band_fwd", BAND_SRC, BAND_REPLACES, counts["band_fwd"],
-                err_band["band_fwd"], lz, "fwd"),
+                err_band["band_fwd"], lc, "fwd"),
         _kernel("band_extd_fwd", BAND_SRC, BAND_EXTD_REPLACES,
                 counts["band_extd_fwd"], err_band["band_extd_fwd"], ld,
                 "fwd"),
         _kernel("band_walk", BAND_WALK_SRC, BAND_WALK_REPLACES,
-                counts["band_walk"], err_band["band_walk"], lc, "walk"),
+                counts["band_walk"],
+                max(err_band["band_walk"], err_batch["band_walk"]), lc,
+                "walk"),
+        _kernel("batch_fwd", BATCH_SRC, BATCH_REPLACES, counts["batch_fwd"],
+                err_batch["batch_fwd"], times["sb_extz_score"], "fwd"),
+        _kernel("batch_extd_fwd", BATCH_SRC, BATCH_EXTD_REPLACES,
+                counts["batch_extd_fwd"], err_batch["batch_extd_fwd"],
+                times["sb_extd_score"], "fwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

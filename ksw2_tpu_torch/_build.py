@@ -49,6 +49,10 @@ _SIGNATURES = {
     "ksw2t_band_fwd": [_P] * 6 + [_I] * 25 + [_P] * 3,
     # p, starts, qlen, tlen, w, B, nd, ncol, wr, res, runs, stream
     "ksw2t_band_walk": [_P] * 5 + [_I] * 4 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
+    # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
+    # two, nd, ncol, TP, warps, rec, p, stream
+    "ksw2t_batch_fwd": [_P] * 6 + [_I] * 25 + [_P] * 3,
 }
 
 

@@ -1,10 +1,10 @@
 """High-level alignment API: configure once, align many.
 
 Port of ``ksw2_tpu/api.py`` for one-piece (extz) and two-piece (extd)
-costs on the strips, rows and band routes.  Costs and flags are bound at
-construction; the methods accept raw DNA strings or encoded arrays and
-return :class:`~ksw2_tpu_torch.core.result.ExtzResult` records with the
-exact ``ksw_extz_t`` field contract.
+costs on the rows, strips, band and batched routes.  Costs and flags are
+bound at construction; the methods accept raw DNA strings or encoded
+arrays and return :class:`~ksw2_tpu_torch.core.result.ExtzResult`
+records with the exact ``ksw_extz_t`` field contract.
 
     >>> from ksw2_tpu_torch import Aligner
     >>> aln = Aligner(a=2, b=4, q=4, e=2, q2=13, e2=1, zdrop=100)
@@ -12,10 +12,12 @@ exact ``ksw_extz_t`` field contract.
 
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain PyTorch
-versions.  Splice costs, global alignment, meshes, pluggable engines,
-and two-piece SCORE_ONLY batches with ``end_bonus`` or EXTZ_ONLY raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them;
-so does any bucket that neither the strips nor the band route takes.
+versions.  Splice costs, global alignment, meshes, pluggable engines
+and two-piece SCORE_ONLY batches with EXTZ_ONLY raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them; so
+does any bucket that no route takes (scores on targets over 3072,
+CIGARs on targets over 1536 or with EXTZ_ONLY, unless the band route
+takes them).
 """
 from __future__ import annotations
 
@@ -94,7 +96,7 @@ class Aligner:
 
     def global_align(self, query: Seq, target: Seq) -> ExtzResult:
         raise NotImplementedError(
-            "global alignment: the gg2 engines (ROADMAP items 11, 12)")
+            "global alignment: the gg2 engines (ROADMAP items 12, 14)")
 
     def _jobs(self, pairs, w) -> List[AlignJob]:
         return [AlignJob(query=_enc(qy), target=_enc(tg),

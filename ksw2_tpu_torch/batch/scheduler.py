@@ -1,15 +1,18 @@
-"""Pair-batch scheduler for the rows, strips and band routes.
+"""Pair-batch scheduler for the rows, strips, band and batched routes.
 
 Port of ``ksw2_tpu/batch/scheduler.py``'s score and CIGAR paths for one-
 and two-piece costs: jobs are bucketed by shape and each bucket takes the
-first route of the JAX package's table that accepts it.  Scores: rows
-(one-piece only), then strips, then band (``scheduler.py:242-286,
-482-521``); CIGARs: strips, then band (``scheduler.py:639-716``).  Every
-launch is enqueued on the current CUDA stream before anything waits.  A
-handle's ``result()`` synchronises on the event recorded after the
-batch's device-to-host copies, so several batches in flight overlap one
-batch's host work with the next one's device work.  On ``device="cpu"``
-the same path runs the kernels' plain versions synchronously.
+first route of the JAX package's table that accepts it.  One-piece
+scores: rows, strips, band, batched (``scheduler.py:242-286``); two-piece
+scores: strips, band, batched (``scheduler.py:482-521``); CIGARs, EQX
+included: strips, band, batched (``scheduler.py:639-754``); two-piece
+SCORE_ONLY with ``end_bonus``: band, then batched, in score form
+(``scheduler.py:614-617, 690-702, 732-742``).  Every launch is enqueued
+on the current CUDA stream before anything waits.  A handle's
+``result()`` synchronises on the event recorded after the batch's
+device-to-host copies, so several batches in flight overlap one batch's
+host work with the next one's device work.  On ``device="cpu"`` the same
+path runs the kernels' plain versions synchronously.
 
 A bucket no ported route takes raises ``NotImplementedError`` naming the
 engine the JAX package would take and the ROADMAP.md item that brings
@@ -29,6 +32,7 @@ from ..core.flags import NEG_INF, Flag
 from ..core.result import ExtzResult
 from ..ops.band import band_ineligible_reason, band_prep, band_records
 from ..ops.band_walker import band_cigar_launch, unpack_band_cigars
+from ..ops.batch import batch_forward_cuda, batch_ineligible_reason
 from ..ops.records import NFIELDS
 from ..ops.rows import rows_eligible, rows_records
 from ..ops.strips import (TMAX, QMAX, canonical_costs,
@@ -40,6 +44,16 @@ from ..ops.strips_walker import (strips_cigar_extd_ineligible_reason,
                                  strips_cigar_launch, unpack_cigars)
 
 _SCORES_LT = (128, 256, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072)
+
+# The batched route is the band route's launch glue with kernel E / E2
+# (csrc/batch_fwd.cu) as its forward; it converts one- and two-piece
+# CIGARs to =/X when the flag asks (batch_pallas.py:499-505, 773-782),
+# where the band route keeps one-piece M ops.
+batch_records = functools.partial(band_records, cuda=batch_forward_cuda)
+batch_cigar_launch = functools.partial(band_cigar_launch,
+                                       cuda=batch_forward_cuda)
+unpack_batch_cigars = functools.partial(unpack_band_cigars,
+                                        eqx_one_piece=True)
 
 
 @dataclasses.dataclass
@@ -118,16 +132,17 @@ class _Bucket(NamedTuple):
     qlen: np.ndarray
     tlen: np.ndarray
     w: np.ndarray        # w = -1 replaced by max(qlen, tlen)
-    route: str           # "rows", "strips" or "band"
+    route: str           # "rows", "strips", "band" or "batch"
 
 
 def _route(jobs, mat, qe: int, results, choose, what: str) -> List[_Bucket]:
     """Reset empty jobs, and every job when scoring is degenerate
     (``-min_sc > 2 * qe``); bucket the rest and pick every bucket's route
     with ``choose(Lt, qlen, tlen, w, raw_w)``, which returns "rows",
-    "strips", "band" or the reason no ported route takes the bucket.
-    Returns the buckets heaviest first; a band bucket's pairs are ordered
-    longest first, so its launches pad little.  Raises before anything
+    "strips", "band", "batch" or the reason no ported route takes the
+    bucket.  Returns the buckets heaviest first; a band or batched
+    bucket's pairs are ordered longest first, so its launches pad little
+    (and a block's warps finish together).  Raises before anything
     runs."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
@@ -147,9 +162,9 @@ def _route(jobs, mat, qe: int, results, choose, what: str) -> List[_Bucket]:
         raw = np.array([jobs[i].w for i in idxs], np.int32)
         wv = np.where(raw >= 0, raw, np.maximum(qlen, tlen)).astype(np.int32)
         route = choose(Lt, qlen, tlen, wv, raw)
-        if route not in ("rows", "strips", "band"):
+        if route not in ("rows", "strips", "band", "batch"):
             raise NotImplementedError(f"{what}: {route}")
-        if route == "band":
+        if route in ("band", "batch"):
             order = np.argsort(-(qlen.astype(np.int64) + tlen), kind="stable")
             idxs = [idxs[k] for k in order]
             qlen, tlen, wv = qlen[order], tlen[order], wv[order]
@@ -227,8 +242,8 @@ class PendingScores:
 
 def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
     """The score path's route table for one bucket (``scheduler.py:
-    242-286, 482-521``): one-piece rows, then strips, then band;
-    two-piece strips, then band."""
+    242-286, 482-521``): one-piece rows, then strips, band, batched;
+    two-piece strips, band, batched."""
     def choose(Lt, ql, tl, w, _raw):
         if not two and rows_eligible(ql, tl, w, flag, zdrop, m, mat):
             return "rows"
@@ -242,7 +257,27 @@ def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
             return "strips"
         band = band_ineligible_reason(Lt, ql, tl, w, mat, flag, cigar=False,
                                       two=two)
-        return f"strips: {reason}; band: {band}" if band else "band"
+        if band is None:
+            return "band"
+        batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, zdrop,
+                                        cigar=False, two=two)
+        return (f"strips: {reason}; band: {band}; batch: {batch}" if batch
+                else "batch")
+    return choose
+
+
+def _end_bonus_chooser(flag, mat):
+    """Two-piece SCORE_ONLY with ``end_bonus`` (``scheduler.py:614-617,
+    676-742``): the CIGAR path's buckets in score form, so no strips; the
+    band route on the jobs' raw ``w``, then the batched route."""
+    def choose(Lt, ql, tl, _w, raw):
+        band = band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
+                                      two=True)
+        if band is None:
+            return "band"
+        batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, -1,
+                                        cigar=True, two=True)
+        return f"band: {band}; batch: {batch}" if batch else "batch"
     return choose
 
 
@@ -251,12 +286,12 @@ def _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev, two=False,
     """Prep and enqueue every bucket's launches on its route; returns
     [(job indices, device records)]."""
     runs = {"rows": rows_records, "strips": strips_records,
-            "band": band_records}
+            "band": band_records, "batch": batch_records}
     pieces = []
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
         ts = [jobs[i].target for i in bk.idxs]
-        if bk.route == "band":
+        if bk.route in ("band", "batch"):
             launches = band_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q, e,
                                  zdrop, flag, two=two, q2=q2, e2=e2)
         else:
@@ -278,7 +313,7 @@ def align_batch_scores_async(
     device="cuda",
 ) -> PendingScores:
     """Submit a one-piece score batch without waiting.  Each bucket takes
-    the first route that accepts it: rows, strips, band
+    the first route that accepts it: rows, strips, band, batched
     (``scheduler.py:242-286`` in the JAX package)."""
     dev = resolve_device(device)
     flag = Flag(int(flag)) | Flag.SCORE_ONLY
@@ -331,18 +366,24 @@ def align_batch_scores2_async(
 ) -> PendingScores:
     """Submit a two-piece (extd) score batch without waiting; the same
     handle as :func:`align_batch_scores_async`.  Each bucket takes strips,
-    else band (``scheduler.py:482-521``).  As in the JAX package
-    (``scheduler.py:463-465, 526-528``) a job is reset when scoring is
-    degenerate against the PRE-swap ``q + e``, and the handle's guard
-    tests the cheaper arm; the two differ when the costs swap."""
-    dev = resolve_device(device)
+    else band, else batched (``scheduler.py:482-521``).  As in the JAX
+    package (``scheduler.py:463-465, 526-528``) a job is reset when
+    scoring is degenerate against the PRE-swap ``q + e``, and the handle's
+    guard tests the cheaper arm; the two differ when the costs swap."""
     flag = Flag(int(flag)) | Flag.SCORE_ONLY
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
-    results: List[Optional[ExtzResult]] = [None] * len(jobs)
-    buckets = _route(
-        jobs, mat, q + e, results,
+    return _scores2_async(
+        jobs, m, mat, q, e, q2, e2, zdrop, flag, device,
         _score_chooser(flag, m, mat, zdrop, q, e, True, q2, e2),
         "two-piece score route")
+
+
+def _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, device, choose,
+                   what) -> PendingScores:
+    """The two-piece score path with the route table ``choose``."""
+    dev = resolve_device(device)
+    results: List[Optional[ExtzResult]] = [None] * len(jobs)
+    buckets = _route(jobs, mat, q + e, results, choose, what)
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev,
                            True, q2, e2)
     qc, ec = canonical_costs(q, e, q2, e2)[:2]
@@ -389,10 +430,13 @@ def align_batch_async(
     """Submit a full-alignment batch (scores + CIGARs) without waiting.
 
     One-piece (``q2 is None``) SCORE_ONLY batches take the score path;
-    two-piece SCORE_ONLY batches with ``end_bonus == 0`` and no
-    EXTZ_ONLY take the two-piece score path; every other batch takes the
-    CIGAR path, where each bucket takes strips, else band
-    (``scheduler.py:564-577, 609-617, 639-716`` in the JAX package)."""
+    two-piece SCORE_ONLY batches with ``end_bonus == 0`` take the
+    two-piece score path, and with ``end_bonus`` the band, then the
+    batched route in score form; every other batch takes the CIGAR path,
+    where each bucket takes strips, else band, else batched
+    (``scheduler.py:564-577, 609-617, 639-754`` in the JAX package).
+    Two-piece EXTZ_ONLY scores raise: the JAX package runs them on its
+    single-pair engines (``scheduler.py:755-767``)."""
     two = q2 is not None
     if two and e2 is None:
         raise ValueError("two-piece costs need both q2 and e2")
@@ -402,14 +446,19 @@ def align_batch_async(
         if not two:
             h = align_batch_scores_async(jobs, m, mat, q, e, zdrop=zdrop,
                                          flag=flag, device=dev)
-        elif end_bonus == 0 and not flag & Flag.EXTZ_ONLY:
+        elif flag & Flag.EXTZ_ONLY:
+            raise NotImplementedError(
+                "two-piece SCORE_ONLY batches with EXTZ_ONLY run on the "
+                "single-pair engines (ROADMAP item 12)")
+        elif end_bonus == 0:
             h = align_batch_scores2_async(jobs, m, mat, q, e, q2, e2,
                                           zdrop=zdrop, flag=flag,
                                           device=dev)
         else:
-            raise NotImplementedError(
-                "two-piece SCORE_ONLY batches with end_bonus or EXTZ_ONLY "
-                "run on the batched extd engines (ROADMAP item 11)")
+            mat = np.asarray(mat, dtype=np.int8).reshape(-1)
+            h = _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, dev,
+                               _end_bonus_chooser(flag, mat),
+                               "two-piece end_bonus score route")
         return PendingAligns(h.result)
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     q2, e2 = q2 or 0, e2 or 0
@@ -424,27 +473,35 @@ def align_batch_async(
                                                     zdrop, q, e)
         if reason is None:
             return "strips"
-        # the band route reads the jobs' RAW w (scheduler.py:672)
+        # the band route reads the jobs' RAW w (scheduler.py:672), the
+        # batched route the resolved one (scheduler.py:730)
         band = band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
                                       two=two)
-        return f"strips: {reason}; band: {band}" if band else "band"
+        if band is None:
+            return "band"
+        batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, zdrop,
+                                        cigar=True, two=two)
+        return (f"strips: {reason}; band: {band}; batch: {batch}" if batch
+                else "batch")
 
     # the reference resets after its swap (ksw2_extd2_sse.c:93-100)
     qc, ec = canonical_costs(q, e, q2, e2)[:2] if two else (q, e)
     buckets = _route(jobs, mat, qc + ec, results, choose,
                      "two-piece CIGAR route" if two else "CIGAR route")
+    cig_runs = {"band": (band_cigar_launch, unpack_band_cigars),
+                "batch": (batch_cigar_launch, unpack_batch_cigars)}
     pieces = []
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
         ts = [jobs[i].target for i in bk.idxs]
-        if bk.route == "band":
+        if bk.route in cig_runs:
+            launch, unpack = cig_runs[bk.route]
             launches = band_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q, e,
                                  zdrop, flag, cig=True, two=two, q2=q2,
                                  e2=e2)
             pieces += _run_launches(bk.idxs, launches, lambda ln: (
-                functools.partial(unpack_band_cigars, ln, mat=mat,
-                                  end_bonus=end_bonus),
-                band_cigar_launch(ln, end_bonus, dev)))
+                functools.partial(unpack, ln, mat=mat, end_bonus=end_bonus),
+                launch(ln, end_bonus, dev)))
         else:
             launches = strips_prep(qs, ts, bk.qlen, bk.tlen, m, mat, q, e,
                                    zdrop, flag, cig=True, two=two, q2=q2,

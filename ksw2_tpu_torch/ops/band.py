@@ -43,7 +43,7 @@ from .strips import (SMEM_MAX, _check_cuda, canonical_costs, long_params,
                      round_up)
 
 W_MAX = 1472               # the band engine's widest band
-L_MIN = 512                # buckets with Lt <= 512 take the batched engines
+L_MIN = 512                # buckets with Lt <= 512 take the batched route
 KT = 4096                  # tie-key class stride (> the widest band + 1)
 
 
@@ -79,11 +79,15 @@ class BandLaunch(NamedTuple):
     ncol: int              # bytes per stored diagonal (widest pair's)
 
 
-_ITEM_NAMES = {7: "any-device engine", 11: "batched anti-diagonal engines",
-               12: "single-pair engines"}
+_ITEM_NAMES = {7: "any-device engine", 12: "single-pair engines"}
 
 
-def _beyond(item: int, what: str) -> str:
+def beyond(item: Optional[int], what: str) -> str:
+    """A route's refusal, naming the engine the JAX package takes next:
+    an unported one with its ROADMAP item, or (``item`` None) the
+    batched route, which the scheduler tries after the band route."""
+    if item is None:
+        return f"{what} take the batched route"
     return f"{what} run on the {_ITEM_NAMES[item]} (ROADMAP item {item})"
 
 
@@ -101,23 +105,25 @@ def band_ineligible_reason(Lt: int, qlen, tlen, w, mat, flag,
       jobs, and no EXTZ_ONLY.
 
     ``Lt`` is the bucket's target length key.  The reason names the
-    engine the JAX package takes next and its ROADMAP item."""
+    engine the JAX package takes next: the batched route up to 3072
+    (scores) or 1536 (CIGARs without EXTZ_ONLY), else an unported engine
+    and its ROADMAP item."""
     flag = int(flag)
     if Lt <= L_MIN:
-        return _beyond(11, "buckets with targets of 512 or less")
+        return beyond(None, "buckets with targets of 512 or less")
     if cigar:
-        nxt = 11 if Lt <= 1536 and not flag & int(Flag.EXTZ_ONLY) else 12
+        nxt = None if Lt <= 1536 and not flag & int(Flag.EXTZ_ONLY) else 12
         if flag & int(Flag.EXTZ_ONLY):
-            return _beyond(nxt, "EXTZ_ONLY CIGARs on long banded pairs")
+            return beyond(nxt, "EXTZ_ONLY CIGARs on long banded pairs")
     else:
-        nxt = 11 if Lt <= 3072 else (12 if two else 7)
+        nxt = None if Lt <= 3072 else (12 if two else 7)
     w = np.asarray(w)
     if w.min() < 1 or w.max() > W_MAX:
-        return _beyond(nxt, "bands outside 1 <= w <= 1472 (or no band) on "
-                       "targets over 512")
+        return beyond(nxt, "bands outside 1 <= w <= 1472 (or no band) on "
+                      "targets over 512")
     mat = np.asarray(mat).reshape(-1)
     if int(mat[0]) * int(min(np.max(qlen), np.max(tlen))) >= (1 << 17):
-        return _beyond(nxt, "scores outside the band engine's range")
+        return beyond(nxt, "scores outside the band engine's range")
     return None
 
 
@@ -199,9 +205,11 @@ def _w8(x):
 
 def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
                        nd: int, ncol: int):
-    """Plain PyTorch version of ``csrc/band_fwd.cu``: one Python step per
-    anti-diagonal, batched over the pairs, each pair's band gathered as a
-    window of ``max(w) + 48`` positions from full-length state rows.
+    """Plain PyTorch version of ``csrc/band_fwd.cu`` and of
+    ``csrc/batch_fwd.cu`` (the batched route, ``ops/batch.py``): one
+    Python step per anti-diagonal, batched over the pairs, each pair's
+    band gathered as a window of ``max(w) + 48`` positions from
+    full-length state rows; any ``w >= 0``.
     Returns ``rec`` (B, 9) int32 in ``FIELD_ORDER`` and, with ``cig``,
     ``p`` (B, nd, ncol) uint8 (rows and bytes never written are 0)."""
     dev = qs.device
@@ -527,11 +535,13 @@ def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
 
 
 def band_forward(qs, ts, qlen, tlen, w, table, prm: BandParams, nd: int,
-                 ncol: int):
-    """The band forward on the tensors' device: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+                 ncol: int, cuda=band_forward_cuda):
+    """The forward on the tensors' device: the CUDA kernel ``cuda`` for
+    CUDA tensors (the band kernel, or the batched route's
+    ``batch.batch_forward_cuda``, which keeps the same contract), the
+    plain version for CPU tensors."""
     if qs.is_cuda:
-        return band_forward_cuda(qs, ts, qlen, tlen, w, table, prm, nd, ncol)
+        return cuda(qs, ts, qlen, tlen, w, table, prm, nd, ncol)
     if qs.device.type != "cpu":
         raise ValueError(f"unsupported device {qs.device}")
     return band_forward_plain(qs, ts, qlen, tlen, w, table, prm, nd, ncol)
@@ -557,15 +567,17 @@ def band_upload(launch: BandLaunch, device):
     return tuple(t.pin_memory().to(dev, non_blocking=True) for t in host)
 
 
-def band_records(launch: BandLaunch, device):
-    """Forward of one score launch; (B, 9) int32 records on ``device``
-    (enqueued, not synchronised)."""
+def band_records(launch: BandLaunch, device, cuda=band_forward_cuda):
+    """Forward of one score launch (CUDA kernel ``cuda``, see
+    :func:`band_forward`); (B, 9) int32 records on ``device`` (enqueued,
+    not synchronised)."""
     rec, _ = band_forward(*band_upload(launch, device), launch.prm,
-                          launch.nd, launch.ncol)
+                          launch.nd, launch.ncol, cuda)
     return rec
 
 
-__all__ = ["W_MAX", "BandParams", "BandLaunch", "band_ineligible_reason",
+__all__ = ["W_MAX", "BandParams", "BandLaunch", "beyond",
+           "band_ineligible_reason",
            "make_band_params", "band_prep", "band_forward",
            "band_forward_plain", "band_forward_cuda", "fwd_smem_bytes",
            "band_upload", "band_records"]

@@ -12,9 +12,10 @@ recomputed in closed form from (r, qlen, tlen, w).  It emits BAM runs
 strips walker, into ``qlen + tlen + 2`` entries per pair, so the JAX
 route's device RLE, its ``MAXR`` cap and its overflow fallback are gone.
 :func:`ops.strips_walker.finish_runs_batch` and ``unpack_cigars`` finish
-the CIGARs.  Two-piece CIGARs turn to EQX after the walk
-(``band_batch.py:833-838``); one-piece ones keep M ops, as the
-reference's extz2 ignores ``KSW_EZ_EQX``.
+the CIGARs.  On the band route two-piece CIGARs turn to EQX after the
+walk (``band_batch.py:833-838``) and one-piece ones keep M ops, as the
+reference's extz2 ignores ``KSW_EZ_EQX``; the batched route, whose
+forward (``csrc/batch_fwd.cu``) writes the same store, converts both.
 
 The walker has two implementations: ``csrc/band_walk.cu`` for CUDA
 tensors and :func:`band_walk_plain` for CPU tensors.
@@ -30,7 +31,8 @@ from .._build import LAUNCHES, check, library
 from ..core import cigar as cigarmod
 from ..core.flags import CigarOp, Flag
 from ..core.result import ExtzResult
-from .band import BandLaunch, band_forward, band_upload
+from .band import (BandLaunch, band_forward, band_forward_cuda,
+                   band_upload)
 from .bands import band_bounds_rounded
 from .strips_walker import start_cells, unpack_cigars
 
@@ -133,31 +135,28 @@ def band_walk(p, starts, qlen, tlen, w):
     return band_walk_plain(p, starts, qlen, tlen, w)
 
 
-def band_cigar_launch(launch: BandLaunch, end_bonus: int, device):
-    """Forward with bytes, start cells and walker for one launch; returns
-    (rec, res, runs) tensors on ``device`` (enqueued, not synchronised).
-    The byte store is freed when this returns."""
+def band_cigar_launch(launch: BandLaunch, end_bonus: int, device,
+                      cuda=band_forward_cuda):
+    """Forward with bytes (CUDA kernel ``cuda``, see
+    :func:`ops.band.band_forward`), start cells (ksw2_extz2_sse.c:292-301)
+    and walker for one launch; returns (rec, res, runs) tensors on
+    ``device`` (enqueued, not synchronised).  The byte store is freed when
+    this returns."""
     prm = launch.prm
     if not prm.cig:
         raise ValueError("a CIGAR launch needs cig=1 params")
     qs, ts, ql, tl, w, table = band_upload(launch, device)
     rec, p = band_forward(qs, ts, ql, tl, w, table, prm, launch.nd,
-                          launch.ncol)
+                          launch.ncol, cuda)
     starts = start_cells(rec, ql, tl, prm.flag, end_bonus)
     res, runs = band_walk(p, starts, ql, tl, w)
     return rec, res, runs
 
 
-def unpack_band_cigars(launch: BandLaunch, rec: np.ndarray, res: np.ndarray,
-                       runs: np.ndarray, mat, end_bonus: int
-                       ) -> List[ExtzResult]:
-    """One launch's host records and walker output -> ExtzResults; the
-    two-piece route converts to EQX ops when the flag asks
-    (``band_batch.py:833-838``)."""
-    prm = launch.prm
-    ezs = unpack_cigars(rec, res, runs, mat, prm.q, prm.e, end_bonus,
-                        prm.flag)
-    if prm.two and prm.flag & int(Flag.EQX):
+def to_eqx(launch: BandLaunch, ezs: List[ExtzResult]) -> List[ExtzResult]:
+    """Turn the launch's CIGARs into =/X ops when its flag has EQX (a host
+    pass over the finished CIGARs)."""
+    if launch.prm.flag & int(Flag.EQX):
         for k, ez in enumerate(ezs):
             if ez.cigar:
                 ez.cigar = cigarmod.to_eqx(
@@ -166,5 +165,19 @@ def unpack_band_cigars(launch: BandLaunch, rec: np.ndarray, res: np.ndarray,
     return ezs
 
 
+def unpack_band_cigars(launch: BandLaunch, rec: np.ndarray, res: np.ndarray,
+                       runs: np.ndarray, mat, end_bonus: int,
+                       eqx_one_piece: bool = False) -> List[ExtzResult]:
+    """One launch's host records and walker output -> ExtzResults.  When
+    the flag asks, two-piece CIGARs turn to EQX ops
+    (``band_batch.py:833-838``), and one-piece ones too with
+    ``eqx_one_piece``, as the JAX batched route converts them
+    (``batch_pallas.py:499-505, 773-782``)."""
+    prm = launch.prm
+    ezs = unpack_cigars(rec, res, runs, mat, prm.q, prm.e, end_bonus,
+                        prm.flag)
+    return to_eqx(launch, ezs) if prm.two or eqx_one_piece else ezs
+
+
 __all__ = ["band_walk", "band_walk_plain", "band_walk_cuda",
-           "band_cigar_launch", "unpack_band_cigars"]
+           "band_cigar_launch", "to_eqx", "unpack_band_cigars"]

@@ -121,36 +121,34 @@ def strips_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
     The envelope is exactly ``wavefront_strips.strips_eligible``'s: plain
     exact score mode, ``m <= 8``, q <= 4608, t <= 3072, the 13-bit
     diagonal cap, the int32 packing guard, and a band that never clips.
-    Each reason names the ROADMAP.md Queue-1 item that brings the route.
+    A reason names no ROADMAP item: the scheduler tries the band and
+    batched routes next, and the last route's reason names the engine
+    the JAX package would take.
     """
     flag = int(flag)
     if flag & (int(Flag.APPROX_MAX) | int(Flag.APPROX_DROP)):
-        return ("APPROX_MAX/APPROX_DROP run on the batched anti-diagonal "
-                "engines (ROADMAP item 11)")
+        return "APPROX_MAX/APPROX_DROP (the strips route is exact)"
     if not (flag & int(Flag.SCORE_ONLY)):
         raise ValueError("strips eligibility is checked in score mode")
     if m > 8:
-        return "m > 8 runs on the any-device engine (ROADMAP item 7)"
+        return "m > 8"
     qlen = np.asarray(qlen)
     tlen = np.asarray(tlen)
     if qlen.size == 0 or qlen.min() < 1 or tlen.min() < 1:
         return "empty pairs are reset by the scheduler, not launched"
     if qlen.max() > QMAX or tlen.max() > TMAX:
-        return ("targets over 3072 or queries over 4608 run on the "
-                "any-device and single-pair engines (ROADMAP items 7, 12)")
+        return "targets over 3072 or queries over 4608"
     mat = np.asarray(mat).reshape(-1)
     tv = _canon_tlenp(int(tlen.max()))
     if _n_diag(_canon_s((int(qlen.max()) + 127) // 128), tv) > 8191:
-        return ("the diagonal index exceeds 13 bits: the any-device and "
-                "single-pair engines (ROADMAP items 7, 12)")
+        return "the diagonal index exceeds 13 bits"
     KB, _ = key_params(tv)
     hmax = int(mat.max()) * int(np.minimum(qlen, tlen).max())
     hneg = 2 * (int(q) + int(e)) + int(e) * (int(qlen.max()) +
                                              int(tlen.max()))
     if hmax >= (1 << 17) or hneg >= (1 << 17) or \
             (max(hmax, hneg) + 1) * KB + KB >= (1 << 31):
-        return ("scores outside the int32 packed-key range run on the "
-                "any-device engine (ROADMAP item 7)")
+        return "scores outside the int32 packed-key range"
     w = np.asarray(w).astype(np.int64)
     ql = qlen.astype(np.int64)
     tl = tlen.astype(np.int64)
@@ -162,8 +160,7 @@ def strips_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
     st_clip = (r - w[:, None] + 1) >> 1 > np.maximum(0, r - ql[:, None] + 1)
     en_clip = (r + w[:, None]) >> 1 < np.minimum(tl[:, None] - 1, r)
     if ((st_clip | en_clip) & live).any():
-        return ("bands that clip run on the band route (targets over 512) "
-                "or the batched engines (ROADMAP item 11)")
+        return "bands that clip"
     return None
 
 
@@ -217,8 +214,7 @@ def strips_extd_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
     q, e, q2, e2, _ = canonical_costs(q, e, q2, e2)
     if e < e2 or min(q, q2) < 0 or min(e, e2) < 1:
         return ("two-piece costs with e < e2 after the swap (or a negative "
-                "q or a zero e) run on the band route (targets over 512) or "
-                "the batched extd engines (ROADMAP item 11)")
+                "q or a zero e)")
     return strips_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop, q, e)
 
 

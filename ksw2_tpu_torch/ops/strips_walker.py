@@ -37,12 +37,13 @@ def strips_cigar_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
                                    q, e) -> Optional[str]:
     """Why a one-piece CIGAR bucket cannot run on the strips route, or
     None.  The envelope of ``strips_walker.strips_cigar_eligible``
-    without its TPU cost model: EQX is refused."""
+    without its TPU cost model: EQX is refused, as there, and the bucket
+    takes the band or batched route, which converts on the host."""
     f = int(flag)
     if f & int(Flag.SCORE_ONLY):
         raise ValueError("CIGAR eligibility is checked in CIGAR mode")
     if f & int(Flag.EQX):
-        return "EQX CIGARs (ROADMAP item 5)"
+        return "EQX CIGARs (strips_walker.py:519-520, 544-545)"
     return strips_ineligible_reason(qlen, tlen, w, f | int(Flag.SCORE_ONLY),
                                     m, mat, zdrop, q, e)
 
@@ -57,7 +58,7 @@ def strips_cigar_extd_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
     if f & int(Flag.SCORE_ONLY):
         raise ValueError("CIGAR eligibility is checked in CIGAR mode")
     if f & int(Flag.EQX):
-        return "EQX CIGARs (ROADMAP item 5)"
+        return "EQX CIGARs (strips_walker.py:519-520, 544-545)"
     return strips_extd_ineligible_reason(qlen, tlen, w,
                                          f | int(Flag.SCORE_ONLY), m, mat,
                                          zdrop, q, e, q2, e2)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 import ksw2_tpu
+import ksw2_tpu.core.cigar
 import refcmp
 from ksw2_tpu.batch.scheduler import AlignJob as JAlignJob
 from ksw2_tpu.batch.scheduler import align_batch as j_align_batch
@@ -31,7 +32,8 @@ MAT = simple_mat(5, 2, 4)
 FIELDS = ("max", "max_t", "max_q", "mqe", "mqe_t", "mte", "mte_q", "score",
           "zdropped")
 LAUNCHERS = ("rows_records", "strips_records", "band_records",
-             "strips_cigar_launch", "band_cigar_launch")
+             "batch_records", "strips_cigar_launch", "band_cigar_launch",
+             "batch_cigar_launch")
 
 
 @pytest.fixture
@@ -127,11 +129,12 @@ def test_band_route_sorts_and_splits_launches(calls, monkeypatch):
     assert [_row(g) for g in h.result()] == [_row(g) for g in whole]
 
 
-def test_out_of_band_envelope_raises():
+def test_out_of_band_envelope_raises(calls):
     q, t = encode_dna("ACGT" * 60), encode_dna("ACGA" * 60)
-    # a clipping band on targets of 512 or less: the batched engines
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Aligner(device="cpu").extend_batch([(q, t)], w=[20])
+    # a clipping band on targets of 512 or less: the batched route
+    got = Aligner(zdrop=100, device="cpu").extend_batch([(q, t)], w=[20])
+    assert calls == ["batch_cigar_launch"]
+    assert _row(got[0]) == _row(_spec(q, t, 20, 100, Flag.NONE, False))
     long_t = encode_dna("ACGT" * 800)
     long_q = encode_dna("ACGT" * 790)
     # w > 1472 (or no band) on a long pair: single-pair engines for
@@ -154,25 +157,30 @@ def test_out_of_band_envelope_raises():
 
 def test_cigars_read_the_raw_w(calls):
     """With w = -1 the score path bands at max(qlen, tlen) and takes the
-    band route for an APPROX bucket; the CIGAR path reads the raw w and
-    refuses an EQX bucket (scheduler.py:229-231, 672)."""
+    band route for an APPROX bucket; the CIGAR path reads the raw w, so
+    the band route refuses an EQX bucket and the batched route takes it
+    at max(qlen, tlen), converting to =/X (scheduler.py:229-231, 672,
+    730)."""
     q, t = encode_dna("AC" * 380), encode_dna("ACGT" * 150)
     flag = Flag.SCORE_ONLY | Flag.APPROX_MAX
     got = Aligner(flag=flag, device="cpu").extend_batch([(q, t)])
     assert calls == ["band_records"]
     assert _row(got[0]) == _row(_spec(q, t, 760, -1, flag, False))
-    with pytest.raises(NotImplementedError,
-                       match="band: bands outside .*ROADMAP item 11"):
-        Aligner(flag=Flag.EQX, device="cpu").extend_batch([(q, t)])
+    calls.clear()
+    got = Aligner(flag=Flag.EQX, device="cpu").extend_batch([(q, t)])
+    assert calls == ["batch_cigar_launch"]
+    want = _spec(q, t, 760, -1, Flag.EQX, False)
+    want.cigar = ksw2_tpu.core.cigar.to_eqx(want.cigar, q, t)
+    assert _row(got[0]) == _row(want)
 
 
 def test_band_ineligible_reason_paths():
     ql, tl = np.array([900]), np.array([1000])
     assert BD.band_ineligible_reason(1024, ql, tl, [751], MAT,
                                      Flag.SCORE_ONLY, cigar=False) is None
-    assert "item 11" in BD.band_ineligible_reason(
+    assert "take the batched route" in BD.band_ineligible_reason(
         512, ql, tl, [751], MAT, Flag.SCORE_ONLY, cigar=False)
-    assert "item 11" in BD.band_ineligible_reason(
+    assert "take the batched route" in BD.band_ineligible_reason(
         1024, ql, tl, [1473], MAT, Flag.SCORE_ONLY, cigar=False)
     assert "item 7" in BD.band_ineligible_reason(
         4096, ql, tl, [0], MAT, Flag.SCORE_ONLY, cigar=False)

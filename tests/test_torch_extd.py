@@ -295,11 +295,13 @@ def _golden_aligner(p):
 
 def test_golden_extd2_cases():
     """In-envelope cases match the reference binary, on the strips route
-    or, when strips refuses them, on the band route; the others raise,
-    except jobs the degenerate-scoring rule resets before routing
-    (pre-swap costs for SCORE_ONLY, post-swap for CIGARs), which match
-    the reference's reset record."""
-    inside = outside = reset = band = 0
+    or, when strips refuses them, on the band route or else the batched
+    route; the others raise, except jobs the degenerate-scoring rule
+    resets before routing (pre-swap costs for SCORE_ONLY, post-swap for
+    CIGARs), which match the reference's reset record."""
+    from ksw2_tpu_torch.ops.batch import batch_ineligible_reason
+
+    inside = outside = reset = band = batch = 0
     for c in _golden_extd():
         p = c["params"]
         ql, tl = len(c["query"]), len(c["target"])
@@ -319,6 +321,10 @@ def test_golden_extd2_cases():
                     Lt, [ql], [tl], [w if p["score_only"] else p["w"]], mat,
                     aln.flag, cigar=not p["score_only"], two=True) is None:
                 band += 1
+            elif batch_ineligible_reason(
+                    Lt, [ql], [tl], mat, aln.flag, p["z"],
+                    cigar=not p["score_only"], two=True) is None:
+                batch += 1
             else:
                 with pytest.raises(NotImplementedError, match="ROADMAP"):
                     aln.extend(c["query"], c["target"])
@@ -330,4 +336,4 @@ def test_golden_extd2_cases():
         if c.get("fields_only"):
             got = got[:4]
         assert got == c["expect"], (p, c["query"], c["target"])
-    assert inside >= 20 and outside >= 10 and reset >= 1 and band >= 1
+    assert inside >= 20 and batch >= 10 and reset >= 1 and band >= 1

@@ -16,6 +16,7 @@ from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.core.matrix import encode_dna, simple_mat
 from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import band_walker as BW
+from ksw2_tpu_torch.ops import batch as BT
 from ksw2_tpu_torch.ops import rows as R
 from ksw2_tpu_torch.ops import strips as S
 from ksw2_tpu_torch.ops import strips_walker as W
@@ -211,6 +212,51 @@ def test_band_walk_kernel_matches_plain(cuda_device, costs, flag):
     for b in range(len(ql)):
         n = int(kres[b, 2])
         assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+def _batch_launch(seed, flag, zdrop, costs=None, mat=MAT):
+    """One batched launch of seeded short pairs (N bases, one clipped
+    query) with w 0, 1, 16, 100 and unbanded on targets up to 1000 (P = 1
+    to 8 rows a pair on the TPU), at O4 E2 or the two-piece ``costs``."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for L in (60, 150, 300, 500, 240, 1000):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        pairs.append((encode_dna(q), encode_dna(t)))
+    pairs[2] = (pairs[2][0][:120], pairs[2][1])
+    w = np.array([0, 1, 16, 100, 600, 1100], np.int32)
+    q, e, q2, e2 = (4, 2, 0, 0) if costs is None else costs
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    (ln,) = BD.band_prep(qs, ts, [len(a) for a in qs], [len(b) for b in ts],
+                         w, 5, mat, q, e, zdrop, flag,
+                         cig=not flag & Flag.SCORE_ONLY,
+                         two=costs is not None, q2=q2, e2=e2)
+    return ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [None] + TWO_PIECE)
+@pytest.mark.parametrize("flag,zdrop", BAND_FORMS)
+def test_batch_forward_kernel_matches_plain(cuda_device, costs, flag, zdrop):
+    """Kernels E / E2 against the plain forward: records and bytes, and
+    the band walker on the kernel's bytes."""
+    mat = GEN if flag & Flag.GENERIC_SC else MAT
+    ln = _batch_launch(62, flag, zdrop, costs, mat)
+    qs, ts, ql, tl, w, tab = BD.band_upload(ln, cuda_device)
+    krec, kp = BT.batch_forward_cuda(qs, ts, ql, tl, w, tab, ln.prm, ln.nd,
+                                     ln.ncol)
+    prec, pp = BD.band_forward_plain(qs, ts, ql, tl, w, tab, ln.prm, ln.nd,
+                                     ln.ncol)
+    assert torch.equal(krec, prec)
+    if ln.prm.cig:
+        assert torch.equal(kp, pp)
+        starts = W.start_cells(krec, ql, tl, flag, 0)
+        kres, kruns = BW.band_walk_cuda(kp, starts, ql, tl, w)
+        pres, pruns = BW.band_walk_plain(kp, starts, ql, tl, w)
+        assert torch.equal(kres, pres)
+        for b in range(len(ql)):
+            n = int(kres[b, 2])
+            assert torch.equal(kruns[b, :n], pruns[b, :n])
 
 
 @pytest.mark.cuda

@@ -147,9 +147,15 @@ def test_scheduler_routes_short_buckets_to_rows(monkeypatch):
     assert [(g.max, g.score) for g in got2[:-1]] == \
         [(g.max, g.score) for g in got]
     # clipping bands are not rows-eligible: strips refuses them too, and
-    # targets of 512 or less are not the band route's
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        aln.extend_batch(short, w=[2] * len(short))
+    # targets of 512 or less take the batched route, not the band route
+    calls.clear()
+    got3 = aln.extend_batch(short, w=[2] * len(short))
+    assert calls == []
+    for (q, t), g in zip(short[:3], got3):
+        ez, _ = diagdiff.extz2(q, t, 5, MAT, 4, 2, w=2, zdrop=100,
+                               flag=Flag.SCORE_ONLY)
+        assert (g.max, g.max_t, g.max_q, g.score, g.zdropped) == \
+            (ez.max, ez.max_t, ez.max_q, ez.score, ez.zdropped)
 
 
 def test_short_pair_pin_matches_spec():

@@ -4,7 +4,7 @@
 configuration by ``convert.aligner_from_jax``, is held against
 ``ksw2_tpu.Aligner.extend_batch`` (the JAX package on CPU, Pallas kernels
 interpreted) on a seeded mixed batch, and against the reference-binary
-golden corpus; jobs outside the one-piece strips envelope must raise
+golden corpus; jobs that no ported route takes must raise
 NotImplementedError.
 """
 import json
@@ -139,23 +139,48 @@ def test_golden_extz2_cases():
         assert got == c["expect"], (c["params"], c["query"], c["target"])
 
 
+def _spec_row(q, t, w, flag, two=False, eqx=False):
+    """The spec's result at A2 B4 O4 E2 (O4,13 E2,1 two-piece), z100;
+    ``eqx`` converts a one-piece CIGAR, as the batched route does."""
+    from ksw2_tpu.core import cigar as jcigar
+    from ksw2_tpu.spec import diagdiff
+
+    mat = simple_mat(5, 2, -4)
+    if two:
+        ez = diagdiff.extd2(q, t, 5, mat, 4, 2, 13, 1, w=w, zdrop=100,
+                            flag=flag)[0]
+    else:
+        ez = diagdiff.extz2(q, t, 5, mat, 4, 2, w=w, zdrop=100, flag=flag)[0]
+    if eqx and ez.cigar:
+        ez.cigar = jcigar.to_eqx(ez.cigar, q, t)
+    return _row(ez)
+
+
 def test_out_of_envelope_raises():
+    """Buckets no ported route takes raise, naming their ROADMAP item;
+    the short clipping, APPROX, EQX and two-piece end_bonus buckets that
+    raised before the batched route now run and match the spec."""
     q, t = encode_dna("ACGT" * 8), encode_dna("ACGA" * 8)
-    aln = Aligner(device="cpu")
+    aln = Aligner(zdrop=100, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         aln.extend_batch([(q, encode_dna("A" * 3073))])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        aln.extend_batch([(q, t)], w=[2])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Aligner(flag=Flag.APPROX_MAX | Flag.SCORE_ONLY,
-                device="cpu").extend_batch([(q, t)])
-    with pytest.raises(NotImplementedError, match="EQX"):
-        Aligner(flag=Flag.EQX, device="cpu").extend_batch([(q, t)])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        Aligner(flag=Flag.SCORE_ONLY, device="cpu").extend_batch(
+            [(q, encode_dna("A" * 3073))])
+    assert _row(aln.extend_batch([(q, t)], w=[2])[0]) == \
+        _spec_row(q, t, 2, Flag.NONE)
+    flag = Flag.APPROX_MAX | Flag.SCORE_ONLY
+    assert _row(Aligner(zdrop=100, flag=flag, device="cpu").extend_batch(
+        [(q, t)])[0]) == _spec_row(q, t, 32, flag)
+    assert _row(Aligner(zdrop=100, flag=Flag.EQX, device="cpu").extend(
+        q, t)) == _spec_row(q, t, 32, Flag.EQX, eqx=True)
     with pytest.raises(ValueError, match="both q2 and e2"):
         Aligner(q2=24, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Aligner(q2=24, e2=1, end_bonus=5, flag=Flag.SCORE_ONLY,
-                device="cpu").extend_batch([(q, t)])
+    bonus = Aligner(q2=24, e2=1, zdrop=100, end_bonus=5, flag=Flag.SCORE_ONLY,
+                    device="cpu").extend_batch([(q, t)])
+    plain = Aligner(q2=24, e2=1, zdrop=100, flag=Flag.SCORE_ONLY,
+                    device="cpu").extend_batch([(q, t)])
+    assert _row(bonus[0]) == _row(plain[0])
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         Aligner(splice=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -168,15 +193,20 @@ def test_out_of_envelope_raises():
 
 def test_two_piece_out_of_envelope_raises():
     q, t = encode_dna("ACGT" * 8), encode_dna("ACGA" * 8)
-    # e < e2 after the swap: the chains do not decouple
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Aligner(q=4, e=1, q2=13, e2=2, device="cpu").extend_batch([(q, t)])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    # e < e2 after the swap: the strips chains do not decouple, and the
+    # batched route takes the bucket
+    got = Aligner(q=4, e=1, q2=13, e2=2, zdrop=100,
+                  device="cpu").extend_batch([(q, t)])
+    from ksw2_tpu.spec import diagdiff
+    ez = diagdiff.extd2(q, t, 5, simple_mat(5, 2, -4), 4, 1, 13, 2, w=32,
+                        zdrop=100)[0]
+    assert _row(got[0]) == _row(ez)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         Aligner(q2=13, e2=1, flag=Flag.SCORE_ONLY | Flag.EXTZ_ONLY,
                 device="cpu").extend_batch([(q, t)])
-    with pytest.raises(NotImplementedError, match="EQX"):
-        Aligner(q2=13, e2=1, flag=Flag.EQX,
-                device="cpu").extend_batch([(q, t)])
+    assert _row(Aligner(q2=13, e2=1, zdrop=100, flag=Flag.EQX,
+                        device="cpu").extend(q, t)) == \
+        _spec_row(q, t, 32, Flag.EQX, two=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         Aligner(q2=13, e2=1, device="cpu").extend_batch(
             [(q, encode_dna("A" * 3073))])
