@@ -28,6 +28,13 @@ Phases, each printing one JSON line:
    zdrop -1/100, RIGHT, GENERIC_SC, default and swapped two-piece costs,
    and on the launches the scheduler makes of the short-banded workload
    (below); kernel D on their bytes;
+5d. splice: kernel A's spl form (score and CIG) with kernel B's nop
+   form on its bytes, and kernel 6 (batched exts forward, one warp a
+   pair; score, CIG and APPROX) with kernel D walking its bytes with
+   min_intron, against their plain versions exactly, on seeded spliced
+   pairs of 30-1500 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
+   tracks) and on the one launch of each form the scheduler makes of the
+   splice workload (below);
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -41,7 +48,13 @@ Phases, each printing one JSON line:
    seeded short-banded workload (seed 780, 4096 pairs of 150-512 bp at
    -w100 -z100: extz, extd and approx scores, extz and extd CIGARs; EQX
    CIGARs and two-piece end_bonus scores on the mixed workload's pairs
-   of 1536 bp or less; only kernels E, E2 and D may launch).  Each
+   of 1536 bp or less; only kernels E, E2 and D may launch), and the
+   splice path on the JAX bench's spliced workload (seed 1234, 256 pairs
+   of 290 x 512 bp with a GT..AG intron, tiled 4x; minimap2 -x splice
+   costs A1 B2 -O2,32 -E1,0 -C9 -z200): CIGARs, scores and 4 async
+   handles on the strips route (only kernels A and B may launch), and
+   the same pairs annotated (a junction track at the intron, junc_bonus
+   9) on the batched exts route (only kernels 6 and D).  Each
    anchor or spec pin is asserted, each path must have launched its
    kernels, and sampled pairs are held against the port's plain CPU
    route;
@@ -49,7 +62,7 @@ Phases, each printing one JSON line:
    events; the batched kernels on the main path's own launches of the
    short-banded workload) beside its bound, the main paths' walls and
    Gcells/s (band cells on the band and batched routes), and a profile
-   of the long- and short-banded batches.
+   of the long-banded, short-banded and splice batches.
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
@@ -110,6 +123,25 @@ BATCH_PINS = {
 }
 END_BONUS = 10
 
+# the spliced workload (splice_jobs(), the JAX bench's 256 pairs tiled 4x)
+# at minimap2 -x splice costs: A1 B2 -O2,32 -E1,0 -C9 -z200, SPLICE_FOR
+SPLICE = (2, 1, 32, 9)        # q, e, q2 (intron open), noncan
+SPLICE_ZDROP = 200
+SPLICE_TILES = 4
+# (sum of max, CIGAR ops) of the 256 pairs: the spec exts2 checksum that
+# bench/regen_checksums.py holds (the spec is byte-validated against the
+# reference binary)
+SPLICE_ANCHOR = (47059, 1431)
+SPLICE_JUNC_BONUS = 9         # minimap2's --junc-bonus
+SPLICE_PREFIX = 16
+# the annotated run's pins (each pair with splice_junc(), junc_bonus 9),
+# computed with the spec exts2: name -> (the 256 pairs', the first
+# SPLICE_PREFIX pairs'); tests/test_torch_splice_pins.py recomputes them
+SPLICE_PINS = {
+    "splice_junc_cigar": ((51667, 1431), (3202, 87)),
+    "splice_junc_score": (51667, 3202),
+}
+
 EXTD = (4, 2, 13, 1)          # minimap2's -O4,13 -E2,1: no swap
 SWAPPED = (24, 1, 4, 2)       # swaps the pieces: off0 = -19
 
@@ -127,17 +159,36 @@ BAND_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_band_extd.py:60"
 BAND_WALK_REPLACES = "ksw2_tpu/ops/traceback_band.py:56"
 BATCH_REPLACES = "ksw2_tpu/ops/wavefront_batch.py:108"
 BATCH_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_batch_extd.py:56"
+BATCH_EXTS_SRC = "ksw2_tpu_torch/csrc/batch_exts_fwd.cu"
+BATCH_EXTS_REPLACES = "ksw2_tpu/ops/wavefront_batch_exts.py:55"
 
 # integer operations per cell (per step for the walkers) that the
-# function needs: one cell's update of the recurrence, its direction byte
-# and its share of the argmax, not a kernel's own overhead (its score
-# fill, neighbour shuffles or state loads); the bound of a kernel is the
+# function needs: one cell's update of the recurrence and its share of
+# the argmax (OPS), and, only where a forward writes direction bytes, the
+# cell's byte (BYTE_OPS: a code's compare and select 2, a bit's compare,
+# shift and or 3, the store 1); not a kernel's own overhead (its score
+# fill, neighbour shuffles or state loads).  The bound of a kernel is the
 # larger of ops / the card's int32 rate and bytes / HBM rate.  The band
 # and batched forwards compute the same anti-diagonal recurrence (one
 # plain version serves both), so they share one count a cell.
-OPS = {"strips_fwd": 33, "strips_walk": 15, "rows_fwd": 25,
-       "band_fwd": 45, "band_extd_fwd": 65, "band_walk": 20}
+OPS = {"strips_fwd": 22, "strips_walk": 15, "rows_fwd": 25,
+       "band_fwd": 34, "band_extd_fwd": 44, "band_walk": 20}
+# codes 1-2 and bits 0x08 / 0x10 one-piece; codes 1-4 and four bits
+# two-piece
+BYTE_OPS = {"strips_fwd": 2 * 2 + 2 * 3 + 1, "band_fwd": 2 * 2 + 2 * 3 + 1,
+            "band_extd_fwd": 4 * 2 + 4 * 3 + 1}
 OPS["batch_fwd"], OPS["batch_extd_fwd"] = OPS["band_fwd"], OPS["band_extd_fwd"]
+BYTE_OPS["batch_fwd"] = BYTE_OPS["band_fwd"]
+BYTE_OPS["batch_extd_fwd"] = BYTE_OPS["band_extd_fwd"]
+# splice: strips_fwd's less the clamp (1) plus the intron state: cand3 =
+# NI + acceptor and its max into H (2), NI' = max(NI, H + donor - q2)
+# (3); the exts diagonals: band_fwd's plus the intron delta: a2 = x2 + v
+# and a2 + acceptor (2), its max into z (1), a2' = a2 - (z - q2) (2),
+# x2' = max(a2', donor) - q2 (2).  Their bytes add code 3 and bit 0x20.
+OPS["strips_spl_fwd"] = OPS["strips_fwd"] - 1 + 5
+OPS["batch_exts_fwd"] = OPS["band_fwd"] + 7
+BYTE_OPS["strips_spl_fwd"] = BYTE_OPS["strips_fwd"] + 2 + 3
+BYTE_OPS["batch_exts_fwd"] = BYTE_OPS["band_fwd"] + 2 + 3
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 
 
@@ -225,6 +276,51 @@ def short_banded_jobs(seed: int = 780, n: int = 4096):
         t, q = random_pair(rng, int(L), divergence=0.15, indel=0.06)
         jobs.append((encode_dna(q), encode_dna(t)))
     return jobs
+
+
+def spliced_pair(rng: np.random.Generator, tlen: int, with_n: bool = False):
+    """A (query, target) nt4 pair with one GT..AG intron: a random
+    target with a donor GT and an acceptor AG, and as query the two
+    flanking exons with 5% substitutions (and 1% N bases)."""
+    t = rng.integers(0, 4, tlen).astype(np.uint8)
+    a = int(rng.integers(tlen // 5, tlen // 2))
+    b = min(int(rng.integers(a + 20, max(a + 21, tlen - tlen // 5))),
+            tlen - 2)
+    t[a:a + 2] = (2, 3)
+    t[b - 1:b + 1] = (0, 2)
+    s = int(rng.integers(0, max(1, a // 4)))
+    q = np.concatenate([t[s:a], t[b + 1:]])
+    mut = rng.random(q.shape) < 0.05
+    q = np.where(mut, (q + rng.integers(1, 4, q.shape)) % 4, q)
+    if with_n:
+        q = np.where(rng.random(q.shape) < 0.01, 4, q)
+    return q.astype(np.uint8), t
+
+
+def splice_jobs(seed: int = 1234, n: int = 256):
+    """The JAX bench's spliced workload (``bench/suite.py:757-776``):
+    ``n`` two-exon reads of ~290 bp against 512 bp genomic windows with a
+    canonical GT..AG intron at 200..349, 5% substitutions."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for _ in range(n):
+        tt = rng.integers(0, 4, 512).astype(np.int32)
+        tt[200:202] = (2, 3)
+        tt[348:350] = (0, 2)
+        qq = np.concatenate([tt[40:200], tt[350:480]])
+        mut = rng.random(qq.shape) < 0.05
+        qq = np.where(mut, (qq + rng.integers(1, 4, qq.shape)) % 4, qq)
+        jobs.append((qq.astype(np.uint8), tt.astype(np.uint8)))
+    return jobs
+
+
+def splice_junc(tlen: int = 512):
+    """The annotated run's junction track (``--junc-bed``): the forward
+    donor bit at t = 200 and the acceptor bit at t = 349."""
+    j = np.zeros(tlen, np.uint8)
+    j[200] = 1
+    j[349] = 2
+    return j
 
 
 def merge_eqx(cigar):
@@ -773,6 +869,200 @@ def phase_batch(cases):
     return worst
 
 
+def splice_aligner(flag, junc_bonus=0):
+    """An Aligner at minimap2 -x splice costs (A1 B2 -O2,32 -E1,0 -C9
+    -z200)."""
+    from ksw2_tpu_torch import Aligner
+
+    q, e, q2, noncan = SPLICE
+    return Aligner(a=1, b=2, q=q, e=e, q2=q2, splice=True, noncan=noncan,
+                   junc_bonus=junc_bonus, zdrop=SPLICE_ZDROP, flag=flag)
+
+
+def splice_launches(pairs, flag, juncs=None, junc_bonus=0, zdrop=None,
+                    mat=None):
+    """The launches the scheduler makes of ``pairs`` at -x splice costs
+    (or ``zdrop`` / ``mat``): ``scheduler.plan_splice``'s, as
+    ``align_batch_splice_async`` enqueues them.  Returns (route, launch)
+    pairs, route "strips" or "batch"."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+
+    mat = simple_mat(5, 1, 2) if mat is None else mat
+    zdrop = SPLICE_ZDROP if zdrop is None else zdrop
+    q, e, q2, noncan = SPLICE
+    jobs = [sched.AlignJob(a, b) for a, b in pairs]
+    plan = sched.plan_splice(jobs, 5, np.asarray(mat, np.int8).reshape(-1),
+                             q, e, q2, noncan, zdrop, junc_bonus,
+                             Flag(int(flag)), juncs, [None] * len(jobs))
+    return [(route, ln) for _, route, lns in plan for ln in lns]
+
+
+def splice_cases(spl):
+    """(name, route, launch) cases for the splice kernels: the strips
+    forward's spl form (and the nop walker on its bytes) and kernel 6
+    (and the band walker with min_intron on its bytes) on seeded spliced
+    pairs of 30-1500 bp (N bases, edge shapes) in score, CIG and APPROX
+    forms, zdrop -1/30/100/200, RIGHT, SPLICE_REV with SPLICE_FLANK,
+    GENERIC_SC and junction tracks with junc_bonus 9; and the one launch
+    of each form the scheduler makes of the 1024-pair splice workload,
+    unannotated (strips) and annotated (kernel 6)."""
+    from ksw2_tpu_torch.core.flags import Flag
+
+    rng = np.random.default_rng(11)
+    small = [spliced_pair(rng, L, with_n=True)
+             for L in (30, 120, 512, 700, 1500)]
+    small += [(rng.integers(0, 5, ql).astype(np.uint8),
+               rng.integers(0, 5, tl).astype(np.uint8))
+              for ql, tl in ((1, 1), (1, 129), (129, 1), (128, 129))]
+    tracks = []
+    for _, t in small:
+        j = np.zeros(len(t), np.uint8)
+        j[len(t) // 3], j[2 * len(t) // 3] = 1, 2
+        tracks.append(j)
+    SPL, SO = Flag.SPLICE_FOR, Flag.SCORE_ONLY
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    gen = _generic_mat()
+    forms = [
+        ("score_z200", SPL | SO, 200, False, None),
+        ("cig_z200", SPL, 200, False, None),
+        ("cig_right_zm1", SPL | Flag.RIGHT, -1, False, None),
+        ("rev_flank_cig_z30", Flag.SPLICE_REV | Flag.SPLICE_FLANK, 30, False,
+         None),
+        ("generic_cig_z200", SPL | Flag.GENERIC_SC, 200, False, gen),
+        ("junc_cig_z200", SPL, 200, True, None),
+        ("junc_score_right_zm1", SPL | SO | Flag.RIGHT, -1, True, None),
+        ("approx_score_zm1", SPL | SO | Flag.APPROX_MAX, -1, False, None),
+        ("approxdrop_cig_z100", SPL | approx, 100, False, None),
+    ]
+    cases = []
+    for name, flag, zdrop, junc, mat in forms:
+        for route, ln in splice_launches(small, flag, tracks if junc else
+                                         None, SPLICE_JUNC_BONUS if junc
+                                         else 0, zdrop, mat):
+            k = sum(1 for c in cases if c[0].startswith(f"small_{name}"))
+            cases.append((f"small_{name}_{k}", route, ln))
+    # kernel 6 on the same pairs with empty tracks (no bonus), which the
+    # strips route declines
+    empty = [np.zeros(len(t), np.uint8) for _, t in small]
+    for name, flag, zdrop, mat in (("x_cig_z200", SPL, 200, None),
+                                   ("x_score_rev_z30",
+                                    Flag.SPLICE_REV | SO, 30, None),
+                                   ("x_generic_cig_right_z200",
+                                    SPL | Flag.GENERIC_SC | Flag.RIGHT, 200,
+                                    gen)):
+        for k, (route, ln) in enumerate(splice_launches(
+                small, flag, empty, 0, zdrop, mat)):
+            cases.append((f"small_{name}_{k}", route, ln))
+    spl4 = spl * SPLICE_TILES
+    junc = [splice_junc()] * len(spl4)
+    for name, flag, tr in (("main_cig", SPL, None), ("main_score", SPL | SO,
+                                                     None),
+                           ("main_junc_cig", SPL, junc),
+                           ("main_junc_score", SPL | SO, junc)):
+        lns = splice_launches(spl4, flag, tr,
+                              SPLICE_JUNC_BONUS if tr else 0)
+        assert len(lns) == 1, name
+        cases.append((name, *lns[0]))
+    return cases
+
+
+def phase_splice(cases):
+    """The splice kernels against their plain versions, exactly: the
+    strips forward's spl form (D, Dq, hl, records, bytes) and the nop
+    walker on its bytes; kernel 6 (records, bytes) and the band walker
+    with min_intron = long_thres on its bytes (the first 256 pairs of a
+    launch for the walkers' plain versions)."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch_exts as BE
+    from ksw2_tpu_torch.ops import strips as S
+    from ksw2_tpu_torch.ops import strips_walker as W
+
+    worst = {"strips_fwd": 0, "strips_walk": 0, "batch_exts_fwd": 0,
+             "band_walk": 0}
+    out = {}
+    for name, route, ln in cases:
+        errs = {}
+        if route == "strips":
+            qs, ts, ql, tl, tab = S.upload(ln, "cuda")
+            sites = S.site_rows(ln, "cuda")
+            kd = S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm, sites)
+            pd = plain_run((name, "fwd"), S.strips_forward_plain, qs, ts,
+                           ql, tl, tab, ln.prm, sites)
+            errs = {k: _max_err(a, b)
+                    for k, a, b in zip(("D", "Dq", "hl"), kd[:3], pd[:3])}
+            rec = S.replay_records(ln.prm, *kd[:3], ql, tl)
+            errs["records"] = _max_err(
+                rec, S.replay_records(ln.prm, *pd[:3], ql, tl))
+            if ln.prm.cig:
+                ii = torch.arange(ln.prm.tv, device="cuda")[None, :, None]
+                jj = torch.arange(qs.shape[1], device="cuda")[None, None, :]
+                live = (ii < tl[:, None, None]) & (jj < ql[:, None, None])
+                diff = (kd[3].int() - pd[3].int()).abs()
+                errs["d8"] = int(torch.where(live, diff, 0).max())
+                del pd, diff, live
+                n = min(256, len(ln.qlen))
+                starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)[:n]
+                d8 = kd[3][:n].contiguous()
+                mi = W.walk_min_intron(ln.prm.lt, ln.prm.spl)
+                kres, kruns = W.strips_walk_cuda(d8, starts, mi)
+                pres, pruns = plain_run((name, "walk"), W.strips_walk_plain,
+                                        d8, starts, mi)
+                werr = _max_err(kres, pres)
+                for b in range(n):
+                    k = int(kres[b, 2])
+                    werr = max(werr, _max_err(kruns[b, :k], pruns[b, :k]))
+                errs["walk"] = werr
+                worst["strips_walk"] = max(worst["strips_walk"], werr)
+            worst["strips_fwd"] = max(worst["strips_fwd"],
+                                      *(v for k, v in errs.items()
+                                        if k != "walk"))
+            out[name] = {"route": route, "pairs": int(qs.shape[0]),
+                         "Lq": int(qs.shape[1]), "tv": ln.prm.tv,
+                         "lt": ln.prm.lt, "max_abs_err": errs}
+        else:
+            args = BD.band_upload(ln, "cuda")
+            _, _, ql, tl, w = args[:5]
+            krec, kp = BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd,
+                                                  ln.ncol)
+            prec, pp = plain_run((name, "fwd"), BE.batch_exts_forward_plain,
+                                 *args, ln.prm, ln.nd, ln.ncol)
+            errs["records"] = _max_err(krec, prec)
+            if ln.prm.cig:
+                errs["bytes"] = _max_err(kp, pp)
+                del pp
+                n = min(256, len(ln.qlen))
+                starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)[:n]
+                sub = (kp[:n].contiguous(), starts, ql[:n], tl[:n], w[:n],
+                       W.walk_min_intron(ln.prm.lt, True))
+                kres, kruns = BW.band_walk_cuda(*sub)
+                pres, pruns = plain_run((name, "walk"), BW.band_walk_plain,
+                                        *sub)
+                werr = _max_err(kres, pres)
+                for b in range(n):
+                    k = int(kres[b, 2])
+                    werr = max(werr, _max_err(kruns[b, :k], pruns[b, :k]))
+                errs["walk"] = werr
+                worst["band_walk"] = max(worst["band_walk"], werr)
+                del kp
+            worst["batch_exts_fwd"] = max(worst["batch_exts_fwd"],
+                                          errs["records"],
+                                          errs.get("bytes", 0))
+            out[name] = {"route": route, "pairs": len(ln.qlen),
+                         "nd": ln.nd, "ncol": ln.ncol,
+                         "Lt": int(ln.target.shape[1]), "lt": ln.prm.lt,
+                         "max_abs_err": errs}
+        torch.cuda.empty_cache()
+        if any(errs.values()):
+            emit({"phase": "splice", "case": name, "FAIL": errs})
+            raise AssertionError(f"the splice kernels differ on {name}")
+    emit({"phase": "splice", "max_abs_err": worst, "cases": out})
+    return worst
+
+
 def _cells(pairs):
     return sum(len(q) * len(t) for q, t in pairs)
 
@@ -801,18 +1091,18 @@ def _got(out, kind):
 
 
 def run(name, fn, pairs, anchor, kind="score", aln=None, batches=1,
-        cells=None, prefix=None, sample=None):
+        cells=None, prefix=None, sample=None, juncs=None):
     """One run of a main path: ``kind`` "score" sums max, "stream" gives
     a list of per-batch sums, "cigar" gives [sum max, CIGAR ops], a
     callable gives what it returns for the results;
     ``prefix`` = (n, anchor) also pins the first n results; a run with an
     ``aln`` has the pairs ``sample`` (8 random ones by default, none for
     ``[]``) held against the CPU route; ``cells`` (qlen x tlen by default) feed
-    Gcells/s."""
+    Gcells/s; ``juncs`` are the pairs' junction tracks (splice)."""
     return dict(name=name, fn=fn, pairs=pairs, anchor=anchor, kind=kind,
                 aln=aln, batches=batches,
                 cells=_cells(pairs) if cells is None else cells,
-                prefix=prefix, sample=sample)
+                prefix=prefix, sample=sample, juncs=juncs)
 
 
 def _path(path, runs_spec, needs, never=()):
@@ -830,7 +1120,8 @@ def _path(path, runs_spec, needs, never=()):
         out, w0, walls = _timed(rs["fn"])
         got = _got(out, rs["kind"])
         if rs["aln"] is not None:
-            results[rs["name"]] = (rs["pairs"], out, rs["aln"], rs["sample"])
+            results[rs["name"]] = (rs["pairs"], out, rs["aln"], rs["sample"],
+                                   rs["juncs"])
         med = float(np.median(walls))
         row = {"got": got, "anchor": rs["anchor"],
                "pairs": rs["batches"] * len(rs["pairs"]), "first_wall_s": w0,
@@ -840,7 +1131,7 @@ def _path(path, runs_spec, needs, never=()):
         if rs["aln"] is not None and rs["kind"] != "stream":
             # host submit against the wait in result(), one more call
             t0 = time.perf_counter()
-            h = rs["aln"].extend_batch_async(rs["pairs"])
+            h = rs["aln"].extend_batch_async(rs["pairs"], juncs=rs["juncs"])
             t1 = time.perf_counter()
             h.result()
             row["submit_ms"] = (t1 - t0) * 1e3
@@ -879,7 +1170,7 @@ def _eqx_merged(out):
             sum(1 for ez in out for c in ez.cigar if c & 0xF == 0)]
 
 
-def phase_main_path(jobs, short, long, sb):
+def phase_main_path(jobs, short, long, sb, spl):
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
 
@@ -956,7 +1247,47 @@ def phase_main_path(jobs, short, long, sb):
                    list(full) if cig else full, kind, aln,
                    cells=band_cells(sb, SW),
                    prefix=(SHORT_BANDED_PREFIX, list(pre) if cig else pre))
+    # the splice path on the 1024-pair workload at -x splice costs:
+    # unannotated on the strips route (the bench's anchor, CIGARs, scores
+    # and 4 async handles in flight), annotated (every pair with its
+    # junction track, junc_bonus 9) on the batched exts route (spec pins)
+    T, SPL, SO = SPLICE_TILES, Flag.SPLICE_FOR, Flag.SCORE_ONLY
+    spl4 = spl * T
+    junc4 = [splice_junc()] * len(spl4)
+    s_cig, s_score = splice_aligner(SPL), splice_aligner(SPL | SO)
+    j_cig = splice_aligner(SPL, SPLICE_JUNC_BONUS)
+    j_score = splice_aligner(SPL | SO, SPLICE_JUNC_BONUS)
+    s_anchor = [T * SPLICE_ANCHOR[0], T * SPLICE_ANCHOR[1]]
+    (jc_full, jc_pre), (js_full, js_pre) = (SPLICE_PINS["splice_junc_cigar"],
+                                            SPLICE_PINS["splice_junc_score"])
+
+    def stream4():
+        hs = [s_cig.extend_batch_async(spl4) for _ in range(4)]
+        return [_got(h.result(), "cigar") for h in hs]
+    not_splice = ("rows_fwd", "band_fwd", "band_extd_fwd", "batch_fwd",
+                  "batch_extd_fwd")
     paths = [
+        ("splice", [
+            run("splice1024_cigar", lambda: s_cig.extend_batch(spl4), spl4,
+                s_anchor, "cigar", s_cig,
+                prefix=(len(spl), list(SPLICE_ANCHOR))),
+            run("splice1024_score", lambda: s_score.extend_batch(spl4), spl4,
+                T * SPLICE_ANCHOR[0], aln=s_score),
+            run("stream4_splice1024_cigar", stream4, spl4, [s_anchor] * 4,
+                "stream", batches=4)],
+         ("strips_fwd", "strips_walk"),
+         not_splice + ("batch_exts_fwd", "band_walk")),
+        ("splice_annotated", [
+            run("splice1024_junc_cigar",
+                lambda: j_cig.extend_batch(spl4, juncs=junc4), spl4,
+                [T * jc_full[0], T * jc_full[1]], "cigar", j_cig,
+                prefix=(SPLICE_PREFIX, list(jc_pre)), juncs=junc4),
+            run("splice1024_junc_score",
+                lambda: j_score.extend_batch(spl4, juncs=junc4), spl4,
+                T * js_full, aln=j_score, prefix=(SPLICE_PREFIX, js_pre),
+                juncs=junc4)],
+         ("batch_exts_fwd", "band_walk"),
+         not_splice + ("strips_fwd", "strips_walk")),
         ("extz", [
             run("mixed512_score", lambda: scorer.extend_batch(jobs), jobs,
                 MIXED_SCORE, aln=scorer),
@@ -1022,15 +1353,19 @@ def phase_main_path(jobs, short, long, sb):
     # test suite holds against the JAX package and the NumPy spec)
     rng = np.random.default_rng(16)
     checked = 0
-    for name, (pairs, ezs, aln, sample) in results.items():
-        cpu = Aligner(a=2, b=4, q=aln.q, e=aln.e, q2=aln.q2, e2=aln.e2,
-                      w=aln.w, zdrop=aln.zdrop, end_bonus=aln.end_bonus,
-                      flag=aln.flag, device="cpu")
+    for name, (pairs, ezs, aln, sample, juncs) in results.items():
+        cpu = Aligner(q=aln.q, e=aln.e, q2=aln.q2, e2=aln.e2, w=aln.w,
+                      zdrop=aln.zdrop, end_bonus=aln.end_bonus,
+                      flag=aln.flag, m=aln.m, mat=aln.mat,
+                      splice=aln.splice, noncan=aln.noncan,
+                      junc_bonus=aln.junc_bonus, device="cpu")
         idx = sample if sample is not None else \
             rng.choice(len(pairs), min(8, len(pairs)), replace=False)
         if len(idx) == 0:
             continue
-        ref = cpu.extend_batch([pairs[i] for i in idx])
+        ref = cpu.extend_batch([pairs[i] for i in idx],
+                               juncs=None if juncs is None else
+                               [juncs[i] for i in idx])
         for i, r in zip(idx, ref):
             g = ezs[i]
             a = (g.max, g.max_t, g.max_q, g.mqe, g.mqe_t, g.mte, g.mte_q,
@@ -1047,10 +1382,11 @@ def phase_main_path(jobs, short, long, sb):
     return counts, runs
 
 
-def phase_profile(long, sb):
+def phase_profile(long, sb, spl):
     """Device time by kernel over one score batch and one CIGAR batch of
     the long-banded (-w751 -z400) and of the short-banded (-w100 -z100)
-    workloads (torch.profiler), beside the batch's host wall."""
+    workloads, and one CIGAR batch of the splice workload unannotated and
+    annotated (torch.profiler), beside the batch's host wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1065,13 +1401,19 @@ def phase_profile(long, sb):
             ("short_banded_score", Aligner(w=SHORT_BANDED_W, zdrop=100,
                                            flag=Flag.SCORE_ONLY), sb),
             ("short_banded_cigar", Aligner(w=SHORT_BANDED_W, zdrop=100),
-             sb)):
-        aln.extend_batch(pairs)
+             sb),
+            ("splice_cigar", splice_aligner(Flag.SPLICE_FOR),
+             spl * SPLICE_TILES),
+            ("splice_junc_cigar", splice_aligner(Flag.SPLICE_FOR,
+                                                 SPLICE_JUNC_BONUS),
+             spl * SPLICE_TILES)):
+        juncs = [splice_junc()] * len(pairs) if "junc" in name else None
+        aln.extend_batch(pairs, juncs=juncs)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            aln.extend_batch(pairs)
+            aln.extend_batch(pairs, juncs=juncs)
             wall = time.perf_counter() - t0
         rows = {}
         for ev in prof.key_averages():
@@ -1087,10 +1429,12 @@ def phase_profile(long, sb):
     return out
 
 
-def bound(name, ops_units, nbytes, int_rate):
+def bound(name, ops_units, nbytes, int_rate, cig=False):
     """(bound_ms, bound_by): the larger of the operations over the card's
-    int32 rate and the bytes over its memory rate."""
-    t_ops = OPS[name] * ops_units / int_rate * 1e3
+    int32 rate and the bytes over its memory rate; ``cig`` counts the
+    direction byte of a forward that writes bytes."""
+    ops = OPS[name] + (BYTE_OPS.get(name, 0) if cig else 0)
+    t_ops = ops * ops_units / int_rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1123,7 +1467,120 @@ def band_work(ln, rec):
     return cells, nbytes
 
 
-def phase_times(cases, rcases, long, sb, int_rate):
+def exts_work(ln, rec):
+    """(cells, bytes) of one batched exts forward on this run's data: the
+    matrix cells of the diagonals each pair computed (a pair that
+    Z-dropped counts to its best cell's diagonal, a lower bound) and the
+    bytes read and written once: query, target, donor and acceptor rows,
+    the records and the stored direction rows."""
+    rec = rec.cpu().numpy()
+    cells = nbytes = 0
+    for b in range(len(ln.qlen)):
+        ql, tl = int(ln.qlen[b]), int(ln.tlen[b])
+        stop = ql + tl - 1
+        if rec[b, 8] and rec[b, 1] >= 0:
+            stop = min(stop, int(rec[b, 1] + rec[b, 2]) + 1)
+        r = np.arange(stop)
+        cells += int((np.minimum(tl - 1, r) - np.maximum(0, r - ql + 1)
+                      + 1).sum())
+        nbytes += ql + 3 * tl + 36 + (stop * ln.ncol if ln.prm.cig else 0)
+    return cells, nbytes
+
+
+def splice_times(scases, int_rate):
+    """The splice kernels at the main path's shape: the one launch of each
+    form the scheduler makes of the 1024-pair workload (strips spl
+    forward and nop walker unannotated, kernel 6 and the band walker with
+    min_intron annotated) beside their bounds and the plain versions'
+    times from phase 5d (the walkers' on a launch's first 256 pairs,
+    where the kernel is timed on the same 256)."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch_exts as BE
+    from ksw2_tpu_torch.ops import strips as S
+    from ksw2_tpu_torch.ops import strips_walker as W
+
+    out = {}
+    for name, route, ln in scases:
+        if not name.startswith("main"):
+            continue
+        row = {"route": route, "pairs": len(ln.qlen)}
+        if route == "strips":
+            qs, ts, ql, tl, tab = S.upload(ln, "cuda")
+            sites = S.site_rows(ln, "cuda")
+            B, Lq = qs.shape
+            tv = ln.prm.tv
+            row.update(kernel="strips_fwd (spl)", Lq=int(Lq), tv=tv)
+
+            def fwd():
+                return S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm,
+                                             sites)
+            row["fwd_ms"] = cuda_ms(fwd, 5)
+            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+            row["cells"] = int((ql.long() * tl.long()).sum())
+            nbytes = B * (Lq + tv + 8 + 4 * Lq + 8 * (Lq + tv) + 4 * tv
+                          + (tv * Lq if ln.prm.cig else 0))
+            row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+                "strips_spl_fwd", row["cells"], nbytes, int_rate,
+                ln.prm.cig)
+            if ln.prm.cig:
+                D, Dq, hl, d8 = fwd()
+                rec = S.replay_records(ln.prm, D, Dq, hl, ql, tl)
+                n = min(256, B)
+                starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)[:n]
+                d8 = d8[:n].contiguous()
+                mi = W.walk_min_intron(ln.prm.lt, ln.prm.spl)
+                row["walk_pairs"] = n
+                row["walk_ms"] = cuda_ms(
+                    lambda: W.strips_walk_cuda(d8, starts, mi), 5)
+                row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
+                steps = _walk_steps(*W.strips_walk_cuda(d8, starts, mi))
+                row["walk_steps"] = steps
+                row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                    "strips_walk", steps, steps + 4 * steps + 20 * n,
+                    int_rate)
+                del d8, D, Dq, hl
+        else:
+            args = BD.band_upload(ln, "cuda")
+            _, _, ql, tl, w = args[:5]
+            row.update(kernel="batch_exts_fwd", nd=ln.nd, ncol=ln.ncol,
+                       Lt=int(ln.target.shape[1]))
+
+            def fwd():
+                return BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd,
+                                                  ln.ncol)
+            row["fwd_ms"] = cuda_ms(fwd, 5)
+            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+            rec, p = fwd()
+            cells, nbytes = exts_work(ln, rec)
+            row["computed_cells"] = cells
+            row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+                "batch_exts_fwd", cells, nbytes, int_rate, ln.prm.cig)
+            if ln.prm.cig:
+                n = min(256, len(ln.qlen))
+                sub = (p[:n].contiguous(),
+                       W.start_cells(rec, ql, tl, ln.prm.flag, 0)[:n],
+                       ql[:n], tl[:n], w[:n],
+                       W.walk_min_intron(ln.prm.lt, True))
+                row["walk_pairs"] = n
+                row["walk_ms"] = cuda_ms(lambda: BW.band_walk_cuda(*sub), 5)
+                row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
+                steps = _walk_steps(*BW.band_walk_cuda(*sub))
+                row["walk_steps"] = steps
+                row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                    "band_walk", steps, steps + 4 * steps + 20 * n,
+                    int_rate)
+                del sub
+            del p
+        row["fwd_gcells_per_s"] = row.get("cells", row.get(
+            "computed_cells")) / row["fwd_ms"] / 1e6
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_times(cases, rcases, long, sb, scases, int_rate):
     import torch
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import simple_mat
@@ -1147,7 +1604,7 @@ def phase_times(cases, rcases, long, sb, int_rate):
         nbytes = B * (Lq + ln.prm.tv + 8 + 4 * Lq + 8 * (Lq + ln.prm.tv)
                       + (ln.prm.tv * Lq if ln.prm.cig else 0))
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
-            "strips_fwd", row["cells"], nbytes, int_rate)
+            "strips_fwd", row["cells"], nbytes, int_rate, ln.prm.cig)
         if ln.prm.cig:
             D, Dq, hl, d8 = S.strips_forward_cuda(qs, ts, ql, tl, tab,
                                                   ln.prm)
@@ -1206,8 +1663,8 @@ def phase_times(cases, rcases, long, sb, int_rate):
         rec, p = BD.band_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
         cells, nbytes = band_work(ln, rec)
         row["computed_cells"] = cells
-        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(kname, cells,
-                                                         nbytes, int_rate)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            kname, cells, nbytes, int_rate, ln.prm.cig)
         row["band_cells"] = band_cells(pairs, BAND_W)
         row["fwd_band_gcells_per_s"] = row["band_cells"] / row["fwd_ms"] / 1e6
         if plain:
@@ -1256,7 +1713,8 @@ def phase_times(cases, rcases, long, sb, int_rate):
         work = [band_work(ln, rec) for ln, (rec, _) in zip(lns, outs)]
         row["computed_cells"] = sum(c for c, _ in work)
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
-            kname, row["computed_cells"], sum(b for _, b in work), int_rate)
+            kname, row["computed_cells"], sum(b for _, b in work), int_rate,
+            lns[0].prm.cig)
         row["band_cells"] = band_cells(sb, SHORT_BANDED_W)
         row["fwd_band_gcells_per_s"] = row["band_cells"] / row["fwd_ms"] / 1e6
         if plain:
@@ -1288,6 +1746,7 @@ def phase_times(cases, rcases, long, sb, int_rate):
         del outs
         out[name] = row
         torch.cuda.empty_cache()
+    out.update(splice_times(scases, int_rate))
     emit({"phase": "times", "cases": out})
     return out
 
@@ -1316,6 +1775,9 @@ def main() -> int:
     int_rate = phase_device()
     torch.manual_seed(0)
     timed("build", phase_build)
+    spl = splice_jobs()
+    scases = splice_cases(spl)
+    err_spl = timed("splice", phase_splice, scases)
     jobs = mixed_jobs()
     short = short_jobs()
     long = long_banded_jobs()
@@ -1327,9 +1789,11 @@ def main() -> int:
     err_band = timed("band", phase_band, band_cases(long))
     sb = short_banded_jobs()
     err_batch = timed("batch", phase_batch, batch_cases(sb))
-    counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb)
-    times = timed("times", phase_times, cases, rcases, long, sb, int_rate)
-    timed("profile", phase_profile, long, sb)
+    counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb,
+                      spl)
+    times = timed("times", phase_times, cases, rcases, long, sb, scases,
+                  int_rate)
+    timed("profile", phase_profile, long, sb, spl)
     emit({"phase": "clock", "seconds": clock})
     whale = times["whale_cig_z100"]
     rows = times["short_score_z100"]
@@ -1337,9 +1801,10 @@ def main() -> int:
     lc = times["long1_extz_cig"]
     print(json.dumps({"kernels": [
         _kernel("strips_fwd", FWD_SRC, FWD_REPLACES, counts["strips_fwd"],
-                err_a, whale, "fwd"),
+                max(err_a, err_spl["strips_fwd"]), whale, "fwd"),
         _kernel("strips_walk", WALK_SRC, WALK_REPLACES,
-                counts["strips_walk"], err_b, whale, "walk"),
+                counts["strips_walk"], max(err_b, err_spl["strips_walk"]),
+                whale, "walk"),
         _kernel("rows_fwd", ROWS_SRC, ROWS_REPLACES, counts["rows_fwd"],
                 err_r, rows, "rows"),
         _kernel("band_fwd", BAND_SRC, BAND_REPLACES, counts["band_fwd"],
@@ -1349,13 +1814,16 @@ def main() -> int:
                 "fwd"),
         _kernel("band_walk", BAND_WALK_SRC, BAND_WALK_REPLACES,
                 counts["band_walk"],
-                max(err_band["band_walk"], err_batch["band_walk"]), lc,
-                "walk"),
+                max(err_band["band_walk"], err_batch["band_walk"],
+                    err_spl["band_walk"]), lc, "walk"),
         _kernel("batch_fwd", BATCH_SRC, BATCH_REPLACES, counts["batch_fwd"],
                 err_batch["batch_fwd"], times["sb_extz_score"], "fwd"),
         _kernel("batch_extd_fwd", BATCH_SRC, BATCH_EXTD_REPLACES,
                 counts["batch_extd_fwd"], err_batch["batch_extd_fwd"],
                 times["sb_extd_score"], "fwd"),
+        _kernel("batch_exts_fwd", BATCH_EXTS_SRC, BATCH_EXTS_REPLACES,
+                counts["batch_exts_fwd"], err_spl["batch_exts_fwd"],
+                times["main_junc_score"], "fwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,24 +35,29 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, q2, e2, lt, ld, mat0,
-    # kb, right, cig, two, threads, D, Dq, hl, d8, stream
-    "ksw2t_strips_fwd": [_P] * 5 + [_I] * 16 + [_P] * 5,
+    # qs, ts, qlen, tlen, table, don, acc, B, Lq, tv, m, q, e, q2, e2, lt,
+    # ld, mat0, kb, right, cig, two, spl, threads, D, Dq, hl, d8, stream
+    "ksw2t_strips_fwd": [_P] * 7 + [_I] * 17 + [_P] * 5,
     # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, mat0, kb, D, Dq, hl,
     # stream
     "ksw2t_rows_fwd": [_P] * 5 + [_I] * 8 + [_P] * 4,
-    # d8, starts, B, tv, Lq, wr, res, runs, stream
-    "ksw2t_strips_walk": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # d8, starts, B, tv, Lq, wr, min_intron, res, runs, stream
+    "ksw2t_strips_walk": [_P, _P] + [_I] * 5 + [_P] * 3,
     # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
     # two, nd, ncol, RB, threads, rec, p, stream
     "ksw2t_band_fwd": [_P] * 6 + [_I] * 25 + [_P] * 3,
-    # p, starts, qlen, tlen, w, B, nd, ncol, wr, res, runs, stream
-    "ksw2t_band_walk": [_P] * 5 + [_I] * 4 + [_P] * 3,
+    # p, starts, qlen, tlen, w, B, nd, ncol, wr, min_intron, res, runs,
+    # stream
+    "ksw2t_band_walk": [_P] * 5 + [_I] * 5 + [_P] * 3,
     # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
     # two, nd, ncol, TP, warps, rec, p, stream
     "ksw2t_batch_fwd": [_P] * 6 + [_I] * 25 + [_P] * 3,
+    # qs, ts, qlen, tlen, table, don, acc, B, Lq, Lt, m, q, e, q2, lt, ld,
+    # sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig, nd,
+    # ncol, TP, warps, rec, p, stream
+    "ksw2t_batch_exts_fwd": [_P] * 7 + [_I] * 22 + [_P] * 3,
 }
 
 

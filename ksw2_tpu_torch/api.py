@@ -1,23 +1,27 @@
 """High-level alignment API: configure once, align many.
 
-Port of ``ksw2_tpu/api.py`` for one-piece (extz) and two-piece (extd)
-costs on the rows, strips, band and batched routes.  Costs and flags are
-bound at construction; the methods accept raw DNA strings or encoded
-arrays and return :class:`~ksw2_tpu_torch.core.result.ExtzResult`
-records with the exact ``ksw_extz_t`` field contract.
+Port of ``ksw2_tpu/api.py`` for one-piece (extz), two-piece (extd) and
+splice (exts) costs on the rows, strips, band and batched routes.  Costs
+and flags are bound at construction; the methods accept raw DNA strings
+or encoded arrays and return
+:class:`~ksw2_tpu_torch.core.result.ExtzResult` records with the exact
+``ksw_extz_t`` field contract.
 
     >>> from ksw2_tpu_torch import Aligner
     >>> aln = Aligner(a=2, b=4, q=4, e=2, q2=13, e2=1, zdrop=100)
     >>> ezs = aln.extend_batch(pairs)                     # device="cuda"
+    >>> spl = Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True, noncan=9,
+    ...               zdrop=200, flag=Flag.SPLICE_FOR)
+    >>> ezs = spl.extend_batch(pairs, juncs=tracks)       # N-op CIGARs
 
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain PyTorch
-versions.  Splice costs, global alignment, meshes, pluggable engines
-and two-piece SCORE_ONLY batches with EXTZ_ONLY raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them; so
-does any bucket that no route takes (scores on targets over 3072,
-CIGARs on targets over 1536 or with EXTZ_ONLY, unless the band route
-takes them).
+versions.  Global alignment, meshes, pluggable engines and two-piece
+SCORE_ONLY batches with EXTZ_ONLY raise ``NotImplementedError`` naming
+the ROADMAP.md item that brings them; so does any bucket that no route
+takes (scores on targets over 3072, CIGARs on targets over 1536 or with
+EXTZ_ONLY, unless the band route takes them; splice buckets with
+EXTZ_ONLY, or with junction tracks on targets over 1536).
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from .batch.scheduler import (AlignJob, align_batch, align_batch_async,
-                              resolve_device)
+from .batch.scheduler import (AlignJob, align_batch_async,
+                              align_batch_splice_async, resolve_device)
 from .core.flags import Flag
 from .core.matrix import encode_dna, simple_mat
 from .core.result import ExtzResult
@@ -46,9 +50,11 @@ class Aligner:
     Parameters mirror ``ksw2_tpu.Aligner``: match ``a``, mismatch ``b``
     (positive), gap open/extend ``q``/``e``, optional two-piece
     ``q2``/``e2`` (extd2), band ``w``, Z-drop ``zdrop``, ``end_bonus``
-    and ``flag``.  A custom ``mat`` (m*m int8) overrides ``a``/``b`` and
-    implies GENERIC_SC unless it is a simple matrix.  ``device`` selects
-    the CUDA kernels or their plain versions.
+    and ``flag``; ``splice`` selects exts2 with the intron open ``q2``,
+    the non-canonical site cost ``noncan`` and the junction bonus
+    ``junc_bonus``.  A custom ``mat`` (m*m int8) overrides ``a``/``b``
+    and implies GENERIC_SC unless it is a simple matrix.  ``device``
+    selects the CUDA kernels or their plain versions.
     """
 
     def __init__(self, a: int = 2, b: int = 4, q: int = 4, e: int = 2,
@@ -56,11 +62,14 @@ class Aligner:
                  w: int = -1, zdrop: int = -1, end_bonus: int = 0,
                  flag: Flag | int = Flag.NONE, m: int = 5,
                  mat: Optional[np.ndarray] = None,
-                 splice: bool = False, device="cuda"):
-        if splice:
-            raise NotImplementedError(
-                "splice (exts) costs: strips prm.spl (ROADMAP item 9)")
-        if (q2 is None) != (e2 is None):
+                 splice: bool = False, noncan: int = 0,
+                 junc_bonus: int = 0, device="cuda"):
+        self.splice = bool(splice)
+        self.noncan = int(noncan)
+        self.junc_bonus = int(junc_bonus)
+        if self.splice and q2 is None:
+            raise ValueError("splice mode needs q2 (intron open cost)")
+        if (q2 is None) != (e2 is None) and not self.splice:
             raise ValueError("two-piece costs need both q2 and e2")
         self.q2 = None if q2 is None else int(q2)
         self.e2 = None if e2 is None else int(e2)
@@ -89,10 +98,9 @@ class Aligner:
 
     def extend(self, query: Seq, target: Seq, junc=None) -> ExtzResult:
         """Extension alignment of one pair: one pair through
-        :meth:`extend_batch`."""
-        if junc is not None:
-            raise NotImplementedError("junction tracks (ROADMAP item 9)")
-        return self.extend_batch([(query, target)])[0]
+        :meth:`extend_batch` (``junc``: the pair's junction track)."""
+        juncs = None if junc is None else [junc]
+        return self.extend_batch([(query, target)], juncs=juncs)[0]
 
     def global_align(self, query: Seq, target: Seq) -> ExtzResult:
         raise NotImplementedError(
@@ -108,25 +116,27 @@ class Aligner:
                      juncs=None, mesh=None) -> List[ExtzResult]:
         """Extension alignment of many pairs through the bucketing
         scheduler (scores + CIGARs; score-only when SCORE_ONLY is set).
-        ``w`` optionally gives per-pair bands."""
+        ``w`` optionally gives per-pair bands; ``juncs`` per-pair
+        junction tracks (splice mode, one array or None a pair)."""
         if run_fn is not None or mesh is not None:
             raise NotImplementedError(
                 "pluggable engines and multi-device meshes (ROADMAP "
                 "item 15)")
-        if juncs is not None:
-            raise NotImplementedError("junction tracks (ROADMAP item 9)")
-        return align_batch(self._jobs(pairs, w), self.m, self.mat, self.q,
-                           self.e, q2=self.q2, e2=self.e2, zdrop=self.zdrop,
-                           end_bonus=self.end_bonus, flag=self.flag,
-                           device=self.device)
+        return self.extend_batch_async(pairs, w, juncs).result()
 
     def extend_batch_async(self, pairs: Sequence[Tuple[Seq, Seq]],
                            w: Optional[Sequence[int]] = None, juncs=None):
         """Submit a batch without waiting; the handle's ``.result()``
         yields the list :meth:`extend_batch` would.  The launches are
         enqueued on the current CUDA stream; ``result()`` synchronises."""
-        if juncs is not None:
-            raise NotImplementedError("junction tracks (ROADMAP item 9)")
+        if juncs is not None and not self.splice:
+            raise ValueError("juncs requires splice=True")
+        if self.splice:
+            return align_batch_splice_async(
+                self._jobs(pairs, w), self.m, self.mat, self.q, self.e,
+                self.q2, self.noncan, zdrop=self.zdrop,
+                junc_bonus=self.junc_bonus, flag=self.flag, juncs=juncs,
+                device=self.device)
         return align_batch_async(self._jobs(pairs, w), self.m, self.mat,
                                  self.q, self.e, q2=self.q2, e2=self.e2,
                                  zdrop=self.zdrop, end_bonus=self.end_bonus,

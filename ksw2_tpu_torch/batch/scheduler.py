@@ -1,13 +1,15 @@
 """Pair-batch scheduler for the rows, strips, band and batched routes.
 
-Port of ``ksw2_tpu/batch/scheduler.py``'s score and CIGAR paths for one-
-and two-piece costs: jobs are bucketed by shape and each bucket takes the
-first route of the JAX package's table that accepts it.  One-piece
-scores: rows, strips, band, batched (``scheduler.py:242-286``); two-piece
-scores: strips, band, batched (``scheduler.py:482-521``); CIGARs, EQX
-included: strips, band, batched (``scheduler.py:639-754``); two-piece
-SCORE_ONLY with ``end_bonus``: band, then batched, in score form
-(``scheduler.py:614-617, 690-702, 732-742``).  Every launch is enqueued
+Port of ``ksw2_tpu/batch/scheduler.py``'s score, CIGAR and splice paths:
+jobs are bucketed by shape and each bucket takes the first route of the
+JAX package's table that accepts it.  One-piece scores: rows, strips,
+band, batched (``scheduler.py:242-286``); two-piece scores: strips, band,
+batched (``scheduler.py:482-521``); CIGARs, EQX included: strips, band,
+batched (``scheduler.py:639-754``); two-piece SCORE_ONLY with
+``end_bonus``: band, then batched, in score form (``scheduler.py:614-617,
+690-702, 732-742``); splice (exts), scores and CIGARs with N ops: strips
+in its ``spl`` form, then the batched exts engine (``scheduler.py:
+916-1119``).  Every launch is enqueued
 on the current CUDA stream before anything waits.  A handle's
 ``result()`` synchronises on the event recorded after the batch's
 device-to-host copies, so several batches in flight overlap one batch's
@@ -33,12 +35,17 @@ from ..core.result import ExtzResult
 from ..ops.band import band_ineligible_reason, band_prep, band_records
 from ..ops.band_walker import band_cigar_launch, unpack_band_cigars
 from ..ops.batch import batch_forward_cuda, batch_ineligible_reason
+from ..ops.batch_exts import (batch_exts_cigar_launch,
+                              batch_exts_ineligible_reason, batch_exts_prep,
+                              batch_exts_records, batch_exts_resets,
+                              unpack_exts_cigars)
 from ..ops.records import NFIELDS
 from ..ops.rows import rows_eligible, rows_records
 from ..ops.strips import (TMAX, QMAX, canonical_costs,
                           strips_extd_ineligible_reason,
-                          strips_ineligible_reason, strips_prep,
-                          strips_records)
+                          strips_exts_ineligible_reason,
+                          strips_ineligible_reason, strips_exts_prep,
+                          strips_prep, strips_records)
 from ..ops.strips_walker import (strips_cigar_extd_ineligible_reason,
                                  strips_cigar_ineligible_reason,
                                  strips_cigar_launch, unpack_cigars)
@@ -112,6 +119,14 @@ def _bucket_key(qn: int, tn: int) -> Tuple[int, int]:
         for Lt in _SCORES_LT:
             if Lt >= tn:
                 return (min(Lq, QMAX), Lt)
+    return _jax_bucket_key(qn, tn)
+
+
+def _jax_bucket_key(qn: int, tn: int) -> Tuple[int, int]:
+    """The JAX package's ``_bucket_key`` (``scheduler.py:66-78``):
+    targets step by 128 to 3072.  The splice path buckets with it alone:
+    a bucket's junction tracks decide its route, so it keeps the JAX
+    package's grouping."""
     Lt = _bucket_len(tn)
     if Lt > 3072:
         return (_bucket_len(qn, coarse=True), _bucket_len(tn, coarse=True))
@@ -135,15 +150,16 @@ class _Bucket(NamedTuple):
     route: str           # "rows", "strips", "band" or "batch"
 
 
-def _route(jobs, mat, qe: int, results, choose, what: str) -> List[_Bucket]:
+def _route(jobs, mat, qe: int, results, choose, what: str,
+           key=_bucket_key) -> List[_Bucket]:
     """Reset empty jobs, and every job when scoring is degenerate
-    (``-min_sc > 2 * qe``); bucket the rest and pick every bucket's route
-    with ``choose(Lt, qlen, tlen, w, raw_w)``, which returns "rows",
-    "strips", "band", "batch" or the reason no ported route takes the
-    bucket.  Returns the buckets heaviest first; a band or batched
-    bucket's pairs are ordered longest first, so its launches pad little
-    (and a block's warps finish together).  Raises before anything
-    runs."""
+    (``-min_sc > 2 * qe``); bucket the rest by ``key`` and pick every
+    bucket's route with ``choose(Lt, qlen, tlen, w, raw_w, idxs)``, which
+    returns "rows", "strips", "band", "batch" or the reason no ported
+    route takes the bucket.  Returns the buckets heaviest first; a band
+    or batched bucket's pairs are ordered longest first, so its launches
+    pad little (and a block's warps finish together).  Raises before
+    anything runs."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -153,15 +169,15 @@ def _route(jobs, mat, qe: int, results, choose, what: str) -> List[_Bucket]:
             ez.reset()
             results[i] = ez
             continue
-        key = _bucket_key(len(job.query), len(job.target))
-        buckets.setdefault(key, []).append(i)
+        buckets.setdefault(key(len(job.query), len(job.target)),
+                           []).append(i)
     out = []
     for (_, Lt), idxs in _heaviest_first(buckets, jobs):
         qlen = np.array([len(jobs[i].query) for i in idxs], np.int32)
         tlen = np.array([len(jobs[i].target) for i in idxs], np.int32)
         raw = np.array([jobs[i].w for i in idxs], np.int32)
         wv = np.where(raw >= 0, raw, np.maximum(qlen, tlen)).astype(np.int32)
-        route = choose(Lt, qlen, tlen, wv, raw)
+        route = choose(Lt, qlen, tlen, wv, raw, idxs)
         if route not in ("rows", "strips", "band", "batch"):
             raise NotImplementedError(f"{what}: {route}")
         if route in ("band", "batch"):
@@ -181,6 +197,13 @@ def _to_host(tensors: List[torch.Tensor], dev: torch.device):
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(dev))
     return host, ev
+
+
+def _ez_of(r) -> ExtzResult:
+    """The ExtzResult of one (NFIELDS,) record."""
+    return ExtzResult(max=int(r[0]), max_t=int(r[1]), max_q=int(r[2]),
+                      mqe=int(r[3]), mqe_t=int(r[4]), mte=int(r[5]),
+                      mte_q=int(r[6]), score=int(r[7]), zdropped=bool(r[8]))
 
 
 class PendingScores:
@@ -208,17 +231,12 @@ class PendingScores:
             for idxs, rec in self._pieces:
                 arr = rec.numpy()
                 for k, i in enumerate(idxs):
-                    r = arr[k]
                     if self._guard:
                         ez = ExtzResult()
                         ez.reset()
                         self._results[i] = ez
                         continue
-                    self._results[i] = ExtzResult(
-                        max=int(r[0]), max_t=int(r[1]), max_q=int(r[2]),
-                        mqe=int(r[3]), mqe_t=int(r[4]), mte=int(r[5]),
-                        mte_q=int(r[6]), score=int(r[7]),
-                        zdropped=bool(r[8]))
+                    self._results[i] = _ez_of(arr[k])
             self._done = True
         return self._results
 
@@ -244,7 +262,7 @@ def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
     """The score path's route table for one bucket (``scheduler.py:
     242-286, 482-521``): one-piece rows, then strips, band, batched;
     two-piece strips, band, batched."""
-    def choose(Lt, ql, tl, w, _raw):
+    def choose(Lt, ql, tl, w, _raw, _idxs):
         if not two and rows_eligible(ql, tl, w, flag, zdrop, m, mat):
             return "rows"
         if two:
@@ -270,7 +288,7 @@ def _end_bonus_chooser(flag, mat):
     """Two-piece SCORE_ONLY with ``end_bonus`` (``scheduler.py:614-617,
     676-742``): the CIGAR path's buckets in score form, so no strips; the
     band route on the jobs' raw ``w``, then the batched route."""
-    def choose(Lt, ql, tl, _w, raw):
+    def choose(Lt, ql, tl, _w, raw, _idxs):
         band = band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
                                       two=True)
         if band is None:
@@ -464,7 +482,7 @@ def align_batch_async(
     q2, e2 = q2 or 0, e2 or 0
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
 
-    def choose(Lt, ql, tl, w, raw):
+    def choose(Lt, ql, tl, w, raw, _idxs):
         if two:
             reason = strips_cigar_extd_ineligible_reason(
                 ql, tl, w, flag, m, mat, zdrop, q, e, q2, e2)
@@ -512,18 +530,148 @@ def align_batch_async(
                                   e=ln.prm.e, end_bonus=end_bonus,
                                   flag=flag),
                 strips_cigar_launch(ln, end_bonus, dev)))
-    host, ev = _to_host([t for _, (_, ts) in pieces for t in ts], dev)
+    return _pending_aligns(results, pieces, dev)
+
+
+def _pending_aligns(results, pieces, dev) -> PendingAligns:
+    """Start the device-to-host copies of every piece ``(job indices,
+    (unpack, device tensors))`` and return the handle whose ``result()``
+    waits once and fills ``results`` with ``unpack(*host arrays)``."""
+    flat = [t for _, (_, ts) in pieces for t in ts]
+    host, ev = _to_host(flat, dev)
 
     def finish() -> List[ExtzResult]:
         if ev is not None:
             ev.synchronize()
-        for k, (idxs, (unpack, _)) in enumerate(pieces):
-            rec, res, runs = (t.numpy() for t in host[3 * k:3 * k + 3])
-            for i, ez in zip(idxs, unpack(rec, res, runs)):
+        k = 0
+        for idxs, (unpack, ts) in pieces:
+            arrs = [t.numpy() for t in host[k:k + len(ts)]]
+            k += len(ts)
+            for i, ez in zip(idxs, unpack(*arrs)):
                 results[i] = ez
         return results
 
     return PendingAligns(finish)
+
+
+def _score_ezs(rec) -> List[ExtzResult]:
+    return [_ez_of(r) for r in rec]
+
+
+def _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs, junc_bonus):
+    """The splice path's route table for one bucket (``scheduler.py:
+    963-1027``): strips in its ``spl`` form unless the bucket has a
+    junction track (or there is a ``junc_bonus``), then the batched exts
+    engine; the single-pair engines are not ported."""
+    def choose(Lt, ql, tl, w, _raw, idxs):
+        junc_any = juncs is not None and any(juncs[i] is not None
+                                             for i in idxs)
+        reason = strips_exts_ineligible_reason(ql, tl, w, flag, m, mat,
+                                               zdrop, q, e, q2, junc_any,
+                                               junc_bonus)
+        if reason is None:
+            return "strips"
+        batch = batch_exts_ineligible_reason(Lt, flag)
+        return f"strips: {reason}; batch: {batch}" if batch else "batch"
+    return choose
+
+
+def plan_splice(jobs, m, mat, q, e, q2, noncan, zdrop, junc_bonus, flag,
+                juncs, results) -> List[Tuple[List[int], str, list]]:
+    """Route and prep a splice batch (host only, no device work): reset
+    empty jobs, every job under degenerate scoring and the batched
+    buckets the exts guard resets (``batch_exts.batch_exts_resets``)
+    into ``results``; route the rest by the splice table; and prep each
+    bucket's launches in score form under SCORE_ONLY, else with bytes.
+    Returns ``(job indices, route, launches)`` a bucket, heaviest first,
+    with route "strips" (``strips.Launch``) or "batch"
+    (``band.BandLaunch`` with site rows).  Raises before anything runs
+    when no ported route takes a bucket."""
+    cig = not flag & Flag.SCORE_ONLY
+    buckets = _route(jobs, mat, q + e, results,
+                     _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs,
+                                     junc_bonus),
+                     "splice route", key=_jax_bucket_key)
+    plan = []
+    for bk in buckets:
+        qs = [jobs[i].query for i in bk.idxs]
+        ts = [jobs[i].target for i in bk.idxs]
+        if bk.route == "strips":
+            launches = strips_exts_prep(qs, ts, bk.qlen, bk.tlen, m, mat, q,
+                                        e, q2, noncan, zdrop, flag, cig=cig)
+        elif batch_exts_resets(m, mat, q, e, q2):
+            for i in bk.idxs:
+                results[i] = ExtzResult()
+                results[i].reset()
+            continue
+        else:
+            launches = batch_exts_prep(
+                qs, ts, bk.qlen, bk.tlen, m, mat, q, e, q2, noncan, zdrop,
+                flag, None if juncs is None else [juncs[i] for i in bk.idxs],
+                junc_bonus, cig=cig)
+        plan.append((bk.idxs, bk.route, launches))
+    return plan
+
+
+def align_batch_splice_async(
+    jobs: Sequence[AlignJob],
+    m: int,
+    mat: np.ndarray,
+    q: int,
+    e: int,
+    q2: int,
+    noncan: int,
+    zdrop: int = -1,
+    junc_bonus: int = 0,
+    flag: Flag | int = Flag.NONE,
+    juncs: Optional[Sequence[Optional[np.ndarray]]] = None,
+    device="cuda",
+) -> PendingAligns:
+    """Submit a spliced (mRNA-to-genome) batch without waiting: scores,
+    or CIGARs with N ops for introns unless SCORE_ONLY.  ``juncs``
+    optionally gives per-job junction tracks.  Each bucket takes strips
+    in its ``spl`` form, else the batched exts engine, else raises naming
+    the single-pair engines (``scheduler.py:916-1119``); the batched
+    route resets its jobs when ``q2 <= q + e`` (or ``m <= 1``), as exts2
+    does, while the strips route runs them, as the JAX package's does
+    (ROADMAP Queue 3).  The launches are :func:`plan_splice`'s."""
+    dev = resolve_device(device)
+    flag = Flag(int(flag))
+    mat = np.asarray(mat, dtype=np.int8).reshape(-1)
+    q, e, q2, noncan = int(q), int(e), int(q2), int(noncan)
+    if juncs is not None and len(juncs) != len(jobs):
+        raise ValueError(f"{len(juncs)} junction tracks for {len(jobs)} jobs")
+    results: List[Optional[ExtzResult]] = [None] * len(jobs)
+    plan = plan_splice(jobs, m, mat, q, e, q2, noncan, zdrop, junc_bonus,
+                       flag, juncs, results)
+    pieces = []
+    for idxs, route, launches in plan:
+        if flag & Flag.SCORE_ONLY:
+            run = strips_records if route == "strips" else batch_exts_records
+            pieces += _run_launches(idxs, launches, lambda ln: (
+                _score_ezs, (run(ln, dev),)))
+        elif route == "strips":
+            pieces += _run_launches(idxs, launches, lambda ln: (
+                functools.partial(unpack_cigars, mat=mat, q=q, e=e,
+                                  end_bonus=0, flag=flag,
+                                  min_intron=ln.prm.lt),
+                strips_cigar_launch(ln, 0, dev)))
+        else:
+            pieces += _run_launches(idxs, launches, lambda ln: (
+                functools.partial(unpack_exts_cigars, ln, mat=mat),
+                batch_exts_cigar_launch(ln, 0, dev)))
+    return _pending_aligns(results, pieces, dev)
+
+
+def align_batch_splice(jobs, m, mat, q, e, q2, noncan, zdrop=-1,
+                       junc_bonus=0, flag: Flag | int = Flag.NONE,
+                       juncs=None, device="cuda") -> List[ExtzResult]:
+    """Spliced alignment of a batch of jobs (see
+    :func:`align_batch_splice_async`)."""
+    return align_batch_splice_async(jobs, m, mat, q, e, q2, noncan,
+                                    zdrop=zdrop, junc_bonus=junc_bonus,
+                                    flag=flag, juncs=juncs,
+                                    device=device).result()
 
 
 def align_batch(jobs, m, mat, q, e, q2=None, e2=None, zdrop=-1,
@@ -539,4 +687,5 @@ def align_batch(jobs, m, mat, q, e, q2=None, e2=None, zdrop=-1,
 __all__ = ["AlignJob", "PendingScores", "PendingAligns", "resolve_device",
            "align_batch_scores", "align_batch_scores_async",
            "align_batch_scores2", "align_batch_scores2_async", "align_batch",
-           "align_batch_async"]
+           "align_batch_async", "align_batch_splice",
+           "align_batch_splice_async", "plan_splice"]

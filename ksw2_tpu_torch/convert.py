@@ -18,23 +18,23 @@ def aligner_from_jax(cfg: dict, device="cuda") -> Aligner:
     """The port's :class:`Aligner` for the attributes of a
     ``ksw2_tpu.Aligner`` given as plain values: ``m``, ``mat`` (int8,
     m*m), ``q``, ``e``, ``q2``/``e2`` (None for one-piece), ``w``,
-    ``zdrop``, ``end_bonus`` and ``flag`` (``splice`` when present must
-    be unset: splice costs are not ported, ROADMAP item 9)."""
+    ``zdrop``, ``end_bonus``, ``flag`` and, when present, ``splice``,
+    ``noncan`` and ``junc_bonus``."""
     return Aligner(q=int(cfg["q"]), e=int(cfg["e"]), q2=cfg.get("q2"),
                    e2=cfg.get("e2"), w=int(cfg["w"]),
                    zdrop=int(cfg["zdrop"]), end_bonus=int(cfg["end_bonus"]),
                    flag=int(cfg["flag"]), m=int(cfg["m"]),
                    mat=np.asarray(cfg["mat"], np.int8).reshape(-1),
-                   splice=bool(cfg.get("splice", False)), device=device)
+                   splice=bool(cfg.get("splice", False)),
+                   noncan=int(cfg.get("noncan", 0)),
+                   junc_bonus=int(cfg.get("junc_bonus", 0)), device=device)
 
 
 def strip_params_from_jax(d: dict) -> StripParams:
-    """The port's :class:`StripParams` for a one- or two-piece
-    ``ksw2_tpu.ops.wavefront_strips.StripParams._asdict()``.  The TPU
-    layout fields (``n_rows``, ``s``, ``t_pad``, ``t_real``) have no
-    counterpart; splice params raise."""
-    if d.get("spl"):
-        raise NotImplementedError("splice strips params (ROADMAP item 9)")
+    """The port's :class:`StripParams` for a one-piece, two-piece or
+    splice ``ksw2_tpu.ops.wavefront_strips.StripParams._asdict()``.  The
+    TPU layout fields (``n_rows``, ``s``, ``t_pad``, ``t_real``) have no
+    counterpart."""
     return StripParams(**{k: d[k] for k in StripParams._fields})
 
 

@@ -9,7 +9,9 @@
 // i < st(r) and 1 when i > en(r).  st(r) and en(r), the 16-rounded band
 // bounds, are recomputed in closed form from (r, qlen, tlen, w), so no
 // offset arrays are stored.  The per-byte state step and the run writer
-// are strips_walk.cu's (common.cuh).  It emits BAM runs `len << 4 | op`
+// are strips_walk.cu's (common.cuh); with min_intron > 0 state 3 emits N
+// (the splice bytes of batch_exts_fwd.cu, min_intron_len = long_thres,
+// traceback_band.py:46, 128).  It emits BAM runs `len << 4 | op`
 // in walk order plus (i_end, j_end, run count) into qlen + tlen + 2
 // entries per pair, so it cannot overflow; the host adds the tail runs,
 // merges and reverses (ops/strips_walker.py:finish_runs_batch).
@@ -32,7 +34,8 @@ __global__ void band_walk_kernel(const uint8_t* __restrict__ p,
                                  const int* __restrict__ qlens,
                                  const int* __restrict__ tlens,
                                  const int* __restrict__ ws, int B, int nd,
-                                 int ncol, int wr, int* __restrict__ res,
+                                 int ncol, int wr, int min_intron,
+                                 int* __restrict__ res,
                                  int* __restrict__ runs) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -49,9 +52,8 @@ __global__ void band_walk_kernel(const uint8_t* __restrict__ p,
     if (i > en) force = DIR_E;
     const int tmp = force < 0 ? d[(size_t)r * ncol + (i - st)] : 0;
     state = backtrack_step(state, tmp, force);
-    const int o = state_op(state);
-    if (o != OP_I) --i;
-    if (o != OP_D) --j;
+    const int o = state_op(state, min_intron);
+    step_back(o, i, j);
     rw.push(o);
   }
   rw.flush();
@@ -66,13 +68,14 @@ __global__ void band_walk_kernel(const uint8_t* __restrict__ p,
 extern "C" int ksw2t_band_walk(const void* p, const void* starts,
                                const void* qlen, const void* tlen,
                                const void* w, int B, int nd, int ncol,
-                               int wr, void* res, void* runs, void* stream) {
+                               int wr, int min_intron, void* res, void* runs,
+                               void* stream) {
   if (B <= 0 || ncol % 16) return (int)cudaErrorInvalidValue;
   constexpr int threads = 32;
   band_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
                      (cudaStream_t)stream>>>(
       (const uint8_t*)p, (const int*)starts, (const int*)qlen,
-      (const int*)tlen, (const int*)w, B, nd, ncol, wr, (int*)res,
-      (int*)runs);
+      (const int*)tlen, (const int*)w, B, nd, ncol, wr, min_intron,
+      (int*)res, (int*)runs);
   return (int)cudaGetLastError();
 }

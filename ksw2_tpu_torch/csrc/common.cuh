@@ -1,6 +1,7 @@
 // Definitions shared by the strips forward (strips_fwd.cu), the rows
-// forward (rows_fwd.cu), the band forward (band_fwd.cu) and the two
-// walkers (strips_walk.cu, band_walk.cu): the record sentinel, the
+// forward (rows_fwd.cu), the band forward (band_fwd.cu), the batched exts
+// forward (batch_exts_fwd.cu) and the two walkers (strips_walk.cu,
+// band_walk.cu): the record sentinel, the
 // virtual column boundaries, the SSE merge-order tie key, the
 // direction-byte codes and ksw_backtrack's per-byte state step.  Their
 // Python twins live in ksw2_tpu_torch/ops/strips.py and the walkers'
@@ -19,18 +20,22 @@ constexpr int SENT = -2147483647;
 // cell (0 = diagonal, 1 = E / deletion, 2 = F / insertion; two-piece
 // adds 3 = E2 / long deletion, 4 = F2 / long insertion); bits 3 and 4
 // say that E and F continue into the cell above / left, bits 5 and 6
-// the same for E2 and F2 (ksw2_extd2_sse.c:191-322).
+// the same for E2 and F2 (ksw2_extd2_sse.c:191-322).  Splice (exts)
+// bytes use 3 for the intron state N with 0x20 as its continuation bit
+// (ksw2_exts2_sse.c).
 constexpr int DIR_E = 1;
 constexpr int DIR_F = 2;
 constexpr int DIR_E2 = 3;
 constexpr int DIR_F2 = 4;
+constexpr int DIR_N = 3;
 constexpr int DIR_E_CONT = 0x08;
 constexpr int DIR_F_CONT = 0x10;
 constexpr int DIR_E2_CONT = 0x20;
 constexpr int DIR_F2_CONT = 0x40;
+constexpr int DIR_N_CONT = 0x20;
 
 // BAM op codes of the walkers' runs
-constexpr int OP_M = 0, OP_I = 1, OP_D = 2;
+constexpr int OP_M = 0, OP_I = 1, OP_D = 2, OP_N = 3;
 
 // One step of ksw_backtrack's state machine (ksw2.h:140-147): the state
 // after reading byte `tmp` at the cell while in `state`.  At an H cell
@@ -48,12 +53,21 @@ __device__ __forceinline__ int backtrack_step(int state, int tmp,
   return force >= 0 ? force : state;
 }
 
-// The op a state emits: 0 matches, 1 and 3 (E, E2) delete, 2 and 4 (F,
-// F2) insert; min_intron_len = 0, as ksw_extz2_sse and ksw_extd2_sse
-// call ksw_backtrack.
-__device__ __forceinline__ int state_op(int state) {
-  return state == 0 ? OP_M : (state == DIR_E || state == DIR_E2) ? OP_D
-                                                                 : OP_I;
+// The op a state emits (ksw2.h:148-155): 0 matches, 1 deletes, 3
+// deletes (E2) or, when min_intron_len > 0 as ksw_exts2_sse calls
+// ksw_backtrack, skips an intron (N), 2 and 4 (F, F2) insert.
+__device__ __forceinline__ int state_op(int state, int min_intron) {
+  if (state == 0) return OP_M;
+  if (state == DIR_E) return OP_D;
+  if (state == DIR_E2) return min_intron > 0 ? OP_N : OP_D;
+  return OP_I;
+}
+
+// Moves (i, j) one step back along `op`: M and I consume a query base,
+// M, D and N a target base.
+__device__ __forceinline__ void step_back(int op, int& i, int& j) {
+  if (op != OP_I) --i;
+  if (op == OP_M || op == OP_I) --j;
 }
 
 // Run-length writer of a walk: extends the open (op, len) run while the

@@ -1,12 +1,14 @@
-// Strips forward: the row-major extension DP (extz and extd, exact max).
+// Strips forward: the row-major extension DP (extz, extd and exts, exact
+// max).
 //
-// Replaces ksw2_tpu/ops/wavefront_strips.py:_kernel_body (one-piece and
-// `two` forms, score and `cig`).  It computes what spec/strips.py:
-// strips_forward, spec/strips_extd.py:strips_forward_extd and
-// spec/strips_cigar.py specify: per global diagonal r = i + j the packed
-// (H, merge key) maximum D[r], the query-end H Dq[r], the last-row H
-// hl[j], and with CIG the reference's direction byte for every cell,
-// row-major, d8[b][i][j] (7-bit bytes for two-piece costs).
+// Replaces ksw2_tpu/ops/wavefront_strips.py:_kernel_body (one-piece,
+// `two` and `spl` forms, score and `cig`).  It computes what spec/
+// strips.py:strips_forward, spec/strips_extd.py:strips_forward_extd and
+// spec/strips_cigar.py (strips_exts_cigar for SPL) specify: per global
+// diagonal r = i + j the packed (H, merge key) maximum D[r], the
+// query-end H Dq[r], the last-row H hl[j], and with CIG the reference's
+// direction byte for every cell, row-major, d8[b][i][j] (7-bit bytes for
+// two-piece costs).
 //
 // Layout: one thread block per pair, threads own contiguous chunks of
 // query columns and the block loops over the target rows.  Within a row
@@ -29,6 +31,15 @@
 // full clamped H and gives the bytes the DP's own F, and pass 4 writes
 // the bytes from Fb, F2 (kept in the same scratch row), E and E2.  The
 // boundary is the stepped col_h2 of common.cuh.
+//
+// Splice rows (SPL) are one-piece rows with the intron state NI, one
+// int32 a column in shared memory like E: a vertical carry with no decay,
+// so it needs no scan.  The donor and acceptor values depend only on the
+// target row, so a row reads two scalars from the pair's rows; cand3 =
+// NI + acceptor(i) enters hnof, there is no per-cell clamp (H = max(hnof,
+// F)), NI' = max(NI, H + donor(i) - q2), and the byte takes code 3 and
+// bit 0x20 (wavefront_strips.py:313-347).  The boundary is col_h2 with
+// e2 = 0, flat after long_thres.
 //
 // What bounds it on an H100: each cell is ~20 integer operations (about
 // twice that two-piece), so the kernel is bound by the serial chain of
@@ -76,17 +87,20 @@ __device__ __forceinline__ int block_excl_max(int v, int lane, int warp,
   return prev;
 }
 
-template <bool CIG, bool TWO>
+template <bool CIG, bool TWO, bool SPL>
 __global__ void __launch_bounds__(MAX_THREADS)
 strips_fwd_kernel(const uint8_t* __restrict__ qs,
                   const uint8_t* __restrict__ ts,
                   const int* __restrict__ qlens,
                   const int* __restrict__ tlens,
-                  const int* __restrict__ table, int Lq, int tv, int m,
+                  const int* __restrict__ table,
+                  const int16_t* __restrict__ dons,
+                  const int16_t* __restrict__ accs, int Lq, int tv, int m,
                   int q, int e, int q2, int e2, int lt, int ld, int mat0,
                   int kb, int right, int* __restrict__ D,
                   int* __restrict__ Dq, int* __restrict__ hl,
                   uint8_t* __restrict__ d8) {
+  static_assert(!(TWO && SPL), "two-piece and splice rows are exclusive");
   constexpr int NSCAN = TWO ? (CIG ? 3 : 2) : 1;
   extern __shared__ int smem[];
   const int b = blockIdx.x;
@@ -102,12 +116,14 @@ strips_fwd_kernel(const uint8_t* __restrict__ qs,
   int* tab = Es + Lq;                // [64] score table (m <= 8)
   int* wtot = tab + 64;              // [NSCAN][32] warp totals of the scans
   int* E2s = wtot + 32 * NSCAN;      // TWO: [Lq] E2 entering the row
-  int* Xs = E2s + (TWO ? Lq : 0);    // TWO: [Lq] Hc1, then (CIG) F2
+  int* NIs = E2s;                    // SPL: [Lq] NI entering the row
+  int* Xs = E2s + (TWO || SPL ? Lq : 0);  // TWO: [Lq] Hc1, then (CIG) F2
   uint8_t* qsm = reinterpret_cast<uint8_t*>(Xs + (TWO ? Lq : 0));  // [Lq]
 
-  // H(i, -1) and H(-1, i)
+  // H(i, -1) and H(-1, i) (SPL: e2 = 0)
   auto bnd = [&](int i) {
-    return TWO ? col_h2(i, gapoe, e, e2, lt, ld) : col_h(i, gapoe, e);
+    return TWO || SPL ? col_h2(i, gapoe, e, e2, lt, ld)
+                      : col_h(i, gapoe, e);
   };
 
   const uint8_t* trow = ts + (size_t)b * tv;
@@ -125,6 +141,7 @@ strips_fwd_kernel(const uint8_t* __restrict__ qs,
     Hb[j] = h0;
     Es[j] = h0 - gapoe;
     if (TWO) E2s[j] = h0 - gapoe2;
+    if (SPL) NIs[j] = h0 - q2;
     qsm[j] = qs[(size_t)b * Lq + j];
     if (j >= qlen) hlg[j] = SENT;
   }
@@ -141,6 +158,9 @@ strips_fwd_kernel(const uint8_t* __restrict__ qs,
     const int* sc = tab + trow[i] * m;
     const int hb = i == 0 ? 0 : bnd(i - 1);  // H(i-1, -1)
     const int ci = bnd(i);                    // H(i, -1)
+    // SPL: this row's donor and acceptor values
+    const int vd = SPL ? (int)dons[(size_t)b * tv + i] : 0;
+    const int va = SPL ? (int)accs[(size_t)b * tv + i] : 0;
 
     // pass 1: the maximum of A over this thread's chunk
     int tmax = NEG;
@@ -148,7 +168,8 @@ strips_fwd_kernel(const uint8_t* __restrict__ qs,
       const int Hd = j == 0 ? hb : Hp[j - 1];
       int hnof = max(Hd + sc[qsm[j]], Es[j]);
       if (TWO) hnof = max(hnof, E2s[j]);
-      const int hnofc = min(hnof, Hd + mat0);
+      if (SPL) hnof = max(hnof, NIs[j] + va);
+      const int hnofc = SPL ? hnof : min(hnof, Hd + mat0);
       tmax = max(tmax, hnofc + j * e - q);
     }
     const int prev = block_excl_max(tmax, lane, warp, nwarps, wtot);
@@ -161,32 +182,40 @@ strips_fwd_kernel(const uint8_t* __restrict__ qs,
         const int Hd = j == 0 ? hb : Hp[j - 1];
         const int Mv = Hd + sc[qsm[j]];
         const int Ep = Es[j];
-        const int hnof = max(Mv, Ep);
+        const int NIp = SPL ? NIs[j] : 0;
+        const int cand3 = NIp + va;            // SPL: the intron closes
+        const int hnof = SPL ? max(max(Mv, Ep), cand3) : max(Mv, Ep);
         const int cv = Hd + mat0;              // the reference's clamp
-        const int hnofc = min(hnof, cv);
+        const int hnofc = SPL ? hnof : min(hnof, cv);
         const int F = run - j * e;
-        const int H = min(max(hnof, F), cv);
+        const int H = SPL ? max(hnof, F) : min(max(hnof, F), cv);
         Es[j] = max(Ep - e, H - gapoe);
+        if (SPL) NIs[j] = max(NIp, H + vd - q2);
         Hw[j] = H;
         run = max(run, hnofc + j * e - q);
         if (CIG) {
           // argmax from the unclamped candidates; continuation bits
-          // against the clamped H (wavefront_strips.py:304-332)
+          // against the clamped H (wavefront_strips.py:304-347)
           int d;
-          bool ca, cb;
+          bool ca, cb, cd = false;
           const int z = max(Mv, Ep);
           if (right) {
             d = Mv > Ep ? 0 : DIR_E;
             d = z > F ? d : DIR_F;
+            if (SPL) d = max(z, F) > cand3 ? d : DIR_N;
             ca = Ep >= H - q;
             cb = F >= H - q;
+            if (SPL) cd = NIp + q2 - H >= vd;
           } else {
             d = Ep > Mv ? DIR_E : 0;
             d = F > z ? DIR_F : d;
+            if (SPL) d = cand3 > max(z, F) ? DIR_N : d;
             ca = Ep > H - q;
             cb = F > H - q;
+            if (SPL) cd = NIp + q2 - H > vd;
           }
-          d |= (ca ? DIR_E_CONT : 0) | (cb ? DIR_F_CONT : 0);
+          d |= (ca ? DIR_E_CONT : 0) | (cb ? DIR_F_CONT : 0) |
+               (cd ? DIR_N_CONT : 0);
           d8g[(size_t)i * Lq + j] = (uint8_t)d;
         }
         const int r = i + j;
@@ -290,26 +319,27 @@ strips_fwd_kernel(const uint8_t* __restrict__ qs,
   for (int r = tid; r < nd; r += nt) Dg[r] = Ds[r];
 }
 
-template <bool CIG, bool TWO>
+template <bool CIG, bool TWO, bool SPL>
 cudaError_t launch(const uint8_t* qs, const uint8_t* ts, const int* qlen,
-                   const int* tlen, const int* table, int B, int Lq, int tv,
-                   int m, int q, int e, int q2, int e2, int lt, int ld,
-                   int mat0, int kb, int right, int threads, int* D, int* Dq,
-                   int* hl, uint8_t* d8, cudaStream_t stream) {
+                   const int* tlen, const int* table, const int16_t* don,
+                   const int16_t* acc, int B, int Lq, int tv, int m, int q,
+                   int e, int q2, int e2, int lt, int ld, int mat0, int kb,
+                   int right, int threads, int* D, int* Dq, int* hl,
+                   uint8_t* d8, cudaStream_t stream) {
   // the layout at the head of strips_fwd_kernel (ops/strips.py:
   // fwd_smem_bytes mirrors it)
   constexpr int NSCAN = TWO ? (CIG ? 3 : 2) : 1;
-  const size_t rows = TWO ? 5 : 3;
+  const size_t rows = TWO ? 5 : (SPL ? 4 : 3);
   const size_t smem =
       ((size_t)Lq + tv + rows * Lq + 64 + 32 * NSCAN) * sizeof(int) +
       (size_t)Lq;
   cudaError_t err = cudaFuncSetAttribute(
-      strips_fwd_kernel<CIG, TWO>,
+      strips_fwd_kernel<CIG, TWO, SPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  strips_fwd_kernel<CIG, TWO><<<B, threads, smem, stream>>>(
-      qs, ts, qlen, tlen, table, Lq, tv, m, q, e, q2, e2, lt, ld, mat0, kb,
-      right, D, Dq, hl, d8);
+  strips_fwd_kernel<CIG, TWO, SPL><<<B, threads, smem, stream>>>(
+      qs, ts, qlen, tlen, table, don, acc, Lq, tv, m, q, e, q2, e2, lt, ld,
+      mat0, kb, right, D, Dq, hl, d8);
   return cudaGetLastError();
 }
 
@@ -319,21 +349,29 @@ extern "C" const char* ksw2t_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success).  `don` and
+// `acc` are the (B, tv) int16 site rows of a splice launch (spl), else
+// null.
 extern "C" int ksw2t_strips_fwd(const void* qs, const void* ts,
                                 const void* qlen, const void* tlen,
-                                const void* table, int B, int Lq, int tv,
+                                const void* table, const void* don,
+                                const void* acc, int B, int Lq, int tv,
                                 int m, int q, int e, int q2, int e2, int lt,
                                 int ld, int mat0, int kb, int right, int cig,
-                                int two, int threads, void* D, void* Dq,
-                                void* hl, void* d8, void* stream) {
+                                int two, int spl, int threads, void* D,
+                                void* Dq, void* hl, void* d8, void* stream) {
   if (B <= 0 || threads <= 0 || threads > MAX_THREADS || threads % 32 ||
-      m > 8)
+      m > 8 || (two && spl) || (spl && (don == nullptr || acc == nullptr)))
     return (int)cudaErrorInvalidValue;
-  auto fn = two ? (cig ? launch<true, true> : launch<false, true>)
-                : (cig ? launch<true, false> : launch<false, false>);
+  auto fn = spl   ? (cig ? launch<true, false, true>
+                         : launch<false, false, true>)
+            : two ? (cig ? launch<true, true, false>
+                         : launch<false, true, false>)
+                  : (cig ? launch<true, false, false>
+                         : launch<false, false, false>);
   return (int)fn((const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
-                 (const int*)tlen, (const int*)table, B, Lq, tv, m, q, e, q2,
-                 e2, lt, ld, mat0, kb, right, threads, (int*)D, (int*)Dq,
-                 (int*)hl, (uint8_t*)d8, (cudaStream_t)stream);
+                 (const int*)tlen, (const int*)table, (const int16_t*)don,
+                 (const int16_t*)acc, B, Lq, tv, m, q, e, q2, e2, lt, ld,
+                 mat0, kb, right, threads, (int*)D, (int*)Dq, (int*)hl,
+                 (uint8_t*)d8, (cudaStream_t)stream);
 }

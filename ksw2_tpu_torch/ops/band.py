@@ -77,6 +77,8 @@ class BandLaunch(NamedTuple):
     w: np.ndarray          # (B,) int32, 1 <= w <= W_MAX
     nd: int                # diagonals of the byte store (longest pair's)
     ncol: int              # bytes per stored diagonal (widest pair's)
+    sites: tuple = ()      # splice (ops/batch_exts.py): (B, Lt) int8
+    #                        donor and acceptor rows, after the matrix
 
 
 _ITEM_NAMES = {7: "any-device engine", 12: "single-pair engines"}
@@ -161,15 +163,25 @@ def band_prep(query, target, qlen, tlen, w, m, mat, q, e, zdrop, flag,
     bytes, ``B * nd * ncol``, within ``ops.strips.LAUNCH_BYTES``.  Callers
     must have checked eligibility; two-piece callers pass PRE-swap
     costs."""
+    w = np.asarray(w, np.int32)
+    prm = make_band_params(m, mat, q, e, zdrop, flag, cig, two, q2, e2)
+    return [BandLaunch(prm, qpad, tpad, ql, tl, w[i0:i1].copy(), nd, nc)
+            for i0, i1, qpad, tpad, ql, tl, nd, nc in split_launches(
+                query, target, qlen, tlen, w, m, cig)]
+
+
+def split_launches(query, target, qlen, tlen, w, m: int, cig: bool):
+    """Cut a bucket (in the given order) into launches and pad each one:
+    with ``cig`` a launch holds as many pairs as keep its rotated store,
+    ``B * nd * ncol`` bytes, within ``ops.strips.LAUNCH_BYTES``.  Yields
+    ``(i0, i1, qpad, tpad, qlen, tlen, nd, ncol)`` per launch of pairs
+    ``[i0, i1)``, padded to its longest query and target rounded to 16."""
     qlen = np.asarray(qlen, np.int32)
     tlen = np.asarray(tlen, np.int32)
-    w = np.asarray(w, np.int32)
     B = len(query)
-    prm = make_band_params(m, mat, q, e, zdrop, flag, cig, two, q2, e2)
     nds = qlen.astype(np.int64) + tlen - 1
     ncs = [n_col_bytes(int(a), int(b), int(c))
            for a, b, c in zip(qlen, tlen, w)]
-    launches = []
     i0 = 0
     while i0 < B:
         nd, nc = int(nds[i0]), ncs[i0]
@@ -188,10 +200,8 @@ def band_prep(query, target, qlen, tlen, w, m, mat, q, e, zdrop, flag,
             tpad[k, :tl[k]] = target[i0 + k]
         if max(int(qpad.max()), int(tpad.max())) >= m:
             raise ValueError(f"sequence symbols must be < m = {m}")
-        launches.append(BandLaunch(prm, qpad, tpad, ql.copy(), tl.copy(),
-                                   w[i0:i1].copy(), nd, nc))
+        yield i0, i1, qpad, tpad, ql.copy(), tl.copy(), nd, nc
         i0 = i1
-    return launches
 
 
 # --------------------------------------------------------------------------
@@ -534,17 +544,19 @@ def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
     return rec, p
 
 
-def band_forward(qs, ts, qlen, tlen, w, table, prm: BandParams, nd: int,
-                 ncol: int, cuda=band_forward_cuda):
-    """The forward on the tensors' device: the CUDA kernel ``cuda`` for
-    CUDA tensors (the band kernel, or the batched route's
-    ``batch.batch_forward_cuda``, which keeps the same contract), the
-    plain version for CPU tensors."""
+def band_forward(*args, cuda=band_forward_cuda, plain=band_forward_plain):
+    """The forward on the tensors' device: ``cuda(*args)`` for CUDA
+    tensors, ``plain(*args)`` for CPU tensors.  ``args`` are
+    :func:`band_upload`'s tensors, then ``prm, nd, ncol``.  The pair is
+    the band kernel's by default; the batched route passes
+    ``batch.batch_forward_cuda`` (same contract and plain version), the
+    splice route ``batch_exts``'s pair, which also reads the site rows."""
+    qs = args[0]
     if qs.is_cuda:
-        return cuda(qs, ts, qlen, tlen, w, table, prm, nd, ncol)
+        return cuda(*args)
     if qs.device.type != "cpu":
         raise ValueError(f"unsupported device {qs.device}")
-    return band_forward_plain(qs, ts, qlen, tlen, w, table, prm, nd, ncol)
+    return plain(*args)
 
 
 # --------------------------------------------------------------------------
@@ -552,32 +564,33 @@ def band_forward(qs, ts, qlen, tlen, w, table, prm: BandParams, nd: int,
 
 
 def band_upload(launch: BandLaunch, device):
-    """The launch's inputs (query, target, qlen, tlen, w, score matrix) as
-    tensors on ``device``; CUDA uploads go through pinned memory (see
-    ``ops.strips.upload``)."""
+    """The launch's inputs (query, target, qlen, tlen, w, score matrix and
+    a splice launch's donor and acceptor rows) as tensors on ``device``;
+    CUDA uploads go through pinned memory (see ``ops.strips.upload``)."""
     dev = torch.device(device)
     mat = np.zeros(launch.prm.m * launch.prm.m, np.int32)
     if launch.prm.matt:
         mat[:] = launch.prm.matt
     host = [torch.from_numpy(a) for a in (
         launch.query, launch.target, launch.qlen, launch.tlen, launch.w,
-        mat)]
+        mat, *launch.sites)]
     if dev.type != "cuda":
         return tuple(host)
     return tuple(t.pin_memory().to(dev, non_blocking=True) for t in host)
 
 
-def band_records(launch: BandLaunch, device, cuda=band_forward_cuda):
-    """Forward of one score launch (CUDA kernel ``cuda``, see
+def band_records(launch: BandLaunch, device, cuda=band_forward_cuda,
+                 plain=band_forward_plain):
+    """Forward of one score launch (the pair ``cuda`` / ``plain``, see
     :func:`band_forward`); (B, 9) int32 records on ``device`` (enqueued,
     not synchronised)."""
     rec, _ = band_forward(*band_upload(launch, device), launch.prm,
-                          launch.nd, launch.ncol, cuda)
+                          launch.nd, launch.ncol, cuda=cuda, plain=plain)
     return rec
 
 
 __all__ = ["W_MAX", "BandParams", "BandLaunch", "beyond",
            "band_ineligible_reason",
-           "make_band_params", "band_prep", "band_forward",
+           "make_band_params", "band_prep", "split_launches", "band_forward",
            "band_forward_plain", "band_forward_cuda", "fwd_smem_bytes",
            "band_upload", "band_records"]

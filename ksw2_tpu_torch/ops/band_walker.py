@@ -32,16 +32,18 @@ from ..core import cigar as cigarmod
 from ..core.flags import CigarOp, Flag
 from ..core.result import ExtzResult
 from .band import (BandLaunch, band_forward, band_forward_cuda,
-                   band_upload)
+                   band_forward_plain, band_upload)
 from .bands import band_bounds_rounded
-from .strips_walker import start_cells, unpack_cigars
+from .strips_walker import (start_cells, state_op, unpack_cigars,
+                            walk_min_intron)
 
 
-def band_walk_plain(p, starts, qlen, tlen, w):
+def band_walk_plain(p, starts, qlen, tlen, w, min_intron: int = 0):
     """Plain version of ``csrc/band_walk.cu``: ``ksw_backtrack`` with
-    ``is_rot = 1`` pair by pair.  Returns ``res`` (B, 3) int32 (i_end,
-    j_end, count) and ``runs`` (B, nd + 3) int32 on ``p``'s device; a
-    pair's walk takes at most ``qlen + tlen <= nd + 1`` steps."""
+    ``is_rot = 1`` pair by pair (state 3 emits N when ``min_intron >
+    0``).  Returns ``res`` (B, 3) int32 (i_end, j_end, count) and
+    ``runs`` (B, nd + 3) int32 on ``p``'s device; a pair's walk takes at
+    most ``qlen + tlen <= nd + 1`` steps."""
     d = p.cpu().numpy()
     st = starts.cpu().numpy()
     ql, tl, wl = (a.cpu().numpy() for a in (qlen, tlen, w))
@@ -69,15 +71,10 @@ def band_walk_plain(p, starts, qlen, tlen, w):
                 state = tmp & 7
             if force >= 0:
                 state = force
-            if state == 0:
-                o = int(CigarOp.MATCH)
+            o = state_op(state, min_intron)
+            if o != int(CigarOp.INS):
                 i -= 1
-                j -= 1
-            elif state in (1, 3):
-                o = int(CigarOp.DEL)
-                i -= 1
-            else:
-                o = int(CigarOp.INS)
+            if o in (int(CigarOp.MATCH), int(CigarOp.INS)):
                 j -= 1
             if o == op:
                 n += 1
@@ -94,7 +91,7 @@ def band_walk_plain(p, starts, qlen, tlen, w):
             torch.from_numpy(runs).to(p.device))
 
 
-def band_walk_cuda(p, starts, qlen, tlen, w):
+def band_walk_cuda(p, starts, qlen, tlen, w, min_intron: int = 0):
     """Launch ``csrc/band_walk.cu`` on the current stream; same contract
     as :func:`band_walk_plain` (runs past each pair's count are left
     unwritten)."""
@@ -118,38 +115,42 @@ def band_walk_cuda(p, starts, qlen, tlen, w):
     with torch.cuda.device(dev):
         err = lib.ksw2t_band_walk(
             p.data_ptr(), starts.data_ptr(), qlen.data_ptr(),
-            tlen.data_ptr(), w.data_ptr(), B, nd, ncol, wr, res.data_ptr(),
-            runs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            tlen.data_ptr(), w.data_ptr(), B, nd, ncol, wr, int(min_intron),
+            res.data_ptr(), runs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check(err, "band_walk")
     LAUNCHES["band_walk"] += 1
     return res, runs
 
 
-def band_walk(p, starts, qlen, tlen, w):
+def band_walk(p, starts, qlen, tlen, w, min_intron: int = 0):
     """The walker on the tensors' device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     if p.is_cuda:
-        return band_walk_cuda(p, starts, qlen, tlen, w)
+        return band_walk_cuda(p, starts, qlen, tlen, w, min_intron)
     if p.device.type != "cpu":
         raise ValueError(f"unsupported device {p.device}")
-    return band_walk_plain(p, starts, qlen, tlen, w)
+    return band_walk_plain(p, starts, qlen, tlen, w, min_intron)
 
 
 def band_cigar_launch(launch: BandLaunch, end_bonus: int, device,
-                      cuda=band_forward_cuda):
-    """Forward with bytes (CUDA kernel ``cuda``, see
-    :func:`ops.band.band_forward`), start cells (ksw2_extz2_sse.c:292-301)
-    and walker for one launch; returns (rec, res, runs) tensors on
-    ``device`` (enqueued, not synchronised).  The byte store is freed when
-    this returns."""
+                      cuda=band_forward_cuda, plain=band_forward_plain):
+    """Forward with bytes (the pair ``cuda`` / ``plain``, see
+    :func:`ops.band.band_forward`), start cells (ksw2_extz2_sse.c:292-301,
+    ksw2_exts2_sse.c:407-410) and walker for one launch; a splice launch
+    (one with site rows) walks state 3 as N.  Returns (rec, res, runs)
+    tensors on ``device`` (enqueued, not synchronised).  The byte store is
+    freed when this returns."""
     prm = launch.prm
     if not prm.cig:
         raise ValueError("a CIGAR launch needs cig=1 params")
-    qs, ts, ql, tl, w, table = band_upload(launch, device)
-    rec, p = band_forward(qs, ts, ql, tl, w, table, prm, launch.nd,
-                          launch.ncol, cuda)
+    args = band_upload(launch, device)
+    rec, p = band_forward(*args, prm, launch.nd, launch.ncol, cuda=cuda,
+                          plain=plain)
+    _, _, ql, tl, w = args[:5]
     starts = start_cells(rec, ql, tl, prm.flag, end_bonus)
-    res, runs = band_walk(p, starts, ql, tl, w)
+    res, runs = band_walk(p, starts, ql, tl, w,
+                          walk_min_intron(prm.lt, bool(launch.sites)))
     return rec, res, runs
 
 

@@ -17,8 +17,16 @@ two-piece (extd, ``two``) costs, score-only and with direction bytes
 
 Two-piece launches carry the POST-swap costs (the reference swaps the
 pieces when ``q2 + e2 < q + e``, ksw2_extd2_sse.c:78) and ``off0``, the
-offset of the reference's pre-swap H seed, which the replay adds.  The
-splice form (``spl``) is not ported.
+offset of the reference's pre-swap H seed, which the replay adds.
+
+The splice form (``spl``, exts; ``spec/strips_cigar.py:
+strips_exts_cigar``) adds the intron state ``NI``, a vertical carry with
+no per-row decay: ``cand3 = NI + acceptor(i)`` enters H, the donor is
+paid at the open, ``NI' = max(NI, H + donor(i) - q2)``; exts has no
+per-cell clamp, its boundary is flat after ``long_thres`` (``e2 = 0``),
+its direction bytes take code 3 with bit 0x20, and its Z-drop slope is 0.
+The launch carries each pair's donor and acceptor rows (``ops/
+splice.py``), one value a target row.
 
 :func:`replay_records` then replays the reference's per-diagonal ez
 automaton from those streams (``_postprocess`` in the JAX package).
@@ -55,7 +63,7 @@ TLENP_LADDER = (32, 64, 128, 256, 384, 512, 768, 1024, 1280, 1536,
 
 class StripParams(NamedTuple):
     """One launch's scalar parameters (the JAX package's ``StripParams``
-    without its TPU layout fields and the splice fields)."""
+    without its TPU layout fields)."""
     tv: int                # t-capacity of the merge key (>= max tlen)
     m: int
     q: int                 # post-swap when two
@@ -73,6 +81,7 @@ class StripParams(NamedTuple):
     ld: int = 0            # long_diff
     off0: int = 0          # reference pre-swap H-seed offset (extd quirk)
     cig: int = 0           # emit per-cell direction bytes
+    spl: int = 0           # spliced (exts) mode: q2 is the intron open
 
 
 class Launch(NamedTuple):
@@ -82,6 +91,8 @@ class Launch(NamedTuple):
     target: np.ndarray     # (B, tv) uint8
     qlen: np.ndarray       # (B,) int32
     tlen: np.ndarray       # (B,) int32
+    don: Optional[np.ndarray] = None   # spl: (B, tv) int16 donor rows
+    acc: Optional[np.ndarray] = None   # spl: (B, tv) int16 acceptor rows
 
 
 def key_params(tv: int) -> Tuple[int, int]:
@@ -228,14 +239,42 @@ def strips_extd_eligible(qlen, tlen, w, flag, m, mat, zdrop,
                                          q, e, q2, e2) is None
 
 
+def strips_exts_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop, q, e,
+                                  q2, junc_any: bool = False,
+                                  junc_bonus: int = 0) -> Optional[str]:
+    """Why a splice bucket cannot run on the strips route, or None:
+    ``strips_walker.strips_exts_eligible`` without its TPU cost model.
+    It refuses EQX and EXTZ_ONLY, any junction track in the bucket and
+    any ``junc_bonus``, a negative ``q2`` and degenerate scoring; then
+    the one-piece envelope, checked in score mode."""
+    f = int(flag)
+    if f & (int(Flag.EQX) | int(Flag.EXTZ_ONLY)):
+        return "EQX or EXTZ_ONLY (strips_walker.py:733-734)"
+    if junc_any or junc_bonus:
+        return ("junction tracks or a junc_bonus (strips_walker.py:"
+                "735-736)")
+    if int(q2) < 0:
+        return "a negative intron open q2"
+    if -int(np.asarray(mat).reshape(-1)[1:].min()) > 2 * (int(q) + int(e)):
+        return "degenerate scoring"
+    return strips_ineligible_reason(qlen, tlen, w, f | int(Flag.SCORE_ONLY),
+                                    m, mat, zdrop, q, e)
+
+
 def make_params(m, mat, q, e, zdrop, flag, tv, cig=False, two=False,
-                q2=0, e2=0) -> StripParams:
-    """A launch's params; two-piece callers pass PRE-swap costs."""
+                q2=0, e2=0, spl=False) -> StripParams:
+    """A launch's params; two-piece callers pass PRE-swap costs, splice
+    callers the intron open ``q2``.  A splice launch's site costs travel
+    in its donor and acceptor rows (``Launch.don`` / ``acc``), so the JAX
+    params' ``semi`` and ``non`` have no field here."""
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     q, e = int(q), int(e)
     lt = ld = off0 = 0
     if two:
         q, e, q2, e2, off0 = canonical_costs(q, e, q2, e2)
+        lt, ld = long_params(q, e, q2, e2)
+    elif spl:
+        e2 = 0                   # exts: strips_walker.py:815-818
         lt, ld = long_params(q, e, q2, e2)
     else:
         q2 = e2 = 0
@@ -247,7 +286,7 @@ def make_params(m, mat, q, e, zdrop, flag, tv, cig=False, two=False,
         sc_mis=int(mat[1]), sc_N=sc_N, zdrop=int(zdrop), flag=int(flag),
         matt=tuple(int(v) for v in mat) if generic else (),
         two=int(bool(two)), q2=int(q2), e2=int(e2), lt=lt, ld=ld,
-        off0=off0, cig=int(bool(cig)))
+        off0=off0, cig=int(bool(cig)), spl=int(bool(spl)))
 
 
 def score_table(prm: StripParams) -> np.ndarray:
@@ -266,23 +305,28 @@ def score_table(prm: StripParams) -> np.ndarray:
 
 def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
                 cig: bool = False, two: bool = False, q2: int = 0,
-                e2: int = 0) -> List[Launch]:
+                e2: int = 0, spl: bool = False,
+                noncan: int = 0) -> List[Launch]:
     """Plan and pad one bucket's launches (host only, no device work).
 
     ``query``/``target`` are lists of per-job 1-D symbol arrays.  A
     launch holds as many pairs as fit in ``LAUNCH_BYTES`` of outputs;
     its query width is the launch's longest query (rounded to 32) and
     its target capacity the canonical ``tv``.  Two-piece callers pass
-    PRE-swap costs.  Callers must have checked eligibility.
+    PRE-swap costs; splice (``spl``) launches carry their donor and
+    acceptor rows.  Callers must have checked eligibility.
     """
+    from .splice import splice_profiles
+
     qlen = np.asarray(qlen, np.int32)
     tlen = np.asarray(tlen, np.int32)
     B = len(query)
     Lq = round_up(int(qlen.max()), 32)
     tv = _canon_tlenp(int(tlen.max()))
-    per_pair = 12 * (Lq + tv) + (tv * Lq if cig else 0)
+    per_pair = 12 * (Lq + tv) + (tv * Lq if cig else 0) + (4 * tv if spl
+                                                            else 0)
     bmax = max(1, LAUNCH_BYTES // per_pair)
-    prm = make_params(m, mat, q, e, zdrop, flag, tv, cig, two, q2, e2)
+    prm = make_params(m, mat, q, e, zdrop, flag, tv, cig, two, q2, e2, spl)
     launches = []
     for i0 in range(0, B, bmax):
         ql = qlen[i0:i0 + bmax]
@@ -294,8 +338,23 @@ def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
             tpad[k, :tl[k]] = target[i0 + k]
         if max(int(qpad.max()), int(tpad.max())) >= m:
             raise ValueError(f"sequence symbols must be < m = {m}")
-        launches.append(Launch(prm, qpad, tpad, ql.copy(), tl.copy()))
+        don = acc = None
+        if spl:
+            # the JAX strips kernel's site classes: unwrapped values
+            don, acc = splice_profiles(tpad, tl, tv, noncan, flag,
+                                       wrap=False)
+        launches.append(Launch(prm, qpad, tpad, ql.copy(), tl.copy(), don,
+                               acc))
     return launches
+
+
+def strips_exts_prep(query, target, qlen, tlen, m, mat, q, e, q2, noncan,
+                     zdrop, flag, cig: bool = True) -> List[Launch]:
+    """The splice bucket's launches (``strips_walker.py:
+    strips_exts_cigar_prep``): the one-piece plan with ``spl`` params and
+    each pair's donor and acceptor rows, uploaded with the launch."""
+    return strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
+                       cig=cig, q2=q2, spl=True, noncan=noncan)
 
 
 # --------------------------------------------------------------------------
@@ -305,10 +364,11 @@ def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
 def boundary_h(prm: StripParams, i):
     """H(i, -1) (and H(-1, i)): the reference's virtual boundary.  One-
     piece: -(q + e + e*i).  Two-piece: -e steps until long_thres,
-    long_diff at it, -e2 after (ksw2_extd2_sse.c:156-163).  ``i`` is an
-    int or an int32 tensor."""
+    long_diff at it, -e2 after (ksw2_extd2_sse.c:156-163); splice: the
+    same with e2 = 0, flat after long_thres (ksw2_exts2_sse.c:179-181).
+    ``i`` is an int or an int32 tensor."""
     early = -(prm.q + prm.e + prm.e * i)
-    if not prm.two:
+    if not (prm.two or prm.spl):
         return early
     late = (-(prm.q + prm.e + prm.e * (prm.lt - 1)) + prm.ld
             - prm.e2 * (i - prm.lt))
@@ -326,7 +386,8 @@ def _chain(seed: int, A, j, e: int):
         - j * e
 
 
-def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
+def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams,
+                         sites=None):
     """Plain PyTorch version of ``csrc/strips_fwd.cu`` (same inputs and
     outputs): batched over the pairs, one Python step per target row,
     ``torch.cummax`` for the F prefix scans and ``scatter_reduce`` for D.
@@ -336,6 +397,11 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
     opens from Hc1 with (q2, e2); ``H = min(max(Hc1, F2), cv)``.  With
     ``cig`` a third chain ``Fb``, opened from the full clamped H, gives
     the bytes the DP's own F (``spec/strips_cigar.py:181-187``).
+
+    Splice rows (``spl``; ``sites`` = the (B, tv) donor and acceptor
+    rows): ``hnof = max(M, E, NI + va(i))``, no clamp, ``H = max(hnof,
+    F)``, ``NI' = max(NI, H + vd(i) - q2)`` (``spec/strips_cigar.py:
+    strips_exts_cigar``).
     """
     dev = qs.device
     i32 = torch.int32
@@ -345,7 +411,7 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
     KB, _ = key_params(prm.tv)
     m, q, e, mat0 = prm.m, prm.q, prm.e, prm.mat0
     q2, e2 = prm.q2, prm.e2
-    two = bool(prm.two)
+    two, spl = bool(prm.two), bool(prm.spl)
     gapoe, gapoe2 = q + e, q2 + e2
     right = bool(prm.flag & int(Flag.RIGHT))
     j = torch.arange(Lq, dtype=i32, device=dev)[None, :]
@@ -360,6 +426,9 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
     H = boundary_h(prm, j).expand(B, Lq).clone()     # H(-1, j)
     E = H - gapoe
     E2 = H - gapoe2 if two else None
+    if spl:
+        NI = H - q2
+        vdon, vacc = (x.to(device=dev, dtype=i32) for x in sites)
     D = torch.full((B, nd + 1), SENT, dtype=i32, device=dev)  # +1: sink
     Dq = torch.full((B, nd), SENT, dtype=i32, device=dev)
     hl = torch.full((B, Lq), SENT, dtype=i32, device=dev)
@@ -375,13 +444,19 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
         hnof = torch.maximum(Mv, E)
         if two:
             hnof = torch.maximum(hnof, E2)
+        if spl:
+            vd, va = vdon[:, i:i + 1], vacc[:, i:i + 1]
+            cand3 = NI + va
+            hnof = torch.maximum(hnof, cand3)
         cv = Hd + mat0
-        hnofc = torch.minimum(hnof, cv)
+        hnofc = hnof if spl else torch.minimum(hnof, cv)
         F = _chain(ci - gapoe, hnofc + j * e - q, j, e)
         if two:
             Hc1 = torch.minimum(torch.maximum(hnof, F), cv)
             F2 = _chain(ci - gapoe2, Hc1 + j * e2 - q2, j, e2)
             Hn = torch.minimum(torch.maximum(Hc1, F2), cv)
+        elif spl:
+            Hn = torch.maximum(hnof, F)              # exts: no clamp
         else:
             Hn = torch.minimum(torch.maximum(hnof, F), cv)
         En = torch.maximum(E - e, Hn - gapoe)
@@ -399,6 +474,8 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
                     d = torch.where(z > E2, d, 3)
                     z = torch.maximum(z, E2)
                     d = torch.where(z > F2, d, 4)
+                if spl:
+                    d = torch.where(torch.maximum(z, Fb) > cand3, d, 3)
                 ca, cb = E >= Hn - q, Fb >= Hn - q
             else:
                 d = torch.where(E > Mv, 1, 0)
@@ -408,6 +485,8 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
                     d = torch.where(E2 > z, 3, d)
                     z = torch.maximum(z, E2)
                     d = torch.where(F2 > z, 4, d)
+                if spl:
+                    d = torch.where(cand3 > torch.maximum(z, Fb), 3, d)
                 ca, cb = E > Hn - q, Fb > Hn - q
             d = d | torch.where(ca, 0x08, 0) | torch.where(cb, 0x10, 0)
             if two:
@@ -416,9 +495,16 @@ def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams):
                 else:
                     ca2, cb2 = E2 > Hn - q2, F2 > Hn - q2
                 d = d | torch.where(ca2, 0x20, 0) | torch.where(cb2, 0x40, 0)
+            if spl:
+                # 0x20: the intron continues (wavefront_strips.py:341-347)
+                cd = NI + q2 - Hn
+                cd = cd >= vd if right else cd > vd
+                d = d | torch.where(cd, 0x20, 0)
             d8[:, i] = d.to(torch.uint8)
         if two:
             E2 = torch.maximum(E2 - e2, Hn - gapoe2)
+        if spl:
+            NI = torch.maximum(NI, Hn + vd - q2)
         live = jmask & (i < tlc)
         r = i + j
         st0 = torch.clamp(r - qlc + 1, min=0)
@@ -455,14 +541,16 @@ def fwd_smem_bytes(Lq: int, tv: int, prm: StripParams) -> int:
     """Dynamic shared memory of one kernel-A block (the layout at the
     head of ``csrc/strips_fwd.cu``): D, two H rows, E, the score table,
     the scans' warp totals and the query; two-piece adds E2 and one row
-    of scratch and a warp-total array per extra scan."""
+    of scratch and a warp-total array per extra scan, splice the NI
+    row."""
     if not prm.two:
-        return 4 * (Lq + tv + 3 * Lq + 64 + 32) + Lq
+        return 4 * (Lq + tv + (4 if prm.spl else 3) * Lq + 64 + 32) + Lq
     nscan = 3 if prm.cig else 2
     return 4 * (Lq + tv + 5 * Lq + 64 + 32 * nscan) + Lq
 
 
-def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
+def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams,
+                        sites=None):
     """Launch ``csrc/strips_fwd.cu`` on the current stream; same
     contract as :func:`strips_forward_plain` (outputs from torch.empty:
     d8 cells outside a pair's (tlen, qlen) are left unwritten)."""
@@ -477,6 +565,13 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
     _check_cuda(table, torch.int32, (prm.m * prm.m,), "table", dev)
     if prm.m > 8:
         raise ValueError("the forward kernel takes m <= 8")
+    don = acc = None
+    if prm.spl:
+        if sites is None:
+            raise ValueError("a splice launch needs its donor/acceptor rows")
+        don, acc = sites
+        _check_cuda(don, torch.int16, (B, tv), "donor rows", dev)
+        _check_cuda(acc, torch.int16, (B, tv), "acceptor rows", dev)
     smem = fwd_smem_bytes(Lq, tv, prm)
     if smem > SMEM_MAX:
         raise ValueError(f"launch needs {smem} B of shared memory")
@@ -491,10 +586,11 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
     with torch.cuda.device(dev):
         err = lib.ksw2t_strips_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-            table.data_ptr(), B, Lq, tv, prm.m, prm.q, prm.e, prm.q2,
-            prm.e2, prm.lt, prm.ld, prm.mat0, KB,
+            table.data_ptr(), don.data_ptr() if prm.spl else None,
+            acc.data_ptr() if prm.spl else None, B, Lq, tv, prm.m, prm.q,
+            prm.e, prm.q2, prm.e2, prm.lt, prm.ld, prm.mat0, KB,
             int(bool(prm.flag & int(Flag.RIGHT))), prm.cig, prm.two,
-            min(512, round_up(Lq, 32)),
+            prm.spl, min(512, round_up(Lq, 32)),
             D.data_ptr(), Dq.data_ptr(), hl.data_ptr(),
             d8.data_ptr() if d8 is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -503,14 +599,16 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams):
     return D, Dq, hl, d8
 
 
-def strips_forward(qs, ts, qlen, tlen, table, prm: StripParams):
+def strips_forward(qs, ts, qlen, tlen, table, prm: StripParams,
+                   sites=None):
     """The forward on the tensors' device: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors.  ``sites`` are a splice
+    launch's donor and acceptor rows (:func:`site_rows`)."""
     if qs.is_cuda:
-        return strips_forward_cuda(qs, ts, qlen, tlen, table, prm)
+        return strips_forward_cuda(qs, ts, qlen, tlen, table, prm, sites)
     if qs.device.type != "cpu":
         raise ValueError(f"unsupported device {qs.device}")
-    return strips_forward_plain(qs, ts, qlen, tlen, table, prm)
+    return strips_forward_plain(qs, ts, qlen, tlen, table, prm, sites)
 
 
 # --------------------------------------------------------------------------
@@ -564,8 +662,9 @@ def replay_records(prm: StripParams, D, Dq, hl, qlen, tlen):
     mqp = torch.cat([zero - 1, mq[:, :-1]], dim=1)
 
     BIG = 2 ** 30
-    # Z-drop gap slope: e2 for extd (ksw2_extd2_sse.c:364), e one-piece
-    ze = prm.e2 if prm.two else prm.e
+    # Z-drop gap slope: e2 for extd (ksw2_extd2_sse.c:364), 0 for exts
+    # (ksw2_exts2_sse.c:395-398), e one-piece
+    ze = 0 if prm.spl else (prm.e2 if prm.two else prm.e)
     if prm.zdrop >= 0:
         ln = torch.abs((maxt - mtp) - ((r - maxt) - mqp))
         trig = (valid & ~(M > mxp) & (maxt >= mtp) & ((r - maxt) >= mqp)
@@ -644,11 +743,23 @@ def upload(launch: Launch, device):
     return tuple(t.pin_memory().to(dev, non_blocking=True) for t in host)
 
 
+def site_rows(launch: Launch, device):
+    """A splice launch's (donor, acceptor) rows on ``device``, staged as
+    :func:`upload` stages; None for other launches."""
+    if not launch.prm.spl:
+        return None
+    rows = [torch.from_numpy(a) for a in (launch.don, launch.acc)]
+    if torch.device(device).type != "cuda":
+        return tuple(rows)
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in rows)
+
+
 def strips_records(launch: Launch, device):
     """Forward + replay of one score launch; (B, 9) int32 records on
     ``device`` (enqueued, not synchronised)."""
     qs, ts, ql, tl, table = upload(launch, device)
-    D, Dq, hl, _ = strips_forward(qs, ts, ql, tl, table, launch.prm)
+    D, Dq, hl, _ = strips_forward(qs, ts, ql, tl, table, launch.prm,
+                                  site_rows(launch, device))
     return replay_records(launch.prm, D, Dq, hl, ql, tl)
 
 
@@ -656,7 +767,8 @@ __all__ = ["StripParams", "Launch", "SENT", "QMAX", "TMAX",
            "TLENP_LADDER", "key_params", "strips_eligible",
            "strips_ineligible_reason", "long_params", "canonical_costs",
            "strips_extd_eligible", "strips_extd_ineligible_reason",
-           "make_params", "score_table", "strips_prep", "boundary_h",
+           "strips_exts_ineligible_reason", "make_params", "score_table",
+           "strips_prep", "strips_exts_prep", "boundary_h",
            "fwd_smem_bytes", "strips_forward", "strips_forward_plain",
-           "strips_forward_cuda", "replay_records", "upload",
+           "strips_forward_cuda", "replay_records", "upload", "site_rows",
            "strips_records"]

@@ -1,17 +1,19 @@
 """Strips CIGARs: start cells, the walker, CIGAR assembly.
 
-Port of ``ksw2_tpu/ops/strips_walker.py`` for one-piece (3-state) and
-two-piece (5-state) bytes.  The forward (``ops/strips.py`` with ``cig``)
-writes the reference's direction bytes row-major, ``d8[b, i, j]``; the
-walker runs ``ksw_backtrack`` (ksw2.h:129-161, ``is_rot = 0``, no band
-force states, ``min_intron_len = 0`` as ``ksw_extd2_sse`` calls it) from
-each pair's start cell and emits BAM runs ``len << 4 | op`` in walk
-order with ``(i_end, j_end, count)``; :func:`finish_runs_batch` adds the
-tail D and I runs, merges adjacent runs and reverses unless REV_CIGAR.
-States 3 and 4 and their 0x20 / 0x40 continuation bits need no code of
-their own: ``(byte >> (state + 2)) & 1`` reads them and states 1, 3 map
-to D and 2, 4 to I.  The JAX walker's 5-state I-run suffix scan, which
-only cuts the cells a serial TPU core visits, is not ported.
+Port of ``ksw2_tpu/ops/strips_walker.py`` for one-piece (3-state),
+two-piece and splice (5-state) bytes.  The forward (``ops/strips.py``
+with ``cig``) writes the reference's direction bytes row-major,
+``d8[b, i, j]``; the walker runs ``ksw_backtrack`` (ksw2.h:129-161,
+``is_rot = 0``, no band force states) from each pair's start cell and
+emits BAM runs ``len << 4 | op`` in walk order with ``(i_end, j_end,
+count)``; :func:`finish_runs_batch` adds the tail D (or N) and I runs,
+merges adjacent runs and reverses unless REV_CIGAR.  States 3 and 4 and
+their 0x20 / 0x40 continuation bits need no code of their own:
+``(byte >> (state + 2)) & 1`` reads them and states 1, 3 map to D and 2,
+4 to I; with ``min_intron > 0`` (the ``nop`` form: splice bytes, where
+``ksw_exts2_sse`` passes ``min_intron_len = long_thres``) state 3 maps to
+N.  The JAX walker's 5-state I-run suffix scan, which only cuts the
+cells a serial TPU core visits, is not ported.
 
 The walker has two implementations: ``csrc/strips_walk.cu`` for CUDA
 tensors and :func:`strips_walk_plain` for CPU tensors.  Its runs buffer
@@ -29,8 +31,9 @@ from .._build import LAUNCHES, check, library
 from ..core.flags import CigarOp, Flag
 from ..core.result import ExtzResult
 from .records import unpack_records
-from .strips import (Launch, replay_records, strips_extd_ineligible_reason,
-                     strips_forward, strips_ineligible_reason, upload)
+from .strips import (Launch, replay_records, site_rows,
+                     strips_extd_ineligible_reason, strips_forward,
+                     strips_ineligible_reason, upload)
 
 
 def strips_cigar_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
@@ -90,7 +93,18 @@ def start_cells(rec, qlen, tlen, flag, end_bonus: int):
 # Kernel B: the walker, its plain version and its wrapper
 
 
-def strips_walk_plain(d8, starts):
+def state_op(state: int, min_intron: int) -> int:
+    """The BAM op a backtrack state emits (ksw2.h:148-155)."""
+    if state == 0:
+        return int(CigarOp.MATCH)
+    if state == 1 or (state == 3 and min_intron <= 0):
+        return int(CigarOp.DEL)
+    if state == 3:
+        return int(CigarOp.N_SKIP)
+    return int(CigarOp.INS)
+
+
+def strips_walk_plain(d8, starts, min_intron: int = 0):
     """Plain version of ``csrc/strips_walk.cu``: ``ksw_backtrack`` pair
     by pair.  Returns ``res`` (B, 3) int32 (i_end, j_end, count) and
     ``runs`` (B, Lq + tv + 2) int32 on ``d8``'s device."""
@@ -111,15 +125,10 @@ def strips_walk_plain(d8, starts):
                 state = 0
             if state == 0:
                 state = tmp & 7
-            if state == 0:
-                o = int(CigarOp.MATCH)
+            o = state_op(state, min_intron)
+            if o != int(CigarOp.INS):
                 i -= 1
-                j -= 1
-            elif state in (1, 3):
-                o = int(CigarOp.DEL)
-                i -= 1
-            else:
-                o = int(CigarOp.INS)
+            if o in (int(CigarOp.MATCH), int(CigarOp.INS)):
                 j -= 1
             if o == op:
                 n += 1
@@ -136,7 +145,7 @@ def strips_walk_plain(d8, starts):
             torch.from_numpy(runs).to(d8.device))
 
 
-def strips_walk_cuda(d8, starts):
+def strips_walk_cuda(d8, starts, min_intron: int = 0):
     """Launch ``csrc/strips_walk.cu`` on the current stream; same
     contract as :func:`strips_walk_plain` (runs past each pair's count
     are left unwritten)."""
@@ -157,22 +166,22 @@ def strips_walk_cuda(d8, starts):
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(d8.device):
         err = lib.ksw2t_strips_walk(
-            d8.data_ptr(), starts.data_ptr(), B, tv, Lq, wr, res.data_ptr(),
-            runs.data_ptr(),
+            d8.data_ptr(), starts.data_ptr(), B, tv, Lq, wr,
+            int(min_intron), res.data_ptr(), runs.data_ptr(),
             torch.cuda.current_stream(d8.device).cuda_stream)
     check(err, "strips_walk")
     LAUNCHES["strips_walk"] += 1
     return res, runs
 
 
-def strips_walk(d8, starts):
+def strips_walk(d8, starts, min_intron: int = 0):
     """The walker on the tensors' device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors."""
     if d8.is_cuda:
-        return strips_walk_cuda(d8, starts)
+        return strips_walk_cuda(d8, starts, min_intron)
     if d8.device.type != "cpu":
         raise ValueError(f"unsupported device {d8.device}")
-    return strips_walk_plain(d8, starts)
+    return strips_walk_plain(d8, starts, min_intron)
 
 
 # --------------------------------------------------------------------------
@@ -228,13 +237,15 @@ def finish_runs_batch(runs_mat: np.ndarray, counts: np.ndarray,
 
 
 def unpack_cigars(rec: np.ndarray, res: np.ndarray, runs: np.ndarray,
-                  mat, q: int, e: int, end_bonus: int, flag
-                  ) -> List[ExtzResult]:
+                  mat, q: int, e: int, end_bonus: int, flag,
+                  min_intron: int = 0) -> List[ExtzResult]:
     """One launch's host records, walker results and runs -> per-pair
     ExtzResults (``unpack_cigar_flat`` without the overflow re-walk).
     ``q``/``e`` are the launch's POST-swap costs, as in
-    ``strips_walker.py:1064-1066``.  Degenerate scoring never gets here:
-    the scheduler resets those jobs before routing."""
+    ``strips_walker.py:1064-1066``; splice launches pass ``min_intron =
+    long_thres`` for the tail N (``strips_walker.py:1075-1081``).
+    Degenerate scoring never gets here: the scheduler resets those jobs
+    before routing."""
     flag = Flag(int(flag))
     is_rev = bool(flag & Flag.REV_CIGAR)
     extz_only = bool(flag & Flag.EXTZ_ONLY)
@@ -247,7 +258,7 @@ def unpack_cigars(rec: np.ndarray, res: np.ndarray, runs: np.ndarray,
     cigs = finish_runs_batch(
         runs, np.where(had_start, res[:, 2], 0),
         np.where(had_start, res[:, 0], -1),
-        np.where(had_start, res[:, 1], -1), 0, is_rev)
+        np.where(had_start, res[:, 1], -1), min_intron, is_rev)
     out = []
     for p in range(rec.shape[0]):
         ez = ExtzResult(
@@ -272,14 +283,25 @@ def strips_cigar_launch(launch: Launch, end_bonus: int, device):
     if not prm.cig:
         raise ValueError("a CIGAR launch needs cig=1 params")
     qs, ts, ql, tl, table = upload(launch, device)
-    D, Dq, hl, d8 = strips_forward(qs, ts, ql, tl, table, prm)
+    D, Dq, hl, d8 = strips_forward(qs, ts, ql, tl, table, prm,
+                                   site_rows(launch, device))
     rec = replay_records(prm, D, Dq, hl, ql, tl)
     starts = start_cells(rec, ql, tl, prm.flag, end_bonus)
-    res, runs = strips_walk(d8, starts)
+    res, runs = strips_walk(d8, starts, walk_min_intron(prm.lt, prm.spl))
     return rec, res, runs
+
+
+def walk_min_intron(lt: int, spl) -> int:
+    """The walkers' ``min_intron`` for a launch's bytes: splice bytes
+    (``spl``) walk state 3 as N (the JAX walker's ``nop``), even when
+    ``long_thres`` is 0 (``q2 <= q + e``, which only the strips route
+    runs); other bytes pass 0.  The CIGAR's tail N still tests
+    ``long_thres`` itself (``unpack_cigars``)."""
+    return max(int(lt), 1) if spl else 0
 
 
 __all__ = ["strips_cigar_ineligible_reason",
            "strips_cigar_extd_ineligible_reason", "start_cells",
-           "strips_walk", "strips_walk_plain", "strips_walk_cuda",
-           "finish_runs_batch", "unpack_cigars", "strips_cigar_launch"]
+           "state_op", "strips_walk", "strips_walk_plain", "strips_walk_cuda",
+           "finish_runs_batch", "unpack_cigars", "strips_cigar_launch",
+           "walk_min_intron"]

@@ -23,6 +23,10 @@ from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import band_walker as BW
 from ksw2_tpu_torch.ops import bands
 
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
+
 MAT = simple_mat(5, 2, 4)
 GMAT = np.array([[3, -2, -4, -3, 0],
                  [-3, 2, -2, -4, 0],

@@ -9,6 +9,7 @@ tests/test_band.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import refcmp
 from ksw2_tpu.core.flags import Flag
@@ -17,6 +18,10 @@ from ksw2_tpu.ops import band_batch as jband
 
 from test_torch_band import EXTD, GMAT, MAT, _fields, _mk, _padded, _port, \
     _spec
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 
 def _tsv(ez):

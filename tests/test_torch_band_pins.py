@@ -14,11 +14,16 @@ import os
 from concurrent.futures import ProcessPoolExecutor
 
 import pytest
+import torch
 
 import chip_smoke
 from ksw2_tpu.core.flags import Flag
 from ksw2_tpu.core.matrix import simple_mat
 from ksw2_tpu.spec import diagdiff
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 MAT = simple_mat(5, 2, 4)
 

@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import ksw2_tpu
 import ksw2_tpu.core.cigar
@@ -26,6 +27,10 @@ from ksw2_tpu_torch.convert import aligner_from_jax
 from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import band_walker as BW
 from ksw2_tpu_torch.ops import strips
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cases.jsonl")
 MAT = simple_mat(5, 2, 4)

@@ -26,6 +26,10 @@ from ksw2_tpu_torch.batch import scheduler as sched
 from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import batch as BT
 
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
+
 MAT = simple_mat(5, 2, 4)
 GMAT = np.array([[3, -2, -4, -3, 0],
                  [-3, 2, -2, -4, 0],
@@ -185,11 +189,11 @@ def test_batch_forward_refuses_what_the_kernel_does_not_take():
     args = BD.band_upload(ln, "cpu")
     with pytest.raises(ValueError, match="device"):
         BD.band_forward(*(t.to("meta") for t in args), ln.prm, ln.nd,
-                        ln.ncol, BT.batch_forward_cuda)
+                        ln.ncol, cuda=BT.batch_forward_cuda)
     with pytest.raises(ValueError, match="CUDA"):
         BT.batch_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
     rec, p = BD.band_forward(*args, ln.prm, ln.nd, ln.ncol,
-                             BT.batch_forward_cuda)
+                             cuda=BT.batch_forward_cuda)
     assert rec.dtype == torch.int32 and rec.shape == (2, 9) and p is None
     assert BT.strip_len(3072) == 3104 and BT.strip_len(100) == 128
     # a warp's strip: int32 H and 4 (6) int8 planes, s and the target

@@ -16,6 +16,7 @@ reference does: the batched route converts them, as
 """
 import numpy as np
 import pytest
+import torch
 
 from ksw2_tpu.core import cigar as jcigar
 from ksw2_tpu.core.flags import Flag
@@ -30,6 +31,10 @@ from ksw2_tpu_torch.ops.bands import band_bounds_rounded, first_empty_diag
 
 from test_torch_batch import (EXTD, GMAT, MAT, SWAPPED, bands, fields,
                               padded, pairs_of, spec_ez)
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 
 def port_cigars(pairs, wv, zdrop, flag, costs=None, mat=MAT, end_bonus=0):
@@ -98,7 +103,7 @@ def test_batch_bytes_match_jax_planes(case):
                          *padded(pairs)[2:], wv, 5, mat, q, e, -1, flag,
                          cig=True, two=costs is not None, q2=q2, e2=e2)
     rec, p = BD.band_forward(*BD.band_upload(ln, "cpu"), ln.prm, ln.nd,
-                             ln.ncol, BT.batch_forward_cuda)
+                             ln.ncol, cuda=BT.batch_forward_cuda)
     p = p.numpy()
     jrec, jp, P = jax_planes(pairs, wv, -1, flag, costs, mat, width)
     assert np.array_equal(rec.numpy(), jrec)

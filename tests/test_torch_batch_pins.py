@@ -16,6 +16,7 @@ import os
 from concurrent.futures import ProcessPoolExecutor
 
 import pytest
+import torch
 
 import chip_smoke
 from ksw2_tpu.core.flags import Flag
@@ -23,6 +24,10 @@ from ksw2_tpu.core.matrix import simple_mat
 from ksw2_tpu.spec import diagdiff
 
 from ksw2_tpu_torch import Aligner
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 MAT = simple_mat(5, 2, 4)
 APPROX = Flag.APPROX_MAX | Flag.APPROX_DROP

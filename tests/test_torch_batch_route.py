@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import refcmp
 from ksw2_tpu.batch.scheduler import AlignJob as JAlignJob
@@ -22,6 +23,10 @@ from ksw2_tpu.spec import diagdiff
 
 from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.batch import scheduler as sched
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cases.jsonl")
 MAT = simple_mat(5, 2, 4)

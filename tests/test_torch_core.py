@@ -26,6 +26,10 @@ from ksw2_tpu_torch.core import cigar, flags, matrix
 from ksw2_tpu_torch.core.result import ExtzResult
 from ksw2_tpu_torch.ops import strips, strips_walker
 
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

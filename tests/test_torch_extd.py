@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import ksw2_tpu
 import refcmp
@@ -35,6 +36,10 @@ from ksw2_tpu_torch.convert import aligner_from_jax, strip_params_from_jax
 from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import strips as S
 from ksw2_tpu_torch.ops import strips_walker as W
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 MAT = simple_mat(5, 2, -4)
 GEN = np.array([[3, -5, -2, -6, -1],

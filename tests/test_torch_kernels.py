@@ -10,13 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_pair
+from chip_smoke import random_pair, spliced_pair
 from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.core.matrix import encode_dna, simple_mat
 from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import band_walker as BW
 from ksw2_tpu_torch.ops import batch as BT
+from ksw2_tpu_torch.ops import batch_exts as BE
 from ksw2_tpu_torch.ops import rows as R
 from ksw2_tpu_torch.ops import strips as S
 from ksw2_tpu_torch.ops import strips_walker as W
@@ -257,6 +258,136 @@ def test_batch_forward_kernel_matches_plain(cuda_device, costs, flag, zdrop):
         for b in range(len(ql)):
             n = int(kres[b, 2])
             assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+SPL_MAT = simple_mat(5, 1, 2)
+SPLICE_FORMS = [(Flag.SPLICE_FOR | Flag.SCORE_ONLY, 200),
+                (Flag.SPLICE_FOR, 200), (Flag.SPLICE_FOR | Flag.RIGHT, -1),
+                (Flag.SPLICE_REV | Flag.SPLICE_FLANK, 30),
+                (Flag.SPLICE_FOR | Flag.GENERIC_SC, 200)]
+
+
+def _splice_pairs(seed):
+    """Seeded spliced pairs (a GT..AG intron, 5% substitutions, N bases)
+    on targets of 30 to 1500, and edge shapes."""
+    rng = np.random.default_rng(seed)
+    pairs = [spliced_pair(rng, L, with_n=True)
+             for L in (30, 120, 512, 700, 1500)]
+    pairs += [(rng.integers(0, 5, ql).astype(np.uint8),
+               rng.integers(0, 5, tl).astype(np.uint8))
+              for ql, tl in [(1, 1), (1, 129), (129, 1), (128, 129)]]
+    return pairs
+
+
+def _splice_launch(seed, flag, zdrop):
+    """One strips launch of spliced pairs at -x splice costs (noncan 9)."""
+    pairs = _splice_pairs(seed)
+    ql = np.array([len(q) for q, _ in pairs], np.int32)
+    tl = np.array([len(t) for _, t in pairs], np.int32)
+    (ln,) = S.strips_exts_prep([q for q, _ in pairs], [t for _, t in pairs],
+                               ql, tl, 5, GEN if flag & Flag.GENERIC_SC
+                               else SPL_MAT, 2, 1, 32, 9, zdrop, flag,
+                               cig=not flag & Flag.SCORE_ONLY)
+    return pairs, ln
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,zdrop", SPLICE_FORMS)
+def test_splice_forward_kernel_matches_plain(cuda_device, flag, zdrop):
+    """The strips forward's spl form against its plain version, and the
+    walker's nop form on its bytes."""
+    pairs, ln = _splice_launch(63, flag, zdrop)
+    args = S.upload(ln, cuda_device)
+    sites = S.site_rows(ln, cuda_device)
+    kd = S.strips_forward_cuda(*args, ln.prm, sites)
+    pd = S.strips_forward_plain(*args, ln.prm, sites)
+    for a, b in zip(kd[:3], pd[:3]):
+        assert torch.equal(a, b)
+    if not ln.prm.cig:
+        return
+    for b, (q, t) in enumerate(pairs):
+        assert torch.equal(kd[3][b, :len(t), :len(q)],
+                           pd[3][b, :len(t), :len(q)])
+    _, _, ql, tl, _ = args
+    rec = S.replay_records(ln.prm, *kd[:3], ql, tl)
+    starts = W.start_cells(rec, ql, tl, flag, 0)
+    kres, kruns = W.strips_walk_cuda(kd[3], starts, ln.prm.lt)
+    pres, pruns = W.strips_walk_plain(kd[3], starts, ln.prm.lt)
+    assert torch.equal(kres, pres)
+    for b in range(len(pairs)):
+        n = int(kres[b, 2])
+        assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+def _exts_launch(seed, flag, zdrop, junc_bonus=0):
+    """One batched exts launch of spliced pairs at -x splice costs; with
+    ``junc_bonus`` every pair carries a junction track at its site."""
+    pairs = _splice_pairs(seed)
+    juncs = None
+    if junc_bonus:
+        juncs = []
+        for _, t in pairs:
+            j = np.zeros(len(t), np.uint8)
+            j[len(t) // 3] = 1
+            j[2 * len(t) // 3] = 2
+            juncs.append(j)
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    (ln,) = BE.batch_exts_prep(qs, ts, [len(a) for a in qs],
+                               [len(b) for b in ts], 5,
+                               GEN if flag & Flag.GENERIC_SC else SPL_MAT, 2,
+                               1, 32, 9, zdrop, flag, juncs, junc_bonus,
+                               cig=not flag & Flag.SCORE_ONLY)
+    return ln
+
+
+EXTS_FORMS = SPLICE_FORMS + [
+    (Flag.SPLICE_FOR | Flag.SCORE_ONLY | Flag.APPROX_MAX, -1),
+    (Flag.SPLICE_FOR | Flag.APPROX_MAX | Flag.APPROX_DROP, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("junc_bonus", [0, 9])
+@pytest.mark.parametrize("flag,zdrop", EXTS_FORMS)
+def test_batch_exts_forward_kernel_matches_plain(cuda_device, flag, zdrop,
+                                                 junc_bonus):
+    """Kernel 6 against its plain version: records and bytes, and the
+    band walker with min_intron on the kernel's bytes."""
+    ln = _exts_launch(64, flag, zdrop, junc_bonus)
+    args = BD.band_upload(ln, cuda_device)
+    krec, kp = BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
+    prec, pp = BE.batch_exts_forward_plain(*args, ln.prm, ln.nd, ln.ncol)
+    assert torch.equal(krec, prec)
+    if not ln.prm.cig:
+        return
+    assert torch.equal(kp, pp)
+    _, _, ql, tl, w = args[:5]
+    starts = W.start_cells(krec, ql, tl, flag, 0)
+    kres, kruns = BW.band_walk_cuda(kp, starts, ql, tl, w, ln.prm.lt)
+    pres, pruns = BW.band_walk_plain(kp, starts, ql, tl, w, ln.prm.lt)
+    assert torch.equal(kres, pres)
+    for b in range(len(ql)):
+        n = int(kres[b, 2])
+        assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [Flag.SPLICE_FOR,
+                                  Flag.SPLICE_FOR | Flag.SCORE_ONLY])
+@pytest.mark.parametrize("junc_bonus", [0, 9])
+def test_splice_aligner_matches_cpu(cuda_device, flag, junc_bonus):
+    """Aligner(splice=True) on the card and on the CPU: the strips route
+    without tracks, the batched exts route with them."""
+    pairs = _splice_pairs(65)
+    juncs = [np.full(len(t), 3, np.uint8) for _, t in pairs]
+    kw = dict(a=1, b=2, q=2, e=1, q2=32, splice=True, noncan=9,
+              junc_bonus=junc_bonus, zdrop=200, flag=flag)
+    for tracks in (None, juncs):
+        want = Aligner(device="cpu", **kw).extend_batch(pairs, juncs=tracks)
+        got = Aligner(**kw).extend_batch(pairs, juncs=tracks)
+        assert [(g.max, g.max_t, g.max_q, g.mqe, g.mte, g.score, g.cigar)
+                for g in got] == \
+            [(w.max, w.max_t, w.max_q, w.mqe, w.mte, w.score, w.cigar)
+             for w in want]
 
 
 @pytest.mark.cuda

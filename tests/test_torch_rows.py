@@ -25,6 +25,10 @@ from ksw2_tpu_torch.batch import scheduler as sched
 from ksw2_tpu_torch.ops import rows as R
 from ksw2_tpu_torch.ops import strips as S
 
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
+
 MAT = simple_mat(5, 2, -4)
 GEN = np.array([[3, -5, -2, -6, -1],
                 [-5, 2, -6, -3, -1],

@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import ksw2_tpu
 import refcmp
@@ -24,6 +25,10 @@ from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.batch.scheduler import AlignJob, align_batch_scores_async
 from ksw2_tpu_torch.convert import aligner_from_jax
 from ksw2_tpu_torch.ops.strips import strips_ineligible_reason
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "cases.jsonl")
 
@@ -181,13 +186,13 @@ def test_out_of_envelope_raises():
     plain = Aligner(q2=24, e2=1, zdrop=100, flag=Flag.SCORE_ONLY,
                     device="cpu").extend_batch([(q, t)])
     assert _row(bonus[0]) == _row(plain[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(ValueError, match="q2"):
         Aligner(splice=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         aln.global_align(q, t)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         aln.extend_batch([(q, t)], mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(ValueError, match="splice"):
         aln.extend_batch([(q, t)], juncs=[None])
 
 

@@ -21,6 +21,10 @@ from ksw2_tpu.spec import strips_cigar as scig
 from ksw2_tpu_torch.convert import strip_params_from_jax
 from ksw2_tpu_torch.ops import strips as S
 
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
+
 MAT = simple_mat(5, 2, -4)
 GEN = np.array([[3, -5, -2, -6, -1],
                 [-5, 2, -6, -3, -1],
@@ -139,8 +143,24 @@ def test_launch_params_match_jax_prep():
         (ln,) = S.strips_prep([q for q, _ in pairs], [t for _, t in pairs],
                               ql, tl, 5, mat, 4, 2, 100, flag)
         assert strip_params_from_jax(jl[0]._asdict()) == ln.prm
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        strip_params_from_jax(jl[0]._replace(spl=1)._asdict())
+    # splice launches carry spl, the intron open q2 and long_thres; the
+    # site costs semi and non are the values of their donor and acceptor
+    # rows
+    from ksw2_tpu.ops.strips_walker import strips_exts_cigar_prep
+    smat = simple_mat(5, 1, 2)
+    for flag in (Flag.SPLICE_FOR,
+                 Flag.SPLICE_FOR | Flag.SPLICE_FLANK | Flag.SCORE_ONLY):
+        cig = not flag & Flag.SCORE_ONLY
+        args = ([q for q, _ in pairs], [t for _, t in pairs], ql, tl, 5,
+                smat, 2, 1, 32, 9, 200, flag)
+        jl = strips_exts_cigar_prep(*args, cig=cig)
+        (ln,) = S.strips_exts_prep(*args, cig=cig)
+        jp = jl[0][0]
+        assert strip_params_from_jax(jp._asdict()) == ln.prm
+        assert ln.prm.spl == 1 and jp.non == -9
+        for rows in (ln.don, ln.acc):
+            assert set(np.unique(rows)) <= {0, jp.semi, jp.non}
+            assert jp.non in rows
 
 
 def test_eligibility_matches_jax():

@@ -9,6 +9,7 @@ needs a card, is in tests/test_torch_kernels.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import refcmp
 from ksw2_tpu.core.flags import Flag
@@ -19,6 +20,10 @@ from ksw2_tpu.spec.strips_cigar import strips_extz_cigar
 from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.ops import strips as S
 from ksw2_tpu_torch.ops import strips_walker as W
+
+# one intra-op thread a process: tier-1 runs several pytest workers on
+# the CPU's cores, where per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 MAT = simple_mat(5, 2, -4)
 
