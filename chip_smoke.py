@@ -35,6 +35,13 @@ Phases, each printing one JSON line:
    pairs of 30-1500 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
    tracks) and on the one launch of each form the scheduler makes of the
    splice workload (below);
+5e. single: kernel 12 (single-pair forward, tiles of 128 positions:
+   pairs of 30-1500 bp over 1-12 tiles; score, CIG and APPROX forms,
+   w -1, 0, 1, 16, 751 and 2000, zdrop -1/100, RIGHT, GENERIC_SC,
+   EXTZ_ONLY with end_bonus) against its plain version, records, stops
+   and direction bytes exactly, and kernel 17 (single-pair walker) on
+   its bytes (upper_force 1 and 0, min_intron 0 and 5), also on the
+   launches the scheduler makes of the sr-extension workload (below);
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -54,15 +61,23 @@ Phases, each printing one JSON line:
    costs A1 B2 -O2,32 -E1,0 -C9 -z200): CIGARs, scores and 4 async
    handles on the strips route (only kernels A and B may launch), and
    the same pairs annotated (a junction track at the intron, junc_bonus
-   9) on the batched exts route (only kernels 6 and D).  Each
-   anchor or spec pin is asserted, each path must have launched its
-   kernels, and sampled pairs are held against the port's plain CPU
-   route;
+   9) on the batched exts route (only kernels 6 and D); the single-pair
+   engine (only kernels 12 and 17): a seeded 50 kb pair (seed 781)
+   through ``Aligner.extend`` (exact score, ``-sg``, CIGAR) and
+   ``extend_batch`` (scores, the any-device route), a seeded pair of the
+   MT length (seed 782, 16,569 bp; CIGAR and EXTZ_ONLY CIGAR at -z100)
+   and sr-extension: the short-banded workload as EXTZ_ONLY CIGARs at
+   -w100 -z100 --end-bonus 10 (minimap2 -x sr's extension call), one
+   launch of each kernel a bucket.  Each anchor or spec pin is asserted,
+   each path must have launched its kernels, and sampled pairs are held
+   against the port's plain CPU route;
 7. times: every kernel and its plain version at main-path shapes (CUDA
    events; the batched kernels on the main path's own launches of the
-   short-banded workload) beside its bound, the main paths' walls and
-   Gcells/s (band cells on the band and batched routes), and a profile
-   of the long-banded, short-banded and splice batches.
+   short-banded workload, kernels 12 and 17 on the 50 kb pair and on
+   the sr-extension launches) beside its bound, the main paths' walls
+   and Gcells/s (band cells on the band and batched routes), and a
+   profile of the long-banded, short-banded, splice and sr-extension
+   batches with the device's idle share.
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
@@ -142,6 +157,36 @@ SPLICE_PINS = {
     "splice_junc_score": (51667, 3202),
 }
 
+# the single-pair engine's workloads (the JAX bench's extz rows,
+# bench/suite.py:130-193, on seeded pairs: its 50 kb and MT files are not
+# in the tree): one 50 kb pair unbanded, one pair of the MT length
+# (16,569 bp) at -z100, and the short-banded workload as minimap2 -x sr's
+# extension call, EXTZ_ONLY CIGARs at -r100 --end-bonus 10 -z100
+SINGLE_SEED, SINGLE_LEN = 781, 50000
+MT_SEED, MT_LEN, MT_PREFIX = 782, 16569, 2000
+SR_PREFIX = 64
+# their pins, computed with the byte-parity spec ksw2_tpu.spec.diagdiff.
+# extz2 at A2 B4 O4 E2: (max, max_t, max_q, score, zdropped) for scores;
+# CIGARs add (reach_end, CIGAR ops, cigar_hash); single-mt pins are (the
+# whole pair's, its first MT_PREFIX bp's); sr_extension (sum of max, sum
+# of score, pairs that reach the end, CIGAR ops) over the 4096 pairs and
+# the first SR_PREFIX.  tests/test_torch_extz_pins.py recomputes them.
+SINGLE_PINS = {
+    "single_score": (31128, 49979, 50134, 31106, 0),
+    "single_sg": (31128, 49979, 50134, 31106, 0),
+    "single_cigar": (31128, 49979, 50134, 31106, 0, 0, 5973,
+                     "4bb9d5fe8cca8af3"),
+    "single_mt_cigar": ((11298, 16561, 16650, 11282, 0, 0, 1877,
+                         "b729f92d22fccd63"),
+                        (1290, 1982, 1952, 1220, 0, 0, 257,
+                         "b9c8d4968c448d4a")),
+    "single_mt_extz_cigar": ((11298, 16561, 16650, 11282, 0, 0, 1873,
+                              "3faf0a964ab4e45f"),
+                             (1290, 1982, 1952, 1220, 0, 0, 247,
+                              "6c176dae2f8e2c34")),
+    "sr_extension": ((891388, 862006, 3166, 152676), (13632, 13216, 52, 2355)),
+}
+
 EXTD = (4, 2, 13, 1)          # minimap2's -O4,13 -E2,1: no swap
 SWAPPED = (24, 1, 4, 2)       # swaps the pieces: off0 = -19
 
@@ -161,6 +206,10 @@ BATCH_REPLACES = "ksw2_tpu/ops/wavefront_batch.py:108"
 BATCH_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_batch_extd.py:56"
 BATCH_EXTS_SRC = "ksw2_tpu_torch/csrc/batch_exts_fwd.cu"
 BATCH_EXTS_REPLACES = "ksw2_tpu/ops/wavefront_batch_exts.py:55"
+EXTZ_SRC = "ksw2_tpu_torch/csrc/extz_fwd.cu"
+EXTZ_WALK_SRC = "ksw2_tpu_torch/csrc/extz_walk.cu"
+EXTZ_REPLACES = "ksw2_tpu/ops/wavefront.py:175"
+EXTZ_WALK_REPLACES = "ksw2_tpu/ops/traceback_device.py:50"
 
 # integer operations per cell (per step for the walkers) that the
 # function needs: one cell's update of the recurrence and its share of
@@ -189,6 +238,10 @@ OPS["strips_spl_fwd"] = OPS["strips_fwd"] - 1 + 5
 OPS["batch_exts_fwd"] = OPS["band_fwd"] + 7
 BYTE_OPS["strips_spl_fwd"] = BYTE_OPS["strips_fwd"] + 2 + 3
 BYTE_OPS["batch_exts_fwd"] = BYTE_OPS["band_fwd"] + 2 + 3
+# the single-pair forward and walker compute the band route's recurrence
+# and walk
+OPS["extz_fwd"], BYTE_OPS["extz_fwd"] = OPS["band_fwd"], BYTE_OPS["band_fwd"]
+OPS["extz_walk"] = OPS["band_walk"]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 
 
@@ -276,6 +329,40 @@ def short_banded_jobs(seed: int = 780, n: int = 4096):
         t, q = random_pair(rng, int(L), divergence=0.15, indel=0.06)
         jobs.append((encode_dna(q), encode_dna(t)))
     return jobs
+
+
+def single_pair(seed: int, tlen: int):
+    """One ``random_pair`` draw of ``tlen`` bp, 15% divergence and 6%
+    indels, as (query, target) nt4 arrays: the single-pair workloads."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    t, q = random_pair(np.random.default_rng(seed), tlen, divergence=0.15,
+                       indel=0.06)
+    return encode_dna(q), encode_dna(t)
+
+
+def cigar_hash(cigar) -> str:
+    """The first 16 hex digits of the SHA-256 of the BAM words (uint32)."""
+    import hashlib
+
+    return hashlib.sha256(np.asarray(cigar, np.uint32).tobytes()
+                          ).hexdigest()[:16]
+
+
+def single_pin(ez, cigar: bool):
+    """A single-pair run's pin: (max, max_t, max_q, score, zdropped) and,
+    for CIGARs, (reach_end, CIGAR ops, cigar_hash)."""
+    out = (ez.max, ez.max_t, ez.max_q, ez.score, int(ez.zdropped))
+    if cigar:
+        out += (int(ez.reach_end), len(ez.cigar), cigar_hash(ez.cigar))
+    return out
+
+
+def sr_pin(ezs):
+    """(sum of max, sum of score, pairs that reach the end, CIGAR ops)."""
+    return (sum(ez.max for ez in ezs), sum(ez.score for ez in ezs),
+            sum(int(ez.reach_end) for ez in ezs),
+            sum(len(ez.cigar) for ez in ezs))
 
 
 def spliced_pair(rng: np.random.Generator, tlen: int, with_n: bool = False):
@@ -1063,6 +1150,158 @@ def phase_splice(cases):
     return worst
 
 
+def extz_launch(pairs, w, flag, zdrop):
+    """One single-pair-engine launch of ``pairs`` at bands ``w`` (one per
+    pair, -1 resolved to max(qlen, tlen)), A2 B4 (GENERIC_SC: the generic
+    matrix) with O4 E2."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.extz import extz_prep
+
+    mat = _generic_mat() if flag & Flag.GENERIC_SC else simple_mat(5, 2, -4)
+    ql = np.array([len(q) for q, _ in pairs], np.int32)
+    tl = np.array([len(t) for _, t in pairs], np.int32)
+    w = np.asarray(w, np.int32)
+    w = np.where(w < 0, np.maximum(ql, tl), w).astype(np.int32)
+    (ln,) = extz_prep([q for q, _ in pairs], [t for _, t in pairs], ql, tl,
+                      w, 5, mat, 4, 2, zdrop, flag,
+                      cig=not int(flag) & int(Flag.SCORE_ONLY))
+    return ln
+
+
+def sr_launches(sb):
+    """The launches the scheduler makes of the short-banded workload as
+    sr-extension (EXTZ_ONLY CIGARs, -w100 -z100): its buckets as
+    ``scheduler._route`` makes them, each split by ``extz_prep``."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.extz import extz_prep
+
+    mat = simple_mat(5, 2, -4)
+    jobs = [sched.AlignJob(a, b, SHORT_BANDED_W) for a, b in sb]
+    buckets = sched._route(jobs, mat, 6, [None] * len(jobs),
+                           lambda *_: "single", "sr-extension")
+    return [ln for bk in buckets for ln in extz_prep(
+        [jobs[i].query for i in bk.idxs], [jobs[i].target for i in bk.idxs],
+        bk.qlen, bk.tlen, bk.w, 5, mat, 4, 2, 100, Flag.EXTZ_ONLY, cig=True)]
+
+
+def single_cases(sb):
+    """(name, launch, end_bonus) cases for kernels 12 and 17: seeded
+    launches of few pairs, so tiles of 128 positions (pairs of 30-1500 bp over 1-12
+    tiles; N bases; the 900 bp pair diverges after 450 bp, so z100 stops
+    it mid-matrix) with w -1, 0, 1, 16, 751 and 2000, zdrop -1 / 100, in
+    score, CIG and APPROX forms, RIGHT, GENERIC_SC and EXTZ_ONLY with
+    end_bonus; and the launches the main path makes of the sr-extension
+    workload (the scheduler's own tile).  About 15,000 diagonals of the
+    plain forward in all."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(12)
+    mix = []
+    for L in (30, 300, 600, 900):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        mix.append((encode_dna(q), encode_dna(t)))
+    q, t = mix[3]
+    mix[3] = (np.concatenate([q[:450], rng.integers(0, 4, len(q) - 450)
+                              .astype(np.uint8)]), t)
+    t, q = random_pair(rng, 1500, divergence=0.15, indel=0.06)
+    long1 = [(encode_dna(q), encode_dna(t))]
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    forms = [
+        ("score_zm1", Flag.SCORE_ONLY, -1, [-1, 0, 16, 2000], 0),
+        ("cig_z100", Flag.NONE, 100, [1, 16, 751, -1], 0),
+        ("cig_right_generic_zm1", Flag.RIGHT | Flag.GENERIC_SC, -1,
+         [-1, 1, 2000, 751], 0),
+        ("approxdrop_cig_z100", approx, 100, [16, -1, 751, 2000], 0),
+        ("extz_only_cig_z100", Flag.EXTZ_ONLY, 100, [-1, 16, 2000, -1],
+         END_BONUS),
+    ]
+    cases = [(f"mix_{name}", extz_launch(mix, w, flag, z), eb)
+             for name, flag, z, w, eb in forms]
+    cases.append(("long1500_cig_zm1",
+                  extz_launch(long1, [-1], Flag.NONE, -1), 0))
+    cases += [(f"sr_launch{k}", ln, END_BONUS)
+              for k, ln in enumerate(sr_launches(sb))]
+    return cases
+
+
+def _store_err(kp, pp, ln, stop) -> int:
+    """Largest byte difference over the rows each pair computed (the
+    kernel also computes the rows past a Z-drop stop; the plain version
+    leaves them 0)."""
+    from ksw2_tpu_torch.ops.extz_fwd import row_off
+
+    ends = row_off(stop.cpu().numpy(), ln.qlen, ln.tlen, ln.w)
+    err = 0
+    for b, n in enumerate(ends):
+        s = int(ln.lay.pbase[b])
+        err = max(err, _max_err(kp[s:s + int(n)], pp[s:s + int(n)]))
+    return err
+
+
+def phase_single(cases):
+    """Kernel 12 (extz_fwd) against its plain version on every case:
+    records, stops and direction bytes exactly; kernel 17 (extz_walk)
+    against its plain version on the kernel's bytes, in the main path's
+    mode (upper_force 1, min_intron 0) and, on the mixed launches, with
+    upper_force 0 (escape flag) and min_intron 5."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import extz_fwd as F
+    from ksw2_tpu_torch.ops import strips_walker as W
+    from ksw2_tpu_torch.ops import traceback_device as TB
+
+    worst = {"extz_fwd": 0, "extz_walk": 0}
+    out = {}
+    for name, ln, eb in cases:
+        args = BD.band_upload(ln, "cuda")
+        krec, kp, kstop = F.extz_forward_cuda(*args, ln.prm, ln.lay)
+        prec, pp, pstop = plain_run((name, "fwd"), F.extz_forward_plain,
+                                    *args, ln.prm, ln.lay)
+        errs = {"records": _max_err(krec, prec),
+                "stop": _max_err(kstop, pstop)}
+        if ln.prm.cig:
+            errs["bytes"] = _store_err(kp, pp, ln, kstop)
+            del pp
+            _, _, ql, tl, w = args[:5]
+            starts = W.start_cells(krec, ql, tl, ln.prm.flag, eb)
+            pbase = torch.from_numpy(ln.lay.pbase).cuda()
+            wr = ln.query.shape[1] + ln.target.shape[1] + 2
+            werr = 0
+            modes = [(1, 0)] if name.startswith("sr") else \
+                [(1, 0), (0, 0), (1, 5)]
+            for uf, mi in modes:
+                sub = (kp, pbase, starts, ql, tl, w, wr, mi, uf)
+                kres, kruns = TB.extz_walk_cuda(*sub)
+                key = (name, "walk") if (uf, mi) == (1, 0) else \
+                    (name, f"walk_uf{uf}_mi{mi}")
+                pres, pruns = plain_run(key, TB.extz_walk_plain, *sub)
+                werr = max(werr, _max_err(kres, pres))
+                for b in range(len(ln.qlen)):
+                    k = int(kres[b, 2])
+                    werr = max(werr, _max_err(kruns[b, :k], pruns[b, :k]))
+            errs["walk"] = werr
+            worst["extz_walk"] = max(worst["extz_walk"], werr)
+        worst["extz_fwd"] = max(worst["extz_fwd"], errs["records"],
+                                errs["stop"], errs.get("bytes", 0))
+        out[name] = {"pairs": len(ln.qlen), "tp": ln.lay.tp,
+                     "tiles": int(ln.lay.tbase[-1]),
+                     "rows": int(ln.lay.n_diag), "bytes": ln.lay.n_bytes,
+                     "w": sorted({int(x) for x in ln.w})[:8],
+                     "zdropped": int(krec[:, 8].sum()),
+                     "max_abs_err": errs}
+        del kp
+        torch.cuda.empty_cache()
+        if any(errs.values()):
+            emit({"phase": "single", "case": name, "FAIL": errs})
+            raise AssertionError(f"the single-pair kernels differ on {name}")
+    emit({"phase": "single", "max_abs_err": worst, "cases": out})
+    return worst
+
+
 def _cells(pairs):
     return sum(len(q) * len(t) for q, t in pairs)
 
@@ -1170,8 +1409,9 @@ def _eqx_merged(out):
             sum(1 for ez in out for c in ez.cigar if c & 0xF == 0)]
 
 
-def phase_main_path(jobs, short, long, sb, spl):
+def phase_main_path(jobs, short, long, sb, spl, single, mt):
     from ksw2_tpu_torch import Aligner
+    from ksw2_tpu_torch.batch import scheduler as sched
     from ksw2_tpu_torch.core.flags import Flag
 
     whale = [p for p in jobs if len(p[1]) > 2048]
@@ -1266,6 +1506,36 @@ def phase_main_path(jobs, short, long, sb, spl):
         return [_got(h.result(), "cigar") for h in hs]
     not_splice = ("rows_fwd", "band_fwd", "band_extd_fwd", "batch_fwd",
                   "batch_extd_fwd")
+
+    # the single-pair engine: the 50 kb pair through Aligner.extend (exact
+    # score, -sg, CIGAR) and extend_batch (scores: the any-device route),
+    # the MT-length pair (CIGAR and EXTZ_ONLY CIGAR at -z100, whole and
+    # cut to MT_PREFIX bp) and the sr-extension batch (EXTZ_ONLY CIGARs
+    # at -w100 -z100 --end-bonus 10 on the short-banded workload); none
+    # is sampled against the CPU route but sr-extension (the plain
+    # forward takes minutes on a long pair; the pins are the spec's)
+    SO = Flag.SCORE_ONLY
+    only_extz = ("strips_fwd", "strips_walk", "rows_fwd", "band_fwd",
+                 "band_extd_fwd", "band_walk", "batch_fwd", "batch_extd_fwd",
+                 "batch_exts_fwd")
+    s_alns = {"single_score": Aligner(flag=SO),
+              "single_sg": Aligner(flag=SO | approx),
+              "single_cigar": Aligner(),
+              "single_mt_cigar": Aligner(zdrop=100),
+              "single_mt_extz_cigar": Aligner(zdrop=100, end_bonus=END_BONUS,
+                                              flag=Flag.EXTZ_ONLY)}
+    mt_cut = (mt[0][:MT_PREFIX], mt[1][:MT_PREFIX])
+
+    def single_run(name, pair, pin, run_name=None):
+        # no aln: extend_batch, which the run would time besides, takes
+        # the strips route for the cut MT pair
+        aln = s_alns[name]
+        cig = not aln.flag & SO
+        return run(run_name or name, lambda: [aln.extend(*pair)], [pair],
+                   list(pin), lambda out: list(single_pin(out[0], cig)))
+    sr_aln = Aligner(w=SW, zdrop=100, end_bonus=END_BONUS,
+                     flag=Flag.EXTZ_ONLY)
+    sr_full, sr_pre = SINGLE_PINS["sr_extension"]
     paths = [
         ("splice", [
             run("splice1024_cigar", lambda: s_cig.extend_batch(spl4), spl4,
@@ -1338,6 +1608,27 @@ def phase_main_path(jobs, short, long, sb, spl):
          ("batch_fwd", "batch_extd_fwd", "band_walk"),
          ("strips_fwd", "strips_walk", "rows_fwd", "band_fwd",
           "band_extd_fwd")),
+        ("single", [
+            single_run("single_score", single, SINGLE_PINS["single_score"]),
+            single_run("single_sg", single, SINGLE_PINS["single_sg"]),
+            single_run("single_cigar", single, SINGLE_PINS["single_cigar"]),
+            run("single_batch_score",
+                lambda: s_alns["single_score"].extend_batch([single]),
+                [single], list(SINGLE_PINS["single_score"]),
+                lambda out: list(single_pin(out[0], False)),
+                s_alns["single_score"], sample=[])],
+         ("extz_fwd", "extz_walk"), only_extz),
+        ("single_mt", [
+            single_run(name, pair, SINGLE_PINS[name][k], name + suffix)
+            for name in ("single_mt_cigar", "single_mt_extz_cigar")
+            for k, pair, suffix in ((0, mt, ""), (1, mt_cut, "_2kb"))],
+         ("extz_fwd", "extz_walk"), only_extz),
+        ("sr_extension", [
+            run("sr_extension_cigar", lambda: sr_aln.extend_batch(sb), sb,
+                list(sr_full), lambda out: list(sr_pin(out)), sr_aln,
+                cells=band_cells(sb, SW),
+                prefix=(SR_PREFIX, list(sr_pre)))],
+         ("extz_fwd", "extz_walk"), only_extz),
     ]
     counts = {}
     runs = {}
@@ -1348,6 +1639,13 @@ def phase_main_path(jobs, short, long, sb, spl):
             counts[k] = counts.get(k, 0) + v
         runs[path] = r
         results.update(res)
+        if path == "sr_extension":
+            # one launch of each kernel a bucket, in each of the run's 5
+            # batches (the first, 3 timed, the submit/wait one)
+            n = len({sched._bucket_key(len(a), len(b)) for a, b in sb})
+            if not c["extz_fwd"] == c["extz_walk"] == 5 * n:
+                raise AssertionError(f"sr_extension: {c} launches for "
+                                     f"{n} buckets in 5 batches")
 
     # sampled pairs against the port's plain CPU route (which the CPU
     # test suite holds against the JAX package and the NumPy spec)
@@ -1385,8 +1683,9 @@ def phase_main_path(jobs, short, long, sb, spl):
 def phase_profile(long, sb, spl):
     """Device time by kernel over one score batch and one CIGAR batch of
     the long-banded (-w751 -z400) and of the short-banded (-w100 -z100)
-    workloads, and one CIGAR batch of the splice workload unannotated and
-    annotated (torch.profiler), beside the batch's host wall."""
+    workloads, one CIGAR batch of the splice workload unannotated and
+    annotated, and the sr-extension CIGAR batch (torch.profiler), beside
+    the batch's host wall and the device's idle share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1406,7 +1705,10 @@ def phase_profile(long, sb, spl):
              spl * SPLICE_TILES),
             ("splice_junc_cigar", splice_aligner(Flag.SPLICE_FOR,
                                                  SPLICE_JUNC_BONUS),
-             spl * SPLICE_TILES)):
+             spl * SPLICE_TILES),
+            ("sr_extension_cigar", Aligner(w=SHORT_BANDED_W, zdrop=100,
+                                           end_bonus=END_BONUS,
+                                           flag=Flag.EXTZ_ONLY), sb)):
         juncs = [splice_junc()] * len(pairs) if "junc" in name else None
         aln.extend_batch(pairs, juncs=juncs)
         torch.cuda.synchronize()
@@ -1421,10 +1723,12 @@ def phase_profile(long, sb, spl):
                           getattr(ev, "self_cuda_time_total", 0))
             if dev > 0:
                 rows[ev.key[:60]] = round(dev / 1e3, 3)
+        busy = sum(rows.values())
         out[name] = {"wall_ms": wall * 1e3,
                      "device_ms_by_name": dict(sorted(
                          rows.items(), key=lambda kv: -kv[1])[:8]),
-                     "device_ms": round(sum(rows.values()), 3)}
+                     "device_ms": round(busy, 3),
+                     "idle_share": round(1 - busy / (wall * 1e3), 4)}
     emit({"phase": "profile", "runs": out})
     return out
 
@@ -1439,12 +1743,22 @@ def bound(name, ops_units, nbytes, int_rate, cig=False):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _walk_steps(res, runs):
-    """Steps the walker took: the summed lengths of its runs."""
-    n = res[:, 2].cpu().numpy()
+def walk_work(res, runs, per_pair):
+    """(steps, bytes) of one walk on this run's data: the steps are the
+    summed lengths of its runs, each reading one direction byte; the
+    bytes add one int32 for each run written (``res[:, 2]``, the runs a
+    pair wrote) and ``per_pair`` bytes of start cell and result."""
+    n = res[:, 2].cpu().numpy().astype(np.int64)
     r = runs.cpu().numpy()
-    return int(sum((r[b, :n[b]].astype(np.int64) >> 4).sum()
-                   for b in range(len(n))))
+    steps = int(sum((r[b, :n[b]].astype(np.int64) >> 4).sum()
+                    for b in range(len(n))))
+    return steps, steps + 4 * int(n.sum()) + per_pair * len(n)
+
+
+def walks_work(outs, per_pair):
+    """:func:`walk_work` summed over several walks' ``(res, runs)``."""
+    work = [walk_work(res, runs, per_pair) for res, runs in outs]
+    return sum(s for s, _ in work), sum(b for _, b in work)
 
 
 def band_work(ln, rec):
@@ -1535,11 +1849,11 @@ def splice_times(scases, int_rate):
                 row["walk_ms"] = cuda_ms(
                     lambda: W.strips_walk_cuda(d8, starts, mi), 5)
                 row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
-                steps = _walk_steps(*W.strips_walk_cuda(d8, starts, mi))
+                steps, nbytes = walk_work(
+                    *W.strips_walk_cuda(d8, starts, mi), 20)
                 row["walk_steps"] = steps
                 row["walk_bound_ms"], row["walk_bound_by"] = bound(
-                    "strips_walk", steps, steps + 4 * steps + 20 * n,
-                    int_rate)
+                    "strips_walk", steps, nbytes, int_rate)
                 del d8, D, Dq, hl
         else:
             args = BD.band_upload(ln, "cuda")
@@ -1566,11 +1880,10 @@ def splice_times(scases, int_rate):
                 row["walk_pairs"] = n
                 row["walk_ms"] = cuda_ms(lambda: BW.band_walk_cuda(*sub), 5)
                 row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
-                steps = _walk_steps(*BW.band_walk_cuda(*sub))
+                steps, nbytes = walk_work(*BW.band_walk_cuda(*sub), 20)
                 row["walk_steps"] = steps
                 row["walk_bound_ms"], row["walk_bound_by"] = bound(
-                    "band_walk", steps, steps + 4 * steps + 20 * n,
-                    int_rate)
+                    "band_walk", steps, nbytes, int_rate)
                 del sub
             del p
         row["fwd_gcells_per_s"] = row.get("cells", row.get(
@@ -1580,7 +1893,101 @@ def splice_times(scases, int_rate):
     return out
 
 
-def phase_times(cases, rcases, long, sb, scases, int_rate):
+def extz_work(ln, stop, cig):
+    """(cells, bytes) of one single-pair forward on this run's data: the
+    true band cells of the diagonals each pair computed up to its stop,
+    and the bytes read and written once (sequences, records, the store's
+    rows)."""
+    from ksw2_tpu_torch.ops.bands import band_bounds
+    from ksw2_tpu_torch.ops.extz_fwd import row_off
+
+    stop = stop.cpu().numpy()
+    cells = nbytes = 0
+    for b in range(len(ln.qlen)):
+        ql, tl, w = int(ln.qlen[b]), int(ln.tlen[b]), int(ln.w[b])
+        st0, en0 = band_bounds(int(stop[b]), ql, tl, w)
+        cells += int(np.maximum(0, en0 - st0 + 1).sum())
+        nbytes += ql + tl + 12 + 36
+        if cig:
+            nbytes += int(row_off(int(stop[b]), ql, tl, w)[0])
+    return cells, nbytes
+
+
+def single_times(single, sb, int_rate):
+    """Kernels 12 and 17 at the main path's shapes: the 50 kb pair's one
+    launch in each form (score, -sg, CIG; walker on the CIG bytes) and
+    the launches the scheduler makes of the sr-extension workload, timed
+    together as the path runs them, beside their bounds; the plain
+    versions' times on the sr-extension launches come from phase 5e (on
+    the 50 kb pair the plain forward would take minutes)."""
+    import torch
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import extz_fwd as F
+    from ksw2_tpu_torch.ops import strips_walker as W
+    from ksw2_tpu_torch.ops import traceback_device as TB
+
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    out = {}
+    for name, lns, eb, reps in (
+            ("single50k_score",
+             [extz_launch([single], [-1], Flag.SCORE_ONLY, -1)], 0, 3),
+            ("single50k_sg", [extz_launch([single], [-1],
+                                          Flag.SCORE_ONLY | approx, -1)],
+             0, 3),
+            ("single50k_cig", [extz_launch([single], [-1], Flag.NONE, -1)],
+             0, 2),
+            ("sr_extz_cig", sr_launches(sb), END_BONUS, 5)):
+        args = [BD.band_upload(ln, "cuda") for ln in lns]
+        cig = bool(lns[0].prm.cig)
+        row = {"pairs": sum(len(ln.qlen) for ln in lns),
+               "launches": [{"pairs": len(ln.qlen), "tp": ln.lay.tp,
+                             "tiles": int(ln.lay.tbase[-1]),
+                             "rows": ln.lay.n_diag, "bytes": ln.lay.n_bytes}
+                            for ln in lns]}
+
+        def fwd(lns=lns, args=args):
+            return [F.extz_forward_cuda(*a, ln.prm, ln.lay)
+                    for a, ln in zip(args, lns)]
+        row["fwd_ms"] = cuda_ms(fwd, reps)
+        outs = fwd()
+        work = [extz_work(ln, stop, cig)
+                for ln, (_, _, stop) in zip(lns, outs)]
+        row["computed_cells"] = sum(c for c, _ in work)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            "extz_fwd", row["computed_cells"], sum(b for _, b in work),
+            int_rate, cig)
+        row["fwd_gcells_per_s"] = row["computed_cells"] / row["fwd_ms"] / 1e6
+        if name.startswith("sr"):
+            row["fwd_plain_ms"] = sum(PLAIN_MS[(f"sr_launch{k}", "fwd")]
+                                      for k in range(len(lns)))
+        if cig:
+            walks = []
+            for (rec, p, _), a, ln in zip(outs, args, lns):
+                _, _, ql, tl, w = a[:5]
+                walks.append((p, torch.from_numpy(ln.lay.pbase).cuda(),
+                              W.start_cells(rec, ql, tl, ln.prm.flag, eb),
+                              ql, tl, w,
+                              ln.query.shape[1] + ln.target.shape[1] + 2))
+            row["walk_ms"] = cuda_ms(
+                lambda: [TB.extz_walk_cuda(*a) for a in walks], reps)
+            steps, nbytes = walks_work(
+                [TB.extz_walk_cuda(*a) for a in walks], 24)
+            row["walk_steps"] = steps
+            row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                "extz_walk", steps, nbytes, int_rate)
+            if name.startswith("sr"):
+                row["walk_plain_ms"] = sum(
+                    PLAIN_MS[(f"sr_launch{k}", "walk")]
+                    for k in range(len(lns)))
+            del walks
+        del outs, args
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_times(cases, rcases, long, sb, scases, single, int_rate):
     import torch
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import simple_mat
@@ -1613,10 +2020,9 @@ def phase_times(cases, rcases, long, sb, scases, int_rate):
             row["walk_ms"] = cuda_ms(lambda: W.strips_walk_cuda(d8, starts),
                                      5)
             row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
-            res, runs = W.strips_walk_cuda(d8, starts)
-            steps = _walk_steps(res, runs)
+            steps, nbytes = walk_work(*W.strips_walk_cuda(d8, starts), 20)
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
-                "strips_walk", steps, steps + 4 * steps + 20 * B, int_rate)
+                "strips_walk", steps, nbytes, int_rate)
         row["fwd_gcells_per_s"] = row["cells"] / row["fwd_ms"] / 1e6
         out[name] = row
     for name, ln in rcases:
@@ -1675,12 +2081,11 @@ def phase_times(cases, rcases, long, sb, scases, int_rate):
             row["walk_ms"] = cuda_ms(
                 lambda: BW.band_walk_cuda(p, starts, ql, tl, w), 3)
             row["walk_plain_ms"] = PLAIN_MS[(plain, "walk")]
-            res, runs = BW.band_walk_cuda(p, starts, ql, tl, w)
-            steps = _walk_steps(res, runs)
+            steps, nbytes = walk_work(
+                *BW.band_walk_cuda(p, starts, ql, tl, w), 20)
             row["walk_steps"] = steps
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
-                "band_walk", steps, steps + 4 * steps + 20 * len(pairs),
-                int_rate)
+                "band_walk", steps, nbytes, int_rate)
         del p
         out[name] = row
         torch.cuda.empty_cache()
@@ -1737,16 +2142,17 @@ def phase_times(cases, rcases, long, sb, scases, int_rate):
                               ql, tl, w))
             row["walk_ms"] = cuda_ms(
                 lambda: [BW.band_walk_cuda(*a) for a in walks], 5)
-            steps = sum(_walk_steps(*BW.band_walk_cuda(*a)) for a in walks)
+            steps, nbytes = walks_work(
+                [BW.band_walk_cuda(*a) for a in walks], 20)
             row["walk_steps"] = steps
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
-                "band_walk", steps, steps + 4 * steps + 20 * len(sb),
-                int_rate)
+                "band_walk", steps, nbytes, int_rate)
             del walks
         del outs
         out[name] = row
         torch.cuda.empty_cache()
     out.update(splice_times(scases, int_rate))
+    out.update(single_times(single, sb, int_rate))
     emit({"phase": "times", "cases": out})
     return out
 
@@ -1789,10 +2195,13 @@ def main() -> int:
     err_band = timed("band", phase_band, band_cases(long))
     sb = short_banded_jobs()
     err_batch = timed("batch", phase_batch, batch_cases(sb))
+    err_single = timed("single", phase_single, single_cases(sb))
+    single = single_pair(SINGLE_SEED, SINGLE_LEN)
+    mt = single_pair(MT_SEED, MT_LEN)
     counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb,
-                      spl)
+                      spl, single, mt)
     times = timed("times", phase_times, cases, rcases, long, sb, scases,
-                  int_rate)
+                  single, int_rate)
     timed("profile", phase_profile, long, sb, spl)
     emit({"phase": "clock", "seconds": clock})
     whale = times["whale_cig_z100"]
@@ -1824,6 +2233,11 @@ def main() -> int:
         _kernel("batch_exts_fwd", BATCH_EXTS_SRC, BATCH_EXTS_REPLACES,
                 counts["batch_exts_fwd"], err_spl["batch_exts_fwd"],
                 times["main_junc_score"], "fwd"),
+        _kernel("extz_fwd", EXTZ_SRC, EXTZ_REPLACES, counts["extz_fwd"],
+                err_single["extz_fwd"], times["sr_extz_cig"], "fwd"),
+        _kernel("extz_walk", EXTZ_WALK_SRC, EXTZ_WALK_REPLACES,
+                counts["extz_walk"], err_single["extz_walk"],
+                times["sr_extz_cig"], "walk"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """High-level alignment API: configure once, align many.
 
 Port of ``ksw2_tpu/api.py`` for one-piece (extz), two-piece (extd) and
-splice (exts) costs on the rows, strips, band and batched routes.  Costs
+splice (exts) costs on the rows, strips, band, batched, any-device and
+single-pair routes.  Costs
 and flags are bound at construction; the methods accept raw DNA strings
 or encoded arrays and return
 :class:`~ksw2_tpu_torch.core.result.ExtzResult` records with the exact
@@ -16,12 +17,15 @@ or encoded arrays and return
 
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain PyTorch
-versions.  Global alignment, meshes, pluggable engines and two-piece
-SCORE_ONLY batches with EXTZ_ONLY raise ``NotImplementedError`` naming
-the ROADMAP.md item that brings them; so does any bucket that no route
-takes (scores on targets over 3072, CIGARs on targets over 1536 or with
-EXTZ_ONLY, unless the band route takes them; splice buckets with
-EXTZ_ONLY, or with junction tracks on targets over 1536).
+versions.  A one-piece :meth:`Aligner.extend` runs the single-pair
+engine (``ops/extz.py``), as ``ksw2_tpu/api.py:108-112`` does, and keeps
+M ops under EQX; every one-piece bucket of a batch has a route.  Global
+alignment, meshes, pluggable engines and two-piece SCORE_ONLY batches
+with EXTZ_ONLY raise ``NotImplementedError`` naming the ROADMAP.md item
+that brings them; so do the two-piece buckets that no batch route takes
+(scores on targets over 3072, CIGARs on targets over 1536 or with
+EXTZ_ONLY, unless the band route takes them) and the splice buckets with
+EXTZ_ONLY, or with junction tracks on targets over 1536 (item 12b).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from .batch.scheduler import (AlignJob, align_batch_async,
 from .core.flags import Flag
 from .core.matrix import encode_dna, simple_mat
 from .core.result import ExtzResult
+from .ops.extz import extz2_device
 
 Seq = Union[str, np.ndarray]
 
@@ -97,14 +102,23 @@ class Aligner:
         return bool((sq == want).all())
 
     def extend(self, query: Seq, target: Seq, junc=None) -> ExtzResult:
-        """Extension alignment of one pair: one pair through
-        :meth:`extend_batch` (``junc``: the pair's junction track)."""
+        """Extension alignment of one pair: one-piece costs on the
+        single-pair engine (``ops/extz.py:extz2_device``), two-piece and
+        splice costs as one pair through :meth:`extend_batch` (``junc``:
+        the pair's junction track)."""
+        if self.q2 is None and not self.splice:
+            if junc is not None:
+                raise ValueError("juncs requires splice=True")
+            return extz2_device(_enc(query), _enc(target), self.m, self.mat,
+                                self.q, self.e, w=self.w, zdrop=self.zdrop,
+                                end_bonus=self.end_bonus, flag=self.flag,
+                                device=self.device)
         juncs = None if junc is None else [junc]
         return self.extend_batch([(query, target)], juncs=juncs)[0]
 
     def global_align(self, query: Seq, target: Seq) -> ExtzResult:
         raise NotImplementedError(
-            "global alignment: the gg2 engines (ROADMAP items 12, 14)")
+            "global alignment: the gg2 engines (ROADMAP items 12c, 14)")
 
     def _jobs(self, pairs, w) -> List[AlignJob]:
         return [AlignJob(query=_enc(qy), target=_enc(tg),

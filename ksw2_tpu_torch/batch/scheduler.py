@@ -1,11 +1,14 @@
-"""Pair-batch scheduler for the rows, strips, band and batched routes.
+"""Pair-batch scheduler for the rows, strips, band, batched, any-device
+and single-pair routes.
 
 Port of ``ksw2_tpu/batch/scheduler.py``'s score, CIGAR and splice paths:
 jobs are bucketed by shape and each bucket takes the first route of the
 JAX package's table that accepts it.  One-piece scores: rows, strips,
-band, batched (``scheduler.py:242-286``); two-piece scores: strips, band,
-batched (``scheduler.py:482-521``); CIGARs, EQX included: strips, band,
-batched (``scheduler.py:639-754``); two-piece SCORE_ONLY with
+band, batched, any-device (``scheduler.py:202, 242-286``); two-piece
+scores: strips, band, batched (``scheduler.py:482-521``); CIGARs, EQX
+included: strips, band, batched (``scheduler.py:639-754``), then for
+one-piece the single-pair engine (``scheduler.py:755-767``), which keeps
+M ops; two-piece SCORE_ONLY with
 ``end_bonus``: band, then batched, in score form (``scheduler.py:614-617,
 690-702, 732-742``); splice (exts), scores and CIGARs with N ops: strips
 in its ``spl`` form, then the batched exts engine (``scheduler.py:
@@ -35,6 +38,9 @@ from ..core.result import ExtzResult
 from ..ops.band import band_ineligible_reason, band_prep, band_records
 from ..ops.band_walker import band_cigar_launch, unpack_band_cigars
 from ..ops.batch import batch_forward_cuda, batch_ineligible_reason
+from ..ops.batch_xla import any_device_prep
+from ..ops.extz import (extz_cigar_launch, extz_prep, extz_records,
+                        unpack_extz_cigars)
 from ..ops.batch_exts import (batch_exts_cigar_launch,
                               batch_exts_ineligible_reason, batch_exts_prep,
                               batch_exts_records, batch_exts_resets,
@@ -51,6 +57,7 @@ from ..ops.strips_walker import (strips_cigar_extd_ineligible_reason,
                                  strips_cigar_launch, unpack_cigars)
 
 _SCORES_LT = (128, 256, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072)
+ROUTES = ("rows", "strips", "band", "batch", "any", "single")
 
 # The batched route is the band route's launch glue with kernel E / E2
 # (csrc/batch_fwd.cu) as its forward; it converts one- and two-piece
@@ -147,7 +154,8 @@ class _Bucket(NamedTuple):
     qlen: np.ndarray
     tlen: np.ndarray
     w: np.ndarray        # w = -1 replaced by max(qlen, tlen)
-    route: str           # "rows", "strips", "band" or "batch"
+    route: str           # "rows", "strips", "band", "batch", "any" or
+    #                      "single"
 
 
 def _route(jobs, mat, qe: int, results, choose, what: str,
@@ -155,10 +163,10 @@ def _route(jobs, mat, qe: int, results, choose, what: str,
     """Reset empty jobs, and every job when scoring is degenerate
     (``-min_sc > 2 * qe``); bucket the rest by ``key`` and pick every
     bucket's route with ``choose(Lt, qlen, tlen, w, raw_w, idxs)``, which
-    returns "rows", "strips", "band", "batch" or the reason no ported
-    route takes the bucket.  Returns the buckets heaviest first; a band
-    or batched bucket's pairs are ordered longest first, so its launches
-    pad little (and a block's warps finish together).  Raises before
+    returns one of ``ROUTES`` or the reason no ported route takes the
+    bucket.  Returns the buckets heaviest first; a bucket's pairs on the
+    anti-diagonal routes are ordered longest first, so its launches pad
+    little (and a block's warps finish together).  Raises before
     anything runs."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
@@ -178,9 +186,9 @@ def _route(jobs, mat, qe: int, results, choose, what: str,
         raw = np.array([jobs[i].w for i in idxs], np.int32)
         wv = np.where(raw >= 0, raw, np.maximum(qlen, tlen)).astype(np.int32)
         route = choose(Lt, qlen, tlen, wv, raw, idxs)
-        if route not in ("rows", "strips", "band", "batch"):
+        if route not in ROUTES:
             raise NotImplementedError(f"{what}: {route}")
-        if route in ("band", "batch"):
+        if route not in ("rows", "strips"):
             order = np.argsort(-(qlen.astype(np.int64) + tlen), kind="stable")
             idxs = [idxs[k] for k in order]
             qlen, tlen, wv = qlen[order], tlen[order], wv[order]
@@ -260,8 +268,8 @@ class PendingScores:
 
 def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
     """The score path's route table for one bucket (``scheduler.py:
-    242-286, 482-521``): one-piece rows, then strips, band, batched;
-    two-piece strips, band, batched."""
+    202, 242-286, 482-521``): one-piece rows, then strips, band, batched,
+    any-device; two-piece strips, band, batched."""
     def choose(Lt, ql, tl, w, _raw, _idxs):
         if not two and rows_eligible(ql, tl, w, flag, zdrop, m, mat):
             return "rows"
@@ -279,8 +287,10 @@ def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
             return "band"
         batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, zdrop,
                                         cigar=False, two=two)
-        return (f"strips: {reason}; band: {band}; batch: {batch}" if batch
-                else "batch")
+        if batch is None:
+            return "batch"
+        return (f"strips: {reason}; band: {band}; batch: {batch}" if two
+                else "any")
     return choose
 
 
@@ -304,12 +314,16 @@ def _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev, two=False,
     """Prep and enqueue every bucket's launches on its route; returns
     [(job indices, device records)]."""
     runs = {"rows": rows_records, "strips": strips_records,
-            "band": band_records, "batch": batch_records}
+            "band": band_records, "batch": batch_records,
+            "any": extz_records}
     pieces = []
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
         ts = [jobs[i].target for i in bk.idxs]
-        if bk.route in ("band", "batch"):
+        if bk.route == "any":
+            launches = any_device_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m,
+                                       mat, q, e, zdrop, flag)
+        elif bk.route in ("band", "batch"):
             launches = band_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q, e,
                                  zdrop, flag, two=two, q2=q2, e2=e2)
         else:
@@ -331,8 +345,9 @@ def align_batch_scores_async(
     device="cuda",
 ) -> PendingScores:
     """Submit a one-piece score batch without waiting.  Each bucket takes
-    the first route that accepts it: rows, strips, band, batched
-    (``scheduler.py:242-286`` in the JAX package)."""
+    the first route that accepts it: rows, strips, band, batched, and the
+    any-device route for the rest (``scheduler.py:202, 242-286`` in the
+    JAX package)."""
     dev = resolve_device(device)
     flag = Flag(int(flag)) | Flag.SCORE_ONLY
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
@@ -451,10 +466,11 @@ def align_batch_async(
     two-piece SCORE_ONLY batches with ``end_bonus == 0`` take the
     two-piece score path, and with ``end_bonus`` the band, then the
     batched route in score form; every other batch takes the CIGAR path,
-    where each bucket takes strips, else band, else batched
-    (``scheduler.py:564-577, 609-617, 639-754`` in the JAX package).
-    Two-piece EXTZ_ONLY scores raise: the JAX package runs them on its
-    single-pair engines (``scheduler.py:755-767``)."""
+    where each bucket takes strips, else band, else batched, else (one-
+    piece) the single-pair engine (``scheduler.py:564-577, 609-617,
+    639-767`` in the JAX package).  Two-piece buckets beyond the batched
+    route and two-piece EXTZ_ONLY scores raise: the JAX package runs them
+    on its single-pair extd engine (``scheduler.py:755-767``)."""
     two = q2 is not None
     if two and e2 is None:
         raise ValueError("two-piece costs need both q2 and e2")
@@ -467,7 +483,7 @@ def align_batch_async(
         elif flag & Flag.EXTZ_ONLY:
             raise NotImplementedError(
                 "two-piece SCORE_ONLY batches with EXTZ_ONLY run on the "
-                "single-pair engines (ROADMAP item 12)")
+                "single-pair two-piece engine (ROADMAP item 12b)")
         elif end_bonus == 0:
             h = align_batch_scores2_async(jobs, m, mat, q, e, q2, e2,
                                           zdrop=zdrop, flag=flag,
@@ -499,8 +515,10 @@ def align_batch_async(
             return "band"
         batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, zdrop,
                                         cigar=True, two=two)
-        return (f"strips: {reason}; band: {band}; batch: {batch}" if batch
-                else "batch")
+        if batch is None:
+            return "batch"
+        return (f"strips: {reason}; band: {band}; batch: {batch}" if two
+                else "single")
 
     # the reference resets after its swap (ksw2_extd2_sse.c:93-100)
     qc, ec = canonical_costs(q, e, q2, e2)[:2] if two else (q, e)
@@ -512,7 +530,14 @@ def align_batch_async(
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
         ts = [jobs[i].target for i in bk.idxs]
-        if bk.route in cig_runs:
+        if bk.route == "single":
+            launches = extz_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q,
+                                 e, zdrop, flag, cig=True)
+            pieces += _run_launches(bk.idxs, launches, lambda ln: (
+                functools.partial(unpack_extz_cigars, ln, mat=mat,
+                                  end_bonus=end_bonus),
+                extz_cigar_launch(ln, end_bonus, dev)))
+        elif bk.route in cig_runs:
             launch, unpack = cig_runs[bk.route]
             launches = band_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q, e,
                                  zdrop, flag, cig=True, two=two, q2=q2,
@@ -562,7 +587,7 @@ def _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs, junc_bonus):
     """The splice path's route table for one bucket (``scheduler.py:
     963-1027``): strips in its ``spl`` form unless the bucket has a
     junction track (or there is a ``junc_bonus``), then the batched exts
-    engine; the single-pair engines are not ported."""
+    engine; the single-pair exts engine is not ported (item 12b)."""
     def choose(Lt, ql, tl, w, _raw, idxs):
         junc_any = juncs is not None and any(juncs[i] is not None
                                              for i in idxs)
@@ -631,7 +656,7 @@ def align_batch_splice_async(
     or CIGARs with N ops for introns unless SCORE_ONLY.  ``juncs``
     optionally gives per-job junction tracks.  Each bucket takes strips
     in its ``spl`` form, else the batched exts engine, else raises naming
-    the single-pair engines (``scheduler.py:916-1119``); the batched
+    the single-pair exts engine (``scheduler.py:916-1119``); the batched
     route resets its jobs when ``q2 <= q + e`` (or ``m <= 1``), as exts2
     does, while the strips route runs them, as the JAX package's does
     (ROADMAP Queue 3).  The launches are :func:`plan_splice`'s."""

@@ -1,17 +1,20 @@
 """Carry a JAX-package configuration over to the port.
 
 The port has no weights: what carries across is the scoring
-configuration of an ``Aligner`` and the parameters of a prepared strips
-launch.  Both sides are plain values here (the port never imports the
-JAX package): a caller reads the attributes of a ``ksw2_tpu.Aligner`` or
-``StripParams._asdict()`` into a dict and passes it in.
+configuration of an ``Aligner``, the parameters of a prepared strips
+launch and the single-pair engine's forward and walk parameters.  Both
+sides are plain values here (the port never imports the JAX package): a
+caller reads the attributes of a ``ksw2_tpu.Aligner`` or a parameter
+tuple's ``_asdict()`` into a dict and passes it in.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .api import Aligner
+from .ops.extz_fwd import ExtzParams
 from .ops.strips import StripParams
+from .ops.traceback_device import TbParams
 
 
 def aligner_from_jax(cfg: dict, device="cuda") -> Aligner:
@@ -38,4 +41,20 @@ def strip_params_from_jax(d: dict) -> StripParams:
     return StripParams(**{k: d[k] for k in StripParams._fields})
 
 
-__all__ = ["aligner_from_jax", "strip_params_from_jax"]
+def extz_params_from_jax(d: dict) -> ExtzParams:
+    """The port's :class:`ExtzParams` for a ``ksw2_tpu.ops.wavefront.
+    ExtzParams._asdict()``.  The TPU layout fields (``chunk``, ``n_rows``,
+    ``p_rows``) have no counterpart."""
+    return ExtzParams(**{k: int(d[k]) for k in ExtzParams._fields})
+
+
+def tb_params_from_jax(d: dict) -> TbParams:
+    """The port's :class:`TbParams` for a ``ksw2_tpu.ops.traceback_device.
+    TbParams._asdict()``.  The TPU store's fields (``p_rows``, ``blk``,
+    ``n_blocks``, ``full_rows``) have no counterpart: the port's store is
+    compact and walked in closed form."""
+    return TbParams(**{k: int(d[k]) for k in TbParams._fields})
+
+
+__all__ = ["aligner_from_jax", "strip_params_from_jax",
+           "extz_params_from_jax", "tb_params_from_jax"]

@@ -1,9 +1,10 @@
 // Definitions shared by the strips forward (strips_fwd.cu), the rows
 // forward (rows_fwd.cu), the band forward (band_fwd.cu), the batched exts
-// forward (batch_exts_fwd.cu) and the two walkers (strips_walk.cu,
-// band_walk.cu): the record sentinel, the
-// virtual column boundaries, the SSE merge-order tie key, the
-// direction-byte codes and ksw_backtrack's per-byte state step.  Their
+// forward (batch_exts_fwd.cu), the single-pair forward (extz_fwd.cu) and
+// the walkers (strips_walk.cu, band_walk.cu, extz_walk.cu): the record
+// sentinel, the virtual column boundaries, the SSE merge-order tie key,
+// the direction-byte codes, ksw_backtrack's per-byte state step and the
+// rows of the single-pair engine's compact byte store.  Their
 // Python twins live in ksw2_tpu_torch/ops/strips.py and the walkers'
 // plain versions.
 #pragma once
@@ -116,6 +117,55 @@ __device__ __forceinline__ int merge_key(int i, int r, int qlen, int tlen,
   if (i == en0) return 0;
   const int en1 = st0 + ((en0 - st0) & -4);
   return i < en1 ? ((i - st0) & 3) * tv + i + 1 : 4 * tv + i + 1;
+}
+
+// The band of diagonal r (ksw2_extz2_sse.c:107-116): [st0, en0] and its
+// 16-rounded bounds [st, en].
+struct BandRow {
+  int st0, en0, st, en;
+};
+
+__device__ __forceinline__ BandRow band_row(int r, int qlen, int tlen,
+                                            int w) {
+  BandRow b;
+  b.st0 = max(max(0, r - qlen + 1), (r - w + 1) >> 1);
+  b.en0 = min(min(tlen - 1, r), (r + w) >> 1);
+  b.st = b.st0 & ~15;
+  b.en = b.en0 | 15;
+  return b;
+}
+
+// The first diagonal whose band is empty, else qlen + tlen - 1
+// (batch_pallas.py:42-48; ops/bands.py:first_empty_diag).
+__device__ __forceinline__ int first_empty_diag(int qlen, int tlen, int w) {
+  const int ndb = qlen + tlen - 1;
+  return min(min(ndb, 2 * qlen + w - 1),
+             min(2 * tlen + w - 1, w == 0 ? 1 : ndb));
+}
+
+// Bytes of row r of the compact store (extz_fwd.cu): en(r) - st(r) + 1.
+__device__ __forceinline__ int store_row_width(int r, int qlen, int tlen,
+                                               int w) {
+  const BandRow b = band_row(r, qlen, tlen, w);
+  return b.en - b.st + 1;
+}
+
+// Bytes of rows 0 .. r - 1 of the compact store, in closed form
+// (ops/extz_fwd.py:row_off): for each multiple x = 16 j, the rows whose
+// en0 (st0) has reached x, from the first row where it does.
+__device__ inline long long store_row_off(int r, int qlen, int tlen, int w) {
+  long long s = r;
+  for (int x = 16; x <= tlen - 1; x += 16) {
+    const int f = max(x, 2 * x - w);
+    if (f >= r) break;
+    s += r - f;
+  }
+  for (int x = 16;; x += 16) {
+    const int f = min(x + qlen - 1, 2 * x + w - 1);
+    if (f >= r) break;
+    s -= r - f;
+  }
+  return 16 * s;
 }
 
 }  // namespace ksw2t

@@ -81,16 +81,23 @@ class BandLaunch(NamedTuple):
     #                        donor and acceptor rows, after the matrix
 
 
-_ITEM_NAMES = {7: "any-device engine", 12: "single-pair engines"}
+_NEXT = {
+    None: "take the batched route",
+    "single": "take the single-pair engine",
+    "any": "take the any-device route",
+    "12b": "run on the single-pair two-piece and splice engines (ROADMAP "
+           "item 12b)",
+}
 
 
-def beyond(item: Optional[int], what: str) -> str:
+def beyond(nxt: Optional[str], what: str) -> str:
     """A route's refusal, naming the engine the JAX package takes next:
-    an unported one with its ROADMAP item, or (``item`` None) the
-    batched route, which the scheduler tries after the band route."""
-    if item is None:
-        return f"{what} take the batched route"
-    return f"{what} run on the {_ITEM_NAMES[item]} (ROADMAP item {item})"
+    the batched route (``nxt`` None), which the scheduler tries after the
+    band route; the single-pair engine ("single", one-piece CIGARs) or
+    the any-device route ("any", one-piece scores), both ported; or the
+    unported two-piece and splice single-pair engines ("12b") with their
+    ROADMAP item."""
+    return f"{what} {_NEXT[nxt]}"
 
 
 def band_ineligible_reason(Lt: int, qlen, tlen, w, mat, flag,
@@ -108,17 +115,19 @@ def band_ineligible_reason(Lt: int, qlen, tlen, w, mat, flag,
 
     ``Lt`` is the bucket's target length key.  The reason names the
     engine the JAX package takes next: the batched route up to 3072
-    (scores) or 1536 (CIGARs without EXTZ_ONLY), else an unported engine
-    and its ROADMAP item."""
+    (scores) or 1536 (CIGARs without EXTZ_ONLY), else the single-pair
+    engine (one-piece CIGARs), the any-device route (one-piece scores) or
+    the unported two-piece engines and their ROADMAP item."""
     flag = int(flag)
     if Lt <= L_MIN:
         return beyond(None, "buckets with targets of 512 or less")
     if cigar:
-        nxt = None if Lt <= 1536 and not flag & int(Flag.EXTZ_ONLY) else 12
+        nxt = None if Lt <= 1536 and not flag & int(Flag.EXTZ_ONLY) else (
+            "12b" if two else "single")
         if flag & int(Flag.EXTZ_ONLY):
             return beyond(nxt, "EXTZ_ONLY CIGARs on long banded pairs")
     else:
-        nxt = None if Lt <= 3072 else (12 if two else 7)
+        nxt = None if Lt <= 3072 else ("12b" if two else "any")
     w = np.asarray(w)
     if w.min() < 1 or w.max() > W_MAX:
         return beyond(nxt, "bands outside 1 <= w <= 1472 (or no band) on "
@@ -214,14 +223,16 @@ def _w8(x):
 
 
 def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
-                       nd: int, ncol: int):
+                       nd: int, ncol: int, with_stop: bool = False):
     """Plain PyTorch version of ``csrc/band_fwd.cu`` and of
     ``csrc/batch_fwd.cu`` (the batched route, ``ops/batch.py``): one
     Python step per anti-diagonal, batched over the pairs, each pair's
     band gathered as a window of ``max(w) + 48`` positions from
     full-length state rows; any ``w >= 0``.
     Returns ``rec`` (B, 9) int32 in ``FIELD_ORDER`` and, with ``cig``,
-    ``p`` (B, nd, ncol) uint8 (rows and bytes never written are 0)."""
+    ``p`` (B, nd, ncol) uint8 (rows and bytes never written are 0);
+    ``with_stop`` adds ``stop`` (B,) int32, the diagonals each pair
+    computed (its Z-drop diagonal + 1, else its first empty one)."""
     dev = qs.device
     i64 = torch.int64
     B, Lq = qs.shape
@@ -265,6 +276,7 @@ def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
                                    vec(-1), vec(NEG_INF))
     zd = torch.zeros((B,), dtype=torch.bool, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    nrow = vec(0)
     p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
          if prm.cig else None)
     KB = min(WB, ncol)
@@ -293,6 +305,7 @@ def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
         zd |= empty
         alive &= ~empty
         act &= ~empty
+        nrow = torch.where(act, r + 1, nrow)
         st0 = torch.where(act, st0, 0)
         en0 = torch.where(act, en0, 0)
         st = st0 // 16 * 16
@@ -475,6 +488,8 @@ def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
         last_en = torch.where(act, en, last_en)
     rec = torch.stack([mx, mt, mq, mqe, mqet, mte, mteq, score,
                        zd.to(i64)], dim=1).to(torch.int32)
+    if with_stop:
+        return rec, p, nrow.to(torch.int32)
     return rec, p
 
 

@@ -78,17 +78,20 @@ def batch_ineligible_reason(Lt: int, qlen, tlen, mat, flag, zdrop: int,
     two-piece SCORE_ONLY batches with ``end_bonus`` that share their path
     (``scheduler.py:614-617, 732-742``), ``Lt <= 1536`` and no EXTZ_ONLY
     (``scheduler.py:666-667``).  ``Lt`` is the bucket's target length
-    key.  The reason names the engine the JAX package takes next and its
-    ROADMAP item (``scheduler.py:278-285, 514-521, 755-767``)."""
+    key.  The reason names the engine the JAX package takes next
+    (``scheduler.py:278-285, 514-521, 755-767``): the single-pair engine
+    for one-piece CIGARs, the any-device route for one-piece scores, the
+    unported two-piece engines and their ROADMAP item."""
     if cigar:
+        nxt = "12b" if two else "single"
         if Lt > LT_CIGARS:
-            return beyond(12, "CIGARs (and two-piece end_bonus scores) on "
+            return beyond(nxt, "CIGARs (and two-piece end_bonus scores) on "
                           "targets over 1536")
         if int(flag) & int(Flag.EXTZ_ONLY):
-            return beyond(12, "EXTZ_ONLY CIGARs and two-piece EXTZ_ONLY "
+            return beyond(nxt, "EXTZ_ONLY CIGARs and two-piece EXTZ_ONLY "
                           "scores")
         return None
-    nxt = 12 if two else 7
+    nxt = "12b" if two else "any"
     if Lt > LT_SCORES:
         return beyond(nxt, "scores on targets over 3072")
     if not zdrop_ok(Lt, mat, qlen, tlen, zdrop, flag):

@@ -75,9 +75,9 @@ def batch_exts_ineligible_reason(Lt: int, flag) -> Optional[str]:
     CIGARs alike); the JAX package takes the single-pair ``exts2_device``
     next (``scheduler.py:1020-1027``)."""
     if Lt > LT_CIGARS:
-        return beyond(12, "splice pairs with targets over 1536")
+        return beyond("12b", "splice pairs with targets over 1536")
     if int(flag) & int(Flag.EXTZ_ONLY):
-        return beyond(12, "EXTZ_ONLY splice pairs")
+        return beyond("12b", "EXTZ_ONLY splice pairs")
     return None
 
 

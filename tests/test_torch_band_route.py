@@ -39,17 +39,21 @@ FIELDS = ("max", "max_t", "max_q", "mqe", "mqe_t", "mte", "mte_q", "score",
 LAUNCHERS = ("rows_records", "strips_records", "band_records",
              "batch_records", "strips_cigar_launch", "band_cigar_launch",
              "batch_cigar_launch")
+# the single-pair engine's launch functions, named by their route
+EXTZ_LAUNCHERS = {"extz_records": "any_records",
+                  "extz_cigar_launch": "single_cigar"}
 
 
 @pytest.fixture
 def calls(monkeypatch):
     """Names of the scheduler's launch functions, in call order."""
     seen = []
-    for name in LAUNCHERS:
+    for name in LAUNCHERS + tuple(EXTZ_LAUNCHERS):
         fn = getattr(sched, name)
+        tag = EXTZ_LAUNCHERS.get(name, name)
         monkeypatch.setattr(
             sched, name,
-            lambda *a, fn=fn, name=name: seen.append(name) or fn(*a))
+            lambda *a, fn=fn, tag=tag: seen.append(tag) or fn(*a))
     return seen
 
 
@@ -142,22 +146,34 @@ def test_out_of_band_envelope_raises(calls):
     assert _row(got[0]) == _row(_spec(q, t, 20, 100, Flag.NONE, False))
     long_t = encode_dna("ACGT" * 800)
     long_q = encode_dna("ACGT" * 790)
-    # w > 1472 (or no band) on a long pair: single-pair engines for
-    # CIGARs and two-piece scores, the any-device engine for one-piece
-    # scores (scheduler.py:278-285, 514-521, 755-767)
-    for aln, item in ((Aligner(device="cpu"), 12),
-                      (Aligner(q2=13, e2=1, device="cpu"), 12),
+    # w > 1472 (or no band) on a long pair: the single-pair engine for
+    # one-piece CIGARs, the any-device route for one-piece scores; the
+    # two-piece engines are not ported (scheduler.py:278-285, 514-521,
+    # 755-767)
+    for aln, item in ((Aligner(device="cpu"), "single_cigar"),
+                      (Aligner(q2=13, e2=1, device="cpu"), "12b"),
                       (Aligner(q2=13, e2=1, flag=Flag.SCORE_ONLY,
-                               device="cpu"), 12),
-                      (Aligner(flag=Flag.SCORE_ONLY, device="cpu"), 7)):
+                               device="cpu"), "12b"),
+                      (Aligner(flag=Flag.SCORE_ONLY, device="cpu"),
+                       "any_records")):
         for w in (1500, -1):
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP item {item}"):
-                aln.extend_batch([(long_q, long_t)], w=[w])
-    # a long CIGAR bucket with w <= 1536 and EXTZ_ONLY refused: item 12
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Aligner(flag=Flag.EXTZ_ONLY, device="cpu").extend_batch(
-            [(long_q, long_t)], w=[100])
+            calls.clear()
+            if item == "12b":
+                with pytest.raises(NotImplementedError,
+                                   match="ROADMAP item 12b"):
+                    aln.extend_batch([(long_q, long_t)], w=[w])
+                continue
+            got = aln.extend_batch([(long_q, long_t)], w=[w])
+            assert calls == [item]
+            assert _row(got[0]) == _row(_spec(long_q, long_t, w, -1,
+                                              aln.flag, False))
+    # a long EXTZ_ONLY CIGAR bucket with w <= 1536: the single-pair engine
+    calls.clear()
+    got = Aligner(flag=Flag.EXTZ_ONLY, device="cpu").extend_batch(
+        [(long_q, long_t)], w=[100])
+    assert calls == ["single_cigar"]
+    assert _row(got[0]) == _row(_spec(long_q, long_t, 100, -1,
+                                      Flag.EXTZ_ONLY, False))
 
 
 def test_cigars_read_the_raw_w(calls):
@@ -187,10 +203,12 @@ def test_band_ineligible_reason_paths():
         512, ql, tl, [751], MAT, Flag.SCORE_ONLY, cigar=False)
     assert "take the batched route" in BD.band_ineligible_reason(
         1024, ql, tl, [1473], MAT, Flag.SCORE_ONLY, cigar=False)
-    assert "item 7" in BD.band_ineligible_reason(
+    assert "take the any-device route" in BD.band_ineligible_reason(
         4096, ql, tl, [0], MAT, Flag.SCORE_ONLY, cigar=False)
-    assert "item 12" in BD.band_ineligible_reason(
+    assert "take the single-pair engine" in BD.band_ineligible_reason(
         4096, ql, tl, [-1], MAT, Flag.NONE, cigar=True)
+    assert "item 12b" in BD.band_ineligible_reason(
+        4096, ql, tl, [-1], MAT, Flag.NONE, cigar=True, two=True)
     assert "EXTZ_ONLY" in BD.band_ineligible_reason(
         1024, ql, tl, [50], MAT, Flag.EXTZ_ONLY, cigar=True)
     assert "range" in BD.band_ineligible_reason(

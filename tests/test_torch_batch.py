@@ -164,12 +164,14 @@ def test_batch_envelope_is_the_jax_routes():
                                       cigar=False) is None
     assert BT.batch_ineligible_reason(1536, ql, tl, MAT, Flag.NONE, 100,
                                       cigar=True) is None
-    assert "item 7" in BT.batch_ineligible_reason(4096, ql, tl, MAT, S, 100,
-                                                  cigar=False)
-    assert "item 12" in BT.batch_ineligible_reason(4096, ql, tl, MAT, S, 100,
-                                                   cigar=False, two=True)
-    assert "item 12" in BT.batch_ineligible_reason(2048, ql, tl, MAT,
-                                                   Flag.NONE, 100, cigar=True)
+    assert "the any-device route" in BT.batch_ineligible_reason(
+        4096, ql, tl, MAT, S, 100, cigar=False)
+    assert "item 12b" in BT.batch_ineligible_reason(4096, ql, tl, MAT, S, 100,
+                                                    cigar=False, two=True)
+    assert "the single-pair engine" in BT.batch_ineligible_reason(
+        2048, ql, tl, MAT, Flag.NONE, 100, cigar=True)
+    assert "item 12b" in BT.batch_ineligible_reason(
+        2048, ql, tl, MAT, Flag.NONE, 100, cigar=True, two=True)
     assert "EXTZ_ONLY" in BT.batch_ineligible_reason(
         512, ql, tl, MAT, Flag.EXTZ_ONLY, 100, cigar=True)
     big = simple_mat(5, 100, 4)

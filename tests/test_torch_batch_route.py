@@ -154,27 +154,37 @@ def test_eqx_split_between_routes(calls):
 
 
 def test_every_raise_names_its_item():
-    """Buckets that no ported route takes raise before anything runs,
-    naming the engine the JAX package takes and its ROADMAP item, never
-    the batched engines' item 11."""
+    """Two-piece buckets that no ported route takes raise before anything
+    runs, naming the single-pair two-piece engine and its ROADMAP item
+    (12b), never the batched engines' item 11; the one-piece buckets
+    that raised before (items 7 and 12) run on the any-device route and
+    the single-pair engine (M ops under EQX) and match the spec."""
     short = _pairs(13, 1, 200, 220)
     wide = [(encode_dna("ACGT" * 500), encode_dna("ACGA" * 500))]
     huge = [(encode_dna("ACGT" * 800), encode_dna("ACGA" * 800))]
     big = simple_mat(5, 100, 4)
     S, X = Flag.SCORE_ONLY, Flag.EXTZ_ONLY
     for kw, pairs, w, item in (
-            (dict(flag=S), huge, -1, 7),                      # t > 3072
-            (dict(flag=S, q2=13, e2=1), huge, -1, 12),
+            (dict(flag=S), huge, -1, None),                   # t > 3072
+            (dict(flag=S, q2=13, e2=1), huge, -1, "12b"),
             (dict(flag=S, mat=big, zdrop=100), [(
                 encode_dna("ACGT" * 700), encode_dna("ACGT" * 700))],
-             -1, 7),                                          # Z-drop range
-            (dict(flag=Flag.EQX), wide, -1, 12),              # EQX, 2000
-            (dict(flag=Flag.EQX, q2=13, e2=1), wide, -1, 12),
-            (dict(flag=X), short, 30, 12),                    # EXTZ_ONLY
-            (dict(flag=S | X, q2=13, e2=1), short, 30, 12),
-            (dict(flag=S, q2=13, e2=1, end_bonus=5), wide, -1, 12)):
+             -1, None),                                       # Z-drop range
+            (dict(flag=Flag.EQX), wide, -1, None),            # EQX, 2000
+            (dict(flag=Flag.EQX, q2=13, e2=1), wide, -1, "12b"),
+            (dict(flag=X), short, 30, None),                  # EXTZ_ONLY
+            (dict(flag=S | X, q2=13, e2=1), short, 30, "12b"),
+            (dict(flag=S, q2=13, e2=1, end_bonus=5), wide, -1, "12b")):
+        aln = Aligner(device="cpu", **kw)
+        if item is None:
+            (q, t), = pairs
+            got, = aln.extend_batch(pairs, w=[w])
+            want = diagdiff.extz2(q, t, 5, kw.get("mat", MAT), 4, 2, w=w,
+                                  zdrop=kw.get("zdrop", -1), flag=aln.flag)
+            assert _row(got) == _row(want[0]), kw
+            continue
         with pytest.raises(NotImplementedError) as err:
-            Aligner(device="cpu", **kw).extend_batch(pairs, w=[w])
+            aln.extend_batch(pairs, w=[w])
         msg = str(err.value)
         assert f"ROADMAP item {item}" in msg and "item 11" not in msg, msg
 

@@ -18,9 +18,12 @@ from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import band_walker as BW
 from ksw2_tpu_torch.ops import batch as BT
 from ksw2_tpu_torch.ops import batch_exts as BE
+from ksw2_tpu_torch.ops import extz as EZ
+from ksw2_tpu_torch.ops import extz_fwd as F
 from ksw2_tpu_torch.ops import rows as R
 from ksw2_tpu_torch.ops import strips as S
 from ksw2_tpu_torch.ops import strips_walker as W
+from ksw2_tpu_torch.ops import traceback_device as TB
 
 MAT = simple_mat(5, 2, -4)
 GEN = np.array([[3, -2, -4, -3, 0],
@@ -399,3 +402,106 @@ def test_aligner_on_every_card_matches_cpu(cuda_device):
         got = Aligner(zdrop=100, device=f"cuda:{k}").extend_batch(pairs)
         assert [(g.max, g.mqe, g.mte, g.score, g.cigar) for g in got] == \
             [(w.max, w.mqe, w.mte, w.score, w.cigar) for w in want], k
+
+
+def _extz_launch(seed, flag, zdrop):
+    """One single-pair launch with tiles of 128 positions: seeded pairs of
+    300-1500 bp (3-12 tiles; N bases; the fifth diverges after 600 bp,
+    so z100 stops it mid-matrix), a 30 bp pair and the edge shapes (1 bp,
+    127-129 bp, 257 bp), with w from 0 to unbanded."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for L in (300, 1500, 30, 700, 1000):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        pairs.append((encode_dna(q), encode_dna(t)))
+    q, t = pairs[4]
+    pairs[4] = (np.concatenate([q[:600], rng.integers(0, 4, 400).astype(
+        np.uint8)]), t)
+    pairs += [(rng.integers(0, 5, a).astype(np.uint8),
+               rng.integers(0, 5, b).astype(np.uint8)) for a, b in EDGE]
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    tl = np.array([len(b) for _, b in pairs], np.int32)
+    w = np.concatenate([[16, 2000, 0, 751, max(ql[4], tl[4])],
+                        np.maximum(ql[5:], tl[5:])]).astype(np.int32)
+    mat = GEN if flag & Flag.GENERIC_SC else MAT
+    (ln,) = EZ.extz_prep([a for a, _ in pairs], [b for _, b in pairs], ql, tl,
+                         w, 5, mat, 4, 2, zdrop, flag,
+                         cig=not flag & Flag.SCORE_ONLY)
+    return ln
+
+
+EXTZ_FORMS = [(Flag.SCORE_ONLY, -1), (Flag.SCORE_ONLY, 100), (Flag.NONE, 100),
+              (Flag.RIGHT | Flag.GENERIC_SC, -1),
+              (Flag.SCORE_ONLY | Flag.APPROX_MAX, -1),
+              (Flag.APPROX_MAX | Flag.APPROX_DROP, 100),
+              (Flag.EXTZ_ONLY, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,zdrop", EXTZ_FORMS)
+def test_extz_forward_and_walk_kernels_match_plain(cuda_device, flag, zdrop):
+    """Kernel 12 (tiles of 128 positions) against its plain version:
+    records, stops and the bytes of every row a pair computed; kernel 17
+    against its plain version on the kernel's bytes, upper_force 1 and 0,
+    min_intron 0 and 5."""
+    ln = _extz_launch(63, flag, zdrop)
+    args = BD.band_upload(ln, cuda_device)
+    krec, kp, kstop = F.extz_forward_cuda(*args, ln.prm, ln.lay)
+    prec, pp, pstop = F.extz_forward_plain(*args, ln.prm, ln.lay)
+    assert torch.equal(krec, prec) and torch.equal(kstop, pstop)
+    if not ln.prm.cig:
+        return
+    ends = F.row_off(kstop.cpu().numpy(), ln.qlen, ln.tlen, ln.w)
+    for b, n in enumerate(ends):
+        s = int(ln.lay.pbase[b])
+        assert torch.equal(kp[s:s + int(n)], pp[s:s + int(n)])
+    _, _, ql, tl, w = args[:5]
+    starts = W.start_cells(krec, ql, tl, flag, 10)
+    pbase = torch.from_numpy(ln.lay.pbase).to(cuda_device)
+    wr = ln.query.shape[1] + ln.target.shape[1] + 2
+    for upper_force, min_intron in ((1, 0), (0, 0), (1, 5)):
+        kres, kruns = TB.extz_walk_cuda(kp, pbase, starts, ql, tl, w, wr,
+                                        min_intron, upper_force)
+        pres, pruns = TB.extz_walk_plain(kp, pbase, starts, ql, tl, w, wr,
+                                         min_intron, upper_force)
+        assert torch.equal(kres, pres)
+        for b in range(len(ql)):
+            n = int(kres[b, 2])
+            assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+@pytest.mark.cuda
+def test_extz_launch_too_large_raises_with_its_size(cuda_device):
+    """A single-pair CIG launch whose buffers exceed the card (a 300 kb
+    pair's store takes ~90 GB) raises with their size before launching."""
+    rng = np.random.default_rng(5)
+    q = rng.integers(0, 4, 300_000).astype(np.uint8)
+    t = rng.integers(0, 4, 300_000).astype(np.uint8)
+    (ln,) = EZ.extz_prep([q], [t], [len(q)], [len(t)], [len(t)], 5, MAT, 4,
+                         2, -1, 0, cig=True)
+    assert ln.lay.device_bytes() > torch.cuda.get_device_properties(
+        cuda_device).total_memory
+    args = BD.band_upload(ln, cuda_device)
+    n = F.LAUNCHES["extz_fwd"]
+    with pytest.raises(RuntimeError, match=str(ln.lay.device_bytes())):
+        F.extz_forward_cuda(*args, ln.prm, ln.lay)
+    assert F.LAUNCHES["extz_fwd"] == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [Flag.NONE, Flag.EXTZ_ONLY,
+                                  Flag.SCORE_ONLY,
+                                  Flag.SCORE_ONLY | Flag.APPROX_MAX])
+def test_single_pair_aligner_matches_cpu(cuda_device, flag):
+    """``Aligner.extend`` and ``extend_batch`` on the single-pair engine
+    and the any-device route: the card gives the CPU route's results."""
+    pairs = _pairs(42)[:4]
+    for aln_kw in (dict(zdrop=100, end_bonus=10, flag=flag),
+                   dict(w=1500, flag=flag)):
+        want = [Aligner(device="cpu", **aln_kw).extend(q, t)
+                for q, t in pairs]
+        got = [Aligner(**aln_kw).extend(q, t) for q, t in pairs]
+        assert [(g.max, g.max_t, g.mqe, g.mte, g.score, g.zdropped,
+                 g.reach_end, g.cigar) for g in got] == \
+            [(x.max, x.max_t, x.mqe, x.mte, x.score, x.zdropped,
+              x.reach_end, x.cigar) for x in want]

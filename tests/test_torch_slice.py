@@ -162,23 +162,34 @@ def _spec_row(q, t, w, flag, two=False, eqx=False):
 
 
 def test_out_of_envelope_raises():
-    """Buckets no ported route takes raise, naming their ROADMAP item;
-    the short clipping, APPROX, EQX and two-piece end_bonus buckets that
-    raised before the batched route now run and match the spec."""
+    """Global alignment, meshes and two-piece buckets no ported route takes
+    raise, naming their ROADMAP item; the one-piece buckets beyond the
+    batch routes run on the single-pair engine (CIGARs) and the
+    any-device route (scores), and a one-piece ``extend`` keeps M ops
+    under EQX, as the reference's extz2 and the JAX ``extend`` do; the
+    short clipping, APPROX, EQX and two-piece end_bonus buckets run on
+    the batched route; all match the spec."""
     q, t = encode_dna("ACGT" * 8), encode_dna("ACGA" * 8)
     aln = Aligner(zdrop=100, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        aln.extend_batch([(q, encode_dna("A" * 3073))])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        Aligner(flag=Flag.SCORE_ONLY, device="cpu").extend_batch(
-            [(q, encode_dna("A" * 3073))])
+    t3073 = encode_dna("A" * 3073)
+    assert _row(aln.extend_batch([(q, t3073)])[0]) == \
+        _spec_row(q, t3073, -1, Flag.NONE)
+    from ksw2_tpu.spec import diagdiff
+    got = Aligner(flag=Flag.SCORE_ONLY, device="cpu").extend_batch(
+        [(q, t3073)])[0]
+    assert _row(got) == _row(diagdiff.extz2(
+        q, t3073, 5, simple_mat(5, 2, -4), 4, 2, flag=Flag.SCORE_ONLY)[0])
     assert _row(aln.extend_batch([(q, t)], w=[2])[0]) == \
         _spec_row(q, t, 2, Flag.NONE)
     flag = Flag.APPROX_MAX | Flag.SCORE_ONLY
     assert _row(Aligner(zdrop=100, flag=flag, device="cpu").extend_batch(
         [(q, t)])[0]) == _spec_row(q, t, 32, flag)
-    assert _row(Aligner(zdrop=100, flag=Flag.EQX, device="cpu").extend(
-        q, t)) == _spec_row(q, t, 32, Flag.EQX, eqx=True)
+    eqx = Aligner(zdrop=100, flag=Flag.EQX, device="cpu").extend(q, t)
+    assert eqx.cigar_string() == "32M"
+    assert _row(eqx) == _spec_row(q, t, 32, Flag.EQX)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
+        Aligner(q2=13, e2=1, zdrop=100, device="cpu").extend_batch(
+            [(q, t3073)])
     with pytest.raises(ValueError, match="both q2 and e2"):
         Aligner(q2=24, device="cpu")
     bonus = Aligner(q2=24, e2=1, zdrop=100, end_bonus=5, flag=Flag.SCORE_ONLY,
