@@ -187,6 +187,52 @@ SINGLE_PINS = {
     "sr_extension": ((891388, 862006, 3166, 152676), (13632, 13216, 52, 2355)),
 }
 
+# the single-pair two-piece and splice engines' workloads (kernels 13 and
+# 14): the JAX bench's extd_50k_exact_score row (bench/suite.py:139-177)
+# on the seeded 50 kb pair at A2 B4 -O4,13 -E2,1 (exact score, -sg,
+# CIGAR); minimap2 -x sr's extension call on the short-banded workload
+# (-A2 -B8 -O12,24 -E2,1 -r100 --end-bonus 10 -z100, EXTZ_ONLY CIGARs and
+# scores); minimap2 -x splice's end extensions on the splice workload
+# (EXTZ_ONLY for the right end, EXTZ_ONLY|RIGHT|REV_CIGAR for the left)
+# and 64 seeded spliced pairs of 2-12 kb, each annotated at its own intron
+# (--junc-bonus 9)
+SR_EXTD_MAT = (2, 8)          # -A2 -B8
+SR_EXTD = (12, 2, 24, 1)      # -O12,24 -E2,1
+SINGLE2_PREFIX = 2000
+SPLICE_ENDS_PREFIX = 64
+SPLICE_LONG_SEED, SPLICE_LONG_N = 783, 64
+SPLICE_LONG_T = (2048, 12288)
+SPLICE_LONG_CUT, SPLICE_LONG_PREFIX = 2048, 16
+# their pins, computed with the byte-parity spec ksw2_tpu.spec.diagdiff.
+# extd2 / exts2: single_extd_* (single_pin of the 50 kb pair, of its first
+# SINGLE2_PREFIX bp); sr_extd_* (sr_pin of the 4096 pairs, of the first
+# SR_PREFIX); splice_ends_* (sr_pin of the 256 splice pairs, of the first
+# SPLICE_ENDS_PREFIX); splice_long_* (sr_pin of the 64 pairs, of the
+# first SPLICE_LONG_PREFIX cut to SPLICE_LONG_CUT bp).
+# tests/test_torch_single2_pins.py
+# recomputes them.
+SINGLE2_PINS = {
+    "single_extd_score": ((31236, 49979, 50134, 31214, 0),
+                          (969, 1981, 1997, 935, 0)),
+    "single_extd_sg": ((31236, 49979, 50134, 31214, 0),
+                       (969, 1981, 1997, 935, 0)),
+    "single_extd_cigar": ((31236, 49979, 50134, 31214, 0, 0, 5911,
+                           "68dea1b121b48922"),
+                          (969, 1981, 1997, 935, 0, 0, 290,
+                           "116cce44c5942a68")),
+    "sr_extd_cigar": ((171891, -2725156727963, 227, 30461),
+                      (2818, -41875930863, 2, 456)),
+    "sr_extd_score": ((171891, -2725156727963, 0, 0),
+                      (2818, -41875930863, 0, 0)),
+    "splice_ends_cigar": ((47059, 38363, 0, 1032), (11648, 9475, 0, 256)),
+    "splice_ends_left_cigar": ((43603, 34907, 0, 1457),
+                               (10790, 8617, 0, 339)),
+    "splice_long_cigar": ((289991, 289983, 0, 302),
+                          (19723, -12884896811, 0, 226)),
+    "splice_long_score": ((289991, 289983, 0, 0),
+                          (19723, -12884896811, 0, 0)),
+}
+
 EXTD = (4, 2, 13, 1)          # minimap2's -O4,13 -E2,1: no swap
 SWAPPED = (24, 1, 4, 2)       # swaps the pieces: off0 = -19
 
@@ -209,6 +255,8 @@ BATCH_EXTS_REPLACES = "ksw2_tpu/ops/wavefront_batch_exts.py:55"
 EXTZ_SRC = "ksw2_tpu_torch/csrc/extz_fwd.cu"
 EXTZ_WALK_SRC = "ksw2_tpu_torch/csrc/extz_walk.cu"
 EXTZ_REPLACES = "ksw2_tpu/ops/wavefront.py:175"
+EXTD_REPLACES = "ksw2_tpu/ops/wavefront_extd.py:68"
+EXTS_REPLACES = "ksw2_tpu/ops/wavefront_exts.py:54"
 EXTZ_WALK_REPLACES = "ksw2_tpu/ops/traceback_device.py:50"
 
 # integer operations per cell (per step for the walkers) that the
@@ -242,6 +290,12 @@ BYTE_OPS["batch_exts_fwd"] = BYTE_OPS["band_fwd"] + 2 + 3
 # and walk
 OPS["extz_fwd"], BYTE_OPS["extz_fwd"] = OPS["band_fwd"], BYTE_OPS["band_fwd"]
 OPS["extz_walk"] = OPS["band_walk"]
+# ... and in its two-piece and splice forms the band route's two-piece and
+# the batched exts recurrences
+OPS["extd_fwd"] = OPS["band_extd_fwd"]
+BYTE_OPS["extd_fwd"] = BYTE_OPS["band_extd_fwd"]
+OPS["exts_fwd"] = OPS["batch_exts_fwd"]
+BYTE_OPS["exts_fwd"] = BYTE_OPS["batch_exts_fwd"]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 
 
@@ -365,10 +419,12 @@ def sr_pin(ezs):
             sum(len(ez.cigar) for ez in ezs))
 
 
-def spliced_pair(rng: np.random.Generator, tlen: int, with_n: bool = False):
+def spliced_pair(rng: np.random.Generator, tlen: int, with_n: bool = False,
+                 sites: bool = False):
     """A (query, target) nt4 pair with one GT..AG intron: a random
     target with a donor GT and an acceptor AG, and as query the two
-    flanking exons with 5% substitutions (and 1% N bases)."""
+    flanking exons with 5% substitutions (and 1% N bases); ``sites``
+    adds the positions (a, b) of the donor's G and the acceptor's G."""
     t = rng.integers(0, 4, tlen).astype(np.uint8)
     a = int(rng.integers(tlen // 5, tlen // 2))
     b = min(int(rng.integers(a + 20, max(a + 21, tlen - tlen // 5))),
@@ -381,6 +437,8 @@ def spliced_pair(rng: np.random.Generator, tlen: int, with_n: bool = False):
     q = np.where(mut, (q + rng.integers(1, 4, q.shape)) % 4, q)
     if with_n:
         q = np.where(rng.random(q.shape) < 0.01, 4, q)
+    if sites:
+        return q.astype(np.uint8), t, (a, b)
     return q.astype(np.uint8), t
 
 
@@ -399,6 +457,28 @@ def splice_jobs(seed: int = 1234, n: int = 256):
         qq = np.where(mut, (qq + rng.integers(1, 4, qq.shape)) % 4, qq)
         jobs.append((qq.astype(np.uint8), tt.astype(np.uint8)))
     return jobs
+
+
+def splice_long_jobs(seed: int = SPLICE_LONG_SEED, n: int = SPLICE_LONG_N):
+    """``n`` spliced pairs (:func:`spliced_pair`) with targets of 2-12 kb
+    and their junction tracks: the forward donor bit at each pair's donor
+    G and the acceptor bit at its acceptor G.  Returns (pairs, juncs)."""
+    rng = np.random.default_rng(seed)
+    pairs, juncs = [], []
+    for _ in range(n):
+        tlen = int(rng.integers(SPLICE_LONG_T[0], SPLICE_LONG_T[1] + 1))
+        q, t, (a, b) = spliced_pair(rng, tlen, sites=True)
+        j = np.zeros(tlen, np.uint8)
+        j[a], j[b] = 1, 2
+        pairs.append((q, t))
+        juncs.append(j)
+    return pairs, juncs
+
+
+def cut_jobs(pairs, juncs, n: int):
+    """Each pair and track cut to its first ``n`` bases."""
+    return ([(q[:n], t[:n]) for q, t in pairs],
+            None if juncs is None else [j[:n] for j in juncs])
 
 
 def splice_junc(tlen: int = 512):
@@ -752,7 +832,7 @@ def short_banded_launches(sb, flag, costs=None, choose=None):
     jobs = [sched.AlignJob(a, b, SHORT_BANDED_W) for a, b in sb]
     t0 = time.perf_counter()
     buckets = sched._route(jobs, mat, q + e, [None] * len(jobs),
-                           choose or (lambda *_: "batch"), "short-banded")
+                           choose or (lambda *_: "batch"))
     t1 = time.perf_counter()
     launches = [ln for bk in buckets for ln in band_prep(
         [jobs[i].query for i in bk.idxs], [jobs[i].target for i in bk.idxs],
@@ -1181,7 +1261,7 @@ def sr_launches(sb):
     mat = simple_mat(5, 2, -4)
     jobs = [sched.AlignJob(a, b, SHORT_BANDED_W) for a, b in sb]
     buckets = sched._route(jobs, mat, 6, [None] * len(jobs),
-                           lambda *_: "single", "sr-extension")
+                           lambda *_: "single")
     return [ln for bk in buckets for ln in extz_prep(
         [jobs[i].query for i in bk.idxs], [jobs[i].target for i in bk.idxs],
         bk.qlen, bk.tlen, bk.w, 5, mat, 4, 2, 100, Flag.EXTZ_ONLY, cig=True)]
@@ -1302,6 +1382,234 @@ def phase_single(cases):
     return worst
 
 
+def extd_launch(pairs, w, flag, zdrop, costs=EXTD, mat=None):
+    """One single-pair two-piece launch of ``pairs`` at bands ``w`` (one
+    per pair, -1 resolved to max(qlen, tlen)), A2 B4 (GENERIC_SC: the
+    generic matrix, or ``mat``) with the PRE-swap ``costs``."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.extd import extd_prep
+
+    if mat is None:
+        mat = _generic_mat() if flag & Flag.GENERIC_SC else \
+            simple_mat(5, 2, -4)
+    ql = np.array([len(q) for q, _ in pairs], np.int32)
+    tl = np.array([len(t) for _, t in pairs], np.int32)
+    w = np.asarray(w, np.int32)
+    w = np.where(w < 0, np.maximum(ql, tl), w).astype(np.int32)
+    (ln,) = extd_prep([q for q, _ in pairs], [t for _, t in pairs], ql, tl,
+                      w, 5, mat, *costs, zdrop, flag,
+                      cig=not int(flag) & int(Flag.SCORE_ONLY))
+    return ln
+
+
+def exts_launch(pairs, flag, zdrop, juncs=None, junc_bonus=0):
+    """One single-pair splice launch of ``pairs`` at -x splice costs (A1
+    B2, GENERIC_SC: the generic matrix), with junction tracks."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.exts import exts_prep
+
+    mat = _generic_mat() if flag & Flag.GENERIC_SC else simple_mat(5, 1, -2)
+    ql = np.array([len(q) for q, _ in pairs], np.int32)
+    tl = np.array([len(t) for _, t in pairs], np.int32)
+    (ln,) = exts_prep([q for q, _ in pairs], [t for _, t in pairs], ql, tl,
+                      5, mat, *SPLICE, zdrop, flag, juncs, junc_bonus,
+                      cig=not int(flag) & int(Flag.SCORE_ONLY))
+    return ln
+
+
+def sr_extd_aligner(flag):
+    """An Aligner at minimap2 -x sr's extension costs (-A2 -B8 -O12,24
+    -E2,1 -r100 --end-bonus 10 -z100)."""
+    from ksw2_tpu_torch import Aligner
+
+    a, b = SR_EXTD_MAT
+    q, e, q2, e2 = SR_EXTD
+    return Aligner(a=a, b=b, q=q, e=e, q2=q2, e2=e2, w=SHORT_BANDED_W,
+                   zdrop=100, end_bonus=END_BONUS, flag=flag)
+
+
+def sr_extd_launches(sb, flag):
+    """The launches the scheduler makes of the short-banded workload as
+    sr-extension-extd: its buckets as ``scheduler._route`` makes them,
+    each split by ``extd_prep``."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.extd import extd_prep
+
+    mat = simple_mat(5, SR_EXTD_MAT[0], -SR_EXTD_MAT[1])
+    jobs = [sched.AlignJob(a, b, SHORT_BANDED_W) for a, b in sb]
+    buckets = sched._route(jobs, mat, SR_EXTD[0] + SR_EXTD[1],
+                           [None] * len(jobs), lambda *_: "single")
+    return [ln for bk in buckets for ln in extd_prep(
+        [jobs[i].query for i in bk.idxs], [jobs[i].target for i in bk.idxs],
+        bk.qlen, bk.tlen, bk.w, 5, mat, *SR_EXTD, 100, Flag(int(flag)),
+        cig=not int(flag) & int(Flag.SCORE_ONLY))]
+
+
+def splice_single_launches(pairs, flag, juncs=None, junc_bonus=0):
+    """The single-pair launches the scheduler makes of ``pairs`` at -x
+    splice costs (``scheduler.plan_splice``'s "single" buckets)."""
+    return [ln for route, ln in splice_launches(pairs, flag, juncs,
+                                                 junc_bonus)
+            if route == "single"]
+
+
+def _first(ln, n):
+    """The launch's first ``n`` pairs, re-prepped as a launch of their
+    own (its own tile choice and layout)."""
+    from ksw2_tpu_torch.ops.extz import single_prep
+
+    ql, tl, w = ln.qlen[:n], ln.tlen[:n], ln.w[:n]
+    qs = [ln.query[k, :ql[k]] for k in range(n)]
+    ts = [ln.target[k, :tl[k]] for k in range(n)]
+    sites = None
+    if ln.sites:
+        def sites(i0, tpad, _tl):
+            return tuple(np.ascontiguousarray(s[:n, :tpad.shape[1]])
+                         for s in ln.sites)
+    (out,) = single_prep(ln.prm, qs, ts, ql, tl, w, sites)
+    return out
+
+
+def single2_cases(sb, spl):
+    """(name, kind, launch, end_bonus) cases for kernels 13 ("extd") and
+    14 ("exts"): seeded launches of few pairs, so tiles of 128 positions
+    (pairs of 30-1500 bp over 1-12 tiles; N bases; the 900 bp pair
+    diverges after 450 bp, so z100 stops it mid-matrix) in score, CIG and
+    APPROX forms; kernel 13 with w -1, 0, 1, 16 and 751, zdrop -1 / 100,
+    RIGHT, GENERIC_SC, EXTZ_ONLY with end_bonus, default and swapped
+    costs; kernel 14 with SPLICE_FOR / SPLICE_REV, FLANK, junction tracks
+    (junc_bonus 9), GENERIC_SC, EXTZ_ONLY and RIGHT|REV_CIGAR; and the
+    first 256 pairs of the launches the main path makes of
+    sr-extension-extd and splice-ends.  No plain version runs on a pair
+    over 1500 bp."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(13)
+    mix = []
+    for L in (30, 300, 600, 900):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        mix.append((encode_dna(q), encode_dna(t)))
+    q, t = mix[3]
+    mix[3] = (np.concatenate([q[:450], rng.integers(0, 4, len(q) - 450)
+                              .astype(np.uint8)]), t)
+    t, q = random_pair(rng, 1500, divergence=0.15, indel=0.06)
+    long1 = [(encode_dna(q), encode_dna(t))]
+    SO, X = Flag.SCORE_ONLY, Flag.EXTZ_ONLY
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    cases = []
+    for name, flag, z, w, costs, eb in (
+            ("score_zm1", SO, -1, [-1, 0, 16, 751], EXTD, 0),
+            ("cig_z100", Flag.NONE, 100, [1, 16, 751, -1], EXTD, 0),
+            ("cig_right_generic_zm1_swapped", Flag.RIGHT | Flag.GENERIC_SC,
+             -1, [-1, 1, 751, 16], SWAPPED, 0),
+            ("approxdrop_cig_z100", approx, 100, [16, -1, 751, 0], EXTD, 0),
+            ("extz_only_cig_z100_swapped", X, 100, [-1, 16, 751, -1],
+             SWAPPED, END_BONUS),
+            ("extz_only_score_z100", SO | X, 100, [-1, 1, 751, -1], EXTD,
+             END_BONUS)):
+        cases.append((f"extd_mix_{name}", "extd",
+                      extd_launch(mix, w, flag, z, costs), eb))
+    cases.append(("extd_long1500_cig_zm1", "extd",
+                  extd_launch(long1, [-1], Flag.NONE, -1), 0))
+    sr = sr_extd_launches(sb, Flag.EXTZ_ONLY)
+    cases.append(("sr_extd_256", "extd", _first(sr[0], 256), END_BONUS))
+
+    small = [spliced_pair(rng, L, with_n=True) for L in (30, 300, 700)]
+    long2 = [spliced_pair(rng, 1500)]
+    tracks = []
+    for _, t in small + long2:
+        j = np.zeros(len(t), np.uint8)
+        j[len(t) // 3], j[2 * len(t) // 3] = 1, 2
+        tracks.append(j)
+    SPL = Flag.SPLICE_FOR
+    for name, pairs, flag, z, junc in (
+            ("score_z200", small, SPL | SO, 200, False),
+            ("junc_cig_z200", small, SPL, 200, True),
+            ("rev_flank_cig_zm1", small,
+             Flag.SPLICE_REV | Flag.SPLICE_FLANK, -1, False),
+            ("generic_cig_right_z200", small,
+             SPL | Flag.GENERIC_SC | Flag.RIGHT, 200, False),
+            ("extz_only_cig_z200", small, SPL | X, 200, False),
+            ("left_junc_cig_z200", small,
+             SPL | X | Flag.RIGHT | Flag.REV_CIGAR, 200, True),
+            ("approxdrop_cig_z100", small, SPL | approx, 100, True),
+            ("long1500_junc_cig_z200", long2, SPL, 200, True),
+            ("long1500_extz_only_score_zm1", long2, SPL | SO | X, -1,
+             False)):
+        tr = (tracks[len(small):] if pairs is long2 else
+              tracks[:len(small)]) if junc else None
+        cases.append((f"exts_{name}", "exts",
+                      exts_launch(pairs, flag, z, tr,
+                                  SPLICE_JUNC_BONUS if junc else 0), 0))
+    ends = splice_single_launches(spl * SPLICE_TILES, SPL | X)
+    cases.append(("splice_ends_256", "exts", _first(ends[0], 256), 0))
+    return cases
+
+
+def phase_single2(cases):
+    """Kernels 13 (extd_fwd) and 14 (exts_fwd) against their plain
+    versions on every case: records, stops and direction bytes exactly;
+    kernel 17 (extz_walk) against its plain version on the kernels'
+    bytes, with min_intron 0 (extd) and long_thres (exts)."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import extd as ED
+    from ksw2_tpu_torch.ops import exts as ES
+    from ksw2_tpu_torch.ops import strips_walker as W
+    from ksw2_tpu_torch.ops import traceback_device as TB
+
+    fwd = {"extd": (ED.extd_forward_cuda, ED.extd_forward_plain),
+           "exts": (ES.exts_forward_cuda, ES.exts_forward_plain)}
+    worst = {"extd_fwd": 0, "exts_fwd": 0, "extz_walk": 0}
+    out = {}
+    for name, kind, ln, eb in cases:
+        args = BD.band_upload(ln, "cuda")
+        kfn, pfn = fwd[kind]
+        krec, kp, kstop = kfn(*args, ln.prm, ln.lay)
+        prec, pp, pstop = plain_run((name, "fwd"), pfn, *args, ln.prm,
+                                    ln.lay)
+        errs = {"records": _max_err(krec, prec),
+                "stop": _max_err(kstop, pstop)}
+        if ln.prm.cig:
+            errs["bytes"] = _store_err(kp, pp, ln, kstop)
+            del pp
+            _, _, ql, tl, w = args[:5]
+            starts = W.start_cells(krec, ql, tl, ln.prm.flag, eb)
+            pbase = torch.from_numpy(ln.lay.pbase).cuda()
+            wr = ln.query.shape[1] + ln.target.shape[1] + 2
+            mi = ln.prm.lt if kind == "exts" else 0
+            sub = (kp, pbase, starts, ql, tl, w, wr, mi)
+            kres, kruns = TB.extz_walk_cuda(*sub)
+            pres, pruns = plain_run((name, "walk"), TB.extz_walk_plain, *sub)
+            werr = _max_err(kres, pres)
+            for b in range(len(ln.qlen)):
+                k = int(kres[b, 2])
+                werr = max(werr, _max_err(kruns[b, :k], pruns[b, :k]))
+            errs["walk"] = werr
+            worst["extz_walk"] = max(worst["extz_walk"], werr)
+        kname = f"{kind}_fwd"
+        worst[kname] = max(worst[kname], errs["records"], errs["stop"],
+                           errs.get("bytes", 0))
+        out[name] = {"pairs": len(ln.qlen), "tp": ln.lay.tp,
+                     "tiles": int(ln.lay.tbase[-1]),
+                     "rows": int(ln.lay.n_diag), "bytes": ln.lay.n_bytes,
+                     "w": sorted({int(x) for x in ln.w})[:8],
+                     "zdropped": int(krec[:, 8].sum()),
+                     "max_abs_err": errs}
+        del kp
+        torch.cuda.empty_cache()
+        if any(errs.values()):
+            emit({"phase": "single2", "case": name, "FAIL": errs})
+            raise AssertionError(f"the single-pair kernels differ on {name}")
+    emit({"phase": "single2", "max_abs_err": worst, "cases": out})
+    return worst
+
+
 def _cells(pairs):
     return sum(len(q) * len(t) for q, t in pairs)
 
@@ -1409,7 +1717,7 @@ def _eqx_merged(out):
             sum(1 for ez in out for c in ez.cigar if c & 0xF == 0)]
 
 
-def phase_main_path(jobs, short, long, sb, spl, single, mt):
+def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.batch import scheduler as sched
     from ksw2_tpu_torch.core.flags import Flag
@@ -1536,6 +1844,59 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt):
     sr_aln = Aligner(w=SW, zdrop=100, end_bonus=END_BONUS,
                      flag=Flag.EXTZ_ONLY)
     sr_full, sr_pre = SINGLE_PINS["sr_extension"]
+
+    # the single-pair two-piece and splice engines (kernels 13 and 14,
+    # walked by 17): the 50 kb pair at -O4,13 -E2,1 through Aligner.extend
+    # (exact score, -sg, CIGAR) and extend_batch (scores over 3072), the
+    # sr extension at -x sr's costs (EXTZ_ONLY CIGARs and scores), the
+    # splice workload's end extensions (EXTZ_ONLY; EXTZ_ONLY|RIGHT|
+    # REV_CIGAR) and the 64 annotated 2-12 kb spliced pairs (CIGARs,
+    # scores, and the first 16 pairs' CIGARs cut to 2 kb)
+    X = Flag.EXTZ_ONLY
+    single_kernels = ("extz_fwd", "extd_fwd", "exts_fwd")
+    kernels = ("strips_fwd", "strips_walk", "rows_fwd", "band_fwd",
+               "band_extd_fwd", "band_walk", "batch_fwd", "batch_extd_fwd",
+               "batch_exts_fwd") + single_kernels + ("extz_walk",)
+    only_extz += ("extd_fwd", "exts_fwd")
+
+    def only(*names):
+        return names, tuple(k for k in kernels if k not in names)
+    d_alns = {"single_extd_score": Aligner(q=q, e=e, q2=q2, e2=e2, flag=SO),
+              "single_extd_sg": Aligner(q=q, e=e, q2=q2, e2=e2,
+                                        flag=SO | approx),
+              "single_extd_cigar": Aligner(q=q, e=e, q2=q2, e2=e2)}
+
+    def single2_run(name):
+        aln = d_alns[name]
+        cig = not aln.flag & SO
+        return run(name, lambda: [aln.extend(*single)], [single],
+                   list(SINGLE2_PINS[name][0]),
+                   lambda out: list(single_pin(out[0], cig)))
+
+    def pin_run(name, aln, pairs, n=None, juncs=None, tiles=1, sample=None,
+                cells=None):
+        # the pin's whole (times ``tiles`` for a tiled workload) and, with
+        # ``n``, its first ``n`` pairs'
+        full, pre = SINGLE2_PINS[name]
+        return run(name, lambda: aln.extend_batch(pairs, juncs=juncs), pairs,
+                   [tiles * v for v in full], lambda out: list(sr_pin(out)),
+                   aln, cells=cells, prefix=n and (n, list(pre)),
+                   sample=sample, juncs=juncs)
+    srd = {"sr_extd_cigar": sr_extd_aligner(X),
+           "sr_extd_score": sr_extd_aligner(X | SO)}
+    ends = {"splice_ends_cigar": splice_aligner(Flag.SPLICE_FOR | X),
+            "splice_ends_left_cigar": splice_aligner(
+                Flag.SPLICE_FOR | X | Flag.RIGHT | Flag.REV_CIGAR)}
+    lpairs, ljuncs = slong
+    cpairs, cjuncs = cut_jobs(lpairs[:SPLICE_LONG_PREFIX],
+                              ljuncs[:SPLICE_LONG_PREFIX], SPLICE_LONG_CUT)
+    lal = {"splice_long_cigar": splice_aligner(Flag.SPLICE_FOR,
+                                               SPLICE_JUNC_BONUS),
+           "splice_long_score": splice_aligner(Flag.SPLICE_FOR | SO,
+                                               SPLICE_JUNC_BONUS)}
+    # the CPU route takes seconds a 2 kb spliced pair: sample the two
+    # shortest (of the cut pairs, the first two)
+    lshort = [int(i) for i in np.argsort([len(t) for _, t in lpairs])[:2]]
     paths = [
         ("splice", [
             run("splice1024_cigar", lambda: s_cig.extend_batch(spl4), spl4,
@@ -1629,7 +1990,40 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt):
                 cells=band_cells(sb, SW),
                 prefix=(SR_PREFIX, list(sr_pre)))],
          ("extz_fwd", "extz_walk"), only_extz),
+        ("single_extd", [
+            single2_run("single_extd_score"),
+            single2_run("single_extd_sg"),
+            single2_run("single_extd_cigar"),
+            run("single_extd_batch_score",
+                lambda: d_alns["single_extd_score"].extend_batch([single]),
+                [single], list(SINGLE2_PINS["single_extd_score"][0]),
+                lambda out: list(single_pin(out[0], False)),
+                d_alns["single_extd_score"], sample=[])],
+         *only("extd_fwd", "extz_walk")),
+        ("sr_extension_extd", [
+            pin_run(name, aln, sb, SR_PREFIX, cells=band_cells(sb, SW))
+            for name, aln in srd.items()],
+         *only("extd_fwd", "extz_walk")),
+        ("splice_ends", [
+            pin_run(name, aln, spl4, SPLICE_ENDS_PREFIX, tiles=T)
+            for name, aln in ends.items()],
+         *only("exts_fwd", "extz_walk")),
+        ("splice_long", [
+            pin_run(name, aln, lpairs, juncs=ljuncs, sample=lshort)
+            for name, aln in lal.items()] + [
+            run("splice_long_cigar_2kb",
+                lambda: lal["splice_long_cigar"].extend_batch(
+                    cpairs, juncs=cjuncs), cpairs,
+                list(SINGLE2_PINS["splice_long_cigar"][1]),
+                lambda out: list(sr_pin(out)), lal["splice_long_cigar"],
+                sample=[0, 1], juncs=cjuncs)],
+         *only("exts_fwd", "extz_walk")),
     ]
+    # the earlier paths launch none of the new forms
+    for k, (path, spec, needs, never) in enumerate(paths):
+        if not set(needs) & {"extd_fwd", "exts_fwd"}:
+            paths[k] = (path, spec, needs,
+                        tuple(never) + ("extd_fwd", "exts_fwd"))
     counts = {}
     runs = {}
     results = {}
@@ -1639,13 +2033,17 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt):
             counts[k] = counts.get(k, 0) + v
         runs[path] = r
         results.update(res)
-        if path == "sr_extension":
-            # one launch of each kernel a bucket, in each of the run's 5
-            # batches (the first, 3 timed, the submit/wait one)
-            n = len({sched._bucket_key(len(a), len(b)) for a, b in sb})
-            if not c["extz_fwd"] == c["extz_walk"] == 5 * n:
-                raise AssertionError(f"sr_extension: {c} launches for "
-                                     f"{n} buckets in 5 batches")
+        # one launch of each kernel a bucket, in each of a run's 5
+        # batches (the first, 3 timed, the submit/wait one)
+        n = len({sched._bucket_key(len(a), len(b)) for a, b in sb})
+        if path == "sr_extension" and \
+                not c["extz_fwd"] == c["extz_walk"] == 5 * n:
+            raise AssertionError(f"sr_extension: {c} launches for "
+                                 f"{n} buckets in 5 batches")
+        if path == "sr_extension_extd" and \
+                not (c["extd_fwd"] == 10 * n and c["extz_walk"] == 5 * n):
+            raise AssertionError(f"sr_extension_extd: {c} launches for "
+                                 f"{n} buckets in 2 runs of 5 batches")
 
     # sampled pairs against the port's plain CPU route (which the CPU
     # test suite holds against the JAX package and the NumPy spec)
@@ -1684,8 +2082,9 @@ def phase_profile(long, sb, spl):
     """Device time by kernel over one score batch and one CIGAR batch of
     the long-banded (-w751 -z400) and of the short-banded (-w100 -z100)
     workloads, one CIGAR batch of the splice workload unannotated and
-    annotated, and the sr-extension CIGAR batch (torch.profiler), beside
-    the batch's host wall and the device's idle share of it."""
+    annotated, the sr-extension CIGAR batch (one- and two-piece) and the
+    splice-ends CIGAR batch (torch.profiler), beside the batch's host
+    wall and the device's idle share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1708,7 +2107,12 @@ def phase_profile(long, sb, spl):
              spl * SPLICE_TILES),
             ("sr_extension_cigar", Aligner(w=SHORT_BANDED_W, zdrop=100,
                                            end_bonus=END_BONUS,
-                                           flag=Flag.EXTZ_ONLY), sb)):
+                                           flag=Flag.EXTZ_ONLY), sb),
+            ("sr_extension_extd_cigar", sr_extd_aligner(Flag.EXTZ_ONLY),
+             sb),
+            ("splice_ends_cigar",
+             splice_aligner(Flag.SPLICE_FOR | Flag.EXTZ_ONLY),
+             spl * SPLICE_TILES)):
         juncs = [splice_junc()] * len(pairs) if "junc" in name else None
         aln.extend_batch(pairs, juncs=juncs)
         torch.cuda.synchronize()
@@ -1893,11 +2297,11 @@ def splice_times(scases, int_rate):
     return out
 
 
-def extz_work(ln, stop, cig):
+def extz_work(ln, stop, cig, sites=False):
     """(cells, bytes) of one single-pair forward on this run's data: the
     true band cells of the diagonals each pair computed up to its stop,
-    and the bytes read and written once (sequences, records, the store's
-    rows)."""
+    and the bytes read and written once (sequences, ``sites``' donor and
+    acceptor rows, records, the store's rows)."""
     from ksw2_tpu_torch.ops.bands import band_bounds
     from ksw2_tpu_torch.ops.extz_fwd import row_off
 
@@ -1907,7 +2311,7 @@ def extz_work(ln, stop, cig):
         ql, tl, w = int(ln.qlen[b]), int(ln.tlen[b]), int(ln.w[b])
         st0, en0 = band_bounds(int(stop[b]), ql, tl, w)
         cells += int(np.maximum(0, en0 - st0 + 1).sum())
-        nbytes += ql + tl + 12 + 36
+        nbytes += ql + tl + 12 + 36 + (2 * tl if sites else 0)
         if cig:
             nbytes += int(row_off(int(stop[b]), ql, tl, w)[0])
     return cells, nbytes
@@ -1987,7 +2391,98 @@ def single_times(single, sb, int_rate):
     return out
 
 
-def phase_times(cases, rcases, long, sb, scases, single, int_rate):
+def single2_times(single, sb, spl, slong, int_rate):
+    """Kernels 13 and 14, and kernel 17 on their stores, at the main
+    path's shapes: kernel 13 on the 50 kb pair's one launch in each form
+    (score, -sg, CIG) and on the launches the scheduler makes of
+    sr-extension-extd, kernel 14 on those of splice-ends and splice-long
+    (whose cells and store bytes it prints), each timed together as the
+    path runs them beside its bound; and both on the first 256 pairs of
+    sr-extension-extd and splice-ends, beside their plain versions'
+    times there from phase 5f."""
+    import torch
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import extd as ED
+    from ksw2_tpu_torch.ops import exts as ES
+    from ksw2_tpu_torch.ops import strips_walker as W
+    from ksw2_tpu_torch.ops import traceback_device as TB
+
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    SO, X, SPL = Flag.SCORE_ONLY, Flag.EXTZ_ONLY, Flag.SPLICE_FOR
+    sr = sr_extd_launches(sb, X)
+    ends = splice_single_launches(spl * SPLICE_TILES, SPL | X)
+    lpairs, ljuncs = slong
+    longs = {f: splice_single_launches(lpairs, SPL | f, ljuncs,
+                                       SPLICE_JUNC_BONUS)
+             for f in (Flag.NONE, SO)}
+    out = {}
+    for name, kind, lns, eb, reps in (
+            ("single50k_extd_score", "extd",
+             [extd_launch([single], [-1], SO, -1)], 0, 3),
+            ("single50k_extd_sg", "extd",
+             [extd_launch([single], [-1], SO | approx, -1)], 0, 3),
+            ("single50k_extd_cig", "extd",
+             [extd_launch([single], [-1], Flag.NONE, -1)], 0, 2),
+            ("sr_extd_cig", "extd", sr, END_BONUS, 5),
+            ("sr_extd_256", "extd", [_first(sr[0], 256)], END_BONUS, 5),
+            ("splice_ends_cig", "exts", ends, 0, 5),
+            ("splice_ends_256", "exts", [_first(ends[0], 256)], 0, 5),
+            ("splice_long_cig", "exts", longs[Flag.NONE], 0, 2),
+            ("splice_long_score", "exts", longs[SO], 0, 3)):
+        fn = ED.extd_forward_cuda if kind == "extd" else \
+            ES.exts_forward_cuda
+        args = [BD.band_upload(ln, "cuda") for ln in lns]
+        cig = bool(lns[0].prm.cig)
+        row = {"kernel": f"{kind}_fwd",
+               "pairs": sum(len(ln.qlen) for ln in lns),
+               "launches": [{"pairs": len(ln.qlen), "tp": ln.lay.tp,
+                             "tiles": int(ln.lay.tbase[-1]),
+                             "rows": ln.lay.n_diag, "bytes": ln.lay.n_bytes,
+                             "device_bytes": ln.lay.device_bytes()}
+                            for ln in lns]}
+
+        def fwd(lns=lns, args=args, fn=fn):
+            return [fn(*a, ln.prm, ln.lay) for a, ln in zip(args, lns)]
+        row["fwd_ms"] = cuda_ms(fwd, reps)
+        outs = fwd()
+        work = [extz_work(ln, stop, cig, kind == "exts")
+                for ln, (_, _, stop) in zip(lns, outs)]
+        row["computed_cells"] = sum(c for c, _ in work)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            f"{kind}_fwd", row["computed_cells"], sum(b for _, b in work),
+            int_rate, cig)
+        row["fwd_gcells_per_s"] = row["computed_cells"] / row["fwd_ms"] / 1e6
+        if name.endswith("_256"):
+            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+        if cig:
+            mi = lns[0].prm.lt if kind == "exts" else 0
+            walks = []
+            for (rec, p, _), a, ln in zip(outs, args, lns):
+                _, _, ql, tl, w = a[:5]
+                walks.append((p, torch.from_numpy(ln.lay.pbase).cuda(),
+                              W.start_cells(rec, ql, tl, ln.prm.flag, eb),
+                              ql, tl, w,
+                              ln.query.shape[1] + ln.target.shape[1] + 2,
+                              mi))
+            row["walk_ms"] = cuda_ms(
+                lambda: [TB.extz_walk_cuda(*a) for a in walks], reps)
+            steps, nbytes = walks_work(
+                [TB.extz_walk_cuda(*a) for a in walks], 24)
+            row["walk_steps"] = steps
+            row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                "extz_walk", steps, nbytes, int_rate)
+            if name.endswith("_256"):
+                row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
+            del walks
+        del outs, args
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
+                int_rate):
     import torch
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import simple_mat
@@ -2153,6 +2648,7 @@ def phase_times(cases, rcases, long, sb, scases, single, int_rate):
         torch.cuda.empty_cache()
     out.update(splice_times(scases, int_rate))
     out.update(single_times(single, sb, int_rate))
+    out.update(single2_times(single, sb, spl, slong, int_rate))
     emit({"phase": "times", "cases": out})
     return out
 
@@ -2196,12 +2692,14 @@ def main() -> int:
     sb = short_banded_jobs()
     err_batch = timed("batch", phase_batch, batch_cases(sb))
     err_single = timed("single", phase_single, single_cases(sb))
+    err_single2 = timed("single2", phase_single2, single2_cases(sb, spl))
     single = single_pair(SINGLE_SEED, SINGLE_LEN)
     mt = single_pair(MT_SEED, MT_LEN)
+    slong = splice_long_jobs()
     counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb,
-                      spl, single, mt)
+                      spl, single, mt, slong)
     times = timed("times", phase_times, cases, rcases, long, sb, scases,
-                  single, int_rate)
+                  single, spl, slong, int_rate)
     timed("profile", phase_profile, long, sb, spl)
     emit({"phase": "clock", "seconds": clock})
     whale = times["whale_cig_z100"]
@@ -2236,8 +2734,13 @@ def main() -> int:
         _kernel("extz_fwd", EXTZ_SRC, EXTZ_REPLACES, counts["extz_fwd"],
                 err_single["extz_fwd"], times["sr_extz_cig"], "fwd"),
         _kernel("extz_walk", EXTZ_WALK_SRC, EXTZ_WALK_REPLACES,
-                counts["extz_walk"], err_single["extz_walk"],
+                counts["extz_walk"],
+                max(err_single["extz_walk"], err_single2["extz_walk"]),
                 times["sr_extz_cig"], "walk"),
+        _kernel("extd_fwd", EXTZ_SRC, EXTD_REPLACES, counts["extd_fwd"],
+                err_single2["extd_fwd"], times["sr_extd_256"], "fwd"),
+        _kernel("exts_fwd", EXTZ_SRC, EXTS_REPLACES, counts["exts_fwd"],
+                err_single2["exts_fwd"], times["splice_ends_256"], "fwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,11 +58,11 @@ _SIGNATURES = {
     # sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig, nd,
     # ncol, TP, warps, rec, p, stream
     "ksw2t_batch_exts_fwd": [_P] * 7 + [_I] * 22 + [_P] * 3,
-    # qs, ts, qlen, tlen, w, table, tbase, dbase, bbase, pbase, B, Lq, Lt,
-    # m, q, e, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop,
-    # cig, TP, n_tiles, ticket, progress, bnd, D, hse, W, rec, stop, p,
-    # stream
-    "ksw2t_extz_fwd": [_P] * 10 + [_I] * 17 + [_P] * 10,
+    # mode, qs, ts, qlen, tlen, w, table, don, acc, tbase, dbase, bbase,
+    # pbase, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis,
+    # sc_N, zdrop, right, generic, approx, adrop, cig, TP, n_tiles, ticket,
+    # progress, bnd, D, hse, W, rec, stop, p, stream
+    "ksw2t_extz_fwd": [_I] + [_P] * 12 + [_I] * 22 + [_P] * 10,
     # p, pbase, starts, qlen, tlen, w, B, wr, min_intron, upper_force, res,
     # runs, stream
     "ksw2t_extz_walk": [_P] * 6 + [_I] * 4 + [_P] * 3,

@@ -17,15 +17,13 @@ or encoded arrays and return
 
 ``device="cuda"`` (the default) runs the CUDA kernels and raises when
 there is no card; ``device="cpu"`` runs the kernels' plain PyTorch
-versions.  A one-piece :meth:`Aligner.extend` runs the single-pair
-engine (``ops/extz.py``), as ``ksw2_tpu/api.py:108-112`` does, and keeps
-M ops under EQX; every one-piece bucket of a batch has a route.  Global
-alignment, meshes, pluggable engines and two-piece SCORE_ONLY batches
-with EXTZ_ONLY raise ``NotImplementedError`` naming the ROADMAP.md item
-that brings them; so do the two-piece buckets that no batch route takes
-(scores on targets over 3072, CIGARs on targets over 1536 or with
-EXTZ_ONLY, unless the band route takes them) and the splice buckets with
-EXTZ_ONLY, or with junction tracks on targets over 1536 (item 12b).
+versions.  :meth:`Aligner.extend` runs the single-pair engine of its
+costs, as ``ksw2_tpu/api.py:96-112`` does: one-piece ``ops/extz.py``
+(M ops under EQX), two-piece ``ops/extd.py`` (=/X under EQX) and splice
+``ops/exts.py`` (N ops, with the pair's junction track).  Every bucket
+of a batch has a route.  Global alignment, meshes and pluggable engines
+raise ``NotImplementedError`` naming the ROADMAP.md item that brings
+them.
 """
 from __future__ import annotations
 
@@ -38,6 +36,8 @@ from .batch.scheduler import (AlignJob, align_batch_async,
 from .core.flags import Flag
 from .core.matrix import encode_dna, simple_mat
 from .core.result import ExtzResult
+from .ops.extd import extd2_device
+from .ops.exts import exts2_device
 from .ops.extz import extz2_device
 
 Seq = Union[str, np.ndarray]
@@ -102,19 +102,28 @@ class Aligner:
         return bool((sq == want).all())
 
     def extend(self, query: Seq, target: Seq, junc=None) -> ExtzResult:
-        """Extension alignment of one pair: one-piece costs on the
-        single-pair engine (``ops/extz.py:extz2_device``), two-piece and
-        splice costs as one pair through :meth:`extend_batch` (``junc``:
-        the pair's junction track)."""
-        if self.q2 is None and not self.splice:
-            if junc is not None:
-                raise ValueError("juncs requires splice=True")
-            return extz2_device(_enc(query), _enc(target), self.m, self.mat,
-                                self.q, self.e, w=self.w, zdrop=self.zdrop,
-                                end_bonus=self.end_bonus, flag=self.flag,
+        """Extension alignment of one pair on the single-pair engine of
+        the costs: ``ops/exts.py:exts2_device`` (splice; ``junc`` the
+        pair's junction track), ``ops/extd.py:extd2_device`` (two-piece)
+        or ``ops/extz.py:extz2_device`` (one-piece)."""
+        query, target = _enc(query), _enc(target)
+        if self.splice:
+            return exts2_device(query, target, self.m, self.mat, self.q,
+                                self.e, self.q2, self.noncan,
+                                zdrop=self.zdrop, junc_bonus=self.junc_bonus,
+                                flag=self.flag, junc=junc,
                                 device=self.device)
-        juncs = None if junc is None else [junc]
-        return self.extend_batch([(query, target)], juncs=juncs)[0]
+        if junc is not None:
+            raise ValueError("juncs requires splice=True")
+        if self.q2 is not None:
+            return extd2_device(query, target, self.m, self.mat, self.q,
+                                self.e, self.q2, self.e2, w=self.w,
+                                zdrop=self.zdrop, end_bonus=self.end_bonus,
+                                flag=self.flag, device=self.device)
+        return extz2_device(query, target, self.m, self.mat, self.q, self.e,
+                            w=self.w, zdrop=self.zdrop,
+                            end_bonus=self.end_bonus, flag=self.flag,
+                            device=self.device)
 
     def global_align(self, query: Seq, target: Seq) -> ExtzResult:
         raise NotImplementedError(

@@ -5,23 +5,23 @@ Port of ``ksw2_tpu/batch/scheduler.py``'s score, CIGAR and splice paths:
 jobs are bucketed by shape and each bucket takes the first route of the
 JAX package's table that accepts it.  One-piece scores: rows, strips,
 band, batched, any-device (``scheduler.py:202, 242-286``); two-piece
-scores: strips, band, batched (``scheduler.py:482-521``); CIGARs, EQX
-included: strips, band, batched (``scheduler.py:639-754``), then for
-one-piece the single-pair engine (``scheduler.py:755-767``), which keeps
-M ops; two-piece SCORE_ONLY with
-``end_bonus``: band, then batched, in score form (``scheduler.py:614-617,
-690-702, 732-742``); splice (exts), scores and CIGARs with N ops: strips
-in its ``spl`` form, then the batched exts engine (``scheduler.py:
-916-1119``).  Every launch is enqueued
+scores: strips, band, batched, the single-pair two-piece engine
+(``scheduler.py:482-521``); CIGARs, EQX included: strips, band, batched
+(``scheduler.py:639-754``), then the single-pair engine of the costs
+(``scheduler.py:755-767``: kernels 12 or 13 with 17; one-piece keeps M
+ops); two-piece SCORE_ONLY with ``end_bonus`` or EXTZ_ONLY: band, then
+batched, in score form, then the single-pair two-piece engine
+(``scheduler.py:609-617, 690-767``); splice (exts), scores and CIGARs
+with N ops: strips in its ``spl`` form, then the batched exts engine,
+then the single-pair splice engine (kernel 14 with 17;
+``scheduler.py:916-1119``).  Every launch is enqueued
 on the current CUDA stream before anything waits.  A handle's
 ``result()`` synchronises on the event recorded after the batch's
 device-to-host copies, so several batches in flight overlap one batch's
 host work with the next one's device work.  On ``device="cpu"`` the same
 path runs the kernels' plain versions synchronously.
 
-A bucket no ported route takes raises ``NotImplementedError`` naming the
-engine the JAX package would take and the ROADMAP.md item that brings
-it; nothing falls back.
+Every bucket of these paths has a ported route; nothing falls back.
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ from ..ops.band import band_ineligible_reason, band_prep, band_records
 from ..ops.band_walker import band_cigar_launch, unpack_band_cigars
 from ..ops.batch import batch_forward_cuda, batch_ineligible_reason
 from ..ops.batch_xla import any_device_prep
+from ..ops.extd import (extd_cigar_launch, extd_prep, extd_records,
+                        unpack_extd_cigars)
+from ..ops.exts import (exts_cigar_launch, exts_prep, exts_records,
+                        unpack_single_exts_cigars)
 from ..ops.extz import (extz_cigar_launch, extz_prep, extz_records,
                         unpack_extz_cigars)
 from ..ops.batch_exts import (batch_exts_cigar_launch,
@@ -57,7 +61,6 @@ from ..ops.strips_walker import (strips_cigar_extd_ineligible_reason,
                                  strips_cigar_launch, unpack_cigars)
 
 _SCORES_LT = (128, 256, 512, 768, 1024, 1280, 1536, 2048, 2560, 3072)
-ROUTES = ("rows", "strips", "band", "batch", "any", "single")
 
 # The batched route is the band route's launch glue with kernel E / E2
 # (csrc/batch_fwd.cu) as its forward; it converts one- and two-piece
@@ -155,19 +158,17 @@ class _Bucket(NamedTuple):
     tlen: np.ndarray
     w: np.ndarray        # w = -1 replaced by max(qlen, tlen)
     route: str           # "rows", "strips", "band", "batch", "any" or
-    #                      "single"
+    #                      "single" (the single-pair engine of the costs)
 
 
-def _route(jobs, mat, qe: int, results, choose, what: str,
+def _route(jobs, mat, qe: int, results, choose,
            key=_bucket_key) -> List[_Bucket]:
     """Reset empty jobs, and every job when scoring is degenerate
     (``-min_sc > 2 * qe``); bucket the rest by ``key`` and pick every
-    bucket's route with ``choose(Lt, qlen, tlen, w, raw_w, idxs)``, which
-    returns one of ``ROUTES`` or the reason no ported route takes the
-    bucket.  Returns the buckets heaviest first; a bucket's pairs on the
-    anti-diagonal routes are ordered longest first, so its launches pad
-    little (and a block's warps finish together).  Raises before
-    anything runs."""
+    bucket's route (``_Bucket.route``) with ``choose(Lt, qlen, tlen, w,
+    raw_w, idxs)``.  Returns the buckets heaviest first; a
+    bucket's pairs on the anti-diagonal routes are ordered longest first,
+    so its launches pad little (and a block's warps finish together)."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -186,8 +187,6 @@ def _route(jobs, mat, qe: int, results, choose, what: str,
         raw = np.array([jobs[i].w for i in idxs], np.int32)
         wv = np.where(raw >= 0, raw, np.maximum(qlen, tlen)).astype(np.int32)
         route = choose(Lt, qlen, tlen, wv, raw, idxs)
-        if route not in ROUTES:
-            raise NotImplementedError(f"{what}: {route}")
         if route not in ("rows", "strips"):
             order = np.argsort(-(qlen.astype(np.int64) + tlen), kind="stable")
             idxs = [idxs[k] for k in order]
@@ -269,7 +268,7 @@ class PendingScores:
 def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
     """The score path's route table for one bucket (``scheduler.py:
     202, 242-286, 482-521``): one-piece rows, then strips, band, batched,
-    any-device; two-piece strips, band, batched."""
+    any-device; two-piece strips, band, batched, single-pair."""
     def choose(Lt, ql, tl, w, _raw, _idxs):
         if not two and rows_eligible(ql, tl, w, flag, zdrop, m, mat):
             return "rows"
@@ -289,23 +288,24 @@ def _score_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
                                         cigar=False, two=two)
         if batch is None:
             return "batch"
-        return (f"strips: {reason}; band: {band}; batch: {batch}" if two
-                else "any")
+        return "single" if two else "any"
     return choose
 
 
-def _end_bonus_chooser(flag, mat):
-    """Two-piece SCORE_ONLY with ``end_bonus`` (``scheduler.py:614-617,
-    676-742``): the CIGAR path's buckets in score form, so no strips; the
-    band route on the jobs' raw ``w``, then the batched route."""
+def _cigar_path_score_chooser(flag, mat):
+    """Two-piece SCORE_ONLY with ``end_bonus`` or EXTZ_ONLY
+    (``scheduler.py:609-617, 676-767``): the CIGAR path's buckets in score
+    form, so no strips; the band route on the jobs' raw ``w``, then the
+    batched route, then the single-pair two-piece engine (which takes
+    every EXTZ_ONLY bucket: the batch routes refuse them)."""
     def choose(Lt, ql, tl, _w, raw, _idxs):
-        band = band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
-                                      two=True)
-        if band is None:
+        if band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
+                                  two=True) is None:
             return "band"
-        batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, -1,
-                                        cigar=True, two=True)
-        return f"band: {band}; batch: {batch}" if batch else "batch"
+        if batch_ineligible_reason(Lt, ql, tl, mat, flag, -1, cigar=True,
+                                   two=True) is None:
+            return "batch"
+        return "single"
     return choose
 
 
@@ -315,7 +315,7 @@ def _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev, two=False,
     [(job indices, device records)]."""
     runs = {"rows": rows_records, "strips": strips_records,
             "band": band_records, "batch": batch_records,
-            "any": extz_records}
+            "any": extz_records, "single": extd_records}
     pieces = []
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
@@ -323,6 +323,9 @@ def _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev, two=False,
         if bk.route == "any":
             launches = any_device_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m,
                                        mat, q, e, zdrop, flag)
+        elif bk.route == "single":          # two-piece only
+            launches = extd_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q, e,
+                                 q2, e2, zdrop, flag, cig=False)
         elif bk.route in ("band", "batch"):
             launches = band_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q, e,
                                  zdrop, flag, two=two, q2=q2, e2=e2)
@@ -353,7 +356,7 @@ def align_batch_scores_async(
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
     buckets = _route(jobs, mat, q + e, results,
-                     _score_chooser(flag, m, mat, zdrop, q, e), "score route")
+                     _score_chooser(flag, m, mat, zdrop, q, e))
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev)
     return _pending_scores(results, pieces, dev, False)
 
@@ -399,7 +402,8 @@ def align_batch_scores2_async(
 ) -> PendingScores:
     """Submit a two-piece (extd) score batch without waiting; the same
     handle as :func:`align_batch_scores_async`.  Each bucket takes strips,
-    else band, else batched (``scheduler.py:482-521``).  As in the JAX
+    else band, else batched, else the single-pair two-piece engine
+    (``scheduler.py:482-521``).  As in the JAX
     package (``scheduler.py:463-465, 526-528``) a job is reset when
     scoring is degenerate against the PRE-swap ``q + e``, and the handle's
     guard tests the cheaper arm; the two differ when the costs swap."""
@@ -407,16 +411,15 @@ def align_batch_scores2_async(
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     return _scores2_async(
         jobs, m, mat, q, e, q2, e2, zdrop, flag, device,
-        _score_chooser(flag, m, mat, zdrop, q, e, True, q2, e2),
-        "two-piece score route")
+        _score_chooser(flag, m, mat, zdrop, q, e, True, q2, e2))
 
 
-def _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, device, choose,
-                   what) -> PendingScores:
+def _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, device,
+                   choose) -> PendingScores:
     """The two-piece score path with the route table ``choose``."""
     dev = resolve_device(device)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
-    buckets = _route(jobs, mat, q + e, results, choose, what)
+    buckets = _route(jobs, mat, q + e, results, choose)
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev,
                            True, q2, e2)
     qc, ec = canonical_costs(q, e, q2, e2)[:2]
@@ -463,14 +466,12 @@ def align_batch_async(
     """Submit a full-alignment batch (scores + CIGARs) without waiting.
 
     One-piece (``q2 is None``) SCORE_ONLY batches take the score path;
-    two-piece SCORE_ONLY batches with ``end_bonus == 0`` take the
-    two-piece score path, and with ``end_bonus`` the band, then the
-    batched route in score form; every other batch takes the CIGAR path,
-    where each bucket takes strips, else band, else batched, else (one-
-    piece) the single-pair engine (``scheduler.py:564-577, 609-617,
-    639-767`` in the JAX package).  Two-piece buckets beyond the batched
-    route and two-piece EXTZ_ONLY scores raise: the JAX package runs them
-    on its single-pair extd engine (``scheduler.py:755-767``)."""
+    two-piece SCORE_ONLY batches with neither ``end_bonus`` nor EXTZ_ONLY
+    take the two-piece score path, the others the band, then the batched
+    route in score form, then the single-pair two-piece engine; every
+    other batch takes the CIGAR path, where each bucket takes strips,
+    else band, else batched, else the single-pair engine of its costs
+    (``scheduler.py:564-577, 609-617, 639-767`` in the JAX package)."""
     two = q2 is not None
     if two and e2 is None:
         raise ValueError("two-piece costs need both q2 and e2")
@@ -480,19 +481,14 @@ def align_batch_async(
         if not two:
             h = align_batch_scores_async(jobs, m, mat, q, e, zdrop=zdrop,
                                          flag=flag, device=dev)
-        elif flag & Flag.EXTZ_ONLY:
-            raise NotImplementedError(
-                "two-piece SCORE_ONLY batches with EXTZ_ONLY run on the "
-                "single-pair two-piece engine (ROADMAP item 12b)")
-        elif end_bonus == 0:
+        elif end_bonus == 0 and not flag & Flag.EXTZ_ONLY:
             h = align_batch_scores2_async(jobs, m, mat, q, e, q2, e2,
                                           zdrop=zdrop, flag=flag,
                                           device=dev)
         else:
             mat = np.asarray(mat, dtype=np.int8).reshape(-1)
             h = _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, dev,
-                               _end_bonus_chooser(flag, mat),
-                               "two-piece end_bonus score route")
+                               _cigar_path_score_chooser(flag, mat))
         return PendingAligns(h.result)
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     q2, e2 = q2 or 0, e2 or 0
@@ -517,20 +513,25 @@ def align_batch_async(
                                         cigar=True, two=two)
         if batch is None:
             return "batch"
-        return (f"strips: {reason}; band: {band}; batch: {batch}" if two
-                else "single")
+        return "single"
 
     # the reference resets after its swap (ksw2_extd2_sse.c:93-100)
     qc, ec = canonical_costs(q, e, q2, e2)[:2] if two else (q, e)
-    buckets = _route(jobs, mat, qc + ec, results, choose,
-                     "two-piece CIGAR route" if two else "CIGAR route")
+    buckets = _route(jobs, mat, qc + ec, results, choose)
     cig_runs = {"band": (band_cigar_launch, unpack_band_cigars),
                 "batch": (batch_cigar_launch, unpack_batch_cigars)}
     pieces = []
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
         ts = [jobs[i].target for i in bk.idxs]
-        if bk.route == "single":
+        if bk.route == "single" and two:
+            launches = extd_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q,
+                                 e, q2, e2, zdrop, flag, cig=True)
+            pieces += _run_launches(bk.idxs, launches, lambda ln: (
+                functools.partial(unpack_extd_cigars, ln, mat=mat,
+                                  end_bonus=end_bonus),
+                extd_cigar_launch(ln, end_bonus, dev)))
+        elif bk.route == "single":
             launches = extz_prep(qs, ts, bk.qlen, bk.tlen, bk.w, m, mat, q,
                                  e, zdrop, flag, cig=True)
             pieces += _run_launches(bk.idxs, launches, lambda ln: (
@@ -587,7 +588,8 @@ def _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs, junc_bonus):
     """The splice path's route table for one bucket (``scheduler.py:
     963-1027``): strips in its ``spl`` form unless the bucket has a
     junction track (or there is a ``junc_bonus``), then the batched exts
-    engine; the single-pair exts engine is not ported (item 12b)."""
+    engine (targets up to 1536, no EXTZ_ONLY), then the single-pair exts
+    engine."""
     def choose(Lt, ql, tl, w, _raw, idxs):
         junc_any = juncs is not None and any(juncs[i] is not None
                                              for i in idxs)
@@ -596,27 +598,27 @@ def _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs, junc_bonus):
                                                junc_bonus)
         if reason is None:
             return "strips"
-        batch = batch_exts_ineligible_reason(Lt, flag)
-        return f"strips: {reason}; batch: {batch}" if batch else "batch"
+        if batch_exts_ineligible_reason(Lt, flag) is None:
+            return "batch"
+        return "single"
     return choose
 
 
 def plan_splice(jobs, m, mat, q, e, q2, noncan, zdrop, junc_bonus, flag,
                 juncs, results) -> List[Tuple[List[int], str, list]]:
     """Route and prep a splice batch (host only, no device work): reset
-    empty jobs, every job under degenerate scoring and the batched
-    buckets the exts guard resets (``batch_exts.batch_exts_resets``)
-    into ``results``; route the rest by the splice table; and prep each
-    bucket's launches in score form under SCORE_ONLY, else with bytes.
-    Returns ``(job indices, route, launches)`` a bucket, heaviest first,
-    with route "strips" (``strips.Launch``) or "batch"
-    (``band.BandLaunch`` with site rows).  Raises before anything runs
-    when no ported route takes a bucket."""
+    empty jobs, every job under degenerate scoring and the batched and
+    single-pair buckets the exts guard resets
+    (``batch_exts.batch_exts_resets``) into ``results``; route the rest by
+    the splice table; and prep each bucket's launches in score form under
+    SCORE_ONLY, else with bytes.  Returns ``(job indices, route,
+    launches)`` a bucket, heaviest first, with route "strips"
+    (``strips.Launch``), "batch" (``band.BandLaunch`` with site rows) or
+    "single" (``extz.ExtzLaunch`` with site rows)."""
     cig = not flag & Flag.SCORE_ONLY
     buckets = _route(jobs, mat, q + e, results,
                      _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs,
-                                     junc_bonus),
-                     "splice route", key=_jax_bucket_key)
+                                     junc_bonus), key=_jax_bucket_key)
     plan = []
     for bk in buckets:
         qs = [jobs[i].query for i in bk.idxs]
@@ -630,7 +632,8 @@ def plan_splice(jobs, m, mat, q, e, q2, noncan, zdrop, junc_bonus, flag,
                 results[i].reset()
             continue
         else:
-            launches = batch_exts_prep(
+            prep = batch_exts_prep if bk.route == "batch" else exts_prep
+            launches = prep(
                 qs, ts, bk.qlen, bk.tlen, m, mat, q, e, q2, noncan, zdrop,
                 flag, None if juncs is None else [juncs[i] for i in bk.idxs],
                 junc_bonus, cig=cig)
@@ -655,11 +658,12 @@ def align_batch_splice_async(
     """Submit a spliced (mRNA-to-genome) batch without waiting: scores,
     or CIGARs with N ops for introns unless SCORE_ONLY.  ``juncs``
     optionally gives per-job junction tracks.  Each bucket takes strips
-    in its ``spl`` form, else the batched exts engine, else raises naming
-    the single-pair exts engine (``scheduler.py:916-1119``); the batched
-    route resets its jobs when ``q2 <= q + e`` (or ``m <= 1``), as exts2
-    does, while the strips route runs them, as the JAX package's does
-    (ROADMAP Queue 3).  The launches are :func:`plan_splice`'s."""
+    in its ``spl`` form, else the batched exts engine, else the
+    single-pair exts engine (``scheduler.py:916-1119``); the batched and
+    single-pair routes reset their jobs when ``q2 <= q + e`` (or ``m <=
+    1``), as exts2 does, while the strips route runs them, as the JAX
+    package's does (ROADMAP Queue 3).  The launches are
+    :func:`plan_splice`'s."""
     dev = resolve_device(device)
     flag = Flag(int(flag))
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
@@ -670,9 +674,11 @@ def align_batch_splice_async(
     plan = plan_splice(jobs, m, mat, q, e, q2, noncan, zdrop, junc_bonus,
                        flag, juncs, results)
     pieces = []
+    records = {"strips": strips_records, "batch": batch_exts_records,
+               "single": exts_records}
     for idxs, route, launches in plan:
         if flag & Flag.SCORE_ONLY:
-            run = strips_records if route == "strips" else batch_exts_records
+            run = records[route]
             pieces += _run_launches(idxs, launches, lambda ln: (
                 _score_ezs, (run(ln, dev),)))
         elif route == "strips":
@@ -681,10 +687,14 @@ def align_batch_splice_async(
                                   end_bonus=0, flag=flag,
                                   min_intron=ln.prm.lt),
                 strips_cigar_launch(ln, 0, dev)))
-        else:
+        elif route == "batch":
             pieces += _run_launches(idxs, launches, lambda ln: (
                 functools.partial(unpack_exts_cigars, ln, mat=mat),
                 batch_exts_cigar_launch(ln, 0, dev)))
+        else:
+            pieces += _run_launches(idxs, launches, lambda ln: (
+                functools.partial(unpack_single_exts_cigars, ln, mat=mat),
+                exts_cigar_launch(ln, dev)))
     return _pending_aligns(results, pieces, dev)
 
 

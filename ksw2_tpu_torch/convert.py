@@ -2,7 +2,8 @@
 
 The port has no weights: what carries across is the scoring
 configuration of an ``Aligner``, the parameters of a prepared strips
-launch and the single-pair engine's forward and walk parameters.  Both
+launch and the single-pair engines' forward (one-piece, two-piece,
+splice) and walk parameters.  Both
 sides are plain values here (the port never imports the JAX package): a
 caller reads the attributes of a ``ksw2_tpu.Aligner`` or a parameter
 tuple's ``_asdict()`` into a dict and passes it in.
@@ -12,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 
 from .api import Aligner
+from .ops.extd import ExtdParams
+from .ops.exts import ExtsPairParams
 from .ops.extz_fwd import ExtzParams
 from .ops.strips import StripParams
 from .ops.traceback_device import TbParams
@@ -48,6 +51,21 @@ def extz_params_from_jax(d: dict) -> ExtzParams:
     return ExtzParams(**{k: int(d[k]) for k in ExtzParams._fields})
 
 
+def extd_params_from_jax(d: dict) -> ExtdParams:
+    """The port's :class:`~ksw2_tpu_torch.ops.extd.ExtdParams` for a
+    ``ksw2_tpu.ops.wavefront_extd.ExtdParams._asdict()`` (post-swap costs,
+    the pre-swap ``q + e``).  The TPU layout fields (``chunk``,
+    ``n_rows``, ``p_rows``) have no counterpart."""
+    return ExtdParams(**{k: int(d[k]) for k in ExtdParams._fields})
+
+
+def exts_params_from_jax(d: dict) -> ExtsPairParams:
+    """The port's :class:`~ksw2_tpu_torch.ops.exts.ExtsPairParams` for a
+    ``ksw2_tpu.ops.wavefront_exts.ExtsParams._asdict()``.  The TPU layout
+    fields (``chunk``, ``n_rows``, ``p_rows``) have no counterpart."""
+    return ExtsPairParams(**{k: int(d[k]) for k in ExtsPairParams._fields})
+
+
 def tb_params_from_jax(d: dict) -> TbParams:
     """The port's :class:`TbParams` for a ``ksw2_tpu.ops.traceback_device.
     TbParams._asdict()``.  The TPU store's fields (``p_rows``, ``blk``,
@@ -57,4 +75,5 @@ def tb_params_from_jax(d: dict) -> TbParams:
 
 
 __all__ = ["aligner_from_jax", "strip_params_from_jax",
-           "extz_params_from_jax", "tb_params_from_jax"]
+           "extz_params_from_jax", "extd_params_from_jax",
+           "exts_params_from_jax", "tb_params_from_jax"]

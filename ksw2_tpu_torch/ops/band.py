@@ -85,18 +85,17 @@ _NEXT = {
     None: "take the batched route",
     "single": "take the single-pair engine",
     "any": "take the any-device route",
-    "12b": "run on the single-pair two-piece and splice engines (ROADMAP "
-           "item 12b)",
+    "extd": "take the single-pair two-piece engine (kernel 13)",
+    "exts": "take the single-pair splice engine (kernel 14)",
 }
 
 
 def beyond(nxt: Optional[str], what: str) -> str:
     """A route's refusal, naming the engine the JAX package takes next:
     the batched route (``nxt`` None), which the scheduler tries after the
-    band route; the single-pair engine ("single", one-piece CIGARs) or
-    the any-device route ("any", one-piece scores), both ported; or the
-    unported two-piece and splice single-pair engines ("12b") with their
-    ROADMAP item."""
+    band route; the single-pair engine ("single", one-piece CIGARs), the
+    any-device route ("any", one-piece scores), or the single-pair
+    two-piece ("extd", scores and CIGARs) and splice ("exts") engines."""
     return f"{what} {_NEXT[nxt]}"
 
 
@@ -117,17 +116,17 @@ def band_ineligible_reason(Lt: int, qlen, tlen, w, mat, flag,
     engine the JAX package takes next: the batched route up to 3072
     (scores) or 1536 (CIGARs without EXTZ_ONLY), else the single-pair
     engine (one-piece CIGARs), the any-device route (one-piece scores) or
-    the unported two-piece engines and their ROADMAP item."""
+    the single-pair two-piece engine."""
     flag = int(flag)
     if Lt <= L_MIN:
         return beyond(None, "buckets with targets of 512 or less")
     if cigar:
         nxt = None if Lt <= 1536 and not flag & int(Flag.EXTZ_ONLY) else (
-            "12b" if two else "single")
+            "extd" if two else "single")
         if flag & int(Flag.EXTZ_ONLY):
             return beyond(nxt, "EXTZ_ONLY CIGARs on long banded pairs")
     else:
-        nxt = None if Lt <= 3072 else ("12b" if two else "any")
+        nxt = None if Lt <= 3072 else ("extd" if two else "any")
     w = np.asarray(w)
     if w.min() < 1 or w.max() > W_MAX:
         return beyond(nxt, "bands outside 1 <= w <= 1472 (or no band) on "

@@ -81,9 +81,9 @@ def batch_ineligible_reason(Lt: int, qlen, tlen, mat, flag, zdrop: int,
     key.  The reason names the engine the JAX package takes next
     (``scheduler.py:278-285, 514-521, 755-767``): the single-pair engine
     for one-piece CIGARs, the any-device route for one-piece scores, the
-    unported two-piece engines and their ROADMAP item."""
+    single-pair two-piece engine for two-piece buckets."""
     if cigar:
-        nxt = "12b" if two else "single"
+        nxt = "extd" if two else "single"
         if Lt > LT_CIGARS:
             return beyond(nxt, "CIGARs (and two-piece end_bonus scores) on "
                           "targets over 1536")
@@ -91,7 +91,7 @@ def batch_ineligible_reason(Lt: int, qlen, tlen, mat, flag, zdrop: int,
             return beyond(nxt, "EXTZ_ONLY CIGARs and two-piece EXTZ_ONLY "
                           "scores")
         return None
-    nxt = "12b" if two else "any"
+    nxt = "extd" if two else "any"
     if Lt > LT_SCORES:
         return beyond(nxt, "scores on targets over 3072")
     if not zdrop_ok(Lt, mat, qlen, tlen, zdrop, flag):

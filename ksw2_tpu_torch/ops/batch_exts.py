@@ -75,9 +75,9 @@ def batch_exts_ineligible_reason(Lt: int, flag) -> Optional[str]:
     CIGARs alike); the JAX package takes the single-pair ``exts2_device``
     next (``scheduler.py:1020-1027``)."""
     if Lt > LT_CIGARS:
-        return beyond("12b", "splice pairs with targets over 1536")
+        return beyond("exts", "splice pairs with targets over 1536")
     if int(flag) & int(Flag.EXTZ_ONLY):
-        return beyond("12b", "EXTZ_ONLY splice pairs")
+        return beyond("exts", "EXTZ_ONLY splice pairs")
     return None
 
 
@@ -134,13 +134,16 @@ def batch_exts_prep(query, target, qlen, tlen, m, mat, q, e, q2, noncan,
 
 
 def batch_exts_forward_plain(qs, ts, qlen, tlen, w, table, don, acc,
-                             prm: ExtsParams, nd: int, ncol: int):
+                             prm: ExtsParams, nd: int, ncol: int,
+                             with_stop: bool = False):
     """Plain PyTorch version of ``csrc/batch_exts_fwd.cu``: the exts2
     recurrence, one Python step per anti-diagonal, batched over the pairs
     on full-length state rows.  The arguments are ``band.band_upload``'s
     (``w`` is the walker's and unused here), then ``prm, nd, ncol``.
     Returns ``rec`` (B, 9) int32 in ``FIELD_ORDER`` and, with ``cig``,
-    ``p`` (B, nd, ncol) uint8 (rows and bytes never written are 0)."""
+    ``p`` (B, nd, ncol) uint8 (rows and bytes never written are 0);
+    ``with_stop`` adds ``stop`` (B,) int32, the diagonals each pair
+    computed (its Z-drop diagonal + 1, else all of them)."""
     dev = qs.device
     i64 = torch.int64
     B, Lq = qs.shape
@@ -185,6 +188,7 @@ def batch_exts_forward_plain(qs, ts, qlen, tlen, w, table, don, acc,
                                    vec(-1), vec(NEG_INF))
     zd = torch.zeros((B,), dtype=torch.bool, device=dev)
     alive = torch.ones((B,), dtype=torch.bool, device=dev)
+    nrow = vec(0)
     p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
          if prm.cig else None)
 
@@ -208,6 +212,7 @@ def batch_exts_forward_plain(qs, ts, qlen, tlen, w, table, don, acc,
         act = alive & (r < ndb)
         if r % 256 == 0 and not bool(act.any()):
             break                          # every pair has stopped
+        nrow = torch.where(act, r + 1, nrow)
         st0 = torch.where(act, torch.clamp(r - ql + 1, min=0), 0)
         en0 = torch.where(act, torch.clamp(tl - 1, max=r), 0)
         st = st0 // 16 * 16
@@ -341,6 +346,8 @@ def batch_exts_forward_plain(qs, ts, qlen, tlen, w, table, don, acc,
         last_en = torch.where(act, en, last_en)
     rec = torch.stack([mx, mt, mq, mqe, mqet, mte, mteq, score,
                        zd.to(i64)], dim=1).to(torch.int32)
+    if with_stop:
+        return rec, p, nrow.to(torch.int32)
     return rec, p
 
 

@@ -43,7 +43,8 @@ class ExtzLaunch(NamedTuple):
     tlen: np.ndarray       # (B,) int32
     w: np.ndarray          # (B,) int32, resolved (>= 0)
     lay: ExtzLayout
-    sites: tuple = ()      # none: the upload is the band route's
+    sites: tuple = ()      # splice: (B, Lt) int8 donor and acceptor rows,
+    #                        which band.band_upload appends
 
 
 def extz_params(query, target, m: int, mat, q: int, e: int, w: int = -1,
@@ -63,17 +64,26 @@ def extz_params(query, target, m: int, mat, q: int, e: int, w: int = -1,
 def extz_prep(query, target, qlen, tlen, w, m, mat, q, e, zdrop, flag,
               cig: bool) -> List[ExtzLaunch]:
     """Plan and pad one bucket's launches (host only, no device work).
-    ``w`` is resolved (>= 0).  A launch holds as many pairs (in the given
-    order) as keep its buffers (``extz_fwd.launch_bytes`` at tiles of
+    ``w`` is resolved (>= 0).  See :func:`single_prep`."""
+    return single_prep(make_band_params(m, mat, q, e, zdrop, flag, cig),
+                       query, target, qlen, tlen, w)
+
+
+def single_prep(prm, query, target, qlen, tlen, w,
+                sites=None) -> List[ExtzLaunch]:
+    """A bucket's launches for the single-pair forward with the params
+    ``prm`` (any form): a launch holds as many pairs (in the given order)
+    as keep its buffers (``extz_fwd.launch_bytes`` at tiles of
     ``TP_MIN``, the largest history) within ``ops.strips.LAUNCH_BYTES``,
     and a pair whose buffers alone are larger gets a launch of its own;
-    :func:`extz_fwd.choose_tp` then picks each launch's tile."""
+    :func:`extz_fwd.choose_tp` then picks each launch's tile.
+    ``sites(i0, tpad, tlen)`` gives the donor and acceptor rows of a
+    splice launch whose first pair is the bucket's ``i0``."""
     qlen = np.asarray(qlen, np.int32)
     tlen = np.asarray(tlen, np.int32)
     w = np.asarray(w, np.int32)
     B = len(query)
-    prm = make_band_params(m, mat, q, e, zdrop, flag, cig)
-    sizes = launch_bytes(qlen, tlen, w, TP_MIN, cig)
+    sizes = launch_bytes(qlen, tlen, w, TP_MIN, prm.cig)
     out = []
     i0 = 0
     while i0 < B:
@@ -87,53 +97,58 @@ def extz_prep(query, target, qlen, tlen, w, m, mat, q, e, zdrop, flag,
         for k in range(i1 - i0):
             qpad[k, :ql[k]] = query[i0 + k]
             tpad[k, :tl[k]] = target[i0 + k]
-        if max(int(qpad.max()), int(tpad.max())) >= m:
-            raise ValueError(f"sequence symbols must be < m = {m}")
+        if max(int(qpad.max()), int(tpad.max())) >= prm.m:
+            raise ValueError(f"sequence symbols must be < m = {prm.m}")
         tp = choose_tp(i1 - i0, tpad.shape[1])
         out.append(ExtzLaunch(prm, qpad, tpad, ql.copy(), tl.copy(),
-                              wl.copy(), make_layout(ql, tl, wl, tp, cig)))
+                              wl.copy(), make_layout(ql, tl, wl, tp, prm.cig),
+                              () if sites is None else sites(i0, tpad, tl)))
         i0 = i1
     return out
 
 
-def extz_records(launch: ExtzLaunch, device):
-    """Forward of one score launch: (B, 9) int32 records on ``device``
-    (enqueued, not synchronised)."""
+def extz_records(launch: ExtzLaunch, device, forward=extz_forward):
+    """Forward of one score launch (``forward``: kernel 12's by default,
+    ``extd.extd_forward`` or ``exts.exts_forward`` for the other forms):
+    (B, 9) int32 records on ``device`` (enqueued, not synchronised)."""
     args = band_upload(launch, device)
-    rec, _, _ = extz_forward(*args, launch.prm, launch.lay)
+    rec, _, _ = forward(*args, launch.prm, launch.lay)
     return rec
 
 
-def extz_cigar_launch(launch: ExtzLaunch, end_bonus: int, device):
-    """Forward with bytes, start cells and walker for one launch; returns
-    (rec, res, runs) tensors on ``device`` (enqueued, not synchronised).
-    The byte store is freed when this returns."""
+def extz_cigar_launch(launch: ExtzLaunch, end_bonus: int, device,
+                      forward=extz_forward, min_intron: int = 0):
+    """Forward with bytes (``forward``, as in :func:`extz_records`), start
+    cells and walker (``min_intron > 0`` walks state 3 as N) for one
+    launch; returns (rec, res, runs) tensors on ``device`` (enqueued, not
+    synchronised).  The byte store is freed when this returns."""
     prm = launch.prm
     if not prm.cig:
         raise ValueError("a CIGAR launch needs cig=1 params")
     args = band_upload(launch, device)
-    rec, p, _ = extz_forward(*args, prm, launch.lay)
+    rec, p, _ = forward(*args, prm, launch.lay)
     _, _, ql, tl, w = args[:5]
     starts = start_cells(rec, ql, tl, prm.flag, end_bonus)
     pbase = torch.from_numpy(launch.lay.pbase)
     if ql.is_cuda:
         pbase = pbase.pin_memory().to(ql.device, non_blocking=True)
     wr = launch.query.shape[1] + launch.target.shape[1] + 2
-    res, runs = extz_walk(p, pbase, starts, ql, tl, w, wr)
+    res, runs = extz_walk(p, pbase, starts, ql, tl, w, wr, min_intron)
     return rec, res, runs
 
 
 def unpack_extz_cigars(launch: ExtzLaunch, rec: np.ndarray, res: np.ndarray,
-                       runs: np.ndarray, mat,
-                       end_bonus: int) -> List[ExtzResult]:
+                       runs: np.ndarray, mat, end_bonus: int,
+                       min_intron: int = 0) -> List[ExtzResult]:
     """One launch's host records and walker output -> ExtzResults with
-    M-op CIGARs.  A walk that escaped its band cannot happen with
-    ``upper_force = 1``; a set flag raises."""
+    the walk's CIGARs (M ops; N for a splice launch's ``min_intron``).  A
+    walk that escaped its band cannot happen with ``upper_force = 1``; a
+    set flag raises."""
     if res[:, 3].any():
         raise RuntimeError("a single-pair walk escaped its band")
     prm = launch.prm
     return unpack_cigars(rec, res[:, :3], runs, mat, prm.q, prm.e,
-                         end_bonus, prm.flag)
+                         end_bonus, prm.flag, min_intron)
 
 
 def _ez_of_fields(fields, k: int) -> ExtzResult:
@@ -176,5 +191,6 @@ def extz2_device(query, target, m: int, mat, q: int, e: int, w: int = -1,
     return unpack_extz_cigars(launch, rec, res, runs, mat, end_bonus)[0]
 
 
-__all__ = ["ExtzLaunch", "extz_params", "extz_prep", "extz_records",
+__all__ = ["ExtzLaunch", "extz_params", "extz_prep", "single_prep",
+           "extz_records",
            "extz_cigar_launch", "unpack_extz_cigars", "extz2_device"]

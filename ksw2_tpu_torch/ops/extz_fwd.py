@@ -24,7 +24,12 @@ The forward has two implementations: ``csrc/extz_fwd.cu`` for CUDA
 tensors (many blocks a pair, one tile of ``tp`` target positions each, and
 an in-order replay of the per-diagonal records after it) and
 :func:`extz_forward_plain` for CPU tensors, which is the band route's
-``band.band_forward_plain`` with its output laid out as this store.
+``band.band_forward_plain`` with its output laid out as this store.  The
+same source in its two-piece and splice forms is kernels 13 and 14
+(:func:`single_forward_cuda`; their plain versions and host sides are
+``ops/extd.py`` and ``ops/exts.py``), with this layout and store: the
+tile edge they hand on carries x2 beside x and v in the same word, so
+:func:`launch_bytes` holds for every form.
 """
 from __future__ import annotations
 
@@ -215,14 +220,23 @@ def _meta(lay: ExtzLayout, dev):
     return [t.pin_memory().to(dev, non_blocking=True) for t in host]
 
 
-def extz_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
-                      lay: ExtzLayout):
-    """Launch ``csrc/extz_fwd.cu`` (the forward, then the replay) on the
-    current stream; same contract as :func:`extz_forward_plain`, except
-    that the kernel writes every row below ``rlim``, past a pair's stop
-    too.  Nothing here reads the device.  A launch whose buffers (history,
-    per-diagonal records, store) do not fit in the card's memory raises
-    with their size."""
+# the kernel's forms (csrc/extz_fwd.cu's MODE_*), each with its counter
+MODES = {"extz_fwd": 0, "extd_fwd": 1, "exts_fwd": 2}
+
+
+def single_forward_cuda(kind: str, qs, ts, qlen, tlen, w, table, prm, lay,
+                        sites=()):
+    """Launch ``csrc/extz_fwd.cu`` (the forward, then the replay) in the
+    form ``kind`` ("extz_fwd", "extd_fwd" or "exts_fwd", the counter it
+    adds to) on the current stream.  ``prm`` is a ``band.BandParams``
+    (one-piece; two-piece with ``two``) or a ``batch_exts.ExtsParams``
+    (splice, with ``sites`` the (B, Lt) int8 donor and acceptor rows).
+    Same contract as :func:`extz_forward_plain`, except that the kernel
+    writes every row below ``rlim``, past a pair's stop too.  Nothing here
+    reads the device.  A launch whose buffers (history, per-diagonal
+    records, store) do not fit in the card's memory raises with their
+    size."""
+    mode = MODES[kind]
     B, Lq = qs.shape
     Lt = ts.shape[1]
     _check_cuda(qs, torch.uint8, (B, Lq), "query")
@@ -231,8 +245,18 @@ def extz_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
     for t, name in ((qlen, "qlen"), (tlen, "tlen"), (w, "w")):
         _check_cuda(t, torch.int32, (B,), name, dev)
     _check_cuda(table, torch.int32, (prm.m * prm.m,), "table", dev)
-    if prm.two:
-        raise ValueError("kernel 12 is the one-piece (extz) forward")
+    if mode == 2:
+        if len(sites) != 2:
+            raise ValueError("the splice form needs the donor and acceptor "
+                             "rows")
+        for t, name in zip(sites, ("donor rows", "acceptor rows")):
+            _check_cuda(t, torch.int8, (B, Lt), name, dev)
+        q2, e2, qe_pre = prm.q2, 0, prm.q + prm.e
+    else:
+        if bool(prm.two) != (mode == 1):
+            raise ValueError(f"{kind} takes {'two' if mode else 'one'}-piece "
+                             "params")
+        q2, e2, qe_pre = prm.q2, prm.e2, prm.qe_pre
     if len(lay.rlim) != B:
         raise ValueError(f"layout of {len(lay.rlim)} pairs for {B}")
     f = prm.flag
@@ -267,23 +291,32 @@ def extz_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    don, acc = sites if mode == 2 else (None, None)
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
         err = lib.ksw2t_extz_fwd(
-            qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-            w.data_ptr(), table.data_ptr(), tbase.data_ptr(),
-            dbase.data_ptr(), bbase.data_ptr(), pbase.data_ptr(), B, Lq, Lt,
-            prm.m, prm.q, prm.e, prm.sc_mch, prm.sc_mis, prm.sc_N, prm.zdrop,
+            mode, qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(),
+            tlen.data_ptr(), w.data_ptr(), table.data_ptr(), ptr(don),
+            ptr(acc), tbase.data_ptr(), dbase.data_ptr(), bbase.data_ptr(),
+            pbase.data_ptr(), B, Lq, Lt, prm.m, prm.q, prm.e, q2, e2, qe_pre,
+            prm.lt, prm.ld, prm.sc_mch, prm.sc_mis, prm.sc_N, prm.zdrop,
             int(bool(f & int(Flag.RIGHT))),
             int(bool(f & int(Flag.GENERIC_SC))), int(approx),
             int(bool(f & int(Flag.APPROX_DROP))), prm.cig, lay.tp, n_tiles,
             ticket.data_ptr(), progress.data_ptr(), bnd.data_ptr(), ptr(D),
             ptr(hse), ptr(W), rec.data_ptr(), stop.data_ptr(), ptr(p),
             torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "extz_fwd")
-    LAUNCHES["extz_fwd"] += 1
+    check(err, kind)
+    LAUNCHES[kind] += 1
     return rec, p, stop
+
+
+def extz_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
+                      lay: ExtzLayout):
+    """Kernel 12: :func:`single_forward_cuda` in its one-piece form."""
+    return single_forward_cuda("extz_fwd", qs, ts, qlen, tlen, w, table, prm,
+                               lay)
 
 
 def extz_forward(qs, ts, qlen, tlen, w, table, prm: BandParams,
@@ -299,6 +332,6 @@ def extz_forward(qs, ts, qlen, tlen, w, table, prm: BandParams,
 
 __all__ = ["TP_MIN", "TP_MAX", "ExtzParams", "row_widths",
            "row_off", "store_bytes", "fill_pairs", "choose_tp",
-           "launch_bytes", "ExtzLayout",
-           "make_layout", "compact_store", "extz_forward_plain",
-           "extz_forward_cuda", "extz_forward"]
+           "launch_bytes", "ExtzLayout", "make_layout", "compact_store",
+           "extz_forward_plain", "MODES",
+           "single_forward_cuda", "extz_forward_cuda", "extz_forward"]

@@ -39,9 +39,11 @@ FIELDS = ("max", "max_t", "max_q", "mqe", "mqe_t", "mte", "mte_q", "score",
 LAUNCHERS = ("rows_records", "strips_records", "band_records",
              "batch_records", "strips_cigar_launch", "band_cigar_launch",
              "batch_cigar_launch")
-# the single-pair engine's launch functions, named by their route
+# the single-pair engines' launch functions, named by their route
 EXTZ_LAUNCHERS = {"extz_records": "any_records",
-                  "extz_cigar_launch": "single_cigar"}
+                  "extz_cigar_launch": "single_cigar",
+                  "extd_records": "extd_records",
+                  "extd_cigar_launch": "extd_cigar"}
 
 
 @pytest.fixture
@@ -147,26 +149,21 @@ def test_out_of_band_envelope_raises(calls):
     long_t = encode_dna("ACGT" * 800)
     long_q = encode_dna("ACGT" * 790)
     # w > 1472 (or no band) on a long pair: the single-pair engine for
-    # one-piece CIGARs, the any-device route for one-piece scores; the
-    # two-piece engines are not ported (scheduler.py:278-285, 514-521,
-    # 755-767)
+    # one-piece CIGARs, the any-device route for one-piece scores, the
+    # single-pair two-piece engine for two-piece buckets
+    # (scheduler.py:278-285, 514-521, 755-767)
     for aln, item in ((Aligner(device="cpu"), "single_cigar"),
-                      (Aligner(q2=13, e2=1, device="cpu"), "12b"),
+                      (Aligner(q2=13, e2=1, device="cpu"), "extd_cigar"),
                       (Aligner(q2=13, e2=1, flag=Flag.SCORE_ONLY,
-                               device="cpu"), "12b"),
+                               device="cpu"), "extd_records"),
                       (Aligner(flag=Flag.SCORE_ONLY, device="cpu"),
                        "any_records")):
         for w in (1500, -1):
             calls.clear()
-            if item == "12b":
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP item 12b"):
-                    aln.extend_batch([(long_q, long_t)], w=[w])
-                continue
             got = aln.extend_batch([(long_q, long_t)], w=[w])
             assert calls == [item]
             assert _row(got[0]) == _row(_spec(long_q, long_t, w, -1,
-                                              aln.flag, False))
+                                              aln.flag, aln.q2 is not None))
     # a long EXTZ_ONLY CIGAR bucket with w <= 1536: the single-pair engine
     calls.clear()
     got = Aligner(flag=Flag.EXTZ_ONLY, device="cpu").extend_batch(
@@ -207,8 +204,9 @@ def test_band_ineligible_reason_paths():
         4096, ql, tl, [0], MAT, Flag.SCORE_ONLY, cigar=False)
     assert "take the single-pair engine" in BD.band_ineligible_reason(
         4096, ql, tl, [-1], MAT, Flag.NONE, cigar=True)
-    assert "item 12b" in BD.band_ineligible_reason(
-        4096, ql, tl, [-1], MAT, Flag.NONE, cigar=True, two=True)
+    assert "take the single-pair two-piece engine" in \
+        BD.band_ineligible_reason(4096, ql, tl, [-1], MAT, Flag.NONE,
+                                  cigar=True, two=True)
     assert "EXTZ_ONLY" in BD.band_ineligible_reason(
         1024, ql, tl, [50], MAT, Flag.EXTZ_ONLY, cigar=True)
     assert "range" in BD.band_ineligible_reason(

@@ -166,11 +166,11 @@ def test_batch_envelope_is_the_jax_routes():
                                       cigar=True) is None
     assert "the any-device route" in BT.batch_ineligible_reason(
         4096, ql, tl, MAT, S, 100, cigar=False)
-    assert "item 12b" in BT.batch_ineligible_reason(4096, ql, tl, MAT, S, 100,
-                                                    cigar=False, two=True)
+    assert "the single-pair two-piece engine" in BT.batch_ineligible_reason(
+        4096, ql, tl, MAT, S, 100, cigar=False, two=True)
     assert "the single-pair engine" in BT.batch_ineligible_reason(
         2048, ql, tl, MAT, Flag.NONE, 100, cigar=True)
-    assert "item 12b" in BT.batch_ineligible_reason(
+    assert "the single-pair two-piece engine" in BT.batch_ineligible_reason(
         2048, ql, tl, MAT, Flag.NONE, 100, cigar=True, two=True)
     assert "EXTZ_ONLY" in BT.batch_ineligible_reason(
         512, ql, tl, MAT, Flag.EXTZ_ONLY, 100, cigar=True)

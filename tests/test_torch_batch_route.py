@@ -154,39 +154,43 @@ def test_eqx_split_between_routes(calls):
 
 
 def test_every_raise_names_its_item():
-    """Two-piece buckets that no ported route takes raise before anything
-    runs, naming the single-pair two-piece engine and its ROADMAP item
-    (12b), never the batched engines' item 11; the one-piece buckets
-    that raised before (items 7 and 12) run on the any-device route and
-    the single-pair engine (M ops under EQX) and match the spec."""
+    """The buckets no batch route takes, which raised naming their
+    ROADMAP item before their engines were ported (items 7 and 12 for
+    one-piece, 12b for two-piece), run on the any-device route, the
+    single-pair engine (M ops under EQX) and the single-pair two-piece
+    engine (=/X under EQX, EXTZ_ONLY scores, end_bonus scores over 1536)
+    and match the spec."""
+    from ksw2_tpu.core import cigar as jcigar
     short = _pairs(13, 1, 200, 220)
     wide = [(encode_dna("ACGT" * 500), encode_dna("ACGA" * 500))]
     huge = [(encode_dna("ACGT" * 800), encode_dna("ACGA" * 800))]
     big = simple_mat(5, 100, 4)
     S, X = Flag.SCORE_ONLY, Flag.EXTZ_ONLY
-    for kw, pairs, w, item in (
-            (dict(flag=S), huge, -1, None),                   # t > 3072
-            (dict(flag=S, q2=13, e2=1), huge, -1, "12b"),
+    for kw, pairs, w in (
+            (dict(flag=S), huge, -1),                         # t > 3072
+            (dict(flag=S, q2=13, e2=1), huge, -1),
             (dict(flag=S, mat=big, zdrop=100), [(
                 encode_dna("ACGT" * 700), encode_dna("ACGT" * 700))],
-             -1, None),                                       # Z-drop range
-            (dict(flag=Flag.EQX), wide, -1, None),            # EQX, 2000
-            (dict(flag=Flag.EQX, q2=13, e2=1), wide, -1, "12b"),
-            (dict(flag=X), short, 30, None),                  # EXTZ_ONLY
-            (dict(flag=S | X, q2=13, e2=1), short, 30, "12b"),
-            (dict(flag=S, q2=13, e2=1, end_bonus=5), wide, -1, "12b")):
+             -1),                                             # Z-drop range
+            (dict(flag=Flag.EQX), wide, -1),                  # EQX, 2000
+            (dict(flag=Flag.EQX, q2=13, e2=1), wide, -1),
+            (dict(flag=X), short, 30),                        # EXTZ_ONLY
+            (dict(flag=S | X, q2=13, e2=1), short, 30),
+            (dict(flag=S, q2=13, e2=1, end_bonus=5), wide, -1)):
         aln = Aligner(device="cpu", **kw)
-        if item is None:
-            (q, t), = pairs
-            got, = aln.extend_batch(pairs, w=[w])
-            want = diagdiff.extz2(q, t, 5, kw.get("mat", MAT), 4, 2, w=w,
-                                  zdrop=kw.get("zdrop", -1), flag=aln.flag)
-            assert _row(got) == _row(want[0]), kw
-            continue
-        with pytest.raises(NotImplementedError) as err:
-            aln.extend_batch(pairs, w=[w])
-        msg = str(err.value)
-        assert f"ROADMAP item {item}" in msg and "item 11" not in msg, msg
+        (q, t), = pairs
+        got, = aln.extend_batch(pairs, w=[w])
+        z, mat = kw.get("zdrop", -1), kw.get("mat", MAT)
+        if "q2" in kw:
+            want = diagdiff.extd2(q, t, 5, mat, 4, 2, 13, 1, w=w, zdrop=z,
+                                  end_bonus=kw.get("end_bonus", 0),
+                                  flag=aln.flag)[0]
+            if aln.flag & Flag.EQX:
+                want.cigar = jcigar.to_eqx(want.cigar, q, t)
+        else:
+            want = diagdiff.extz2(q, t, 5, mat, 4, 2, w=w, zdrop=z,
+                                  flag=aln.flag)[0]
+        assert _row(got) == _row(want), kw
 
 
 def _golden_short_banded():
@@ -205,9 +209,10 @@ def _golden_short_banded():
 
 def test_golden_short_banded_cases_run_and_match(calls):
     """Every banded extz2_sse / extd2_sse golden case with a target
-    bucket of 512 or less runs through ``Aligner`` (w = 0 included) and
-    matches the reference binary; the clipping ones take the batched
-    route."""
+    bucket of 512 or less runs through ``Aligner`` (w = 0 included), on
+    the single-pair engines (``extend``) and through the scheduler
+    (``extend_batch``), and matches the reference binary; the clipping
+    ones take the batched route."""
     cases = _golden_short_banded()
     assert len(cases) >= 40
     for c in cases:
@@ -220,9 +225,12 @@ def test_golden_short_banded_cases_run_and_match(calls):
         kw = dict(q2=p["q2"], e2=p["e2"]) if two else {}
         aln = Aligner(a=p["a"], b=p["b"], q=p["q"], e=p["e"], w=p["w"],
                       zdrop=p["z"], flag=flag, device="cpu", **kw)
-        got = aln.extend(c["query"], c["target"]).tsv_fields()
-        if c.get("fields_only"):
-            got = got[:4]
-        assert got == c["expect"], (c["algo"], p, c["query"], c["target"])
+        for got in (aln.extend(c["query"], c["target"]),
+                    aln.extend_batch([(c["query"], c["target"])])[0]):
+            got = got.tsv_fields()
+            if c.get("fields_only"):
+                got = got[:4]
+            assert got == c["expect"], (c["algo"], p, c["query"],
+                                        c["target"])
     assert calls.count("batch_records") + \
         calls.count("batch_cigar_launch") >= 30

@@ -299,10 +299,12 @@ def _golden_aligner(p):
 
 
 def test_golden_extd2_cases():
-    """In-envelope cases match the reference binary, on the strips route
-    or, when strips refuses them, on the band route or else the batched
-    route; the others raise, except jobs the degenerate-scoring rule
-    resets before routing (pre-swap costs for SCORE_ONLY, post-swap for
+    """In-envelope cases match the reference binary through the scheduler
+    (``extend_batch``), on the strips route or, when strips refuses them,
+    on the band route, the batched route or else the single-pair
+    two-piece engine (which raised naming ROADMAP item 12b before kernel
+    13 was ported), except jobs the degenerate-scoring rule resets
+    before routing (pre-swap costs for SCORE_ONLY, post-swap for
     CIGARs), which match the reference's reset record."""
     from ksw2_tpu_torch.ops.batch import batch_ineligible_reason
 
@@ -331,13 +333,10 @@ def test_golden_extd2_cases():
                     cigar=not p["score_only"], two=True) is None:
                 batch += 1
             else:
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    aln.extend(c["query"], c["target"])
                 outside += 1
-                continue
         else:
             inside += 1
-        got = aln.extend(c["query"], c["target"]).tsv_fields()
+        got = aln.extend_batch([(c["query"], c["target"])])[0].tsv_fields()
         if c.get("fields_only"):
             got = got[:4]
         assert got == c["expect"], (p, c["query"], c["target"])

@@ -6,7 +6,8 @@ the scheduler takes (as in ``test_torch_band_route.py``); results are held
 against the spec and the reference-binary golden corpus, exactly.  Every
 golden ``extz2_sse`` case runs through ``Aligner.extend``, the single-pair
 engine, and none may raise; two-piece and splice buckets beyond the batch
-routes still raise, naming ROADMAP item 12b.
+routes run on the single-pair two-piece and splice engines (kernels 13
+and 14).
 """
 import json
 import os
@@ -33,7 +34,9 @@ LAUNCHERS = {"rows_records": "rows", "strips_records": "strips",
              "band_records": "band", "batch_records": "batch",
              "extz_records": "any", "strips_cigar_launch": "strips",
              "band_cigar_launch": "band", "batch_cigar_launch": "batch",
-             "extz_cigar_launch": "single"}
+             "extz_cigar_launch": "single", "extd_records": "extd",
+             "extd_cigar_launch": "extd", "exts_records": "exts",
+             "exts_cigar_launch": "exts"}
 
 
 @pytest.fixture
@@ -141,23 +144,43 @@ def test_golden_extz2_cases_through_extend():
         assert got == c["expect"], (p, c["query"], c["target"])
 
 
-def test_two_piece_and_splice_buckets_raise_item_12b():
-    """Beyond the batch routes the two-piece and splice buckets still
-    raise before anything runs, naming ROADMAP item 12b."""
+def test_two_piece_and_splice_buckets_raise_item_12b(calls):
+    """The two-piece and splice buckets beyond the batch routes, which
+    raised naming ROADMAP item 12b until kernels 13 and 14 were ported,
+    run on the single-pair two-piece and splice engines, one launch a
+    bucket, and equal the spec: two-piece CIGARs in a band wider than
+    1472, EXTZ_ONLY CIGARs and SCORE_ONLY|EXTZ_ONLY scores, scores on
+    targets over 3072, splice EXTZ_ONLY CIGARs and an annotated splice
+    pair through ``extend``."""
     q, t = _pair(5, 1700)
     S, X = Flag.SCORE_ONLY, Flag.EXTZ_ONLY
     for aln, w in ((Aligner(q2=13, e2=1, device="cpu"), 1500),
                    (Aligner(q2=13, e2=1, flag=X, device="cpu"), 100),
-                   (Aligner(q2=13, e2=1, flag=S | X, device="cpu"), 100),
-                   (Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True,
-                            flag=Flag.SPLICE_FOR | X, device="cpu"), -1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-            aln.extend_batch([(q, t)], w=[w])
+                   (Aligner(q2=13, e2=1, flag=S | X, device="cpu"), 100)):
+        calls.clear()
+        got, = aln.extend_batch([(q, t)], w=[w])
+        assert calls == ["extd"], (aln.flag, w)
+        want = diagdiff.extd2(q, t, 5, MAT, 4, 2, 13, 1, w=w, flag=aln.flag)
+        assert _row(got) == _row(want[0]), (aln.flag, w)
+    smat = simple_mat(5, 1, 2)
+    calls.clear()
+    spl = Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True,
+                  flag=Flag.SPLICE_FOR | X, device="cpu")
+    got, = spl.extend_batch([(q, t)])
+    assert calls == ["exts"]
+    want = diagdiff.exts2(q, t, 5, smat, 2, 1, 32, 0, flag=spl.flag)[0]
+    assert _row(got) == _row(want)
     huge = encode_dna("ACGT" * 800)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        Aligner(q2=13, e2=1, flag=S, device="cpu").extend_batch(
-            [(huge, huge)])
+    calls.clear()
+    got, = Aligner(q2=13, e2=1, flag=S, zdrop=100,
+                   device="cpu").extend_batch([(huge, huge[:3100])])
+    assert calls == ["extd"]
+    assert _row(got) == _row(diagdiff.extd2(huge, huge[:3100], 5, MAT, 4, 2,
+                                            13, 1, zdrop=100, flag=S)[0])
     junc = np.zeros(len(t), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True, junc_bonus=9,
-                flag=Flag.SPLICE_FOR, device="cpu").extend(q, t, junc=junc)
+    junc[[200, 900]] = (1, 2)
+    got = Aligner(a=1, b=2, q=2, e=1, q2=32, splice=True, junc_bonus=9,
+                  flag=Flag.SPLICE_FOR, device="cpu").extend(q, t, junc=junc)
+    want = diagdiff.exts2(q, t, 5, smat, 2, 1, 32, 0, junc_bonus=9,
+                          flag=Flag.SPLICE_FOR, junc=junc)[0]
+    assert _row(got) == _row(want)

@@ -18,6 +18,8 @@ from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import band_walker as BW
 from ksw2_tpu_torch.ops import batch as BT
 from ksw2_tpu_torch.ops import batch_exts as BE
+from ksw2_tpu_torch.ops import extd as ED
+from ksw2_tpu_torch.ops import exts as ES
 from ksw2_tpu_torch.ops import extz as EZ
 from ksw2_tpu_torch.ops import extz_fwd as F
 from ksw2_tpu_torch.ops import rows as R
@@ -505,3 +507,140 @@ def test_single_pair_aligner_matches_cpu(cuda_device, flag):
                  g.reach_end, g.cigar) for g in got] == \
             [(x.max, x.max_t, x.mqe, x.mte, x.score, x.zdropped,
               x.reach_end, x.cigar) for x in want]
+
+
+def _single_pairs(seed, spliced=False):
+    """Seeded pairs of 30-1500 bp over 1-12 tiles of 128 positions (N
+    bases), spliced ones with a GT..AG intron, and the edge shapes."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for L in (300, 1500, 30, 700):
+        if spliced:
+            pairs.append(spliced_pair(rng, L, with_n=True))
+        else:
+            t, q = random_pair(rng, L, divergence=0.2, indel=0.08,
+                               with_n=True)
+            pairs.append((encode_dna(q), encode_dna(t)))
+    pairs += [(rng.integers(0, 5, a).astype(np.uint8),
+               rng.integers(0, 5, b).astype(np.uint8)) for a, b in EDGE]
+    return pairs
+
+
+def _check_single(ln, args, kernel, plain, end_bonus, min_intron):
+    """A single-pair form against its plain version: records, stops, the
+    bytes of every row a pair computed, and kernel 17 on the kernel's
+    bytes with ``min_intron``."""
+    krec, kp, kstop = kernel(*args, ln.prm, ln.lay)
+    prec, pp, pstop = plain(*args, ln.prm, ln.lay)
+    assert torch.equal(krec, prec) and torch.equal(kstop, pstop)
+    if not ln.prm.cig:
+        return
+    ends = F.row_off(kstop.cpu().numpy(), ln.qlen, ln.tlen, ln.w)
+    for b, n in enumerate(ends):
+        s = int(ln.lay.pbase[b])
+        assert torch.equal(kp[s:s + int(n)], pp[s:s + int(n)])
+    _, _, ql, tl, w = args[:5]
+    starts = W.start_cells(krec, ql, tl, ln.prm.flag, end_bonus)
+    pbase = torch.from_numpy(ln.lay.pbase).to(kp.device)
+    wr = ln.query.shape[1] + ln.target.shape[1] + 2
+    kres, kruns = TB.extz_walk_cuda(kp, pbase, starts, ql, tl, w, wr,
+                                    min_intron)
+    pres, pruns = TB.extz_walk_plain(kp, pbase, starts, ql, tl, w, wr,
+                                     min_intron)
+    assert torch.equal(kres, pres)
+    for b in range(len(ql)):
+        n = int(kres[b, 2])
+        assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+APPROX = Flag.APPROX_MAX | Flag.APPROX_DROP
+EXTD_FORMS = [(Flag.SCORE_ONLY, -1, 0), (Flag.NONE, 100, 1),
+              (Flag.RIGHT | Flag.GENERIC_SC, -1, 0), (APPROX, 100, 1),
+              (Flag.EXTZ_ONLY, 100, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,zdrop,costs", EXTD_FORMS)
+def test_extd_forward_kernel_matches_plain(cuda_device, flag, zdrop, costs):
+    """Kernel 13 (tiles of 128 positions) against its plain version, with
+    w from 0 to unbanded, default and swapped costs; kernel 17 on its
+    bytes."""
+    pairs = _single_pairs(64)
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    tl = np.array([len(b) for _, b in pairs], np.int32)
+    w = np.concatenate([[16, 2000, 0, 751], np.maximum(ql[4:], tl[4:])])
+    (ln,) = ED.extd_prep([a for a, _ in pairs], [b for _, b in pairs], ql,
+                         tl, w.astype(np.int32), 5,
+                         GEN if flag & Flag.GENERIC_SC else MAT,
+                         *TWO_PIECE[costs], zdrop, flag,
+                         cig=not flag & Flag.SCORE_ONLY)
+    assert ln.lay.tp == 128
+    _check_single(ln, BD.band_upload(ln, cuda_device), ED.extd_forward_cuda,
+                  ED.extd_forward_plain, 10, 0)
+
+
+SPL = Flag.SPLICE_FOR
+EXTS_FORMS = [(SPL | Flag.SCORE_ONLY, 200, False), (SPL, 200, True),
+              (Flag.SPLICE_REV | Flag.SPLICE_FLANK, -1, False),
+              (SPL | Flag.EXTZ_ONLY | Flag.RIGHT | Flag.REV_CIGAR, 200,
+               True),
+              (SPL | APPROX, 100, True),
+              (SPL | Flag.GENERIC_SC | Flag.RIGHT, 200, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,zdrop,junc", EXTS_FORMS)
+def test_exts_forward_kernel_matches_plain(cuda_device, flag, zdrop, junc):
+    """Kernel 14 (tiles of 128 positions) against its plain version on
+    spliced pairs, with junction tracks (junc_bonus 9); kernel 17 on its
+    bytes with min_intron = long_thres."""
+    pairs = _single_pairs(65, spliced=True)
+    tracks = None
+    if junc:
+        tracks = []
+        for _, t in pairs:
+            j = np.zeros(len(t), np.uint8)
+            j[len(t) // 3], j[2 * len(t) // 3] = 1, 2
+            tracks.append(j)
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    tl = np.array([len(b) for _, b in pairs], np.int32)
+    (ln,) = ES.exts_prep([a for a, _ in pairs], [b for _, b in pairs], ql,
+                         tl, 5, GEN if flag & Flag.GENERIC_SC else
+                         simple_mat(5, 1, -2), 2, 1, 32, 9, zdrop, flag,
+                         tracks, 9 if junc else 0,
+                         cig=not flag & Flag.SCORE_ONLY)
+    assert ln.lay.tp == 128
+    _check_single(ln, BD.band_upload(ln, cuda_device), ES.exts_forward_cuda,
+                  ES.exts_forward_plain, 0, ln.prm.lt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [Flag.NONE, Flag.EXTZ_ONLY, Flag.EQX,
+                                  Flag.SCORE_ONLY | Flag.EXTZ_ONLY])
+def test_two_piece_and_splice_aligner_matches_cpu(cuda_device, flag):
+    """``Aligner.extend`` and ``extend_batch`` on the single-pair two-piece
+    and splice engines: the card gives the CPU route's results."""
+    pairs = _single_pairs(66)[:4]
+    spliced = _single_pairs(67, spliced=True)[:4]
+    juncs = [None, None, None, None]
+    rng = np.random.default_rng(8)
+    juncs[1] = rng.integers(0, 3, len(spliced[1][1])).astype(np.uint8)
+    for kw, ps, js in ((dict(q2=13, e2=1, zdrop=100, end_bonus=10), pairs,
+                        None),
+                       (dict(a=1, b=2, q=2, e=1, q2=32, splice=True,
+                             noncan=9, junc_bonus=9, zdrop=200), spliced,
+                        juncs)):
+        f = flag | (SPL if kw.get("splice") else Flag.NONE)
+        cpu = Aligner(device="cpu", flag=f, **kw)
+        card = Aligner(flag=f, **kw)
+        want = [cpu.extend(q, t, None if js is None else js[k])
+                for k, (q, t) in enumerate(ps)]
+        got = [card.extend(q, t, None if js is None else js[k])
+               for k, (q, t) in enumerate(ps)]
+        got_b = card.extend_batch(ps, juncs=js)
+
+        def key(ez):
+            return (ez.max, ez.max_t, ez.mqe, ez.mte, ez.score, ez.zdropped,
+                    ez.reach_end, ez.cigar)
+        assert [key(g) for g in got] == [key(x) for x in want]
+        assert [key(g) for g in got_b] == [key(x) for x in want]

@@ -162,13 +162,13 @@ def _spec_row(q, t, w, flag, two=False, eqx=False):
 
 
 def test_out_of_envelope_raises():
-    """Global alignment, meshes and two-piece buckets no ported route takes
-    raise, naming their ROADMAP item; the one-piece buckets beyond the
-    batch routes run on the single-pair engine (CIGARs) and the
-    any-device route (scores), and a one-piece ``extend`` keeps M ops
-    under EQX, as the reference's extz2 and the JAX ``extend`` do; the
-    short clipping, APPROX, EQX and two-piece end_bonus buckets run on
-    the batched route; all match the spec."""
+    """Global alignment and meshes raise, naming their ROADMAP item; the
+    buckets beyond the batch routes run on the single-pair engines
+    (one-piece and two-piece CIGARs) and the any-device route (one-piece
+    scores), and a one-piece ``extend`` keeps M ops under EQX, as the
+    reference's extz2 and the JAX ``extend`` do; the short clipping,
+    APPROX, EQX and two-piece end_bonus buckets run on the batched route;
+    all match the spec."""
     q, t = encode_dna("ACGT" * 8), encode_dna("ACGA" * 8)
     aln = Aligner(zdrop=100, device="cpu")
     t3073 = encode_dna("A" * 3073)
@@ -187,9 +187,8 @@ def test_out_of_envelope_raises():
     eqx = Aligner(zdrop=100, flag=Flag.EQX, device="cpu").extend(q, t)
     assert eqx.cigar_string() == "32M"
     assert _row(eqx) == _spec_row(q, t, 32, Flag.EQX)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12b"):
-        Aligner(q2=13, e2=1, zdrop=100, device="cpu").extend_batch(
-            [(q, t3073)])
+    assert _row(Aligner(q2=13, e2=1, zdrop=100, device="cpu").extend_batch(
+        [(q, t3073)])[0]) == _spec_row(q, t3073, -1, Flag.NONE, two=True)
     with pytest.raises(ValueError, match="both q2 and e2"):
         Aligner(q2=24, device="cpu")
     bonus = Aligner(q2=24, e2=1, zdrop=100, end_bonus=5, flag=Flag.SCORE_ONLY,
@@ -217,15 +216,18 @@ def test_two_piece_out_of_envelope_raises():
     ez = diagdiff.extd2(q, t, 5, simple_mat(5, 2, -4), 4, 1, 13, 2, w=32,
                         zdrop=100)[0]
     assert _row(got[0]) == _row(ez)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Aligner(q2=13, e2=1, flag=Flag.SCORE_ONLY | Flag.EXTZ_ONLY,
-                device="cpu").extend_batch([(q, t)])
+    # SCORE_ONLY | EXTZ_ONLY and CIGARs on targets over 1536: the
+    # single-pair two-piece engine
+    flag = Flag.SCORE_ONLY | Flag.EXTZ_ONLY
+    assert _row(Aligner(q2=13, e2=1, zdrop=100, flag=flag,
+                        device="cpu").extend_batch([(q, t)])[0]) == \
+        _spec_row(q, t, -1, flag, two=True)
     assert _row(Aligner(q2=13, e2=1, zdrop=100, flag=Flag.EQX,
                         device="cpu").extend(q, t)) == \
         _spec_row(q, t, 32, Flag.EQX, two=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Aligner(q2=13, e2=1, device="cpu").extend_batch(
-            [(q, encode_dna("A" * 3073))])
+    t3073 = encode_dna("A" * 3073)
+    assert _row(Aligner(q2=13, e2=1, zdrop=100, device="cpu").extend_batch(
+        [(q, t3073)])[0]) == _spec_row(q, t3073, -1, Flag.NONE, two=True)
 
 
 @pytest.mark.parametrize("flag", [Flag.SCORE_ONLY, Flag.NONE])

@@ -1,5 +1,5 @@
 """The port's splice path end to end on the CPU: the route table, the
-raises, the golden ``exts2_sse`` cases and the API's splice arguments.
+golden ``exts2_sse`` cases and the API's splice arguments.
 
 ``Aligner(splice=True, device="cpu")`` runs the plain versions of the
 strips ``spl`` forward, the ``nop`` walker, the batched exts forward and
@@ -89,19 +89,33 @@ def test_a_bucket_with_one_track_takes_the_batched_route():
 @pytest.mark.parametrize("flag", [SPL | Flag.EXTZ_ONLY,
                                   SPL | Flag.EXTZ_ONLY | Flag.SCORE_ONLY])
 def test_extz_only_raises_naming_item_12(flag):
-    aln = Aligner(flag=flag, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        aln.extend_batch(_pairs(3))
+    """EXTZ_ONLY splice buckets, which raised naming ROADMAP item 12b
+    until kernel 14 was ported, take the single-pair splice engine and
+    equal the spec (no reach_end, no end bonus)."""
+    pairs = _pairs(3)
+    assert set(routes(pairs, flag)) == {"single"}
+    got = Aligner(flag=flag, device="cpu", **KW).extend_batch(pairs)
+    want = [diagdiff.exts2(a, b, 5, MAT, 2, 1, 32, 9, zdrop=200,
+                           flag=flag)[0] for a, b in pairs]
+    assert [_row(g) for g in got] == [_row(w) for w in want]
+    assert not any(g.reach_end for g in got)
 
 
 def test_long_annotated_targets_raise_naming_item_12():
     """Targets over 1536 with a track: neither strips nor the batched
-    engine takes them; without the track strips does."""
+    engine takes them (they raised naming item 12b before kernel 14), so
+    the single-pair splice engine does and equals the spec; without the
+    track strips takes them."""
     rng = np.random.default_rng(4)
     pairs = [spliced_pair(rng, 1700)]
-    aln = Aligner(flag=SPL | Flag.SCORE_ONLY, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        aln.extend_batch(pairs, juncs=[track(1700)])
+    (q, t), = pairs
+    flag = SPL | Flag.SCORE_ONLY
+    assert routes(pairs, flag, [track(1700)]) == ["single"]
+    got = Aligner(flag=flag, device="cpu", **KW).extend_batch(
+        pairs, juncs=[track(1700)])
+    want = diagdiff.exts2(q, t, 5, MAT, 2, 1, 32, 9, zdrop=200, flag=flag,
+                          junc=track(1700))[0]
+    assert [_row(g) for g in got] == [_row(want)]
     assert set(routes(pairs, SPL | Flag.SCORE_ONLY)) == {"strips"}
 
 
