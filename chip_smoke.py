@@ -19,12 +19,13 @@ Phases, each printing one JSON line:
    streams on the same short-pair launches;
 5b. band: kernels C / C2 (band forward, one- and two-piece) against
    their plain version, records and direction bytes exactly, in score,
-   CIG and APPROX forms with bands from 1 to 1472, and kernel D (band
+   CIG and APPROX forms with bands from 1 to 1472 on pairs of up to 900
+   bp and the shortest long-banded pair cut to 2 kb, and kernel D (band
    walker) against its plain version on the kernels' bytes;
 5c. batch: kernels E / E2 (batched forward, one- and two-piece, one warp
    a pair) against their plain version, records and direction bytes
    exactly, in score, CIG and APPROX forms with w 0, 1, 16, 100 and
-   unbanded on targets up to 3072 (P = 1-24 rows a pair on the TPU),
+   unbanded on targets up to 1700 (P = 1-14 rows a pair on the TPU),
    zdrop -1/100, RIGHT, GENERIC_SC, default and swapped two-piece costs,
    and on the launches the scheduler makes of the short-banded workload
    (below); kernel D on their bytes;
@@ -32,7 +33,7 @@ Phases, each printing one JSON line:
    form on its bytes, and kernel 6 (batched exts forward, one warp a
    pair; score, CIG and APPROX) with kernel D walking its bytes with
    min_intron, against their plain versions exactly, on seeded spliced
-   pairs of 30-1500 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
+   pairs of 30-900 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
    tracks) and on the one launch of each form the scheduler makes of the
    splice workload (below);
 5e. single: kernel 12 (single-pair forward, tiles of 128 positions:
@@ -42,6 +43,15 @@ Phases, each printing one JSON line:
    and direction bytes exactly, and kernel 17 (single-pair walker) on
    its bytes (upper_force 1 and 0, min_intron 0 and 5), also on the
    launches the scheduler makes of the sr-extension workload (below);
+5f. single2: kernels 13 and 14, and 17 on their bytes;
+5g. linear_global: kernels 7 and 15 (batched and single-pair extf)
+   against their plain version's records, kernels 8 and 16 (batched and
+   single-pair gg2) against theirs (without and with the reference's
+   u/v/x/y/s block overrun) on scores and every byte of the flat store,
+   and band_walk's flat form on the kernels' bytes, exactly: seeded
+   pairs of 30-1500 bp, banded and unbanded, xdrop -1 and 40, two pairs
+   with qlen > tlen + w, and the first 64 pairs of each launch of the
+   CLI path (below);
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -68,7 +78,15 @@ Phases, each printing one JSON line:
    MT length (seed 782, 16,569 bp; CIGAR and EXTZ_ONLY CIGAR at -z100)
    and sr-extension: the short-banded workload as EXTZ_ONLY CIGARs at
    -w100 -z100 --end-bonus 10 (minimap2 -x sr's extension call), one
-   launch of each kernel a bucket.  Each anchor or spec pin is asserted,
+   launch of each kernel a bucket; the paths of kernels 13 and 14
+   (single_extd, sr_extension_extd, splice_ends, splice_long); and the
+   paths of kernels 7, 8, 15 and 16 (pins ``LG_PINS``, only those four
+   and band_walk may launch): "single_extf" (the 50 kb pair through
+   ``extf2_device`` at A2 B4 E2, xdrop -1), "single_gg2_mt" (the MT pair
+   through ``Aligner.global_align``) and "cli_batch" (the mixed workload
+   as FASTA through ``cli.main(["--backend", "batch", ...])`` at -t
+   gg2_sse -w 100 and -t extf2_sse -z 40).  Each anchor or spec pin is
+   asserted,
    each path must have launched its kernels, and sampled pairs are held
    against the port's plain CPU route;
 7. times: every kernel and its plain version at main-path shapes (CUDA
@@ -84,7 +102,11 @@ any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -233,6 +255,40 @@ SINGLE2_PINS = {
                           (19723, -12884896811, 0, 0)),
 }
 
+# the linear-gap and global engines' workloads (kernels 7, 8, 15 and 16):
+# the JAX bench's extf_50k_score row (bench/suite.py:197-201: the seeded
+# 50 kb pair at A2 B4 E2, xdrop -1, unbanded, through extf2_device), its
+# gg2_mt_cigar row (bench/suite.py:203-209: the seeded MT-length pair at
+# A2 B4 O4 E2, unbanded, through Aligner.global_align) and the ksw2-test
+# CLI on the mixed-512 workload written as FASTA (--backend batch, -t
+# gg2_sse -w 100 and -t extf2_sse -z 40: pairs of targets up to 1024
+# take kernels 7 and 8, the rest kernels 15 and 16)
+LG_PREFIX = 2000
+CLI_BATCH_PREFIX = 16
+CLI_BATCH_ARGS = {"cli_batch_gg2": ["-t", "gg2_sse", "-w", "100"],
+                  "cli_batch_extf": ["-t", "extf2_sse", "-z", "40"]}
+# the TSV column a CLI pin sums: gg2's score, and extf's max (at -z 40
+# every extf pair X-drops, and an X-dropped pair's score is NEG_INF)
+CLI_PIN_COL = {"cli_batch_gg2": 2, "cli_batch_extf": 3}
+# their pins, computed with the byte-parity spec (ksw2_tpu.spec.diagdiff
+# extf2 / gg2_sse, and the JAX CLI's --backend spec for the CLI runs):
+# single_extf (max, max_t, max_q, score, zdropped) of the 50 kb pair and
+# of its first LG_PREFIX bp; single_gg2_mt (score, CIGAR ops, cigar_hash)
+# of the MT pair and of its first LG_PREFIX bp; cli_batch_* (the sum of
+# the TSV column CLI_PIN_COL, the first 16 hex digits of the SHA-256 of
+# the TSV) of the 512 pairs and of the first CLI_BATCH_PREFIX.
+# tests/test_torch_linear_global_pins.py recomputes them.
+LG_PINS = {
+    "single_extf": ((45594, 49999, 50142, 45594, 0),
+                    (1576, 1999, 1999, 1576, 0)),
+    "single_gg2_mt": ((11282, 1877, "b729f92d22fccd63"),
+                      (1220, 257, "b9c8d4968c448d4a")),
+    "cli_batch_gg2": ((162416, "3a8803206ef60436"),
+                      (5584, "2dd92cbc5054134e")),
+    "cli_batch_extf": ((6296, "ea7d6baa9402b8cc"),
+                       (202, "e46ba17769c358ec")),
+}
+
 EXTD = (4, 2, 13, 1)          # minimap2's -O4,13 -E2,1: no swap
 SWAPPED = (24, 1, 4, 2)       # swaps the pieces: off0 = -19
 
@@ -258,6 +314,12 @@ EXTZ_REPLACES = "ksw2_tpu/ops/wavefront.py:175"
 EXTD_REPLACES = "ksw2_tpu/ops/wavefront_extd.py:68"
 EXTS_REPLACES = "ksw2_tpu/ops/wavefront_exts.py:54"
 EXTZ_WALK_REPLACES = "ksw2_tpu/ops/traceback_device.py:50"
+EXTF_SRC = "ksw2_tpu_torch/csrc/batch_extf_fwd.cu"
+GG2_SRC = "ksw2_tpu_torch/csrc/gg2_fwd.cu"
+BATCH_EXTF_REPLACES = "ksw2_tpu/ops/wavefront_batch_extf.py:42"
+EXTF_REPLACES = "ksw2_tpu/ops/wavefront_extf.py:41"
+BATCH_GG2_REPLACES = "ksw2_tpu/ops/wavefront_batch_gg2.py:42"
+GG2_REPLACES = "ksw2_tpu/ops/wavefront_gg2.py:50"
 
 # integer operations per cell (per step for the walkers) that the
 # function needs: one cell's update of the recurrence and its share of
@@ -296,6 +358,17 @@ OPS["extd_fwd"] = OPS["band_extd_fwd"]
 BYTE_OPS["extd_fwd"] = BYTE_OPS["band_extd_fwd"]
 OPS["exts_fwd"] = OPS["batch_exts_fwd"]
 BYTE_OPS["exts_fwd"] = BYTE_OPS["batch_exts_fwd"]
+# linear gap (extf2): the score byte's compare and select (2), z = s +
+# 2e (1), the signed max with v[t - 1] (1), the unsigned max with u[t]
+# (1), u' = z - v[t - 1] and v' = z - u[t] (2); no argmax, no bytes
+OPS["batch_extf_fwd"] = OPS["extf_fwd"] = 7
+# global (gg2_sse): the matrix gather (1), zz = s + 2(q + e) (1), a = x +
+# v and b = y + u (2), z = max(zz, a) (1), the unsigned max with b (1),
+# u' and v' (2), z2 = z - q (1), a - z2 and b - z2 (2), x' and y' clamped
+# at 0 (2); the byte as band_fwd's (the compares and selects of codes 1-2,
+# bits 0x08 / 0x10, the store), counted there and not here
+OPS["batch_gg2_fwd"] = OPS["gg2_fwd"] = 13
+BYTE_OPS["batch_gg2_fwd"] = BYTE_OPS["gg2_fwd"] = BYTE_OPS["band_fwd"]
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 
 
@@ -488,6 +561,39 @@ def splice_junc(tlen: int = 512):
     j[200] = 1
     j[349] = 2
     return j
+
+
+def nt4_str(a) -> str:
+    """nt4 codes back to an ACGTN string."""
+    return "".join("ACGTN"[int(c)] for c in a)
+
+
+def write_pairs_fasta(pairs, d):
+    """(query, target) nt4 pairs as the FASTA files ``t.fa`` and ``q.fa``
+    in directory ``d``, records ``t<k>`` / ``q<k>``; returns their paths."""
+    import os
+
+    tp, qp = os.path.join(d, "t.fa"), os.path.join(d, "q.fa")
+    with open(tp, "w") as ft, open(qp, "w") as fq:
+        for k, (q, t) in enumerate(pairs):
+            ft.write(f">t{k}\n{nt4_str(t)}\n")
+            fq.write(f">q{k}\n{nt4_str(q)}\n")
+    return tp, qp
+
+
+def tsv_pin(lines, col=2):
+    """A CLI run's pin: [the sum of TSV column ``col`` (2 the score, 3
+    the max), the first 16 hex digits of the SHA-256 of its TSV lines]."""
+    import hashlib
+
+    text = "".join(ln + "\n" for ln in lines)
+    return [sum(int(ln.split("\t")[col]) for ln in lines),
+            hashlib.sha256(text.encode()).hexdigest()[:16]]
+
+
+def gg2_pin(score, cigar):
+    """A global alignment's pin: (score, CIGAR ops, cigar_hash)."""
+    return (int(score), len(cigar), cigar_hash(cigar))
 
 
 def merge_eqx(cigar):
@@ -842,18 +948,29 @@ def short_banded_launches(sb, flag, costs=None, choose=None):
     return launches, t1 - t0, time.perf_counter() - t1
 
 
+LONG1_CUT = 2000
+
+
+def long1_pair(long):
+    """The long-banded workload's shortest pair cut to its first
+    LONG1_CUT bp: the band kernels' case beside their plain version."""
+    q, t = min(long, key=lambda p: len(p[1]))
+    return [(q[:LONG1_CUT], t[:LONG1_CUT])]
+
+
 def band_cases(long):
     """(name, launch) cases for kernels C and C2: small seeded launches
-    with bands from 1 to 1472 (N bases, one clipped query) in score, CIG
-    and APPROX forms, zdrop -1/100/400, RIGHT and GENERIC_SC, one-piece,
-    two-piece and swapped costs; and the shortest pair of the
-    long-banded workload at its settings."""
+    of 60-900 bp with bands from 1 to 1472 (N bases, one clipped query)
+    in score, CIG and APPROX forms, zdrop -1/100/400, RIGHT and
+    GENERIC_SC, one-piece, two-piece and swapped costs; and the shortest
+    pair of the long-banded workload cut to LONG1_CUT bp at its settings
+    (the plain forward takes milliseconds a diagonal)."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import encode_dna
 
     rng = np.random.default_rng(9)
     small = []
-    for L in (700, 300, 1500, 900, 60):
+    for L in (700, 300, 900, 500, 60):
         t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
         small.append((encode_dna(q), encode_dna(t)))
     small[1] = (small[1][0][:150], small[1][1])
@@ -877,7 +994,7 @@ def band_cases(long):
                           _generic_mat() if flag & Flag.GENERIC_SC
                           else None))
              for name, flag, zdrop, costs in forms]
-    long1 = [min(long, key=lambda p: len(p[1]))]
+    long1 = long1_pair(long)
     cases += [
         ("long1_extz_cig_z400", band_launch(long1, BAND_W, Flag.NONE, 400)),
         ("long1_extd_score_z400",
@@ -933,10 +1050,11 @@ def batch_cases(sb):
     targets up to 512 (P = 1-4 rows a pair on the TPU; N bases, one
     clipped query) with w 0, 1, 16, 100 and unbanded in score, CIG and
     APPROX forms, zdrop -1/100, RIGHT and GENERIC_SC, one-piece,
-    two-piece and swapped costs; two wide launches on targets up to 3072
-    (P = 8, 12, 24), score and CIG; and the launches the main path makes
-    of the short-banded workload's 4096 pairs, one- and two-piece score
-    and two-piece CIG."""
+    two-piece and swapped costs; two wide launches on targets of 1000 to
+    1700 (P = 8, 10, 14; the score form's targets over 1536), score and
+    CIG; and the launches the main path makes of the short-banded
+    workload's 4096 pairs, one- and two-piece score, and the first of
+    its two-piece CIG launches."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import encode_dna
 
@@ -946,11 +1064,11 @@ def batch_cases(sb):
         t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
         small.append((encode_dna(q), encode_dna(t)))
     small[2] = (small[2][0][:120], small[2][1])
-    for L in (1000, 1500, 3000):
+    for L in (1000, 1200, 1700):
         t, q = random_pair(rng, L, divergence=0.15, indel=0.06)
         wide.append((encode_dna(q), encode_dna(t)))
     w_small = [0, 1, 16, 100, 600]          # 600: unbanded
-    w_wide = [100, 1600, 3100]              # the last two unbanded
+    w_wide = [100, 1300, 1800]              # the last two unbanded
     approx = Flag.APPROX_MAX | Flag.APPROX_DROP
     forms = [
         ("extz_score_z100", Flag.SCORE_ONLY, 100, None),
@@ -982,6 +1100,8 @@ def batch_cases(sb):
                               ("sb_extd_score_z100", Flag.SCORE_ONLY, EXTD),
                               ("sb_extd_cig_z100", Flag.NONE, EXTD)):
         launches, _, _ = short_banded_launches(sb, flag, costs)
+        if flag == Flag.NONE:
+            launches = launches[:1]
         cases += [(f"{name}_launch{k}", ln) for k, ln in enumerate(launches)]
     return cases
 
@@ -1070,7 +1190,7 @@ def splice_cases(spl):
     """(name, route, launch) cases for the splice kernels: the strips
     forward's spl form (and the nop walker on its bytes) and kernel 6
     (and the band walker with min_intron on its bytes) on seeded spliced
-    pairs of 30-1500 bp (N bases, edge shapes) in score, CIG and APPROX
+    pairs of 30-900 bp (N bases, edge shapes) in score, CIG and APPROX
     forms, zdrop -1/30/100/200, RIGHT, SPLICE_REV with SPLICE_FLANK,
     GENERIC_SC and junction tracks with junc_bonus 9; and the one launch
     of each form the scheduler makes of the 1024-pair splice workload,
@@ -1079,7 +1199,7 @@ def splice_cases(spl):
 
     rng = np.random.default_rng(11)
     small = [spliced_pair(rng, L, with_n=True)
-             for L in (30, 120, 512, 700, 1500)]
+             for L in (30, 120, 512, 700, 900)]
     small += [(rng.integers(0, 5, ql).astype(np.uint8),
                rng.integers(0, 5, tl).astype(np.uint8))
               for ql, tl in ((1, 1), (1, 129), (129, 1), (128, 129))]
@@ -1610,6 +1730,252 @@ def phase_single2(cases):
     return worst
 
 
+def _resolve(pairs, w):
+    """Bands ``w`` resolved as the engines resolve them."""
+    from ksw2_tpu_torch.ops.bands import resolve_bands
+    return resolve_bands(pairs, w)
+
+
+def cli_split(jobs, algo):
+    """The CLI's whole-file dispatch of ``jobs`` for ``algo`` at its
+    CLI_BATCH_ARGS band (gg2_sse -w 100, extf2_sse unbanded): the pairs
+    the batched kernels take and the rest, in file order."""
+    from ksw2_tpu_torch.cli import batch_eligible
+
+    w = _resolve(jobs, 100 if algo == "gg2_sse" else -1)
+    ok = [batch_eligible(algo, len(q), len(t), wk)
+          for (q, t), wk in zip(jobs, w)]
+    return ([p for p, k in zip(jobs, ok) if k],
+            [p for p, k in zip(jobs, ok) if not k])
+
+
+def lg_cases(jobs):
+    """(name, kind, pairs, resolved bands, xdrop, forms) cases for kernels
+    7 and 15 (kind "extf") and 8 and 16 (kind "gg2"): seeded pairs of
+    30-1500 bp (N bases) with w 0, 16, 100 and unbanded, xdrop -1 and
+    40; two pairs with qlen > tlen + w for kernel 16's block overrun;
+    and the first 64 pairs of each launch the CLI run makes of the
+    mixed-512 workload (-t extf2_sse -z 40, -t gg2_sse -w 100: the
+    batched launch and the single-pair one).  ``forms`` names the
+    kernels a case holds: "batch" (7 / 8), "single" (15 / 16)."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(14)
+    mix = []
+    for L in (30, 300, 700, 1100, 1500):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        mix.append((encode_dna(q), encode_dna(t)))
+    w_mix = _resolve(mix, [-1, 0, 16, 100, -1])
+    over, w_over = [], [8, 30]
+    for L in (200, 600):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08)
+        q = encode_dna(q)
+        over.append((np.concatenate([q, q[:int(0.6 * len(q))]]),
+                     encode_dna(t)))
+    eb, es = (ps[:64] for ps in cli_split(jobs, "extf2_sse"))
+    gb, gs = (ps[:64] for ps in cli_split(jobs, "gg2_sse"))
+    # kernel 8 takes only what its route gives it: qlen <= tlen + w
+    ok = [k for k, (q, t) in enumerate(mix) if len(q) <= len(t) + w_mix[k]]
+    mixb, w_mixb = [mix[k] for k in ok], [w_mix[k] for k in ok]
+    both = ("batch", "single")
+    return [
+        ("extf_mix_xm1", "extf", mix, w_mix, -1, both),
+        ("extf_mix_x40", "extf", mix, w_mix, 40, both),
+        ("cli64_extf_batch", "extf", eb, _resolve(eb, -1), 40, both),
+        ("cli64_extf_single", "extf", es, _resolve(es, -1), 40,
+         ("single",)),
+        ("gg2_mix_single", "gg2", mix + over, w_mix + w_over, None,
+         ("single",)),
+        ("gg2_mix_batch", "gg2", mixb, w_mixb, None, ("batch",)),
+        ("cli64_gg2_batch", "gg2", gb, [100] * len(gb), None, ("batch",)),
+        ("cli64_gg2_single", "gg2", gs, [100] * len(gs), None,
+         ("single",)),
+    ]
+
+
+def phase_linear_global(cases):
+    """Kernels 7 and 15 (batch_extf_fwd, extf_fwd) against their plain
+    version's records, kernels 8 and 16 (batch_gg2_fwd, gg2_fwd) against
+    theirs (without and with the block overrun) on scores and every byte
+    of the flat store, and band_walk's flat form against its plain
+    version on the kernels' bytes (end cells and runs), exactly."""
+    import torch
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import extf as XF
+    from ksw2_tpu_torch.ops import gg2 as G1
+
+    table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
+    worst = dict.fromkeys(("batch_extf_fwd", "extf_fwd", "batch_gg2_fwd",
+                           "gg2_fwd", "band_walk"), 0)
+    out = {}
+    for name, kind, pairs, w, xdrop, forms in cases:
+        args = BF.pack_pairs(pairs, w, "cuda")
+        errs = {}
+        row = {"pairs": len(pairs), "forms": list(forms),
+               "Lt": int(args[1].shape[1])}
+        if kind == "extf":
+            want = plain_run((name, "fwd"), BF.extf_forward_plain, *args,
+                             2, -4, 2, xdrop)
+            if "batch" in forms:
+                errs["batch_extf_fwd"] = _max_err(
+                    BF.batch_extf_forward_cuda(*args, 2, -4, 2, xdrop), want)
+            errs["extf_fwd"] = _max_err(
+                XF.extf_single_forward_cuda(*args, 2, -4, 2, xdrop), want)
+            row["zdropped"] = int(want[:, 8].sum())
+        else:
+            single = "single" in forms
+            ql_np = [len(a) for a, _ in pairs]
+            tl_np = [len(b) for _, b in pairs]
+            pb_np, total = BG.flat_layout(ql_np, tl_np, w)
+            pb = torch.from_numpy(pb_np).cuda()
+            ws, wp = plain_run((name, "fwd"), BG.gg2_forward_plain, *args,
+                               table, 5, 4, 2, pb, total, single)
+            fwd = (G1.gg2_single_forward_cuda if single
+                   else BG.batch_gg2_forward_cuda)
+            ks, kp = fwd(*args, table, 5, 4, 2, pb, total)
+            kname = "gg2_fwd" if single else "batch_gg2_fwd"
+            errs[kname] = max(_max_err(ks, ws), _max_err(kp, wp))
+            del wp
+            _, _, ql, tl, wt = args
+            kres, kruns = BW.flat_walk_cuda(kp, pb, ql, tl, wt)
+            pres, pruns = plain_run((name, "walk"), BW.flat_walk_plain, kp,
+                                    pb, ql, tl, wt)
+            werr = _max_err(kres, pres)
+            for b in range(len(pairs)):
+                n = int(kres[b, 2])
+                werr = max(werr, _max_err(kruns[b, :n], pruns[b, :n]))
+            errs["band_walk"] = werr
+            row["store_bytes"] = total
+            row["overrun"] = sum(a > b + x for a, b, x in
+                                 zip(ql_np, tl_np, w))
+            del kp
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+        row["max_abs_err"] = errs
+        out[name] = row
+        torch.cuda.empty_cache()
+        if any(errs.values()):
+            emit({"phase": "linear_global", "case": name, "FAIL": errs})
+            raise AssertionError(f"the linear-gap / global kernels differ "
+                                 f"on {name}")
+    emit({"phase": "linear_global", "max_abs_err": worst, "cases": out})
+    return worst
+
+
+def lg_work(pairs, w, rec=None, store=False):
+    """(cells, bytes) of one linear-gap or global forward on this run's
+    data: the true band cells of the diagonals each pair computed (an
+    extf pair that stopped early counts to its best cell's diagonal, a
+    lower bound, or, when its best is the origin, to its first empty
+    band) and the bytes read and written once: the sequences, lengths
+    and record, and with ``store`` the flat store's rows of 16-rounded
+    band a diagonal."""
+    from ksw2_tpu_torch.ops.bands import band_bounds, first_empty_diag
+
+    rec = None if rec is None else rec.cpu().numpy()
+    cells = nbytes = 0
+    for b, ((q, t), x) in enumerate(zip(pairs, w)):
+        ql, tl = len(q), len(t)
+        stop = ql + tl - 1
+        if rec is not None:
+            stop = int(first_empty_diag(ql, tl, x))
+            if rec[b, 8] and rec[b, 1] >= 0:
+                stop = min(stop, int(rec[b, 1] + rec[b, 2]) + 1)
+        st0, en0 = band_bounds(stop, ql, tl, x)
+        cells += int(np.maximum(0, en0 - st0 + 1).sum())
+        nbytes += ql + tl + 12 + 36
+        if store:
+            st, en = st0 // 16 * 16, (en0 + 16) // 16 * 16 - 1
+            nbytes += int(np.maximum(0, en - st + 1).sum())
+    return cells, nbytes
+
+
+def linear_global_times(lcases, single, mt, jobs, int_rate):
+    """Kernels 7, 8, 15 and 16 and the flat walk at the main path's
+    shapes: each on the first 64 pairs of the CLI run's launches beside
+    its plain version's time there (phase 5g), on the CLI run's whole
+    launches, and kernels 15 and 16 on the 50 kb and MT pairs (no plain
+    version runs there: it takes milliseconds a diagonal)."""
+    import torch
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import extf as XF
+    from ksw2_tpu_torch.ops import gg2 as G1
+
+    table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
+    by_name = {c[0]: c for c in lcases}
+    eb, es = cli_split(jobs, "extf2_sse")
+    gb, gs = cli_split(jobs, "gg2_sse")
+    runs = [
+        ("cli64_extf_batch", "batch_extf_fwd", None, 5),
+        ("cli64_extf_single", "extf_fwd", None, 5),
+        ("cli64_gg2_batch", "batch_gg2_fwd", None, 5),
+        ("cli64_gg2_single", "gg2_fwd", None, 5),
+        ("cli_extf_batch", "batch_extf_fwd", (eb, _resolve(eb, -1), 40), 3),
+        ("cli_extf_single", "extf_fwd", (es, _resolve(es, -1), 40), 3),
+        ("cli_gg2_batch", "batch_gg2_fwd", (gb, [100] * len(gb), None), 3),
+        ("cli_gg2_single", "gg2_fwd", (gs, [100] * len(gs), None), 3),
+        ("single50k_extf", "extf_fwd", ([single], _resolve([single], -1), -1),
+         2),
+        ("mt_gg2", "gg2_fwd", ([mt], _resolve([mt], -1), None), 2)]
+    fwds = {"batch_extf_fwd": BF.batch_extf_forward_cuda,
+            "extf_fwd": XF.extf_single_forward_cuda,
+            "batch_gg2_fwd": BG.batch_gg2_forward_cuda,
+            "gg2_fwd": G1.gg2_single_forward_cuda}
+    out = {}
+    for name, kname, spec, reps in runs:
+        pairs, w, xdrop = (spec if spec is not None else
+                           (by_name[name][2], by_name[name][3],
+                            by_name[name][4]))
+        args = BF.pack_pairs(pairs, w, "cuda")
+        fn = fwds[kname]
+        row = {"kernel": kname, "pairs": len(pairs),
+               "Lt": int(args[1].shape[1])}
+        if kname.endswith("extf_fwd"):
+            def fwd(args=args, fn=fn, xdrop=xdrop):
+                return fn(*args, 2, -4, 2, xdrop)
+            row["fwd_ms"] = cuda_ms(fwd, reps)
+            cells, nbytes = lg_work(pairs, w, fwd())
+            row["zdropped"] = int(fwd()[:, 8].sum())
+        else:
+            pb_np, total = BG.flat_layout([len(a) for a, _ in pairs],
+                                          [len(b) for _, b in pairs], w)
+            pb = torch.from_numpy(pb_np).cuda()
+
+            def fwd(args=args, fn=fn, pb=pb, total=total):
+                return fn(*args, table, 5, 4, 2, pb, total)
+            row["fwd_ms"] = cuda_ms(fwd, reps)
+            cells, nbytes = lg_work(pairs, w, store=True)
+            row["store_bytes"] = total
+            _, p = fwd()
+            _, _, ql, tl, wt = args
+            row["walk_ms"] = cuda_ms(
+                lambda: BW.flat_walk_cuda(p, pb, ql, tl, wt), reps)
+            steps, wbytes = walk_work(*BW.flat_walk_cuda(p, pb, ql, tl, wt),
+                                      20)
+            row["walk_steps"] = steps
+            row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                "band_walk", steps, wbytes, int_rate)
+            if (name, "walk") in PLAIN_MS:
+                row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
+            del p
+        row["computed_cells"] = cells
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            kname, cells, nbytes, int_rate, kname.endswith("gg2_fwd"))
+        row["fwd_gcells_per_s"] = cells / row["fwd_ms"] / 1e6
+        if (name, "fwd") in PLAIN_MS:
+            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+        out[name] = row
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def _cells(pairs):
     return sum(len(q) * len(t) for q, t in pairs)
 
@@ -1715,6 +2081,69 @@ def _eqx_merged(out):
     return [sum(ez.max for ez in out),
             sum(len(merge_eqx(ez.cigar)) for ez in out),
             sum(1 for ez in out for c in ez.cigar if c & 0xF == 0)]
+
+
+def cli_files(jobs):
+    """The mixed workload written as FASTA in ``build/cli_batch/`` of the
+    checkout (``t.fa``, ``q.fa``)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "cli_batch")
+    os.makedirs(d, exist_ok=True)
+    return write_pairs_fasta(jobs, d)
+
+
+def cli_lines(name, files):
+    """A function that runs the CLI run ``name`` (its CLI_BATCH_ARGS,
+    ``--backend batch``) on ``files`` in-process and returns its TSV
+    lines."""
+    from ksw2_tpu_torch import cli as kcli
+
+    def go():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if kcli.main(["--backend", "batch"] + CLI_BATCH_ARGS[name]
+                         + list(files)):
+                raise AssertionError(f"{name}: the CLI failed")
+        return buf.getvalue().splitlines()
+    return go
+
+
+def lg_paths(jobs, single, mt, kernels):
+    """The main paths of the linear-gap and global engines (kernels 7, 8,
+    15 and 16, walked by band_walk's flat form): the 50 kb pair through
+    extf2_device (the JAX bench's extf_50k_score row), the MT-length pair
+    through Aligner.global_align (its gg2_mt_cigar row) and the ksw2-test
+    CLI's whole-file dispatch (--backend batch) on the mixed-512
+    workload as FASTA; each launches only its kernels of these and
+    band_walk (``kernels``: every kernel's counter name)."""
+    from ksw2_tpu_torch import Aligner
+    from ksw2_tpu_torch.ops.extf import extf2_device
+
+    def only(*names):
+        return names, tuple(k for k in kernels if k not in names)
+    glob = Aligner()
+    files = cli_files(jobs)
+    return [
+        ("single_extf", [
+            run("single_extf",
+                lambda: [extf2_device(*single, 2, 4, 2, xdrop=-1)],
+                [single], list(LG_PINS["single_extf"][0]),
+                lambda out: list(single_pin(out[0], False)))],
+         *only("extf_fwd")),
+        ("single_gg2_mt", [
+            run("single_gg2_mt", lambda: [glob.global_align(*mt)], [mt],
+                list(LG_PINS["single_gg2_mt"][0]),
+                lambda out: list(gg2_pin(out[0].score, out[0].cigar)))],
+         *only("gg2_fwd", "band_walk")),
+        ("cli_batch", [
+            run(name, cli_lines(name, files), jobs,
+                list(LG_PINS[name][0]),
+                functools.partial(tsv_pin, col=CLI_PIN_COL[name]),
+                prefix=(CLI_BATCH_PREFIX, list(LG_PINS[name][1])))
+            for name in CLI_BATCH_ARGS],
+         *only("batch_extf_fwd", "batch_gg2_fwd", "extf_fwd", "gg2_fwd",
+               "band_walk")),
+    ]
 
 
 def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
@@ -2024,6 +2453,13 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
         if not set(needs) & {"extd_fwd", "exts_fwd"}:
             paths[k] = (path, spec, needs,
                         tuple(never) + ("extd_fwd", "exts_fwd"))
+
+    # the linear-gap and global engines' paths; no earlier path launches
+    # their kernels
+    lg_kernels = ("batch_extf_fwd", "extf_fwd", "batch_gg2_fwd", "gg2_fwd")
+    paths = [(path, spec, needs, tuple(never) + lg_kernels)
+             for path, spec, needs, never in paths]
+    paths += lg_paths(jobs, single, mt, kernels + lg_kernels)
     counts = {}
     runs = {}
     results = {}
@@ -2078,20 +2514,21 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     return counts, runs
 
 
-def phase_profile(long, sb, spl):
+def phase_profile(long, sb, spl, jobs, mt):
     """Device time by kernel over one score batch and one CIGAR batch of
     the long-banded (-w751 -z400) and of the short-banded (-w100 -z100)
     workloads, one CIGAR batch of the splice workload unannotated and
-    annotated, the sr-extension CIGAR batch (one- and two-piece) and the
-    splice-ends CIGAR batch (torch.profiler), beside the batch's host
-    wall and the device's idle share of it."""
+    annotated, the sr-extension CIGAR batch (one- and two-piece), the
+    splice-ends CIGAR batch, the MT pair's global alignment and the two
+    CLI runs (torch.profiler), beside the run's host wall and the
+    device's idle share of it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
 
-    out = {}
+    runs = []
     for name, aln, pairs in (
             ("long_score", Aligner(w=BAND_W, zdrop=400,
                                    flag=Flag.SCORE_ONLY), long),
@@ -2114,12 +2551,20 @@ def phase_profile(long, sb, spl):
              splice_aligner(Flag.SPLICE_FOR | Flag.EXTZ_ONLY),
              spl * SPLICE_TILES)):
         juncs = [splice_junc()] * len(pairs) if "junc" in name else None
-        aln.extend_batch(pairs, juncs=juncs)
+        runs.append((name, lambda aln=aln, pairs=pairs, juncs=juncs:
+                     aln.extend_batch(pairs, juncs=juncs)))
+    glob = Aligner()
+    runs.append(("single_gg2_mt", lambda: glob.global_align(*mt)))
+    files = cli_files(jobs)
+    runs += [(name, cli_lines(name, files)) for name in CLI_BATCH_ARGS]
+    out = {}
+    for name, fn in runs:
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            aln.extend_batch(pairs, juncs=juncs)
+            fn()
             wall = time.perf_counter() - t0
         rows = {}
         for ev in prof.key_averages():
@@ -2482,7 +2927,7 @@ def single2_times(single, sb, spl, slong, int_rate):
 
 
 def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
-                int_rate):
+                int_rate, lcases, mt, jobs):
     import torch
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import simple_mat
@@ -2540,10 +2985,10 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
         out[name] = row
 
     # the band kernels at the long-banded shapes: the workload's shortest
-    # pair for kernel against plain (the plain forward takes milliseconds
+    # pair cut to LONG1_CUT bp for kernel against plain (the plain forward takes milliseconds
     # a diagonal; phase 5b ran it on the same launches: case ``plain``),
     # the whole workload's one score launch for the kernels alone
-    sub = [min(long, key=lambda p: len(p[1]))]
+    sub = long1_pair(long)
     approx = Flag.APPROX_MAX | Flag.APPROX_DROP
     for name, pairs, flag, costs, plain in (
             ("long1_extz_score", sub, Flag.SCORE_ONLY, None, None),
@@ -2649,6 +3094,7 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
     out.update(splice_times(scases, int_rate))
     out.update(single_times(single, sb, int_rate))
     out.update(single2_times(single, sb, spl, slong, int_rate))
+    out.update(linear_global_times(lcases, single, mt, jobs, int_rate))
     emit({"phase": "times", "cases": out})
     return out
 
@@ -2693,14 +3139,16 @@ def main() -> int:
     err_batch = timed("batch", phase_batch, batch_cases(sb))
     err_single = timed("single", phase_single, single_cases(sb))
     err_single2 = timed("single2", phase_single2, single2_cases(sb, spl))
+    lcases = lg_cases(jobs)
+    err_lg = timed("linear_global", phase_linear_global, lcases)
     single = single_pair(SINGLE_SEED, SINGLE_LEN)
     mt = single_pair(MT_SEED, MT_LEN)
     slong = splice_long_jobs()
     counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb,
                       spl, single, mt, slong)
     times = timed("times", phase_times, cases, rcases, long, sb, scases,
-                  single, spl, slong, int_rate)
-    timed("profile", phase_profile, long, sb, spl)
+                  single, spl, slong, int_rate, lcases, mt, jobs)
+    timed("profile", phase_profile, long, sb, spl, jobs, mt)
     emit({"phase": "clock", "seconds": clock})
     whale = times["whale_cig_z100"]
     rows = times["short_score_z100"]
@@ -2722,7 +3170,7 @@ def main() -> int:
         _kernel("band_walk", BAND_WALK_SRC, BAND_WALK_REPLACES,
                 counts["band_walk"],
                 max(err_band["band_walk"], err_batch["band_walk"],
-                    err_spl["band_walk"]), lc, "walk"),
+                    err_spl["band_walk"], err_lg["band_walk"]), lc, "walk"),
         _kernel("batch_fwd", BATCH_SRC, BATCH_REPLACES, counts["batch_fwd"],
                 err_batch["batch_fwd"], times["sb_extz_score"], "fwd"),
         _kernel("batch_extd_fwd", BATCH_SRC, BATCH_EXTD_REPLACES,
@@ -2741,6 +3189,16 @@ def main() -> int:
                 err_single2["extd_fwd"], times["sr_extd_256"], "fwd"),
         _kernel("exts_fwd", EXTZ_SRC, EXTS_REPLACES, counts["exts_fwd"],
                 err_single2["exts_fwd"], times["splice_ends_256"], "fwd"),
+        _kernel("batch_extf_fwd", EXTF_SRC, BATCH_EXTF_REPLACES,
+                counts["batch_extf_fwd"], err_lg["batch_extf_fwd"],
+                times["cli64_extf_batch"], "fwd"),
+        _kernel("batch_gg2_fwd", GG2_SRC, BATCH_GG2_REPLACES,
+                counts["batch_gg2_fwd"], err_lg["batch_gg2_fwd"],
+                times["cli64_gg2_batch"], "fwd"),
+        _kernel("extf_fwd", EXTF_SRC, EXTF_REPLACES, counts["extf_fwd"],
+                err_lg["extf_fwd"], times["cli64_extf_single"], "fwd"),
+        _kernel("gg2_fwd", GG2_SRC, GG2_REPLACES, counts["gg2_fwd"],
+                err_lg["gg2_fwd"], times["cli64_gg2_single"], "fwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

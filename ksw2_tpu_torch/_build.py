@@ -66,6 +66,21 @@ _SIGNATURES = {
     # p, pbase, starts, qlen, tlen, w, B, wr, min_intron, upper_force, res,
     # runs, stream
     "ksw2t_extz_walk": [_P] * 6 + [_I] * 4 + [_P] * 3,
+    # p, pbase, starts, qlen, tlen, w, B, wr, res, runs, stream
+    "ksw2t_flat_walk": [_P] * 6 + [_I] * 2 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, B, Lq, Lt, mch, mis, e, xdrop, TP, warps, rec,
+    # stream
+    "ksw2t_batch_extf_fwd": [_P] * 5 + [_I] * 9 + [_P] * 2,
+    # qs, ts, qlen, tlen, w, B, Lq, Lt, mch, mis, e, xdrop, TP, warps,
+    # scratch, rec, stream
+    "ksw2t_extf_fwd": [_P] * 5 + [_I] * 9 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, table, pbase, B, Lq, Lt, m, q, e, TP, warps,
+    # score, p, stream
+    "ksw2t_batch_gg2_fwd": [_P] * 7 + [_I] * 8 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, table, pbase, B, Lq, Lt, m, q, e, blk, warps,
+    # scratch, score, p, stream
+    "ksw2t_gg2_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_longlong, _I]
+    + [_P] * 4,
 }
 
 

@@ -2,7 +2,7 @@
 
 Port of ``ksw2_tpu/api.py`` for one-piece (extz), two-piece (extd) and
 splice (exts) costs on the rows, strips, band, batched, any-device and
-single-pair routes.  Costs
+single-pair routes, and for global alignment (gg2).  Costs
 and flags are bound at construction; the methods accept raw DNA strings
 or encoded arrays and return
 :class:`~ksw2_tpu_torch.core.result.ExtzResult` records with the exact
@@ -20,10 +20,10 @@ there is no card; ``device="cpu"`` runs the kernels' plain PyTorch
 versions.  :meth:`Aligner.extend` runs the single-pair engine of its
 costs, as ``ksw2_tpu/api.py:96-112`` does: one-piece ``ops/extz.py``
 (M ops under EQX), two-piece ``ops/extd.py`` (=/X under EQX) and splice
-``ops/exts.py`` (N ops, with the pair's junction track).  Every bucket
-of a batch has a route.  Global alignment, meshes and pluggable engines
-raise ``NotImplementedError`` naming the ROADMAP.md item that brings
-them.
+``ops/exts.py`` (N ops, with the pair's junction track), and
+:meth:`Aligner.global_align` runs ``ops/gg2.py``.  Every bucket of a
+batch has a route.  Meshes and pluggable engines raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ from .core.result import ExtzResult
 from .ops.extd import extd2_device
 from .ops.exts import exts2_device
 from .ops.extz import extz2_device
+from .ops.gg2 import gg2_device
 
 Seq = Union[str, np.ndarray]
 
@@ -126,8 +127,26 @@ class Aligner:
                             device=self.device)
 
     def global_align(self, query: Seq, target: Seq) -> ExtzResult:
-        raise NotImplementedError(
-            "global alignment: the gg2 engines (ROADMAP items 12c, 14)")
+        """Global (NW) alignment of one pair (ksw_gg2_sse semantics) on
+        ``ops/gg2.py:gg2_device`` (kernel 16 and the flat walk), as
+        ``ksw2_tpu/api.py:115-141``.  The reference's ``ksw_gg*`` return
+        a bare score, so the max/mqe/mte fields are filled from the one
+        cell a global alignment determines, the corner ``(tlen - 1,
+        qlen - 1)``, and ``reach_end`` is set."""
+        qs, ts = _enc(query), _enc(target)
+        score, cig, _ = gg2_device(qs, ts, self.m, self.mat, self.q, self.e,
+                                   w=self.w, device=self.device)
+        qlen, tlen = len(qs), len(ts)
+        ez = ExtzResult()
+        ez.reset()
+        ez.score = score
+        ez.max = score
+        ez.max_t, ez.max_q = tlen - 1, qlen - 1
+        ez.mqe, ez.mqe_t = score, tlen - 1
+        ez.mte, ez.mte_q = score, qlen - 1
+        ez.reach_end = True
+        ez.cigar = cig
+        return ez
 
     def _jobs(self, pairs, w) -> List[AlignJob]:
         return [AlignJob(query=_enc(qy), target=_enc(tg),

@@ -2,8 +2,9 @@
 
 The port has no weights: what carries across is the scoring
 configuration of an ``Aligner``, the parameters of a prepared strips
-launch and the single-pair engines' forward (one-piece, two-piece,
-splice) and walk parameters.  Both
+launch, the single-pair engines' forward (one-piece, two-piece,
+splice) and walk parameters, and the linear-gap and global engines'
+launch parameters.  Both
 sides are plain values here (the port never imports the JAX package): a
 caller reads the attributes of a ``ksw2_tpu.Aligner`` or a parameter
 tuple's ``_asdict()`` into a dict and passes it in.
@@ -18,6 +19,11 @@ from .ops.exts import ExtsPairParams
 from .ops.extz_fwd import ExtzParams
 from .ops.strips import StripParams
 from .ops.traceback_device import TbParams
+
+# the TPU layout fields of the linear-gap and global engines' parameter
+# tuples (ops/wavefront_extf.py, wavefront_gg2.py, wavefront_batch_extf.py,
+# wavefront_batch_gg2.py): the port's kernels take none of them
+_LAYOUT = ("chunk", "n_rows", "p_rows", "p", "n_diag")
 
 
 def aligner_from_jax(cfg: dict, device="cuda") -> Aligner:
@@ -74,6 +80,23 @@ def tb_params_from_jax(d: dict) -> TbParams:
     return TbParams(**{k: int(d[k]) for k in TbParams._fields})
 
 
-__all__ = ["aligner_from_jax", "strip_params_from_jax",
-           "extz_params_from_jax", "extd_params_from_jax",
-           "exts_params_from_jax", "tb_params_from_jax"]
+def launch_values_from_jax(d: dict) -> dict:
+    """The port's launch values of the linear-gap and global engines
+    (kernels 7, 8, 15, 16) for the ``_asdict()`` of a
+    ``ksw2_tpu.ops.wavefront_extf.ExtfParams``, ``wavefront_gg2.Gg2Params``,
+    ``wavefront_batch_extf.BatchExtfParams`` or
+    ``wavefront_batch_gg2.BatchGg2Params``: every field but the TPU layout
+    ones (``chunk``, ``n_rows``, ``p_rows``, ``p``, ``n_diag``), which have
+    no counterpart, as int; the batched gg2 tuple's ``matt`` becomes the
+    score table ``mat`` (int32, m*m)."""
+    out = {k: int(v) for k, v in d.items()
+           if k not in _LAYOUT and k != "matt"}
+    if "matt" in d:
+        out["mat"] = np.asarray(d["matt"], np.int32)
+    return out
+
+
+__all__ = ["aligner_from_jax", "launch_values_from_jax",
+           "strip_params_from_jax", "extz_params_from_jax",
+           "extd_params_from_jax", "exts_params_from_jax",
+           "tb_params_from_jax"]

@@ -46,5 +46,13 @@ def first_empty_diag(qlen, tlen, w):
                                  np.where(w == 0, 1, ndb)))
 
 
+def resolve_bands(pairs, w):
+    """Bands ``w`` (one a (query, target) pair, or one for all; < 0
+    unbanded) resolved as the linear-gap and global engines resolve
+    them: ``max(qlen, tlen)``."""
+    return [int(wk) if int(wk) >= 0 else max(len(q), len(t))
+            for (q, t), wk in zip(pairs, np.broadcast_to(w, (len(pairs),)))]
+
+
 __all__ = ["band_bounds", "band_bounds_rounded", "n_col_bytes",
-           "first_empty_diag"]
+           "first_empty_diag", "resolve_bands"]

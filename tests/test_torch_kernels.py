@@ -644,3 +644,94 @@ def test_two_piece_and_splice_aligner_matches_cpu(cuda_device, flag):
                     ez.reach_end, ez.cigar)
         assert [key(g) for g in got] == [key(x) for x in want]
         assert [key(g) for g in got_b] == [key(x) for x in want]
+
+
+# --------------------------------------------------------------------------
+# kernels 7, 8, 15 and 16 and the flat walk (band_walk.cu's gg2 form)
+
+def _lg_pairs(seed, n=10, lo=30, hi=1500, overrun=False):
+    """Seeded pairs of lo-hi bp with bands; ``overrun`` adds pairs with
+    qlen > tlen + w (kernel 16's H0-walk quirk)."""
+    rng = np.random.default_rng(seed)
+    pairs, ws = [], []
+    for k in range(n):
+        t, q = random_pair(rng, int(rng.integers(lo, hi + 1)),
+                           divergence=0.2, indel=0.08, with_n=k % 2 == 0)
+        q, t = encode_dna(q), encode_dna(t)
+        w = int(rng.choice([-1, 0, 1, 16, 100]))
+        if overrun and k % 3 == 0:
+            q = np.concatenate([q, q[:len(q) // 2 + 40]])
+            w = int(rng.choice([0, 1, 8, 16]))
+        pairs.append((q, t))
+        ws.append(w if w >= 0 else max(len(q), len(t)))
+    return pairs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdrop", [-1, 40])
+def test_extf_kernels_match_plain(cuda_device, xdrop):
+    """Kernels 7 (one warp a pair) and 15 (one block a pair) give the
+    plain version's records exactly."""
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import extf as XF
+    pairs, ws = _lg_pairs(71 + xdrop)
+    args = BF.pack_pairs(pairs, ws, cuda_device)
+    want = BF.extf_forward_plain(*args, 2, -4, 2, xdrop)
+    k7 = BF.batch_extf_forward_cuda(*args, 2, -4, 2, xdrop)
+    k15 = XF.extf_single_forward_cuda(*args, 2, -4, 2, xdrop)
+    torch.cuda.synchronize()
+    assert torch.equal(k7, want)
+    assert torch.equal(k15, want)
+
+
+@pytest.mark.cuda
+def test_gg2_kernels_match_plain(cuda_device):
+    """Kernel 16 against the plain version with the block overrun, kernel
+    8 against it without, on pairs with qlen <= tlen + w: scores and
+    every byte of the flat store; the flat walk against its plain
+    version on the kernels' bytes."""
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import gg2 as G1
+    from ksw2_tpu_torch.ops.batch_extf import pack_pairs
+    table = torch.from_numpy(MAT.astype(np.int32)).to(cuda_device)
+    pairs, ws = _lg_pairs(81, overrun=True)
+    for single in (True, False):
+        sel = [k for k, (q, t) in enumerate(pairs)
+               if single or len(q) <= len(t) + ws[k]]
+        sub = [pairs[k] for k in sel]
+        wv = [ws[k] for k in sel]
+        args = pack_pairs(sub, wv, cuda_device)
+        pb_np, total = BG.flat_layout([len(q) for q, _ in sub],
+                                      [len(t) for _, t in sub], wv)
+        pb = torch.from_numpy(pb_np).to(cuda_device)
+        ws_, wp = BG.gg2_forward_plain(*args, table, 5, 4, 2, pb, total,
+                                       single)
+        fwd = (G1.gg2_single_forward_cuda if single
+               else BG.batch_gg2_forward_cuda)
+        ks, kp = fwd(*args, table, 5, 4, 2, pb, total)
+        torch.cuda.synchronize()
+        assert torch.equal(ks, ws_)
+        assert torch.equal(kp, wp)
+        _, _, ql, tl, w = args
+        kres, kruns = BW.flat_walk_cuda(kp, pb, ql, tl, w)
+        pres, pruns = BW.flat_walk_plain(wp, pb, ql, tl, w)
+        torch.cuda.synchronize()
+        assert torch.equal(kres, pres)
+        assert BW.flat_walk_cigars(kres, kruns) == \
+            BW.flat_walk_cigars(pres, pruns)
+
+
+@pytest.mark.cuda
+def test_global_align_and_linear_gap_on_card_match_cpu(cuda_device):
+    """``Aligner.global_align`` and ``extf2_device`` on the card give the
+    CPU route's results."""
+    from ksw2_tpu_torch.ops.extf import extf2_device
+    pairs, _ = _lg_pairs(91, n=4, hi=600)
+    cpu, card = Aligner(device="cpu", w=50), Aligner(w=50)
+    for q, t in pairs:
+        a, b = card.global_align(q, t), cpu.global_align(q, t)
+        assert (a.score, a.cigar, a.max_t, a.mqe) == \
+            (b.score, b.cigar, b.max_t, b.mqe)
+        x = extf2_device(q, t, 2, 4, 2, xdrop=30)
+        y = extf2_device(q, t, 2, 4, 2, xdrop=30, device="cpu")
+        assert x.tsv_fields() == y.tsv_fields()

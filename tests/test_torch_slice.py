@@ -162,8 +162,9 @@ def _spec_row(q, t, w, flag, two=False, eqx=False):
 
 
 def test_out_of_envelope_raises():
-    """Global alignment and meshes raise, naming their ROADMAP item; the
-    buckets beyond the batch routes run on the single-pair engines
+    """Meshes raise, naming their ROADMAP item; global alignment runs on
+    the single-pair gg2 engine; the buckets beyond the batch routes run
+    on the single-pair engines
     (one-piece and two-piece CIGARs) and the any-device route (one-piece
     scores), and a one-piece ``extend`` keeps M ops under EQX, as the
     reference's extz2 and the JAX ``extend`` do; the short clipping,
@@ -198,8 +199,9 @@ def test_out_of_envelope_raises():
     assert _row(bonus[0]) == _row(plain[0])
     with pytest.raises(ValueError, match="q2"):
         Aligner(splice=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aln.global_align(q, t)
+    ga = aln.global_align(q, t)
+    ws, wc, _ = diagdiff.gg2_sse(q, t, 5, simple_mat(5, 2, -4), 4, 2)
+    assert (ga.score, ga.cigar, ga.reach_end) == (ws, list(wc), True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         aln.extend_batch([(q, t)], mesh=object())
     with pytest.raises(ValueError, match="splice"):
