@@ -9,6 +9,12 @@ Phases, each printing one JSON line:
    rate (132 SMs x 64 lanes x the maximum SM clock);
 2. build: nvcc builds the kernels from ``ksw2_tpu_torch/csrc`` (one
    compiler per source, all at once);
+2b. operations: in child processes, ``python -m
+   ksw2_tpu_torch.precompile --quick`` (builds, loads and launches each
+   kernel family once, then prints the km_stat report, which must list
+   kernel 18's launches and the allocator counters) and one small
+   ``python -m ksw2_tpu_torch.cli --stats`` run (its stderr must show
+   non-zero launches and the allocator counters);
 3. kernel A (strips forward) against its plain PyTorch version on the
    card, one- and two-piece, score and with bytes, default and swapped
    two-piece costs: D, Dq, hl, the 9-field records and the direction
@@ -52,6 +58,11 @@ Phases, each printing one JSON line:
    pairs of 30-1500 bp, banded and unbanded, xdrop -1 and 40, two pairs
    with qlen > tlen + w, and the first 64 pairs of each launch of the
    CLI path (below);
+5h. local: kernel 18 (batched local alignment, one warp a pair) against
+   its plain version, (score, te, qe) exactly, on the JAX bench's local
+   set, local-mixed and edge pairs (empty, all-N, all-mismatch, tied
+   maxima, targets of 128, queries of 129-512 bp), at A2 B4 q4 e2 and
+   on a generic matrix;
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -85,17 +96,24 @@ Phases, each printing one JSON line:
    ``extf2_device`` at A2 B4 E2, xdrop -1), "single_gg2_mt" (the MT pair
    through ``Aligner.global_align``) and "cli_batch" (the mixed workload
    as FASTA through ``cli.main(["--backend", "batch", ...])`` at -t
-   gg2_sse -w 100 and -t extf2_sse -z 40).  Each anchor or spec pin is
-   asserted,
+   gg2_sse -w 100 and -t extf2_sse -z 40); and the local paths through
+   ``local_batch_device`` at A2 B4 q4 e2 (only kernel 18 may launch):
+   "local_512" (the JAX bench's local_batch_512x128 row, seed 99, its
+   anchor (97230, 129138)), "local_64k" (that set tiled 128x, 65,536
+   pairs, the anchor x128) and "local_mixed" (seed 784, 4096 targets of
+   8-128 bp in queries of 8-512 bp; pin ``LOCAL_MIXED_PIN``).  Each
+   anchor or spec pin is asserted,
    each path must have launched its kernels, and sampled pairs are held
    against the port's plain CPU route;
 7. times: every kernel and its plain version at main-path shapes (CUDA
    events; the batched kernels on the main path's own launches of the
    short-banded workload, kernels 12 and 17 on the 50 kb pair and on
    the sr-extension launches) beside its bound, the main paths' walls
-   and Gcells/s (band cells on the band and batched routes), and a
-   profile of the long-banded, short-banded, splice and sr-extension
-   batches with the device's idle share.
+   and Gcells/s (band cells on the band and batched routes), kernel 18
+   on each local set beside its bound and plain time (held to the plain
+   version exactly on local-64k, which phase 5h leaves out), and a
+   profile of the long-banded, short-banded, splice, sr-extension and
+   local-64k batches with the device's idle share.
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
@@ -289,6 +307,19 @@ LG_PINS = {
                        (202, "e46ba17769c358ec")),
 }
 
+# the local path's sets (kernel 18): the JAX bench's local_batch_512x128
+# row (bench/suite.py:812-833: seed 99, 512 pairs of 128 x 128, 12%
+# substitutions, A2 B4 q4 e2) with its anchor (sum of score, sum of te +
+# qe); the same set tiled LOCAL_TILES times; and local-mixed (seed 784,
+# 4096 pairs, targets 8-128 bp in queries of 8-512 bp)
+LOCAL_SEED, LOCAL_TILES = 99, 128
+LOCAL_MIXED_SEED = 784
+LOCAL_COSTS = (2, 4, 4, 2)    # A, B, q, e
+LOCAL_ANCHOR = (97230, 129138)
+# local-mixed's pin (local_pin of the 4096 pairs), computed with the JAX
+# package's local_batch_device; tests/test_torch_local.py recomputes it
+LOCAL_MIXED_PIN = (140064, 840715)
+
 EXTD = (4, 2, 13, 1)          # minimap2's -O4,13 -E2,1: no swap
 SWAPPED = (24, 1, 4, 2)       # swaps the pieces: off0 = -19
 
@@ -320,6 +351,8 @@ BATCH_EXTF_REPLACES = "ksw2_tpu/ops/wavefront_batch_extf.py:42"
 EXTF_REPLACES = "ksw2_tpu/ops/wavefront_extf.py:41"
 BATCH_GG2_REPLACES = "ksw2_tpu/ops/wavefront_batch_gg2.py:42"
 GG2_REPLACES = "ksw2_tpu/ops/wavefront_gg2.py:50"
+LOCAL_SRC = "ksw2_tpu_torch/csrc/batch_local.cu"
+LOCAL_REPLACES = "ksw2_tpu/ops/batch_local.py:49"
 
 # integer operations per cell (per step for the walkers) that the
 # function needs: one cell's update of the recurrence and its share of
@@ -369,6 +402,12 @@ OPS["batch_extf_fwd"] = OPS["extf_fwd"] = 7
 # bits 0x08 / 0x10, the store), counted there and not here
 OPS["batch_gg2_fwd"] = OPS["gg2_fwd"] = 13
 BYTE_OPS["batch_gg2_fwd"] = BYTE_OPS["gg2_fwd"] = BYTE_OPS["band_fwd"]
+# local (Smith-Waterman, kernel 18): the score, a gather from the m x m
+# table of its match, mismatch and N entries (1, as gg2's), H(r-1) - q
+# once a cell (E at t reads it at t - 1, F at t) (1), E = max(., E) - e
+# and F likewise (2 + 2), H = max(H2 + s, E, F, 0) (4), the per-position
+# best (compare, two selects: 3)
+OPS["batch_local_fwd"] = 13
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA's data sheet)
 
 
@@ -466,6 +505,89 @@ def single_pair(seed: int, tlen: int):
     t, q = random_pair(np.random.default_rng(seed), tlen, divergence=0.15,
                        indel=0.06)
     return encode_dna(q), encode_dna(t)
+
+
+def local_512_jobs(seed: int = LOCAL_SEED, n: int = 512):
+    """The JAX bench's local set (``bench/suite.py:817-825``): ``n``
+    random 128 bp queries, each target a copy with 12% of its positions
+    redrawn, as (query, target, qlen, tlen) int32 arrays."""
+    rng = np.random.default_rng(seed)
+    Q = np.zeros((n, 128), np.int32)
+    T = np.zeros((n, 128), np.int32)
+    for i in range(n):
+        Q[i] = rng.integers(0, 4, 128)
+        T[i] = np.where(rng.random(128) < 0.12, rng.integers(0, 4, 128),
+                        Q[i])
+    ln = np.full(n, 128, np.int32)
+    return Q, T, ln, ln.copy()
+
+
+def local_mixed_jobs(seed: int = LOCAL_MIXED_SEED, n: int = 4096):
+    """The seeded local-mixed set: ``n`` targets of 8-128 bp, each mutated
+    by ``random_pair`` as ``tests/test_local.py`` draws it (divergence
+    0-0.5, indels 0-0.25, N in half the pairs), the copy set at a random
+    offset in random ACGT flanks so that the query takes 8-512 bp, as
+    (query, target, qlen, tlen) arrays padded to (n, 512) and (n, 128)."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(seed)
+    Q = np.zeros((n, 512), np.int32)
+    T = np.zeros((n, 128), np.int32)
+    qlen = np.zeros(n, np.int32)
+    tlen = np.zeros(n, np.int32)
+    for i in range(n):
+        t, q = random_pair(rng, int(rng.integers(8, 129)),
+                           divergence=float(rng.uniform(0, 0.5)),
+                           indel=float(rng.uniform(0, 0.25)),
+                           with_n=bool(rng.integers(0, 2)))
+        core = encode_dna(q)[:512]
+        L = int(rng.integers(max(8, len(core)), 513))
+        pad = rng.integers(0, 4, L - len(core))
+        at = int(rng.integers(0, len(pad) + 1))
+        Q[i, :L] = np.concatenate([pad[:at], core, pad[at:]])
+        T[i, :len(t)] = encode_dna(t)
+        qlen[i], tlen[i] = L, len(t)
+    return Q, T, qlen, tlen
+
+
+def local_edge_jobs(seed: int = 785):
+    """Edge pairs of the local kernel, as (query, target, qlen, tlen)
+    arrays padded to (n, 512) and (n, 128): empty queries and targets,
+    an all-N and an all-mismatch pair (both (0, -1, -1)), repeats with
+    tied maxima, one-base pairs, targets of exactly 128 and queries of
+    129-512 bp."""
+    rng = np.random.default_rng(seed)
+    acac = np.tile([0, 1], 256)
+    core = rng.integers(0, 4, 12)
+    gap = np.full(5, 4)
+    twice = np.concatenate([core, gap, core])
+    pairs = [(rng.integers(0, 4, 0), rng.integers(0, 4, 50)),
+             (rng.integers(0, 4, 50), rng.integers(0, 4, 0)),
+             (rng.integers(0, 4, 0), rng.integers(0, 4, 0)),
+             (np.full(90, 4), rng.integers(0, 4, 128)),
+             (np.zeros(70, np.int64), np.full(128, 2)),
+             (acac[:60], acac[:40]), (acac[:41], acac[1:128]),
+             (np.concatenate([twice, gap, core]), core), (core, twice),
+             (np.tile([0, 1, 2], 40), np.tile([2, 0, 1], 30)),
+             (np.array([3]), np.array([3])),
+             (np.array([2]), rng.integers(0, 4, 128))]
+    for L in (129, 200, 400, 512):
+        t = rng.integers(0, 5, 128)
+        pairs.append((np.concatenate([rng.integers(0, 4, L - 100),
+                                      t[10:110]]), t))
+    Q = np.zeros((len(pairs), 512), np.int32)
+    T = np.zeros((len(pairs), 128), np.int32)
+    for i, (q, t) in enumerate(pairs):
+        Q[i, :len(q)] = q
+        T[i, :len(t)] = t
+    return (Q, T, np.array([len(q) for q, _ in pairs], np.int32),
+            np.array([len(t) for _, t in pairs], np.int32))
+
+
+def local_pin(out):
+    """(sum of score, sum of te + qe) of a local result."""
+    return [int(out["score"].sum()),
+            int(out["te"].sum() + out["qe"].sum())]
 
 
 def cigar_hash(cigar) -> str:
@@ -1865,6 +1987,132 @@ def phase_linear_global(cases):
     return worst
 
 
+def local_upload(Q, T, ql, tl):
+    """The launch tensors of a local set on the card."""
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a, dt)).cuda()
+            for a, dt in ((Q, np.uint8), (T, np.uint8), (ql, np.int32),
+                          (tl, np.int32))]
+
+
+def phase_local():
+    """Kernel 18 (batch_local_fwd) against its plain version, exactly:
+    (score, te, qe) on the JAX bench's local set, on local-mixed and on
+    the edge pairs, with A2 B4 q4 e2 and, on local-mixed and the edge
+    pairs, with a generic matrix (the kernel reads its match, mismatch
+    and N entries, as the JAX kernel does)."""
+    import torch
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import batch_local as BL
+
+    a, b, q, e = LOCAL_COSTS
+    prm = BL.local_params(5, simple_mat(5, a, -b), q, e)
+    gen = BL.local_params(5, _generic_mat(), q, e)
+    sets = local_sets()
+    edge = local_edge_jobs()
+    cases = [("local_512", sets["local_512"], prm),
+             ("local_mixed", sets["local_mixed"], prm),
+             ("local_edge", edge, prm),
+             ("local_mixed_generic", sets["local_mixed"], gen),
+             ("local_edge_generic", edge, gen)]
+    worst = 0
+    out = {}
+    for name, arrays, p in cases:
+        args = local_upload(*arrays)
+        want = plain_run((name, "fwd"), BL.local_forward_plain, *args, p)
+        got = BL.local_forward_cuda(*args, p)
+        torch.cuda.synchronize()
+        err = _max_err(got, want)
+        worst = max(worst, err)
+        out[name] = {"pairs": len(arrays[2]), "max_abs_err": err,
+                     "pin": local_pin({"score": want[:, 0].cpu().numpy(),
+                                       "te": want[:, 1].cpu().numpy(),
+                                       "qe": want[:, 2].cpu().numpy()})}
+        if err:
+            emit({"phase": "local", "case": name, "FAIL": err})
+            raise AssertionError(f"the local kernel differs on {name}")
+    emit({"phase": "local", "max_abs_err": worst, "cases": out})
+    return worst
+
+
+def local_times(int_rate):
+    """Kernel 18 on each local set beside its bound and its plain
+    version's time there (phase 5h's; on local-64k the plain version runs
+    here, once, and the kernel is held to it exactly).  The cells are the matrix's, qlen x tlen; the bytes are
+    the sequences, the lengths and the results, each once."""
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import batch_local as BL
+
+    a, b, q, e = LOCAL_COSTS
+    prm = BL.local_params(5, simple_mat(5, a, -b), q, e)
+    out = {}
+    for name, (Q, T, ql, tl) in local_sets().items():
+        args = local_upload(Q, T, ql, tl)
+        row = {"kernel": "batch_local_fwd", "pairs": len(ql),
+               "Lq": int(Q.shape[1]), "Lt": int(T.shape[1])}
+        row["fwd_ms"] = cuda_ms(lambda: BL.local_forward_cuda(*args, prm),
+                                20)
+        if (name, "fwd") not in PLAIN_MS:
+            # phase 5h held the other sets: this one is held here, exactly
+            want = plain_run((name, "fwd"), BL.local_forward_plain, *args,
+                             prm)
+            row["max_abs_err"] = err = _max_err(
+                BL.local_forward_cuda(*args, prm), want)
+            if err:
+                emit({"phase": "times", "case": name, "FAIL": err})
+                raise AssertionError(f"the local kernel differs on {name}")
+        row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+        cells = int((ql.astype(np.int64) * tl).sum())
+        nbytes = int(ql.sum() + tl.sum()) + len(ql) * (8 + 12)
+        row["cells"] = cells
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            "batch_local_fwd", cells, nbytes, int_rate)
+        row["fwd_gcells_per_s"] = cells / row["fwd_ms"] / 1e6
+        out[name] = row
+        del args
+    return out
+
+
+def run_module(argv, timeout=600):
+    """``python -m`` a module of the port in a child process from the
+    checkout's root: (exit code, stdout, stderr, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *argv], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    return p.returncode, p.stdout, p.stderr, time.perf_counter() - t0
+
+
+def phase_operations():
+    """The deployment steps in child processes: ``python -m
+    ksw2_tpu_torch.precompile --quick`` must exit 0 and print the
+    km_stat report with kernel 18 among its launches; one small ``python
+    -m ksw2_tpu_torch.cli --stats`` run must print its alignment and, on
+    stderr, non-zero launches and the card's allocator counters."""
+    rc, _, err, secs = run_module(["ksw2_tpu_torch.precompile", "--quick"])
+    report = [ln for ln in err.splitlines() if ln.startswith(
+        ("[ksw2_tpu_torch]", "  batch_local_fwd", "  device:", "warmed"))]
+    pre = {"rc": rc, "seconds": secs, "report": report}
+    t, q = random_pair(np.random.default_rng(786), 300, divergence=0.1)
+    rc2, out2, err2, secs2 = run_module(
+        ["ksw2_tpu_torch.cli", "--stats", "-t", "extz2_sse", t, q])
+    launches = [ln for ln in err2.splitlines()
+                if ln.startswith("[ksw2_tpu_torch] kernel launches")]
+    cli = {"rc": rc2, "seconds": secs2, "tsv": out2.strip(),
+           "report": err2.strip().splitlines()}
+    emit({"phase": "operations", "precompile": pre, "cli_stats": cli})
+    if rc or not any(ln.startswith("  batch_local_fwd") for ln in report) \
+            or "allocated_bytes.all.peak" not in err:
+        raise AssertionError(f"precompile failed ({rc}):\n{err[-4000:]}")
+    if rc2 or not out2.startswith("first\tsecond") or not launches or \
+            launches[0].split(": ")[1].startswith("0 ") or \
+            "allocated_bytes.all.current" not in err2:
+        raise AssertionError(f"cli --stats failed ({rc2}):\n{err2[-4000:]}")
+    return pre, cli
+
+
 def lg_work(pairs, w, rec=None, store=False):
     """(cells, bytes) of one linear-gap or global forward on this run's
     data: the true band cells of the diagonals each pair computed (an
@@ -2144,6 +2392,42 @@ def lg_paths(jobs, single, mt, kernels):
          *only("batch_extf_fwd", "batch_gg2_fwd", "extf_fwd", "gg2_fwd",
                "band_walk")),
     ]
+
+
+@functools.lru_cache(maxsize=1)
+def local_sets():
+    """name -> (query, target, qlen, tlen) of the local paths: the JAX
+    bench's set, the same tiled LOCAL_TILES times, and local-mixed."""
+    l512 = local_512_jobs()
+    tiles = [(LOCAL_TILES,) + (1,) * (a.ndim - 1) for a in l512]
+    return {"local_512": l512,
+            "local_64k": tuple(np.tile(a, k) for a, k in zip(l512, tiles)),
+            "local_mixed": local_mixed_jobs()}
+
+
+def local_paths(kernels):
+    """The main paths of batched local alignment (kernel 18) through
+    ``local_batch_device`` at A2 B4 q4 e2: the JAX bench's local set
+    (its anchor), the set tiled LOCAL_TILES times (the anchor times
+    LOCAL_TILES) and local-mixed (its pin); each launches kernel 18 and
+    nothing else of ``kernels``."""
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.batch_local import local_batch_device
+
+    a, b, q, e = LOCAL_COSTS
+    mat = simple_mat(5, a, -b)
+    pins = {"local_512": LOCAL_ANCHOR,
+            "local_64k": tuple(LOCAL_TILES * v for v in LOCAL_ANCHOR),
+            "local_mixed": LOCAL_MIXED_PIN}
+    out = []
+    for name, (Q, T, ql, tl) in local_sets().items():
+        out.append((name, [
+            run(name, lambda Q=Q, T=T, ql=ql, tl=tl: local_batch_device(
+                Q, T, ql, tl, 5, mat, q, e), range(len(ql)),
+                list(pins[name]), local_pin,
+                cells=int((ql.astype(np.int64) * tl).sum()))],
+            ("batch_local_fwd",), tuple(kernels)))
+    return out
 
 
 def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
@@ -2460,6 +2744,10 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     paths = [(path, spec, needs, tuple(never) + lg_kernels)
              for path, spec, needs, never in paths]
     paths += lg_paths(jobs, single, mt, kernels + lg_kernels)
+    # the local paths; no earlier path launches kernel 18
+    paths = [(path, spec, needs, tuple(never) + ("batch_local_fwd",))
+             for path, spec, needs, never in paths]
+    paths += local_paths(kernels + lg_kernels)
     counts = {}
     runs = {}
     results = {}
@@ -2523,10 +2811,13 @@ def phase_profile(long, sb, spl, jobs, mt):
     CLI runs (torch.profiler), beside the run's host wall and the
     device's idle share of it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.batch_local import local_batch_device
 
     runs = []
     for name, aln, pairs in (
@@ -2557,6 +2848,11 @@ def phase_profile(long, sb, spl, jobs, mt):
     runs.append(("single_gg2_mt", lambda: glob.global_align(*mt)))
     files = cli_files(jobs)
     runs += [(name, cli_lines(name, files)) for name in CLI_BATCH_ARGS]
+    a, b, q, e = LOCAL_COSTS
+    lmat = simple_mat(5, a, -b)
+    l64k = local_sets()["local_64k"]
+    runs.append(("local_64k", lambda: local_batch_device(*l64k, 5, lmat, q,
+                                                         e)))
     out = {}
     for name, fn in runs:
         fn()
@@ -2567,12 +2863,19 @@ def phase_profile(long, sb, spl, jobs, mt):
             fn()
             wall = time.perf_counter() - t0
         rows = {}
+        busy = 0.0
         for ev in prof.key_averages():
             dev = getattr(ev, "self_device_time_total",
                           getattr(ev, "self_cuda_time_total", 0))
             if dev > 0:
                 rows[ev.key[:60]] = round(dev / 1e3, 3)
-        busy = sum(rows.values())
+                # busy time is the card's own activities (kernels, copies,
+                # fills): an operator's device time (aten::copy_) repeats
+                # its copy's, and the profiler's buffer requests are its
+                # own overhead
+                if ev.device_type == DeviceType.CUDA and \
+                        not ev.key.startswith("Activity Buffer"):
+                    busy += dev / 1e3
         out[name] = {"wall_ms": wall * 1e3,
                      "device_ms_by_name": dict(sorted(
                          rows.items(), key=lambda kv: -kv[1])[:8]),
@@ -3095,6 +3398,7 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
     out.update(single_times(single, sb, int_rate))
     out.update(single2_times(single, sb, spl, slong, int_rate))
     out.update(linear_global_times(lcases, single, mt, jobs, int_rate))
+    out.update(local_times(int_rate))
     emit({"phase": "times", "cases": out})
     return out
 
@@ -3123,6 +3427,7 @@ def main() -> int:
     int_rate = phase_device()
     torch.manual_seed(0)
     timed("build", phase_build)
+    timed("operations", phase_operations)
     spl = splice_jobs()
     scases = splice_cases(spl)
     err_spl = timed("splice", phase_splice, scases)
@@ -3141,6 +3446,7 @@ def main() -> int:
     err_single2 = timed("single2", phase_single2, single2_cases(sb, spl))
     lcases = lg_cases(jobs)
     err_lg = timed("linear_global", phase_linear_global, lcases)
+    err_local = timed("local", phase_local)
     single = single_pair(SINGLE_SEED, SINGLE_LEN)
     mt = single_pair(MT_SEED, MT_LEN)
     slong = splice_long_jobs()
@@ -3199,6 +3505,10 @@ def main() -> int:
                 err_lg["extf_fwd"], times["cli64_extf_single"], "fwd"),
         _kernel("gg2_fwd", GG2_SRC, GG2_REPLACES, counts["gg2_fwd"],
                 err_lg["gg2_fwd"], times["cli64_gg2_single"], "fwd"),
+        _kernel("batch_local_fwd", LOCAL_SRC, LOCAL_REPLACES,
+                counts["batch_local_fwd"],
+                max(err_local, times["local_64k"]["max_abs_err"]),
+                times["local_64k"], "fwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

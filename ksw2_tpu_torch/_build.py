@@ -81,6 +81,8 @@ _SIGNATURES = {
     # scratch, score, p, stream
     "ksw2t_gg2_fwd": [_P] * 7 + [_I] * 6 + [ctypes.c_longlong, _I]
     + [_P] * 4,
+    # qs, ts, qlen, tlen, B, Lq, Lt, m, mch, mis, scN, q, e, res, stream
+    "ksw2t_batch_local_fwd": [_P] * 4 + [_I] * 9 + [_P] * 2,
 }
 
 

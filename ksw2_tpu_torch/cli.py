@@ -16,6 +16,8 @@ and TSV output as the reference CLI (``cli.c:159-259``).  Extensions:
   and raises without a card; ``cpu`` runs their plain PyTorch versions.
 * exts2 CIGARs print intron ops as ``N`` and use the JAX CLI's fixed A1
   B2 costs (``ksw2_tpu/cli.py:106, 193``).
+* ``--stats`` prints the km_stat-style report
+  (:mod:`ksw2_tpu_torch.utils.stats`) to stderr when the run ends.
 * ``gg``, ``gg2``, ``extz`` and ``extd`` (the non-SSE algorithms) have no
   kernel: they run the port's copies of the NumPy spec engines on every
   backend and device, as the JAX CLI does on every backend.
@@ -244,16 +246,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="the CUDA kernels or their plain PyTorch "
                          "versions [cuda]")
     ap.add_argument("--stats", action="store_true",
-                    help="print the km_stat-style engine report to stderr")
+                    help="print the km_stat-style report (library, kernel "
+                         "launches, the card's allocator) to stderr")
     ap.add_argument("target", help="target FASTA/FASTQ (or literal "
                                    "sequence)")
     ap.add_argument("query", help="query FASTA/FASTQ (or literal sequence)")
     args = ap.parse_args(argv)
+    try:
+        return _run(args)
+    finally:
+        if args.stats:
+            # like km_stat's end-of-run stderr report (kalloc.c:191-214),
+            # on every exit path
+            from .utils.stats import print_stats
+            print_stats()
 
-    if args.stats:
-        raise NotImplementedError(
-            "--stats: the km_stat report on torch.cuda.memory_stats "
-            "(ROADMAP item 16)")
+
+def _run(args) -> int:
+    """One CLI run of the parsed ``args``."""
     device = resolve_device(args.device)
     q, q2 = _two(args.gapo)
     e, e2 = _two(args.gape)

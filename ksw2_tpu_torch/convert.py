@@ -3,8 +3,8 @@
 The port has no weights: what carries across is the scoring
 configuration of an ``Aligner``, the parameters of a prepared strips
 launch, the single-pair engines' forward (one-piece, two-piece,
-splice) and walk parameters, and the linear-gap and global engines'
-launch parameters.  Both
+splice) and walk parameters, and the linear-gap, global and local
+engines' launch parameters.  Both
 sides are plain values here (the port never imports the JAX package): a
 caller reads the attributes of a ``ksw2_tpu.Aligner`` or a parameter
 tuple's ``_asdict()`` into a dict and passes it in.
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .api import Aligner
+from .ops.batch_local import LocalParams
 from .ops.extd import ExtdParams
 from .ops.exts import ExtsPairParams
 from .ops.extz_fwd import ExtzParams
@@ -96,7 +97,15 @@ def launch_values_from_jax(d: dict) -> dict:
     return out
 
 
+def local_params_from_jax(d: dict) -> LocalParams:
+    """The port's launch values of the local kernel (kernel 18) for a
+    ``ksw2_tpu.ops.batch_local.LocalParams._asdict()``: the TPU layout
+    fields (``n_rows``, ``n_diag``) have no counterpart."""
+    return LocalParams(**launch_values_from_jax(d))
+
+
 __all__ = ["aligner_from_jax", "launch_values_from_jax",
+           "local_params_from_jax",
            "strip_params_from_jax", "extz_params_from_jax",
            "extd_params_from_jax", "exts_params_from_jax",
            "tb_params_from_jax"]

@@ -8,8 +8,8 @@ engines other files hold to the whole corpus, run through
 ``expect`` (``fields_only`` as ``tests/test_spec_parity.py:29`` applies
 it); ``--backend batch`` prints ``--backend pair``'s TSV and the JAX
 CLI's ``--backend spec`` TSV on a seeded FASTA file, as
-``tests/test_cli.py:104`` holds the JAX CLI; ``--stats`` and a missing
-card raise.  Every comparison is exact.
+``tests/test_cli.py:104`` holds the JAX CLI; ``--stats`` prints its
+report and a missing card raises.  Every comparison is exact.
 """
 import contextlib
 import io
@@ -122,11 +122,14 @@ def test_batch_backend_matches_pair_and_jax(fasta, algo, extra):
     assert len(pair.splitlines()) == 10
 
 
-def test_stats_and_missing_card_raise():
-    """``--stats`` names ROADMAP item 16; ``--device cuda`` without a card
-    raises rather than running on the CPU."""
-    with pytest.raises(NotImplementedError, match="item 16"):
-        cli.main(["--stats", "--device", "cpu", "ACGT", "ACGT"])
+def test_stats_and_missing_card_raise(capsys):
+    """``--stats`` prints the alignment and then the km_stat report to
+    stderr; ``--device cuda`` without a card raises rather than running
+    on the CPU."""
+    assert cli.main(["--stats", "--device", "cpu", "ACGT", "ACGT"]) == 0
+    out, err = capsys.readouterr()
+    assert out.startswith("first\tsecond\t")
+    assert "[ksw2_tpu_torch] kernel launches:" in err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(["-t", "gg2_sse", "ACGT", "ACGT"])

@@ -735,3 +735,23 @@ def test_global_align_and_linear_gap_on_card_match_cpu(cuda_device):
         x = extf2_device(q, t, 2, 4, 2, xdrop=30)
         y = extf2_device(q, t, 2, 4, 2, xdrop=30, device="cpu")
         assert x.tsv_fields() == y.tsv_fields()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", ["simple", "generic"])
+def test_local_kernel_matches_plain(cuda_device, mat):
+    """Kernel 18 (one warp a pair) gives the plain version's (score, te,
+    qe) exactly on the JAX bench's local set, the first 1024 local-mixed
+    pairs and the edge pairs, on a simple and a generic matrix."""
+    from chip_smoke import local_512_jobs, local_edge_jobs, local_mixed_jobs
+    from ksw2_tpu_torch.ops import batch_local as BL
+    prm = BL.local_params(5, MAT if mat == "simple" else GEN, 4, 2)
+    for Q, T, ql, tl in (local_512_jobs(), local_mixed_jobs(n=1024),
+                         local_edge_jobs()):
+        args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(cuda_device)
+                for a, dt in ((Q, np.uint8), (T, np.uint8), (ql, np.int32),
+                              (tl, np.int32))]
+        got = BL.local_forward_cuda(*args, prm)
+        want = BL.local_forward_plain(*args, prm)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
