@@ -42,14 +42,18 @@ Phases, each printing one JSON line:
    pairs of 30-900 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
    tracks) and on the one launch of each form the scheduler makes of the
    splice workload (below);
-5e. single: kernel 12 (single-pair forward, tiles of 128 positions:
-   pairs of 30-1500 bp over 1-12 tiles; score, CIG and APPROX forms,
+5e. single: kernel 12 (single-pair forward, tiles of 32 positions:
+   pairs of 30-1500 bp over 1-48 tiles; score, CIG and APPROX forms,
    w -1, 0, 1, 16, 751 and 2000, zdrop -1/100, RIGHT, GENERIC_SC,
-   EXTZ_ONLY with end_bonus) against its plain version, records, stops
-   and direction bytes exactly, and kernel 17 (single-pair walker) on
-   its bytes (upper_force 1 and 0, min_intron 0 and 5), also on the
-   launches the scheduler makes of the sr-extension workload (below);
-5f. single2: kernels 13 and 14, and 17 on their bytes;
+   EXTZ_ONLY with end_bonus; the hand-off pairs at tiles of 32 and 64
+   positions: diagonals ending on a hand-off group and one past it, targets
+   shorter than a tile, tiles starting mid-group, the H0 walk across
+   tiles) against its plain version, records, stops and direction bytes
+   exactly, and kernel 17 (single-pair walker) on its bytes
+   (upper_force 1 and 0, min_intron 0 and 5), also on the launch the
+   scheduler makes of the sr-extension workload (below);
+5f. single2: kernels 13 and 14, and 17 on their bytes, the hand-off
+   pairs too, and kernel 14 on one launch of mixed lengths;
 5g. linear_global: kernels 7 and 15 (batched and single-pair extf)
    against their plain version's records, kernels 8 and 16 (batched and
    single-pair gg2) against theirs (without and with the reference's
@@ -88,9 +92,13 @@ Phases, each printing one JSON line:
    ``extend_batch`` (scores, the any-device route), a seeded pair of the
    MT length (seed 782, 16,569 bp; CIGAR and EXTZ_ONLY CIGAR at -z100)
    and sr-extension: the short-banded workload as EXTZ_ONLY CIGARs at
-   -w100 -z100 --end-bonus 10 (minimap2 -x sr's extension call), one
-   launch of each kernel a bucket; the paths of kernels 13 and 14
-   (single_extd, sr_extension_extd, splice_ends, splice_long); and the
+   -w100 -z100 --end-bonus 10 (minimap2 -x sr's extension call); the
+   paths of kernels 13 and 14 (single_extd, sr_extension_extd,
+   splice_ends, splice_long); the single-pair paths launch each kernel
+   once for each ``LAUNCH_BYTES`` of a batch's buffers, whatever its
+   buckets (asserted for sr_extension(_extd), splice_ends and
+   splice_long: one score launch a batch, CIGARs in
+   ceil(bytes / LAUNCH_BYTES)); and the
    paths of kernels 7, 8, 15 and 16 (pins ``LG_PINS``, only those four
    and band_walk may launch): "single_extf" (the 50 kb pair through
    ``extf2_device`` at A2 B4 E2, xdrop -1), "single_gg2_mt" (the MT pair
@@ -107,8 +115,9 @@ Phases, each printing one JSON line:
    against the port's plain CPU route;
 7. times: every kernel and its plain version at main-path shapes (CUDA
    events; the batched kernels on the main path's own launches of the
-   short-banded workload, kernels 12 and 17 on the 50 kb pair and on
-   the sr-extension launches) beside its bound, the main paths' walls
+   short-banded workload, kernels 12 and 17 on the 50 kb pair, the MT
+   pair and the sr-extension launch, with microseconds a diagonal on the
+   long pairs) beside its bound, the main paths' walls
    and Gcells/s (band cells on the band and batched routes), kernel 18
    on each local set beside its bound and plain time (held to the plain
    version exactly on local-64k, which phase 5h leaves out), and a
@@ -1511,12 +1520,13 @@ def sr_launches(sb):
 
 def single_cases(sb):
     """(name, launch, end_bonus) cases for kernels 12 and 17: seeded
-    launches of few pairs, so tiles of 128 positions (pairs of 30-1500 bp over 1-12
-    tiles; N bases; the 900 bp pair diverges after 450 bp, so z100 stops
-    it mid-matrix) with w -1, 0, 1, 16, 751 and 2000, zdrop -1 / 100, in
-    score, CIG and APPROX forms, RIGHT, GENERIC_SC and EXTZ_ONLY with
-    end_bonus; and the launches the main path makes of the sr-extension
-    workload (the scheduler's own tile).  About 15,000 diagonals of the
+    launches of few pairs, so tiles of 32 positions (pairs of 30-1500 bp
+    over 1-48 tiles; N bases; the 900 bp pair diverges after 450 bp, so
+    z100 stops it mid-matrix) with w -1, 0, 1, 16, 751 and 2000, zdrop -1
+    / 100, in score, CIG and APPROX forms, RIGHT, GENERIC_SC and EXTZ_ONLY
+    with end_bonus; the hand-off pairs (:func:`handoff_pairs`) at each
+    tile width; and the launch the main path makes of the sr-extension
+    workload (the scheduler's own tile).  About 25,000 diagonals of the
     plain forward in all."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import encode_dna
@@ -1545,9 +1555,47 @@ def single_cases(sb):
              for name, flag, z, w, eb in forms]
     cases.append(("long1500_cig_zm1",
                   extz_launch(long1, [-1], Flag.NONE, -1), 0))
+    # the hand-off: diagonals that end on a group and one past it (rlim
+    # 832 = 26 x 32 and 833), targets shorter than a tile, tiles
+    # that start mid-group in a band, the H0 walk across 32-position
+    # tiles, at each tile width
+    hand = handoff_pairs(rng)
+    for name, flag, z, w, tp in (
+            ("cig_zm1_tp32", Flag.NONE, -1, [-1, -1, -1, -1, 60], 32),
+            ("score_z100_tp64", Flag.SCORE_ONLY, 100, [-1, 100, -1, 0, 16],
+             64),
+            ("banded_cig_tp32", Flag.NONE, 100, [16, 1, 40, 10, 100], 32),
+            ("approxdrop_cig_tp32", approx, 100, [-1, 16, -1, -1, 100], 32),
+            ("approx_cig_tp64", Flag.APPROX_MAX, -1, [-1, -1, 8, -1, -1],
+             64)):
+        cases.append((f"handoff_{name}",
+                      at_tp(extz_launch(hand, w, flag, z), tp), 0))
     cases += [(f"sr_launch{k}", ln, END_BONUS)
               for k, ln in enumerate(sr_launches(sb))]
     return cases
+
+
+def at_tp(ln, tp):
+    """The launch ``ln`` laid out for tiles of ``tp`` positions."""
+    from ksw2_tpu_torch.ops.extz_fwd import make_layout
+
+    return ln._replace(lay=make_layout(ln.qlen, ln.tlen, ln.w, tp,
+                                       ln.prm.cig))
+
+
+def handoff_pairs(rng):
+    """Pairs that stress the single-pair forward's hand-off every
+    ``extz_fwd.KD`` diagonals (32): a pair whose diagonals end exactly on a
+    group and one past it, targets shorter than a tile, and a long banded
+    pair whose tiles start mid-group."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    out = []
+    for L, qn in ((400, 433), (400, 434), (20, 24), (90, 60), (640, 600)):
+        t, q = random_pair(rng, L, divergence=0.12, indel=0.05)
+        q = np.resize(encode_dna(q), qn)
+        out.append((q, encode_dna(t)))
+    return out
 
 
 def _store_err(kp, pp, ln, stop) -> int:
@@ -1718,16 +1766,18 @@ def _first(ln, n):
 
 def single2_cases(sb, spl):
     """(name, kind, launch, end_bonus) cases for kernels 13 ("extd") and
-    14 ("exts"): seeded launches of few pairs, so tiles of 128 positions
-    (pairs of 30-1500 bp over 1-12 tiles; N bases; the 900 bp pair
+    14 ("exts"): seeded launches of few pairs, so tiles of 32 positions
+    (pairs of 30-1500 bp over 1-48 tiles; N bases; the 900 bp pair
     diverges after 450 bp, so z100 stops it mid-matrix) in score, CIG and
     APPROX forms; kernel 13 with w -1, 0, 1, 16 and 751, zdrop -1 / 100,
     RIGHT, GENERIC_SC, EXTZ_ONLY with end_bonus, default and swapped
     costs; kernel 14 with SPLICE_FOR / SPLICE_REV, FLANK, junction tracks
-    (junc_bonus 9), GENERIC_SC, EXTZ_ONLY and RIGHT|REV_CIGAR; and the
-    first 256 pairs of the launches the main path makes of
-    sr-extension-extd and splice-ends.  No plain version runs on a pair
-    over 1500 bp."""
+    (junc_bonus 9), GENERIC_SC, EXTZ_ONLY and RIGHT|REV_CIGAR; both on
+    hand-off pairs at each tile width (:func:`handoff_pairs`; spliced
+    pairs of 25-1100 bp); kernel 14 on one launch of mixed lengths (16
+    annotated 2 kb pairs with 64 unannotated 512 bp ones); and the first
+    256 pairs of the launches the main path makes of sr-extension-extd
+    and splice-ends.  No plain version runs on a pair over 2 kb."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import encode_dna
 
@@ -1758,6 +1808,18 @@ def single2_cases(sb, spl):
                       extd_launch(mix, w, flag, z, costs), eb))
     cases.append(("extd_long1500_cig_zm1", "extd",
                   extd_launch(long1, [-1], Flag.NONE, -1), 0))
+    # the hand-off pairs at each tile width (see single_cases)
+    hand = handoff_pairs(rng)
+    for name, flag, z, w, costs, tp in (
+            ("cig_zm1_tp32", Flag.NONE, -1, [-1, -1, -1, -1, 60], EXTD, 32),
+            ("approxdrop_cig_tp32", approx, 100, [-1, 16, -1, -1, 100],
+             SWAPPED, 32),
+            ("score_z100_tp64", SO | X, 100, [-1, 100, -1, 0, 16], EXTD,
+             64),
+            ("banded_cig_tp64", X, 100, [16, 1, 40, 10, 100], SWAPPED, 64)):
+        cases.append((f"extd_handoff_{name}", "extd",
+                      at_tp(extd_launch(hand, w, flag, z, costs), tp),
+                      END_BONUS))
     sr = sr_extd_launches(sb, Flag.EXTZ_ONLY)
     cases.append(("sr_extd_256", "extd", _first(sr[0], 256), END_BONUS))
 
@@ -1788,6 +1850,21 @@ def single2_cases(sb, spl):
         cases.append((f"exts_{name}", "exts",
                       exts_launch(pairs, flag, z, tr,
                                   SPLICE_JUNC_BONUS if junc else 0), 0))
+    hand = [spliced_pair(rng, L) for L in (25, 90, 433, 1100)]
+    for name, flag, z, tp in (("approxdrop_cig_tp32", SPL | approx, 100, 32),
+                              ("cig_z200_tp64", SPL, 200, 64),
+                              ("score_zm1_tp32", SPL | SO, -1, 32)):
+        cases.append((f"exts_handoff_{name}", "exts",
+                      at_tp(exts_launch(hand, flag, z), tp), 0))
+    # one launch of mixed lengths, as the scheduler merges a batch's
+    # buckets: splice-long's first pairs cut to 2 kb, annotated, with the
+    # splice workload's first 64 pairs of 512 bp, unannotated
+    lp, lj = splice_long_jobs()
+    cp, cj = cut_jobs(lp[:SPLICE_LONG_PREFIX], lj[:SPLICE_LONG_PREFIX],
+                      SPLICE_LONG_CUT)
+    cases.append(("exts_merged_2kb_and_512", "exts",
+                  exts_launch(cp + spl[:64], SPL, SPLICE_ZDROP,
+                              cj + [None] * 64, SPLICE_JUNC_BONUS), 0))
     ends = splice_single_launches(spl * SPLICE_TILES, SPL | X)
     cases.append(("splice_ends_256", "exts", _first(ends[0], 256), 0))
     return cases
@@ -2430,9 +2507,45 @@ def local_paths(kernels):
     return out
 
 
+def single_launch_plan(sb, spl4, slong):
+    """The single-pair launches a batch of each path makes, by kernel, as
+    the scheduler plans them (host only): every bucket of a batch that
+    the route table sends to the single-pair engine in one set of
+    launches, split only by ``ops.strips.LAUNCH_BYTES``.  Splice-long's
+    scores are one launch a batch and its CIGARs ceil(bytes /
+    LAUNCH_BYTES), the bytes its launches' device buffers (store,
+    boundary history, per-diagonal records); asserted here."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import strips
+
+    X, SO, SPL = Flag.EXTZ_ONLY, Flag.SCORE_ONLY, Flag.SPLICE_FOR
+    sr = len(sr_launches(sb))
+    sr2 = (len(sr_extd_launches(sb, X)), len(sr_extd_launches(sb, X | SO)))
+    ends = sum(len(splice_single_launches(spl4, SPL | X | f))
+               for f in (Flag.NONE, Flag.RIGHT | Flag.REV_CIGAR))
+    lpairs, ljuncs = slong
+    lcig = splice_single_launches(lpairs, SPL, ljuncs, SPLICE_JUNC_BONUS)
+    lscore = splice_single_launches(lpairs, SPL | SO, ljuncs,
+                                    SPLICE_JUNC_BONUS)
+    cpairs, cjuncs = cut_jobs(lpairs[:SPLICE_LONG_PREFIX],
+                              ljuncs[:SPLICE_LONG_PREFIX], SPLICE_LONG_CUT)
+    lcut = splice_single_launches(cpairs, SPL, cjuncs, SPLICE_JUNC_BONUS)
+    nbytes = sum(ln.lay.device_bytes() for ln in lcig)
+    if len(lscore) != 1 or \
+            len(lcig) != -(-nbytes // strips.LAUNCH_BYTES):
+        raise AssertionError(f"splice_long: {len(lscore)} score and "
+                             f"{len(lcig)} CIGAR launches for {nbytes} "
+                             "bytes")
+    return {"sr_extension": {"extz_fwd": sr, "extz_walk": sr},
+            "sr_extension_extd": {"extd_fwd": sum(sr2),
+                                  "extz_walk": sr2[0]},
+            "splice_ends": {"exts_fwd": ends, "extz_walk": ends},
+            "splice_long": {"exts_fwd": len(lcig) + len(lscore) + len(lcut),
+                            "extz_walk": len(lcig) + len(lcut)}}
+
+
 def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     from ksw2_tpu_torch import Aligner
-    from ksw2_tpu_torch.batch import scheduler as sched
     from ksw2_tpu_torch.core.flags import Flag
 
     whale = [p for p in jobs if len(p[1]) > 2048]
@@ -2748,6 +2861,8 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     paths = [(path, spec, needs, tuple(never) + ("batch_local_fwd",))
              for path, spec, needs, never in paths]
     paths += local_paths(kernels + lg_kernels)
+    plan = single_launch_plan(sb, spl4, slong)
+    emit({"phase": "launch_plan", "per_batch": plan})
     counts = {}
     runs = {}
     results = {}
@@ -2757,17 +2872,15 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
             counts[k] = counts.get(k, 0) + v
         runs[path] = r
         results.update(res)
-        # one launch of each kernel a bucket, in each of a run's 5
-        # batches (the first, 3 timed, the submit/wait one)
-        n = len({sched._bucket_key(len(a), len(b)) for a, b in sb})
-        if path == "sr_extension" and \
-                not c["extz_fwd"] == c["extz_walk"] == 5 * n:
-            raise AssertionError(f"sr_extension: {c} launches for "
-                                 f"{n} buckets in 5 batches")
-        if path == "sr_extension_extd" and \
-                not (c["extd_fwd"] == 10 * n and c["extz_walk"] == 5 * n):
-            raise AssertionError(f"sr_extension_extd: {c} launches for "
-                                 f"{n} buckets in 2 runs of 5 batches")
+        # each run's 5 batches (the first, 3 timed, the submit/wait one)
+        # launch each kernel once for each LAUNCH_BYTES of the batch's
+        # single-pair buffers, whatever their buckets
+        if path in plan:
+            want = {k: 5 * v for k, v in plan[path].items()}
+            got = {k: c.get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"{path}: {got} launches, planned "
+                                     f"{want}")
 
     # sampled pairs against the port's plain CPU route (which the CPU
     # test suite holds against the JAX package and the NumPy spec)
@@ -3065,13 +3178,15 @@ def extz_work(ln, stop, cig, sites=False):
     return cells, nbytes
 
 
-def single_times(single, sb, int_rate):
+def single_times(single, mt, sb, int_rate):
     """Kernels 12 and 17 at the main path's shapes: the 50 kb pair's one
-    launch in each form (score, -sg, CIG; walker on the CIG bytes) and
-    the launches the scheduler makes of the sr-extension workload, timed
-    together as the path runs them, beside their bounds; the plain
-    versions' times on the sr-extension launches come from phase 5e (on
-    the 50 kb pair the plain forward would take minutes)."""
+    launch in each form (score, -sg, CIG; walker on the CIG bytes), the
+    MT pair's (CIG and EXTZ_ONLY CIG at -z100, as ``Aligner.extend`` makes
+    them) and the launches the scheduler makes of the sr-extension
+    workload, timed together as the path runs them, beside their bounds,
+    with microseconds a diagonal on the long pairs; the plain versions'
+    times on the sr-extension launches come from phase 5e (on the long
+    pairs the plain forward would take minutes)."""
     import torch
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.ops import band as BD
@@ -3089,6 +3204,9 @@ def single_times(single, sb, int_rate):
              0, 3),
             ("single50k_cig", [extz_launch([single], [-1], Flag.NONE, -1)],
              0, 2),
+            ("mt_cig", [extz_launch([mt], [-1], Flag.NONE, 100)], 0, 3),
+            ("mt_extz_cig", [extz_launch([mt], [-1], Flag.EXTZ_ONLY, 100)],
+             END_BONUS, 3),
             ("sr_extz_cig", sr_launches(sb), END_BONUS, 5)):
         args = [BD.band_upload(ln, "cuda") for ln in lns]
         cig = bool(lns[0].prm.cig)
@@ -3110,6 +3228,8 @@ def single_times(single, sb, int_rate):
             "extz_fwd", row["computed_cells"], sum(b for _, b in work),
             int_rate, cig)
         row["fwd_gcells_per_s"] = row["computed_cells"] / row["fwd_ms"] / 1e6
+        if not name.startswith("sr"):
+            row["us_per_diag"] = row["fwd_ms"] * 1e3 / int(lns[0].lay.rlim[0])
         if name.startswith("sr"):
             row["fwd_plain_ms"] = sum(PLAIN_MS[(f"sr_launch{k}", "fwd")]
                                       for k in range(len(lns)))
@@ -3201,6 +3321,8 @@ def single2_times(single, sb, spl, slong, int_rate):
             f"{kind}_fwd", row["computed_cells"], sum(b for _, b in work),
             int_rate, cig)
         row["fwd_gcells_per_s"] = row["computed_cells"] / row["fwd_ms"] / 1e6
+        if name.startswith("single50k"):
+            row["us_per_diag"] = row["fwd_ms"] * 1e3 / int(lns[0].lay.rlim[0])
         if name.endswith("_256"):
             row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
         if cig:
@@ -3395,7 +3517,7 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
         out[name] = row
         torch.cuda.empty_cache()
     out.update(splice_times(scases, int_rate))
-    out.update(single_times(single, sb, int_rate))
+    out.update(single_times(single, mt, sb, int_rate))
     out.update(single2_times(single, sb, spl, slong, int_rate))
     out.update(linear_global_times(lcases, single, mt, jobs, int_rate))
     out.update(local_times(int_rate))
@@ -3409,6 +3531,159 @@ def _kernel(name, src, replaces, launches, err, row, prefix):
             "ms": row[f"{prefix}_ms"], "plain_ms": row[f"{prefix}_plain_ms"],
             "bound_ms": row[f"{prefix}_bound_ms"],
             "bound_by": row[f"{prefix}_bound_by"], "library_ms": None}
+
+
+# ``--breakdown``: where a tile-diagonal of kernels 12-14 spends its
+# cycles.  A copy of csrc/extz_fwd.cu with clock64 stamps around its parts
+# (each anchor below must occur once in the source) is built on its own
+# into build/diag_breakdown/ and launched through the wrappers in place
+# of the library's kernel; the package never uses the copy.
+BREAKDOWN_PARTS = ("wait", "group_loads", "chunks", "diag_tail", "release",
+                   "fold_atomics", "total", "diags", "first_wait")
+BREAKDOWN_STAMPS = (
+    ("constexpr unsigned FULL = 0xffffffffu;\n",
+     "constexpr unsigned FULL = 0xffffffffu;\n"
+     "__device__ unsigned long long g_prof[16];\n"),
+    ("  for (int r_lo = rA; r_lo <= rB;) {\n",
+     "  long long P[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  const long long tT = clock64();\n  bool firstg = true;\n"
+     "  long long tq;\n  for (int r_lo = rA; r_lo <= rB;) {\n"
+     "    tq = clock64();\n"),
+    ("        seen = __shfl_sync(FULL, pv, 0);\n      }\n",
+     "        seen = __shfl_sync(FULL, pv, 0);\n      }\n"
+     "      P[firstg ? 8 : 0] += clock64() - tq;\n      tq = clock64();\n"),
+    ("    // unrolled: a diagonal's loads and score bytes overlap the chain of\n",
+     "    P[1] += clock64() - tq;\n    firstg = false;\n"
+     "    // unrolled: a diagonal's loads and score bytes overlap the chain of\n"),
+    ("      const int r = r_lo + rr;\n      const int4 dg = sdiag[rr];\n",
+     "      long long td = clock64();\n      const int r = r_lo + rr;\n"
+     "      const int4 dg = sdiag[rr];\n"),
+    ("      if (!APPROX) skey[rr][lane] = best;\n",
+     "      P[2] += clock64() - td;\n      td = clock64();\n"
+     "      if (!APPROX) skey[rr][lane] = best;\n"),
+    ("                              H[NC - 1]);\n    }\n",
+     "                              H[NC - 1]);\n"
+     "      P[3] += clock64() - td;\n      P[7] += 1;\n    }\n"),
+    ("    // the group's hand-off: its edge entries, one release, then the\n",
+     "    tq = clock64();\n"
+     "    // the group's hand-off: its edge entries, one release, then the\n"),
+    ("      if (lane == 0) st_release(A.progress + g, r_hi);\n    }\n",
+     "      if (lane == 0) st_release(A.progress + g, r_hi);\n    }\n"
+     "    __syncwarp();\n    P[4] += clock64() - tq;\n    tq = clock64();\n"),
+    ("    __syncwarp();\n    r_lo = r_hi + 1;\n  }\n}\n",
+     "    __syncwarp();\n    P[5] += clock64() - tq;\n    r_lo = r_hi + 1;\n"
+     "  }\n  P[6] = clock64() - tT;\n  if (lane == 0)\n"
+     "    for (int i = 0; i < 10; ++i)\n"
+     "      atomicAdd(&g_prof[i], (unsigned long long)P[i]);\n}\n"),
+)
+BREAKDOWN_READ = """
+extern "C" int ksw2t_prof_read(void* out) {
+  cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  unsigned long long z[16] = {0};
+  cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+  return (int)cudaGetLastError();
+}
+extern "C" const char* ksw2t_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+"""
+
+
+def breakdown_library():
+    """Build the stamped copy of extz_fwd.cu; returns it loaded, with the
+    entry points' argument types set."""
+    import ctypes
+
+    from ksw2_tpu_torch import _build
+
+    src = (_build.CSRC / "extz_fwd.cu").read_text()
+    for anchor, stamped in BREAKDOWN_STAMPS:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"breakdown: anchor not found once: "
+                               f"{anchor!r}")
+        src = src.replace(anchor, stamped)
+    out = _build.BUILD_DIR.parent / "diag_breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "extz_fwd_stamped.cu").write_text(src + BREAKDOWN_READ)
+    lib_path = out / "libextz_fwd_stamped.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                    str(_build.CSRC), str(out / "extz_fwd_stamped.cu"), "-o",
+                    str(lib_path)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.ksw2t_extz_fwd.argtypes = _build._SIGNATURES["ksw2t_extz_fwd"]
+    lib.ksw2t_extz_fwd.restype = ctypes.c_int
+    lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
+    lib.ksw2t_error_string.argtypes = [ctypes.c_int]
+    lib.ksw2t_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def phase_breakdown() -> int:
+    """Cycles a tile-diagonal of each part of kernels 12-14 (CUDA clock64
+    sums over the tiles' lane 0, over the tile-diagonals computed), at
+    each tile width on the long pairs and at the scheduler's tile on the
+    splice-long scores and the sr-extension launch.  ``first_wait`` is a
+    tile's wait before its first group (the pipeline's fill), ``wait``
+    the later ones; the stamps themselves cost cycles."""
+    import torch
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import extd as ED
+    from ksw2_tpu_torch.ops import exts as ES
+    from ksw2_tpu_torch.ops import extz_fwd as F
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the breakdown needs a CUDA card")
+    emit({"phase": "device", "nvidia_smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()})
+    lib = breakdown_library()
+    F.library = lambda: lib
+    prof = np.zeros(16, np.uint64)
+    SO = Flag.SCORE_ONLY
+    single = single_pair(SINGLE_SEED, SINGLE_LEN)
+    mt = single_pair(MT_SEED, MT_LEN)
+    lpairs, ljuncs = splice_long_jobs()
+    cases = [
+        ("single50k_score", F.extz_forward_cuda,
+         [extz_launch([single], [-1], SO, -1)], F.TILES),
+        ("single50k_cig", F.extz_forward_cuda,
+         [extz_launch([single], [-1], Flag.NONE, -1)], F.TILES),
+        ("single50k_extd_score", ED.extd_forward_cuda,
+         [extd_launch([single], [-1], SO, -1)], F.TILES),
+        ("mt_score", F.extz_forward_cuda, [extz_launch([mt], [-1], SO, -1)],
+         F.TILES),
+        ("splice_long_score", ES.exts_forward_cuda,
+         splice_single_launches(lpairs, Flag.SPLICE_FOR | SO, ljuncs,
+                                SPLICE_JUNC_BONUS), (None,)),
+        ("sr_extz_cig", F.extz_forward_cuda,
+         sr_launches(short_banded_jobs()), (None,))]
+    for name, fn, lns, tps in cases:
+        for tp in tps:
+            run = [at_tp(ln, tp) if tp else ln for ln in lns]
+            args = [BD.band_upload(ln, "cuda") for ln in run]
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            for a, ln in zip(args, run):
+                fn(*a, ln.prm, ln.lay)
+            t1.record()
+            t1.synchronize()
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            nd = float(prof[7])
+            emit({"phase": "breakdown", "case": name,
+                  "tp": [ln.lay.tp for ln in run],
+                  "tiles": sum(int(ln.lay.tbase[-1]) for ln in run),
+                  "ms_stamped": t0.elapsed_time(t1),
+                  "tile_diagonals": int(nd),
+                  "cycles_per_tile_diagonal": {
+                      k: float(prof[i]) / nd
+                      for i, k in enumerate(BREAKDOWN_PARTS) if k != "diags"}})
+            del args
+            torch.cuda.empty_cache()
+    return 0
 
 
 def main() -> int:
@@ -3517,4 +3792,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(phase_breakdown() if sys.argv[1:] == ["--breakdown"]
+             else main())

@@ -14,7 +14,9 @@ batched, in score form, then the single-pair two-piece engine
 (``scheduler.py:609-617, 690-767``); splice (exts), scores and CIGARs
 with N ops: strips in its ``spl`` form, then the batched exts engine,
 then the single-pair splice engine (kernel 14 with 17;
-``scheduler.py:916-1119``).  Every launch is enqueued
+``scheduler.py:916-1119``).  The buckets that fall to a single-pair
+engine go out together, split only by ``ops.strips.LAUNCH_BYTES``, so
+their pairs' chains run at once.  Every launch is enqueued
 on the current CUDA stream before anything waits.  A handle's
 ``result()`` synchronises on the event recorded after the batch's
 device-to-host copies, so several batches in flight overlap one batch's
@@ -168,7 +170,9 @@ def _route(jobs, mat, qe: int, results, choose,
     bucket's route (``_Bucket.route``) with ``choose(Lt, qlen, tlen, w,
     raw_w, idxs)``.  Returns the buckets heaviest first; a
     bucket's pairs on the anti-diagonal routes are ordered longest first,
-    so its launches pad little (and a block's warps finish together)."""
+    so its launches pad little (and a block's warps finish together).
+    The buckets routed to the single-pair engine ("any" or "single") come
+    back as one (:func:`_one_single_bucket`)."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -192,6 +196,35 @@ def _route(jobs, mat, qe: int, results, choose,
             idxs = [idxs[k] for k in order]
             qlen, tlen, wv = qlen[order], tlen[order], wv[order]
         out.append(_Bucket(idxs, qlen, tlen, wv, route))
+    return _one_single_bucket(out)
+
+
+_SINGLE = ("any", "single")
+
+
+def _one_single_bucket(buckets: List[_Bucket]) -> List[_Bucket]:
+    """``buckets`` with those of the single-pair engine merged into one at
+    the place of the first, its pairs longest first.  The JAX bucket key
+    only groups pairs: the single-pair forward takes mixed lengths in one
+    launch, so the batch's single-pair jobs go out together, split only
+    by ``ops.strips.LAUNCH_BYTES``, and their chains run at once instead
+    of one bucket after another.  A pair's result does not depend on the
+    launch it lands in."""
+    single = [bk for bk in buckets if bk.route in _SINGLE]
+    if len(single) < 2:
+        return buckets
+    idxs = [i for bk in single for i in bk.idxs]
+    qlen, tlen, w = (np.concatenate([getattr(bk, f) for bk in single])
+                     for f in ("qlen", "tlen", "w"))
+    order = np.argsort(-(qlen.astype(np.int64) + tlen), kind="stable")
+    merged = _Bucket([idxs[k] for k in order], qlen[order], tlen[order],
+                     w[order], single[0].route)
+    out = []
+    for bk in buckets:
+        if bk.route not in _SINGLE:
+            out.append(bk)
+        elif bk is single[0]:
+            out.append(merged)
     return out
 
 
@@ -614,7 +647,8 @@ def plan_splice(jobs, m, mat, q, e, q2, noncan, zdrop, junc_bonus, flag,
     SCORE_ONLY, else with bytes.  Returns ``(job indices, route,
     launches)`` a bucket, heaviest first, with route "strips"
     (``strips.Launch``), "batch" (``band.BandLaunch`` with site rows) or
-    "single" (``extz.ExtzLaunch`` with site rows)."""
+    "single" (``extz.ExtzLaunch`` with site rows; one entry for all the
+    single-pair buckets)."""
     cig = not flag & Flag.SCORE_ONLY
     buckets = _route(jobs, mat, q + e, results,
                      _splice_chooser(flag, m, mat, zdrop, q, e, q2, juncs,

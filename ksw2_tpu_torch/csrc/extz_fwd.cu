@@ -32,26 +32,37 @@
 // extd_forward_plain and ops/exts.py:exts_forward_plain.
 //
 // Layout: the target axis of a pair is cut into tiles of TP positions
-// (TP a multiple of 32); one warp (one block) owns a tile for the pair's
-// whole run and walks the diagonals on which its tile meets the band.  A
-// tile's state lives in shared memory at its absolute positions, as in
-// kernel E (batch_fwd.cu), so the reference's stale bytes persist: lane l
-// owns the positions t0 + 32 c + l, and neighbour t - 1 comes by shuffle
-// or, at the tile's first position, from the tile before it.  That tile
-// publishes the x, v (x2 two-piece and splice: the only planes a cell
-// reads at t - 1, so the three bytes share one word whatever the form)
-// and H of its last position after every diagonal it
-// computes into a per-diagonal boundary history (no ring, so no
-// back-pressure) and raises its progress counter with release semantics;
-// the next tile spins on the counter with acquire semantics and reads up
-// to 32 entries at once.  Blocks take their tile from an atomic ticket in
+// (TP = 32 NC, NC = 1 or 2 chunks of 32; ops/extz_fwd.py:choose_tp picks
+// it); one warp (one block) owns a tile for the pair's whole run and
+// walks the diagonals on which its tile meets the band.  Lane l keeps the
+// positions t0 + 32 c + l, chunk c = 0 .. NC - 1, in registers: the
+// planes u, v, x, y (x2, y2 two-piece; x2 splice), H, the score byte and
+// the target (and site) bytes, so the reference's stale bytes persist as
+// they do in its SSE rows.  Neighbour t - 1 is one shuffle a plane: a
+// rotation by one lane, whose lane 0 receives lane 31, which is the next
+// chunk's t - 1; the first chunk's comes from the tile before.  Every
+// chunk is computed with selects, not branches, so the chunks' chains
+// interleave.  Diagonals go in groups of KD (32), aligned on multiples of
+// KD for every tile.  Per group, lane j prepares diagonal r_lo + j's band
+// row and t0 - 1's old state in shared memory, and the tile stages the
+// query window its cells read (TP + KD bases: the window slides one base
+// a diagonal).  After the group the tile publishes the x, v (x2: the
+// only planes a cell reads at t - 1, so the three bytes share one word)
+// and H of its last position for each of the group's diagonals into a
+// per-diagonal boundary history (no ring, so no back-pressure), then
+// raises its progress counter once with release semantics; the next tile
+// waits once a group, one lane spinning with acquire semantics, and
+// reads the group's entries at once.  A tile thus runs one group behind
+// the tile before it.  Blocks take their tile from an atomic ticket in
 // pair, then tile order, so a tile waits only on one that is running
 // already: no cooperative launch, any grid size.
 //
 // The diagonal's maximum is not reduced across blocks in the chain: each
-// tile folds its part into one 64-bit (H, tie rank) key per diagonal with
-// atomicMax into D[r], and the tiles that own st0 and en0 store that
-// cell's H.  Z-drop, mqe / mte, the score and the stop are then replayed
+// lane keeps its best 64-bit (H, tie rank) key of each diagonal of the
+// group in shared memory, and after the group's release lane j folds
+// diagonal r_lo + j's 32 keys into one atomicMax on D[r]; the tiles that
+// own st0 and en0 store that cell's H then too.  Z-drop, mqe / mte, the
+// score and the stop are then replayed
 // in order over the per-diagonal records by a second kernel, one warp a
 // pair (ops/strips.py:replay_records is the model).  Under APPROX the H0
 // walk runs inside the forward: the tile that holds the walk's next cell
@@ -60,14 +71,17 @@
 // comes from the replay's exact stopping diagonal.
 //
 // What bounds it on an H100: the serial chain of a pair's diagonals
-// (qlen + tlen - 1, ~100k on a 50 kb pair), each a few chunk steps of
-// its tile, a 5-round shuffle argmax, an atomic and a hand-off through
-// L2, against ~34 integer operations a cell (45 with the byte; ~44 and
-// ~65 two-piece, ~41 and ~57 splice; chip_smoke.py: OPS, BYTE_OPS) and,
-// with CIG, the store's bytes.  The
-// design spreads a long pair over ~TP-wide tiles so that every diagonal
-// runs on many SMs; several diagonals a hand-off, DPX byte SIMD and
-// registers instead of shared memory are later work.
+// (qlen + tlen - 1, ~100k on a 50 kb pair) through one tile's chunk steps,
+// plus the pipeline's fill of tiles x (KD diagonals + a hand-off), against
+// ~34 integer operations a cell (45 with the byte; ~44 and ~65 two-piece,
+// ~41 and ~57 splice; chip_smoke.py: OPS, BYTE_OPS) and, with CIG, the
+// store's bytes.  One warp runs a chunk step's ~150 dependent
+// instructions in ~500 cycles (a clock64 breakdown on the card: of ~870
+// cycles a tile-diagonal at 32-position tiles, ~520 are the chunk step;
+// the waits, the group's loads, release, fold and atomics ~240), so the
+// narrowest tiles run the shortest chain and a wide tile's chunks barely
+// overlap.  Byte SIMD (four cells an instruction) and an early exit past
+// a Z-drop are later work.
 #include <climits>
 
 #include "common.cuh"
@@ -79,6 +93,9 @@ namespace {
 constexpr int NEG = -0x40000000;   // NEG_INF of core/flags.py
 constexpr int KT = 1 << 24;        // tie-rank class stride (> a band)
 constexpr unsigned FULL = 0xffffffffu;
+// diagonals a hand-off: a tile publishes its edge and releases once a
+// group of KD diagonals (at most 32: a lane a diagonal at the group's end)
+constexpr int KD = 32;
 // a wait on the tile before may last SPIN_BASE + SPIN_DIAG cycles for each
 // of the pair's diagonals (~10 s + ~100 us a diagonal of SM clock) before
 // it counts as a fault; between reads it asks for a sleep that doubles
@@ -151,26 +168,35 @@ __device__ __forceinline__ int tile_last(int t0, int TP, int qlen, int w,
   return min(min(rlim - 1, X + qlen - 1), 2 * X + w);
 }
 
-// Delta planes of a form: u, v, x, y, and x2, y2 (two-piece) or x2
-// (splice).
-__host__ __device__ constexpr int n_planes(int mode) {
-  return mode == MODE_EXTD ? 6 : mode == MODE_EXTS ? 5 : 4;
+// The value of a per-chunk register array at a warp-uniform local
+// position li of the tile: the owning chunk's register, from lane li % 32.
+template <int NC>
+__device__ __forceinline__ int tile_pick(const int (&a)[NC], int li) {
+  int v = a[0];
+#pragma unroll
+  for (int c = 1; c < NC; ++c)
+    if (c == li >> 5) v = a[c];
+  return __shfl_sync(FULL, v, li & 31);
 }
 
-template <int MODE, bool CIG, bool APPROX>
+template <int MODE, bool CIG, bool APPROX, int NC, bool RIGHT>
 __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {
   constexpr bool ONE = MODE == MODE_EXTZ;
-  constexpr int PL = n_planes(MODE);
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool SPL = MODE == MODE_EXTS;
+  constexpr int TP = 32 * NC;
+  // a group's query window, the direction bytes of two diagonals, the
+  // tile before's entries [r_lo - 1, r_hi], this tile's edge entries, each
+  // lane's key and the st0 / en0 H of every diagonal of the group
+  __shared__ uint8_t qwin[TP + KD];
+  __shared__ __align__(16) uint8_t stage[2][CIG ? TP : 16];
+  __shared__ int2 sprev[KD + 1];
+  __shared__ int4 sdiag[KD];               // st0, en0, hi_s, colv | prevok
+  __shared__ int2 sbnd[KD];                // position t0 - 1's old state
+  __shared__ int2 sedge[KD];
+  __shared__ long long skey[APPROX ? 1 : KD][33];
+  __shared__ int shs[KD], she[KD];
+  extern __shared__ int stab[];            // GENERIC_SC: the m x m table
   const int lane = threadIdx.x;
-  const int TP = A.TP;
-  uint8_t* stage = smem;                                       // [32]
-  int* Hr = reinterpret_cast<int*>(smem + 32);                 // [TP]
-  signed char* pl = reinterpret_cast<signed char*>(Hr + TP);   // [PL][TP]
-  signed char* sr = pl + PL * TP;                              // [TP]
-  uint8_t* tgs = reinterpret_cast<uint8_t*>(sr + TP);          // [TP]
-  signed char* dns = reinterpret_cast<signed char*>(tgs + TP); // [TP]
-  signed char* acs = dns + TP;                                 // [TP]
 
   int g = 0;
   if (lane == 0) g = atomicAdd(A.ticket, 1);
@@ -184,7 +210,7 @@ __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {
   const int ntiles = A.tbase[b + 1] - A.tbase[b];
   const int t0 = k * TP, X = t0 + TP - 1;
   const int qlen = A.qlens[b], tlen = A.tlens[b], w = A.ws[b];
-  const int q = A.q, e = A.e, qe = q + e, q2 = A.q2, qe2 = A.q2 + A.e2;
+  const int q = A.q, e = A.e, qe = q + e, qe2 = A.q2 + A.e2;
   // the reference's init bytes: 0 one-piece; -(q + e) for u, v, x, y and
   // -(q2 + e2) for x2, y2 two-piece; -(q + e) and -q2 (e2 = 0) splice
   const int init = ONE ? 0 : w8(-qe), init2 = w8(-qe2);
@@ -194,19 +220,26 @@ __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {
   const long long db = A.dbase[b];
   const uint8_t* tg = A.ts + (size_t)b * A.Lt;
   const uint8_t* qy = A.qs + (size_t)b * A.Lq;
+  if (A.generic)
+    for (int i = lane; i < A.m * A.m; i += 32) stab[i] = A.table[i];
 
-  for (int t = lane; t < TP; t += 32) {
-    for (int c = 0; c < 4; ++c) pl[c * TP + t] = (signed char)init;
-    for (int c = 4; c < PL; ++c) pl[c * TP + t] = (signed char)init2;
-    sr[t] = 0;
-    Hr[t] = NEG;
-    tgs[t] = t0 + t < tlen ? tg[t0 + t] : 0;
-    if (MODE == MODE_EXTS) {
-      dns[t] = t0 + t < A.Lt ? A.don[(size_t)b * A.Lt + t0 + t] : 0;
-      acs[t] = t0 + t < A.Lt ? A.acc[(size_t)b * A.Lt + t0 + t] : 0;
+  // lane l's state: position t0 + 32 c + l in chunk c's registers
+  int U[NC], V[NC], Xp[NC], Y[NC], X2[NC], Y2[NC], H[NC], S[NC], TG[NC],
+      DN[NC], AC[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int t = t0 + 32 * c + lane;
+    U[c] = V[c] = Xp[c] = Y[c] = init;
+    X2[c] = Y2[c] = init2;
+    H[c] = NEG;
+    S[c] = 0;
+    TG[c] = t < tlen ? tg[t] : 0;
+    DN[c] = AC[c] = 0;
+    if (SPL && t < A.Lt) {
+      DN[c] = A.don[(size_t)b * A.Lt + t];
+      AC[c] = A.acc[(size_t)b * A.Lt + t];
     }
   }
-  __syncwarp();
 
   // the tile before this one: its history and the diagonals it computes
   const int2* prevb = nullptr;
@@ -218,216 +251,247 @@ __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {
   }
   int2* myb = k + 1 < ntiles ? A.bnd + A.bbase[b] + (long long)k * rlim
                              : nullptr;
-  int cb = 0, ch = -1, seen = -1;          // cached history [cb, ch]
-  int2 cent = make_int2(0, 0);
+  int seen = -1;                           // the tile before's progress
   int H0 = 0, lt = 0, known = -2;          // the H0 walk after `known`
   long long off = CIG ? store_row_off(rA, qlen, tlen, w) : 0;
   uint8_t* pp = CIG ? A.p + A.pbase[b] : nullptr;
+  int buf = 0;
 
-  for (int r = rA; r <= rB; ++r) {
-    const BandRow bd = band_row(r, qlen, tlen, w);
-    const int st0 = bd.st0, en0 = bd.en0, st = bd.st, en = bd.en;
-    bool prevok = false;
-    if (r > 0 && st > 0) {
-      const BandRow bp = band_row(r - 1, qlen, tlen, w);
-      prevok = bp.st <= st - 1 && st - 1 <= bp.en;
-    }
-    // the first column (the j == 0 cell at t == r): q one-piece; the
-    // two-piece switch at long_thres (ksw2_extd2_sse.c:156-163), which
-    // is the splice one with e2 = 0 (ksw2_exts2_sse.c)
-    const int colv = w8(ONE ? (r ? q : 0)
-                            : r == 0 ? -qe
-                                     : r < A.lt ? -e
-                                                : r == A.lt ? A.ld : -A.e2);
-    const int hi = A.generic ? en0 : st0 + ((en0 - st0) & ~15) + 15;
-
-    // position t0 - 1 before this diagonal (and, APPROX, after it): the
-    // previous tile's entry of min(r - 1, its last diagonal); the initial
-    // values before its first
-    int bx = init, bv = init, bx2 = init2, bH = NEG, bvn = 0;
-    if (k > 0 && t0 >= st && t0 <= en) {
-      const int e0 = min(r - 1, pB);
-      const int e1 = APPROX ? min(r, pB) : e0;
-      if (e1 >= pA) {
-        const int elo = max(e0, pA);
-        if (elo < cb || e1 > ch) {
-          if (e1 > seen) {
-            // the tile before runs already (its ticket came first), so
-            // the wait ends; one past the pair's spin limit is a fault:
-            // trap, do not hang
-            const int* pp_ = A.progress + g - 1;
-            const long long t_start = clock64();
-            unsigned nap = 16;
-            int pv;
-            while ((pv = __reduce_min_sync(FULL, ld_acquire(pp_))) < e1) {
-              if (clock64() - t_start > spin_limit) __trap();
-              __nanosleep(nap);
-              nap = min(2 * nap, SPIN_SLEEP_MAX);
-            }
-            seen = pv;
+  // groups of KD diagonals, aligned on multiples of KD for every tile, so
+  // a tile runs one group behind the tile before it
+  for (int r_lo = rA; r_lo <= rB;) {
+    const int r_hi = min(r_lo - r_lo % KD + KD - 1, rB);
+    const int nr = r_hi - r_lo + 1;
+    // one wait a group: lane 0 spins (acquire) until the tile before has
+    // released every diagonal this group reads of it; the tile before
+    // runs already (its ticket came first), so the wait ends, and one
+    // past the pair's spin limit is a fault: trap, do not hang
+    int cb = 0;
+    if (k > 0) {
+      const int need = min(APPROX ? r_hi : r_hi - 1, pB);
+      if (need >= pA && need > seen) {
+        int pv = seen;
+        if (lane == 0) {
+          const int* pg = A.progress + g - 1;
+          const long long t_start = clock64();
+          unsigned nap = 16;
+          while ((pv = ld_acquire(pg)) < need) {
+            if (clock64() - t_start > spin_limit) __trap();
+            __nanosleep(nap);
+            nap = min(2 * nap, SPIN_SLEEP_MAX);
           }
-          cb = elo;
-          ch = min(seen, cb + 31);
-          if (cb + lane <= ch) cent = __ldcg(prevb + cb + lane);
         }
-        const int ex = __shfl_sync(FULL, cent.x, elo - cb);
-        const int eH = __shfl_sync(FULL, cent.y, elo - cb);
-        if (e0 >= pA) {
-          bx = w8(ex);
-          bv = w8(ex >> 8);
-          bx2 = w8(ex >> 16);
-          bH = eH;
-        }
-        if (APPROX) bvn = w8(__shfl_sync(FULL, cent.x, e1 - cb) >> 8);
+        __syncwarp();                       // orders the reads below
+        seen = __shfl_sync(FULL, pv, 0);
       }
+      // [cb, ce]: the entries the group reads (e0 = min(r - 1, pB) and,
+      // APPROX, e1 = min(r, pB)); after the tile before's last diagonal
+      // only its last entry
+      cb = max(min(r_lo - 1, pB), pA);
+      const int ce = min(min(r_hi, pB), seen);
+      for (int j = lane; j <= ce - cb; j += 32)
+        sprev[j] = __ldcg(prevb + cb + j);
     }
+    // the query bases the group's cells read: r - t for r in the group
+    const int qb = r_lo - X;
+    for (int i = lane; i < TP + KD - 1; i += 32) {
+      const int qi = qb + i;
+      qwin[i] = qi >= 0 && qi < qlen ? qy[qi] : 0;
+    }
+    __syncwarp();
+    // what each diagonal of the group needs besides its cells, a lane a
+    // diagonal, off the chain of chunk steps
+    if (lane < nr) {
+      const int r = r_lo + lane;
+      const BandRow bd = band_row(r, qlen, tlen, w);
+      bool prevok = false;
+      if (r > 0 && bd.st > 0) {
+        const BandRow bp = band_row(r - 1, qlen, tlen, w);
+        prevok = bp.st <= bd.st - 1 && bd.st - 1 <= bp.en;
+      }
+      // the first column (the j == 0 cell at t == r): q one-piece; the
+      // two-piece switch at long_thres (ksw2_extd2_sse.c:156-163), which
+      // is the splice one with e2 = 0 (ksw2_exts2_sse.c)
+      const int colv = w8(ONE ? (r ? q : 0)
+                              : r == 0 ? -qe
+                                       : r < A.lt ? -e
+                                                  : r == A.lt ? A.ld : -A.e2);
+      const int hi_s = A.generic ? bd.en0
+                                 : bd.st0 + ((bd.en0 - bd.st0) & ~15) + 15;
+      sdiag[lane] = make_int4(bd.st0, bd.en0, hi_s,
+                              (colv & 255) | (prevok ? 256 : 0));
+      // position t0 - 1 before this diagonal (and, APPROX, v after it):
+      // the tile before's entry of min(r - 1, its last diagonal); the
+      // initial values before its first
+      int bx = init, bv = init, bx2 = init2, bH = NEG, bvn = 0;
+      if (k > 0 && t0 >= bd.st && t0 <= bd.en) {
+        const int e0 = min(r - 1, pB);
+        const int e1 = APPROX ? min(r, pB) : e0;
+        if (e1 >= pA) {
+          if (e0 >= pA) {
+            const int2 ent = sprev[e0 - cb];
+            bx = ent.x;
+            bv = ent.x >> 8;
+            bx2 = ent.x >> 16;
+            bH = ent.y;
+          }
+          if (APPROX) bvn = sprev[e1 - cb].x >> 8;
+        }
+      }
+      sbnd[lane] = make_int2((bx & 255) | (bv & 255) << 8 | (bx2 & 255) << 16 |
+                                 (bvn & 255) << 24,
+                             bH);
+    }
+    __syncwarp();
 
-    const int lo_t = max(st - 1, t0), hi_t = min(max(en, hi), X);
-    long long best = LLONG_MIN;
-    // the old state of t - 1, lane 0
-    int cX = bx, cV = bv, cX2 = bx2, cH = bH;
-    for (int c = lo_t <= hi_t ? (lo_t - t0) >> 5 : 1,
-             ce = lo_t <= hi_t ? (hi_t - t0) >> 5 : 0;
-         c <= ce; ++c) {
-      const int l = (c << 5) + lane;      // local position
-      const int t = t0 + l;
-      if (t >= st0 && t <= hi) {
-        const int T = tgs[l];
-        const int Q = r - t >= 0 ? qy[r - t] : 0;
+    // unrolled: a diagonal's loads and score bytes overlap the chain of
+    // the one before
+#pragma unroll 4
+    for (int rr = 0; rr < nr; ++rr) {
+      const int r = r_lo + rr;
+      const int4 dg = sdiag[rr];
+      const int st0 = dg.x, en0 = dg.y, st = st0 & ~15, en = en0 | 15;
+      const int hi_s = dg.z, colv = w8(dg.w);
+      const bool prevok = dg.w & 256;
+      const int2 bw = sbnd[rr];
+      const int bx = w8(bw.x), bv = w8(bw.x >> 8), bx2 = w8(bw.x >> 16),
+                bvn = w8(bw.x >> 24), bH = bw.y;
+      long long best = LLONG_MIN;
+      // the old state of t - 1 for lane 0: the boundary, then each chunk's
+      // lane 31 (a rotation by one lane gives it to lane 0)
+      int cX = bx, cV = bv, cX2 = bx2, cH = bH;
+      // every chunk, straight-line: a cell outside the band keeps its
+      // state (selects, not branches), so the chunks' chains interleave
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int l = 32 * c + lane;
+        const int t = t0 + l;
+        const int src = (lane + 31) & 31;
+        const bool l0 = lane == 0;
+        const int sX = __shfl_sync(FULL, Xp[c], src);
+        const int sV = __shfl_sync(FULL, V[c], src);
+        const int sX2 = ONE ? 0 : __shfl_sync(FULL, X2[c], src);
+        const int sH = APPROX ? 0 : __shfl_sync(FULL, H[c], src);
+        const int Xm = l0 ? cX : sX, Vm = l0 ? cV : sV;
+        const int X2m = l0 ? cX2 : sX2, Hm = l0 ? cH : sH;
+        // lane 0 now holds lane 31's old state: the next chunk's t - 1
+        cX = sX;
+        cV = sV;
+        cX2 = sX2;
+        cH = sH;
+
+        const int T = TG[c];
+        const int Q = qwin[rr + TP - 1 - l];
         int sv;
         if (A.generic) {
-          sv = A.table[T * A.m + Q];
+          sv = stab[T * A.m + Q];
         } else {
           sv = T == Q ? A.sc_mch : A.sc_mis;
-          if (T == A.m - 1 || Q == A.m - 1) sv = A.sc_N;
+          sv = T == A.m - 1 || Q == A.m - 1 ? A.sc_N : sv;
         }
-        sr[l] = (signed char)w8(sv);
-      }
-      const int Uo = pl[l], Vo = pl[TP + l], Xo = pl[2 * TP + l],
-                Yo = pl[3 * TP + l];
-      const int X2o = ONE ? 0 : pl[4 * TP + l];
-      const int Ho = APPROX ? 0 : Hr[l];
-      int Xm = __shfl_up_sync(FULL, Xo, 1);
-      int Vm = __shfl_up_sync(FULL, Vo, 1);
-      int X2m = ONE ? 0 : __shfl_up_sync(FULL, X2o, 1);
-      int Hm = APPROX ? 0 : __shfl_up_sync(FULL, Ho, 1);
-      if (lane == 0) {
-        Xm = cX;
-        Vm = cV;
-        X2m = cX2;
-        Hm = cH;
-      }
-      cX = __shfl_sync(FULL, Xo, 31);
-      cV = __shfl_sync(FULL, Vo, 31);
-      if (!ONE) cX2 = __shfl_sync(FULL, X2o, 31);
-      if (!APPROX) cH = __shfl_sync(FULL, Ho, 31);
+        const int Sv = t >= st0 && t <= hi_s ? w8(sv) : S[c];
+        S[c] = Sv;
 
-      int d = 0;
-      if (t >= st && t <= en) {
-        const int S = sr[l];
-        int X1 = Xm, V1 = Vm, X21 = X2m;
-        if (t == st && !prevok) {
-          X1 = init;
-          V1 = st == 0 ? colv : init;
-          X21 = init2;
-        }
-        const int U = t == r ? colv : Uo;
-        const int Y = t == r ? init : Yo;
-        int a = w8(X1 + V1), bb = w8(Y + U);
-        int un, vn;
+        const bool inb = t >= st && t <= en;
+        const bool edge = t == st && !prevok;
+        const int X1 = edge ? init : Xm, X21 = edge ? init2 : X2m;
+        const int V1 = edge ? (st == 0 ? colv : init) : Vm;
+        const int Uc = t == r ? colv : U[c];
+        const int Yc = t == r ? init : Y[c];
+        int a = w8(X1 + V1), bb = w8(Yc + Uc);
+        int d, un, vn;
         if (MODE == MODE_EXTZ) {
-          const int zz = w8(S + 2 * qe);
-          d = A.right ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
+          const int zz = w8(Sv + 2 * qe);
+          d = RIGHT ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
           int z = max(zz, a);
-          d = A.right ? (z > bb ? d : DIR_F) : (bb > z ? DIR_F : d);
+          d = RIGHT ? (z > bb ? d : DIR_F) : (bb > z ? DIR_F : d);
           z = w8(max(z & 255, bb & 255));                   // max_epu8
           z = w8(min(z & 255, (A.sc_mch + 2 * qe) & 255));  // min_epu8
           un = w8(z - V1);
-          vn = w8(z - U);
+          vn = w8(z - Uc);
           const int z2 = w8(z - q);
           a = w8(a - z2);
           bb = w8(bb - z2);
-          const bool ta = A.right ? a >= 0 : a > 0;
-          const bool tb = A.right ? bb >= 0 : bb > 0;
+          const bool ta = RIGHT ? a >= 0 : a > 0;
+          const bool tb = RIGHT ? bb >= 0 : bb > 0;
           d |= (ta ? DIR_E_CONT : 0) | (tb ? DIR_F_CONT : 0);
-          pl[2 * TP + l] = (signed char)(a > 0 ? a : 0);
-          pl[3 * TP + l] = (signed char)(bb > 0 ? bb : 0);
+          Xp[c] = inb ? (a > 0 ? a : 0) : Xp[c];
+          Y[c] = inb ? (bb > 0 ? bb : 0) : Y[c];
         } else if (MODE == MODE_EXTD) {
           // band_fwd.cu's TWO recurrence (ksw2_extd2_sse.c)
-          const int Y2 = t == r ? init2 : pl[5 * TP + l];
-          int a2 = w8(X21 + V1), b2 = w8(Y2 + U);
-          int z = S;
+          const int Y2c = t == r ? init2 : Y2[c];
+          int a2 = w8(X21 + V1), b2 = w8(Y2c + Uc);
+          int z = Sv;
+          d = 0;
           const int cand[4] = {a, bb, a2, b2};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            d = A.right ? (z > cand[i] ? d : i + 1)
+            d = RIGHT ? (z > cand[i] ? d : i + 1)
                         : (cand[i] > z ? i + 1 : d);
             z = max(z, cand[i]);
           }
           z = min(z, w8(A.sc_mch));
           un = w8(z - V1);
-          vn = w8(z - U);
-          const int t1 = w8(z - q), t2 = w8(z - q2);
+          vn = w8(z - Uc);
+          const int t1 = w8(z - q), t2 = w8(z - A.q2);
           a = w8(a - t1);
           bb = w8(bb - t1);
           a2 = w8(a2 - t2);
           b2 = w8(b2 - t2);
-          const bool ca = A.right ? a >= 0 : a > 0;
-          const bool cb_ = A.right ? bb >= 0 : bb > 0;
-          const bool ca2 = A.right ? a2 >= 0 : a2 > 0;
-          const bool cb2 = A.right ? b2 >= 0 : b2 > 0;
+          const bool ca = RIGHT ? a >= 0 : a > 0;
+          const bool cb_ = RIGHT ? bb >= 0 : bb > 0;
+          const bool ca2 = RIGHT ? a2 >= 0 : a2 > 0;
+          const bool cb2 = RIGHT ? b2 >= 0 : b2 > 0;
           d |= (ca ? DIR_E_CONT : 0) | (cb_ ? DIR_F_CONT : 0) |
                (ca2 ? DIR_E2_CONT : 0) | (cb2 ? DIR_F2_CONT : 0);
-          pl[2 * TP + l] = (signed char)w8(max(a, 0) - qe);
-          pl[3 * TP + l] = (signed char)w8(max(bb, 0) - qe);
-          pl[4 * TP + l] = (signed char)w8(max(a2, 0) - qe2);
-          pl[5 * TP + l] = (signed char)w8(max(b2, 0) - qe2);
+          Xp[c] = inb ? w8(max(a, 0) - qe) : Xp[c];
+          Y[c] = inb ? w8(max(bb, 0) - qe) : Y[c];
+          X2[c] = inb ? w8(max(a2, 0) - qe2) : X2[c];
+          Y2[c] = inb ? w8(max(b2, 0) - qe2) : Y2[c];
         } else {
           // batch_exts_fwd.cu's recurrence (ksw2_exts2_sse.c): the
           // intron candidate with the acceptor, no clamp of z
-          const int Dn = dns[l];
+          const int Dn = DN[c];
           int a2 = w8(X21 + V1);
-          const int cand[3] = {a, bb, w8(a2 + acs[l])};
-          int z = S;
+          const int cand[3] = {a, bb, w8(a2 + AC[c])};
+          int z = Sv;
+          d = 0;
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
-            d = A.right ? (z > cand[i] ? d : i + 1)
+            d = RIGHT ? (z > cand[i] ? d : i + 1)
                         : (cand[i] > z ? i + 1 : d);
             z = max(z, cand[i]);
           }
           un = w8(z - V1);
-          vn = w8(z - U);
+          vn = w8(z - Uc);
           const int t1 = w8(z - q);
           a = w8(a - t1);
           bb = w8(bb - t1);
-          a2 = w8(a2 - z + q2);
-          const bool ca = A.right ? a >= 0 : a > 0;
-          const bool cb_ = A.right ? bb >= 0 : bb > 0;
-          const bool cd = A.right ? a2 >= Dn : a2 > Dn;
+          a2 = w8(a2 - z + A.q2);
+          const bool ca = RIGHT ? a >= 0 : a > 0;
+          const bool cb_ = RIGHT ? bb >= 0 : bb > 0;
+          const bool cd = RIGHT ? a2 >= Dn : a2 > Dn;
           d |= (ca ? DIR_E_CONT : 0) | (cb_ ? DIR_F_CONT : 0) |
                (cd ? DIR_N_CONT : 0);
-          pl[2 * TP + l] = (signed char)w8(max(a, 0) - qe);
-          pl[3 * TP + l] = (signed char)w8(max(bb, 0) - qe);
-          pl[4 * TP + l] = (signed char)w8(max(a2, Dn) - q2);
+          Xp[c] = inb ? w8(max(a, 0) - qe) : Xp[c];
+          Y[c] = inb ? w8(max(bb, 0) - qe) : Y[c];
+          X2[c] = inb ? w8(max(a2, Dn) - A.q2) : X2[c];
         }
-        pl[l] = (signed char)un;
-        pl[TP + l] = (signed char)vn;
+        U[c] = inb ? un : U[c];
+        V[c] = inb ? vn : V[c];
 
-        if (!APPROX && t >= st0 && t <= en0) {
-          // the H row (spec/common.py:exact_max_scan): unsigned deltas
-          // less q + e one-piece, signed deltas otherwise; seeded with
-          // 2 (q + e) one-piece, the PRE-swap q + e two-piece and q + e
-          // splice (qe_pre)
+        if (!APPROX) {
+          // the H row (spec/common.py:exact_max_scan) over [st0, en0]:
+          // unsigned deltas less q + e one-piece, signed deltas
+          // otherwise; seeded with 2 (q + e) one-piece, the PRE-swap
+          // q + e two-piece and q + e splice (qe_pre)
+          const bool inh = t >= st0 && t <= en0;
           const int vv = ONE ? vn & 255 : vn, uu = ONE ? un & 255 : un;
           const int sub = ONE ? qe : 0;
-          int h;
-          if (r == 0)
-            h = vv - (ONE ? 2 * qe : A.qe_pre);
-          else if (t < en0 || en0 == 0)
-            h = Ho + vv - sub;
-          else
-            h = Hm + uu - sub;
-          Hr[l] = h;
+          const int h = r == 0 ? vv - (ONE ? 2 * qe : A.qe_pre)
+                        : t < en0 || en0 == 0 ? H[c] + vv - sub
+                                              : Hm + uu - sub;
+          H[c] = inh ? h : H[c];
           // the SSE scan's tie rank: the en0 cell, then 4 lane classes
           // over [st0, en1), then the scalar tail; smaller ranks win
           const int rel = t - st0;
@@ -435,92 +499,108 @@ __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {
           const int rank = t == en0 ? 0
                            : t < en1 ? (rel & 3) * KT + rel + 1
                                      : 4 * KT + rel + 1;
-          best = max(best, (long long)h * 4294967296LL +
-                               (long long)(0x7fffffff - rank));
-          if (t == st0) A.hse[db + r].x = h;
-          if (t == en0) A.hse[db + r].y = h;
+          const long long key = (long long)h * 4294967296LL +
+                                (long long)(0x7fffffff - rank);
+          best = inh && key > best ? key : best;
+          if (inh && t == st0) shs[rr] = h;
+          if (inh && t == en0) she[rr] = h;
         }
+        if (CIG) stage[buf][l] = (uint8_t)(inb ? d : 0);
       }
+      if (!APPROX) skey[rr][lane] = best;
+
       if (CIG) {
-        // 16-byte groups lie wholly inside or outside [st, en]
-        stage[lane] = (uint8_t)d;
+        // 16-byte groups lie wholly inside or outside [st, en]; the two
+        // stage buffers alternate, so one barrier a diagonal suffices
         __syncwarp();
-        if (lane < 2) {
-          const int gs = t0 + (c << 5) + 16 * lane;
+        if (lane < 2 * NC) {
+          const int gs = t0 + 16 * lane;
           if (gs >= st && gs + 15 <= en)
             *reinterpret_cast<uint4*>(pp + off + (gs - st)) =
-                *reinterpret_cast<const uint4*>(stage + 16 * lane);
+                *reinterpret_cast<const uint4*>(&stage[buf][16 * lane]);
         }
-        __syncwarp();
+        buf ^= 1;
+        off += en - st + 1;
       }
-    }
 
-    if (!APPROX) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        best = max(best, __shfl_xor_sync(FULL, best, o));
-      if (lane == 0 && best != LLONG_MIN) atomicMax(A.D + db + r, best);
-    } else {
-      __syncwarp();
-      // the H0 walk (ksw2_extz2_sse.c:262-279) on unsigned deltas less
-      // q + e one-piece, on signed deltas otherwise: the tile that holds
-      // the walk's next cell takes the step
-      if (r == 0) {
-        H0 = ONE ? (pl[TP] & 255) - 2 * qe : pl[TP] - A.qe_pre;
-        lt = 0;
-        known = 0;
-        if (lane == 31) A.W[db] = pack_walk(H0, lt);
-      } else {
-        if (known != r - 1) {
-          const long long wv = __ldcg(A.W + db + r - 1);
-          if ((int)(unsigned)(wv & 0xffffffffLL) >= 0) {
-            H0 = (int)(wv >> 32);
-            lt = (int)(unsigned)(wv & 0xffffffffLL);
-            known = r - 1;
-          }
-        }
-        if (known == r - 1) {
-          const bool c1 = st0 <= lt && lt <= en0;
-          const bool c2 = st0 <= lt + 1 && lt + 1 <= en0;
-          const int P = c2 ? lt + 1 : lt;
-          if (P >= t0 && P <= X) {
-            int d0 = 0, d1 = 0;
-            if (c1) d0 = lt >= t0 ? pl[TP + lt - t0] : bvn;
-            if (c2) d1 = pl[lt + 1 - t0];
-            if (ONE) {
-              d0 = (d0 & 255) - qe;
-              d1 = (d1 & 255) - qe;
+      if (APPROX) {
+        // the H0 walk (ksw2_extz2_sse.c:262-279) on unsigned deltas less
+        // q + e one-piece, on signed deltas otherwise: the tile that holds
+        // the walk's next cell takes the step
+        if (r == 0) {
+          const int v0 = __shfl_sync(FULL, V[0], 0);
+          H0 = ONE ? (v0 & 255) - 2 * qe : v0 - A.qe_pre;
+          lt = 0;
+          known = 0;
+          if (lane == 0) A.W[db] = pack_walk(H0, lt);
+        } else {
+          if (known != r - 1) {
+            const long long wv = __ldcg(A.W + db + r - 1);
+            if ((int)(unsigned)(wv & 0xffffffffLL) >= 0) {
+              H0 = (int)(wv >> 32);
+              lt = (int)(unsigned)(wv & 0xffffffffLL);
+              known = r - 1;
             }
-            if (c1 && c2) {
-              if (d0 > d1) {
+          }
+          if (known == r - 1) {
+            const bool c1 = st0 <= lt && lt <= en0;
+            const bool c2 = st0 <= lt + 1 && lt + 1 <= en0;
+            const int P = c2 ? lt + 1 : lt;
+            if (P >= t0 && P <= X) {
+              int d0 = 0, d1 = 0;
+              if (c1) d0 = lt >= t0 ? tile_pick<NC>(V, lt - t0) : bvn;
+              if (c2) d1 = tile_pick<NC>(U, lt + 1 - t0);
+              if (ONE) {
+                d0 = (d0 & 255) - qe;
+                d1 = (d1 & 255) - qe;
+              }
+              if (c1 && c2) {
+                if (d0 > d1) {
+                  H0 += d0;
+                } else {
+                  H0 += d1;
+                  ++lt;
+                }
+              } else if (c1) {
                 H0 += d0;
               } else {
                 H0 += d1;
                 ++lt;
               }
-            } else if (c1) {
-              H0 += d0;
-            } else {
-              H0 += d1;
-              ++lt;
+              known = r;
+              if (lane == 0) A.W[db + r] = pack_walk(H0, lt);
             }
-            known = r;
-            if (lane == 31) A.W[db + r] = pack_walk(H0, lt);
           }
         }
       }
-      __syncwarp();
+
+      // lane 31 of the last chunk owns the tile's last position
+      if (myb != nullptr && lane == 31)
+        sedge[rr] = make_int2((Xp[NC - 1] & 255) | ((V[NC - 1] & 255) << 8) |
+                                  (ONE ? 0 : (X2[NC - 1] & 255) << 16),
+                              H[NC - 1]);
     }
 
-    if (myb != nullptr && lane == 31) {
-      // lane 31 owns the tile's last position: publish it, then release
-      const int x2b = ONE ? 0 : pl[4 * TP + TP - 1] & 255;
-      myb[r] = make_int2((pl[2 * TP + TP - 1] & 255) |
-                             ((pl[TP + TP - 1] & 255) << 8) | (x2b << 16),
-                         Hr[TP - 1]);
-      st_release(A.progress + g, r);
+    // the group's hand-off: its edge entries, one release, then the
+    // per-diagonal keys and st0 / en0 H off the chain
+    __syncwarp();
+    if (myb != nullptr) {
+      if (lane < nr) myb[r_lo + lane] = sedge[lane];
+      __syncwarp();
+      if (lane == 0) st_release(A.progress + g, r_hi);
     }
-    if (CIG) off += en - st + 1;
+    if (!APPROX && lane < nr) {
+      const int r = r_lo + lane;
+      long long key = skey[lane][0];
+#pragma unroll 8
+      for (int i = 1; i < 32; ++i) key = max(key, skey[lane][i]);
+      if (key != LLONG_MIN) atomicMax(A.D + db + r, key);
+      const int4 dg = sdiag[lane];
+      if (dg.x >= t0 && dg.x <= X) A.hse[db + r].x = shs[lane];
+      if (dg.y >= t0 && dg.y <= X) A.hse[db + r].y = she[lane];
+    }
+    __syncwarp();
+    r_lo = r_hi + 1;
   }
 }
 
@@ -636,29 +716,41 @@ __global__ void __launch_bounds__(128) extz_replay_kernel(
   }
 }
 
-template <int MODE, bool CIG, bool APPROX>
-cudaError_t launch_fwd(const FwdArgs& a, int n_tiles, size_t smem,
-                       cudaStream_t stream) {
+template <int MODE, bool CIG, bool APPROX, int NC, bool RIGHT>
+cudaError_t launch_fwd(const FwdArgs& a, int n_tiles, cudaStream_t stream) {
+  // the dynamic part: the score table under GENERIC_SC
+  const int smem = a.generic ? 4 * a.m * a.m : 0;
   cudaError_t err = cudaFuncSetAttribute(
-      extz_fwd_kernel<MODE, CIG, APPROX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      extz_fwd_kernel<MODE, CIG, APPROX, NC, RIGHT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  extz_fwd_kernel<MODE, CIG, APPROX><<<n_tiles, 32, smem, stream>>>(a);
+  extz_fwd_kernel<MODE, CIG, APPROX, NC, RIGHT>
+      <<<n_tiles, 32, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int MODE, int NC, bool RIGHT>
+cudaError_t launch_tile(const FwdArgs& a, int cig, int approx, int n_tiles,
+                        cudaStream_t stream) {
+  if (cig)
+    return approx
+               ? launch_fwd<MODE, true, true, NC, RIGHT>(a, n_tiles, stream)
+               : launch_fwd<MODE, true, false, NC, RIGHT>(a, n_tiles, stream);
+  return approx
+             ? launch_fwd<MODE, false, true, NC, RIGHT>(a, n_tiles, stream)
+             : launch_fwd<MODE, false, false, NC, RIGHT>(a, n_tiles, stream);
 }
 
 template <int MODE>
 cudaError_t launch_mode(const FwdArgs& a, int cig, int approx, int n_tiles,
                         cudaStream_t stream) {
-  // a tile's state: the byte stage, H int32, the delta planes, the score
-  // bytes, the target and, splice, the donor and acceptor bytes
-  const size_t smem = 32 + (size_t)a.TP * (4 + n_planes(MODE) + 2 +
-                                           (MODE == MODE_EXTS ? 2 : 0));
-  if (cig)
-    return approx ? launch_fwd<MODE, true, true>(a, n_tiles, smem, stream)
-                  : launch_fwd<MODE, true, false>(a, n_tiles, smem, stream);
-  return approx ? launch_fwd<MODE, false, true>(a, n_tiles, smem, stream)
-                : launch_fwd<MODE, false, false>(a, n_tiles, smem, stream);
+  if (a.right)
+    return a.TP == 64
+               ? launch_tile<MODE, 2, true>(a, cig, approx, n_tiles, stream)
+               : launch_tile<MODE, 1, true>(a, cig, approx, n_tiles, stream);
+  return a.TP == 64
+             ? launch_tile<MODE, 2, false>(a, cig, approx, n_tiles, stream)
+             : launch_tile<MODE, 1, false>(a, cig, approx, n_tiles, stream);
 }
 
 }  // namespace
@@ -676,7 +768,8 @@ extern "C" int ksw2t_extz_fwd(
     int zdrop, int right, int generic, int approx, int adrop, int cig,
     int TP, int n_tiles, void* ticket, void* progress, void* bnd, void* D,
     void* hse, void* W, void* rec, void* stop, void* p, void* stream) {
-  if (B <= 0 || n_tiles <= 0 || TP < 32 || TP % 32 || mode < MODE_EXTZ ||
+  if (B <= 0 || n_tiles <= 0 ||
+      (TP != 32 && TP != 64) || mode < MODE_EXTZ ||
       mode > MODE_EXTS || (cig && p == nullptr) ||
       (approx && W == nullptr) ||
       (!approx && (D == nullptr || hse == nullptr)) ||

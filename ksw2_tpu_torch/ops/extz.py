@@ -26,7 +26,7 @@ from ..core.flags import Flag
 from ..core.result import ExtzResult
 from .band import BandParams, band_upload, make_band_params
 from . import strips as _strips
-from .extz_fwd import (TP_MIN, ExtzLayout, ExtzParams, choose_tp,
+from .extz_fwd import (ExtzLayout, ExtzParams, choose_tp,
                        extz_forward, launch_bytes, make_layout)
 from .records import unpack_records
 from .strips import round_up
@@ -71,19 +71,23 @@ def extz_prep(query, target, qlen, tlen, w, m, mat, q, e, zdrop, flag,
 
 def single_prep(prm, query, target, qlen, tlen, w,
                 sites=None) -> List[ExtzLaunch]:
-    """A bucket's launches for the single-pair forward with the params
+    """The launches of a set of pairs (one pair, or every pair of a batch
+    that the route table sends to this engine, whatever its bucket) for
+    the single-pair forward with the params
     ``prm`` (any form): a launch holds as many pairs (in the given order)
-    as keep its buffers (``extz_fwd.launch_bytes`` at tiles of
-    ``TP_MIN``, the largest history) within ``ops.strips.LAUNCH_BYTES``,
-    and a pair whose buffers alone are larger gets a launch of its own;
-    :func:`extz_fwd.choose_tp` then picks each launch's tile.
+    as keep its buffers (``extz_fwd.launch_bytes`` at the tile
+    :func:`extz_fwd.choose_tp` picks for the whole set) within
+    ``ops.strips.LAUNCH_BYTES``, and a pair whose buffers alone are larger
+    gets a launch of its own.  A launch then takes the tile that
+    ``choose_tp`` picks for its own pairs, where its buffers still fit.
     ``sites(i0, tpad, tlen)`` gives the donor and acceptor rows of a
-    splice launch whose first pair is the bucket's ``i0``."""
+    splice launch whose first pair is the set's ``i0``."""
     qlen = np.asarray(qlen, np.int32)
     tlen = np.asarray(tlen, np.int32)
     w = np.asarray(w, np.int32)
     B = len(query)
-    sizes = launch_bytes(qlen, tlen, w, TP_MIN, prm.cig)
+    tp = choose_tp(tlen)
+    sizes = launch_bytes(qlen, tlen, w, tp, prm.cig)
     out = []
     i0 = 0
     while i0 < B:
@@ -92,6 +96,10 @@ def single_prep(prm, query, target, qlen, tlen, w,
             total += int(sizes[i1])
             i1 += 1
         ql, tl, wl = qlen[i0:i1], tlen[i0:i1], w[i0:i1]
+        tp_l = choose_tp(tl)
+        if tp_l != tp and i1 - i0 > 1 and int(launch_bytes(
+                ql, tl, wl, tp_l, prm.cig).sum()) > _strips.LAUNCH_BYTES:
+            tp_l = tp
         qpad = np.zeros((i1 - i0, round_up(int(ql.max()), 16)), np.uint8)
         tpad = np.zeros((i1 - i0, round_up(int(tl.max()), 16)), np.uint8)
         for k in range(i1 - i0):
@@ -99,9 +107,9 @@ def single_prep(prm, query, target, qlen, tlen, w,
             tpad[k, :tl[k]] = target[i0 + k]
         if max(int(qpad.max()), int(tpad.max())) >= prm.m:
             raise ValueError(f"sequence symbols must be < m = {prm.m}")
-        tp = choose_tp(i1 - i0, tpad.shape[1])
         out.append(ExtzLaunch(prm, qpad, tpad, ql.copy(), tl.copy(),
-                              wl.copy(), make_layout(ql, tl, wl, tp, prm.cig),
+                              wl.copy(), make_layout(ql, tl, wl, tp_l,
+                                                     prm.cig),
                               () if sites is None else sites(i0, tpad, tl)))
         i0 = i1
     return out

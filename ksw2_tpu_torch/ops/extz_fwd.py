@@ -21,11 +21,18 @@ an offset array.  A launch holds many pairs (a bucket, or one pair) laid
 out by :func:`make_layout`.
 
 The forward has two implementations: ``csrc/extz_fwd.cu`` for CUDA
-tensors (many blocks a pair, one tile of ``tp`` target positions each, and
-an in-order replay of the per-diagonal records after it) and
-:func:`extz_forward_plain` for CPU tensors, which is the band route's
-``band.band_forward_plain`` with its output laid out as this store.  The
-same source in its two-piece and splice forms is kernels 13 and 14
+tensors (many blocks a pair, one warp a tile of ``tp`` target positions
+whose state lives in its lanes' registers, and an in-order replay of the
+per-diagonal records after it) and :func:`extz_forward_plain` for CPU
+tensors, which is the band route's ``band.band_forward_plain`` with its
+output laid out as this store.  A tile hands its last position's state
+on to the next tile through a per-diagonal boundary history, one release
+every 32 diagonals, so each tile runs one such group behind the one
+before it.  :func:`choose_tp` picks the tile: 32 positions for a few
+long pairs (a tile's diagonal is a chain of dependent steps, so narrow
+tiles spread a pair over more SMs), 64 once a launch has more than 16
+tiles of 32 a SM.  The same source in its
+two-piece and splice forms is kernels 13 and 14
 (:func:`single_forward_cuda`; their plain versions and host sides are
 ``ops/extd.py`` and ``ops/exts.py``), with this layout and store: the
 tile edge they hand on carries x2 beside x and v in the same word, so
@@ -42,11 +49,12 @@ from .._build import LAUNCHES, check, library
 from ..core.flags import Flag
 from .band import BandParams, band_forward_plain
 from .bands import first_empty_diag, n_col_bytes
-from .strips import _check_cuda, round_up
+from .strips import _check_cuda
 
-TP_MIN = 128               # a tile's target positions, for few pairs
-TP_MAX = 4096              # ... and at most, one tile a pair for many
-FILL_PAIRS = 132           # an H100's SMs: fill_pairs() without a card
+TILES = (32, 64)           # the kernel's tile widths (target positions)
+TP_MIN, TP_MAX = TILES
+SMS = 132                  # an H100's SMs: n_sms() without a card
+NARROW_PER_SM = 16         # tiles of TP_MIN a launch may put on each SM
 
 
 class ExtzParams(NamedTuple):
@@ -101,23 +109,23 @@ def store_bytes(qlen, tlen, w) -> np.ndarray:
     return row_off(first_empty_diag(qlen, tlen, w), qlen, tlen, w)
 
 
-def fill_pairs() -> int:
-    """Pairs that fill the card one tile each: the current CUDA device's
-    SM count, else ``FILL_PAIRS``."""
+def n_sms() -> int:
+    """The current CUDA device's SM count, else ``SMS``."""
     if not torch.cuda.is_available():
-        return FILL_PAIRS
+        return SMS
     return torch.cuda.get_device_properties(
         torch.cuda.current_device()).multi_processor_count
 
 
-def choose_tp(B: int, Lt: int) -> int:
-    """A launch's tile: ``TP_MIN`` positions for fewer pairs than fill the
-    card one tile each, so that one pair's diagonals spread over many
-    SMs; else one tile a pair up to ``TP_MAX`` positions (the rounded
-    band reaches ``tlen + 14``)."""
-    if B < fill_pairs():
-        return TP_MIN
-    return min(round_up(Lt + 16, TP_MIN), TP_MAX)
+def choose_tp(tlen) -> int:
+    """A launch's tile for its pairs' targets ``tlen``: ``TP_MIN`` while
+    its tiles number at most ``NARROW_PER_SM`` a SM (a few long pairs:
+    a tile's diagonal is a chain of dependent chunk steps, so the
+    narrowest tiles spread a pair over the most SMs and run the shortest
+    chain), else ``TP_MAX``, which halves the tile-diagonals, and so the
+    hand-off work, of a launch that fills the card."""
+    tiles = int((-(-(np.asarray(tlen, np.int64) + 15) // TP_MIN)).sum())
+    return TP_MIN if tiles <= NARROW_PER_SM * n_sms() else TP_MAX
 
 
 def launch_bytes(qlen, tlen, w, tp: int, cig: bool) -> np.ndarray:
@@ -161,10 +169,10 @@ def _excl(a: np.ndarray) -> np.ndarray:
 
 
 def make_layout(qlen, tlen, w, tp: int, cig: bool) -> ExtzLayout:
-    """The launch's layout for tiles of ``tp`` positions (a multiple of
-    32); the store only with ``cig``."""
-    if tp % 32 or tp < 32:
-        raise ValueError(f"tile of {tp} positions: want a multiple of 32")
+    """The launch's layout for tiles of ``tp`` positions (one of
+    ``TILES``); the store only with ``cig``."""
+    if tp not in TILES:
+        raise ValueError(f"tile of {tp} positions: want one of {TILES}")
     qlen, tlen, w = (np.asarray(a, np.int64) for a in (qlen, tlen, w))
     rlim = first_empty_diag(qlen, tlen, w).astype(np.int64)
     tiles = -(-(tlen + 15) // tp)
@@ -330,8 +338,8 @@ def extz_forward(qs, ts, qlen, tlen, w, table, prm: BandParams,
     return extz_forward_plain(qs, ts, qlen, tlen, w, table, prm, lay)
 
 
-__all__ = ["TP_MIN", "TP_MAX", "ExtzParams", "row_widths",
-           "row_off", "store_bytes", "fill_pairs", "choose_tp",
+__all__ = ["TILES", "TP_MIN", "TP_MAX", "ExtzParams", "row_widths",
+           "row_off", "store_bytes", "n_sms", "choose_tp",
            "launch_bytes", "ExtzLayout", "make_layout", "compact_store",
            "extz_forward_plain", "MODES",
            "single_forward_cuda", "extz_forward_cuda", "extz_forward"]

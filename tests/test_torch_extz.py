@@ -270,16 +270,21 @@ def test_layout_tiles_and_bases():
     """A launch's layout: tiles cover each target and its 15-position
     overshoot, the bases are running sums."""
     ql, tl, w = [30, 500, 260], [700, 129, 1000], [700, 500, 20]
-    lay = F.make_layout(ql, tl, w, 128, cig=True)
-    assert list(np.diff(lay.tbase)) == [6, 2, 8]
+    lay = F.make_layout(ql, tl, w, 64, cig=True)
+    assert list(np.diff(lay.tbase)) == [12, 3, 16]
     rl = [int(first_empty_diag(a, b, c)) for a, b, c in zip(ql, tl, w)]
     assert list(lay.rlim) == rl and lay.n_diag == sum(rl)
     assert list(lay.dbase) == [0, rl[0], rl[0] + rl[1]]
-    assert list(lay.bbase) == [0, 5 * rl[0], 5 * rl[0] + rl[1]]
+    assert list(lay.bbase) == [0, 11 * rl[0], 11 * rl[0] + 2 * rl[1]]
     sizes = [int(F.store_bytes(a, b, c)[0]) for a, b, c in zip(ql, tl, w)]
     assert list(lay.pbase) == [0, sizes[0], sizes[0] + sizes[1]]
     assert lay.n_bytes == sum(sizes)
-    assert F.choose_tp(1, 50000) == 128 and F.choose_tp(4096, 512) == 640
+    # the tile: 32 positions for a few long pairs (at most 16 tiles a SM
+    # of the 132), 64 for more
+    assert F.choose_tp([50000]) == 32 and F.choose_tp([512] * 4096) == 64
+    assert F.choose_tp([12000] * 5) == 32 and F.choose_tp([12000] * 6) == 64
+    with pytest.raises(ValueError):
+        F.make_layout(ql, tl, w, 128, cig=True)
 
 
 @pytest.mark.parametrize("cig", [False, True])

@@ -407,8 +407,8 @@ def test_aligner_on_every_card_matches_cpu(cuda_device):
 
 
 def _extz_launch(seed, flag, zdrop):
-    """One single-pair launch with tiles of 128 positions: seeded pairs of
-    300-1500 bp (3-12 tiles; N bases; the fifth diverges after 600 bp,
+    """One single-pair launch with tiles of 32 positions: seeded pairs of
+    300-1500 bp (10-48 tiles; N bases; the fifth diverges after 600 bp,
     so z100 stops it mid-matrix), a 30 bp pair and the edge shapes (1 bp,
     127-129 bp, 257 bp), with w from 0 to unbanded."""
     rng = np.random.default_rng(seed)
@@ -442,7 +442,7 @@ EXTZ_FORMS = [(Flag.SCORE_ONLY, -1), (Flag.SCORE_ONLY, 100), (Flag.NONE, 100),
 @pytest.mark.cuda
 @pytest.mark.parametrize("flag,zdrop", EXTZ_FORMS)
 def test_extz_forward_and_walk_kernels_match_plain(cuda_device, flag, zdrop):
-    """Kernel 12 (tiles of 128 positions) against its plain version:
+    """Kernel 12 (tiles of 32 positions) against its plain version:
     records, stops and the bytes of every row a pair computed; kernel 17
     against its plain version on the kernel's bytes, upper_force 1 and 0,
     min_intron 0 and 5."""
@@ -510,7 +510,7 @@ def test_single_pair_aligner_matches_cpu(cuda_device, flag):
 
 
 def _single_pairs(seed, spliced=False):
-    """Seeded pairs of 30-1500 bp over 1-12 tiles of 128 positions (N
+    """Seeded pairs of 30-1500 bp over 1-48 tiles of 32 positions (N
     bases), spliced ones with a GT..AG intron, and the edge shapes."""
     rng = np.random.default_rng(seed)
     pairs = []
@@ -562,7 +562,7 @@ EXTD_FORMS = [(Flag.SCORE_ONLY, -1, 0), (Flag.NONE, 100, 1),
 @pytest.mark.cuda
 @pytest.mark.parametrize("flag,zdrop,costs", EXTD_FORMS)
 def test_extd_forward_kernel_matches_plain(cuda_device, flag, zdrop, costs):
-    """Kernel 13 (tiles of 128 positions) against its plain version, with
+    """Kernel 13 (tiles of 32 positions) against its plain version, with
     w from 0 to unbanded, default and swapped costs; kernel 17 on its
     bytes."""
     pairs = _single_pairs(64)
@@ -574,7 +574,7 @@ def test_extd_forward_kernel_matches_plain(cuda_device, flag, zdrop, costs):
                          GEN if flag & Flag.GENERIC_SC else MAT,
                          *TWO_PIECE[costs], zdrop, flag,
                          cig=not flag & Flag.SCORE_ONLY)
-    assert ln.lay.tp == 128
+    assert ln.lay.tp == 32
     _check_single(ln, BD.band_upload(ln, cuda_device), ED.extd_forward_cuda,
                   ED.extd_forward_plain, 10, 0)
 
@@ -591,7 +591,7 @@ EXTS_FORMS = [(SPL | Flag.SCORE_ONLY, 200, False), (SPL, 200, True),
 @pytest.mark.cuda
 @pytest.mark.parametrize("flag,zdrop,junc", EXTS_FORMS)
 def test_exts_forward_kernel_matches_plain(cuda_device, flag, zdrop, junc):
-    """Kernel 14 (tiles of 128 positions) against its plain version on
+    """Kernel 14 (tiles of 32 positions) against its plain version on
     spliced pairs, with junction tracks (junc_bonus 9); kernel 17 on its
     bytes with min_intron = long_thres."""
     pairs = _single_pairs(65, spliced=True)
@@ -609,7 +609,7 @@ def test_exts_forward_kernel_matches_plain(cuda_device, flag, zdrop, junc):
                          simple_mat(5, 1, -2), 2, 1, 32, 9, zdrop, flag,
                          tracks, 9 if junc else 0,
                          cig=not flag & Flag.SCORE_ONLY)
-    assert ln.lay.tp == 128
+    assert ln.lay.tp == 32
     _check_single(ln, BD.band_upload(ln, cuda_device), ES.exts_forward_cuda,
                   ES.exts_forward_plain, 0, ln.prm.lt)
 
