@@ -26,8 +26,11 @@ Phases, each printing one JSON line:
 5b. band: kernels C / C2 (band forward, one- and two-piece) against
    their plain version, records and direction bytes exactly, in score,
    CIG and APPROX forms with bands from 1 to 1472 on pairs of up to 900
-   bp and the shortest long-banded pair cut to 2 kb, and kernel D (band
-   walker) against its plain version on the kernels' bytes;
+   bp, the shortest long-banded pair cut to 2 kb, the kernel's edges
+   (tiles of 32 and 64 positions, targets around a tile edge, a Z-drop,
+   the H0 walk across tiles) and one merged launch of several buckets,
+   and kernel D (band walker) against its plain version on the kernels'
+   bytes;
 5c. batch: kernels E / E2 (batched forward, one- and two-piece, one warp
    a pair) against their plain version, records and direction bytes
    exactly, in score, CIG and APPROX forms with w 0, 1, 16, 100 and
@@ -75,7 +78,9 @@ Phases, each printing one JSON line:
    seeded workload (seed 778, q and t <= 128) that takes the rows route,
    the band route on the seeded long-banded workload (seed 779, 128
    pairs of 4-16 kb at -w751 -z400: extz, extd and approx scores, extz
-   and extd CIGARs; no strips kernel may launch), the mixed workload
+   and extd CIGARs; no strips kernel may launch; a batch's band buckets
+   go out as one score launch and ceil(bytes / LAUNCH_BYTES) CIGAR
+   launches, asserted against the planner), the mixed workload
    at -w751 (strips and band in one batch) and the batched route on the
    seeded short-banded workload (seed 780, 4096 pairs of 150-512 bp at
    -w100 -z100: extz, extd and approx scores, extz and extd CIGARs; EQX
@@ -1089,13 +1094,15 @@ def long1_pair(long):
     return [(q[:LONG1_CUT], t[:LONG1_CUT])]
 
 
-def band_cases(long):
+def band_cases(long, jobs):
     """(name, launch) cases for kernels C and C2: small seeded launches
     of 60-900 bp with bands from 1 to 1472 (N bases, one clipped query)
     in score, CIG and APPROX forms, zdrop -1/100/400, RIGHT and
-    GENERIC_SC, one-piece, two-piece and swapped costs; and the shortest
+    GENERIC_SC, one-piece, two-piece and swapped costs; the shortest
     pair of the long-banded workload cut to LONG1_CUT bp at its settings
-    (the plain forward takes milliseconds a diagonal)."""
+    (the plain forward takes milliseconds a diagonal); the kernel's edges
+    (``band_edge_pairs`` at both tile widths) and one merged launch of
+    several buckets of the mixed workload (``merged_band_launch``)."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import encode_dna
 
@@ -1131,7 +1138,70 @@ def band_cases(long):
         ("long1_extd_score_z400",
          band_launch(long1, BAND_W, Flag.SCORE_ONLY, 400, EXTD)),
     ]
+    # the kernel's edges: tiles of 32 (widest band 751, 25 warps) and of
+    # 64 positions (752); targets one short of, on and past a tile edge;
+    # a pair shorter than a tile; a Z-drop the compute warps run past; the
+    # H0 walk across tiles; w = 1
+    edge = band_edge_pairs(np.random.default_rng(10))
+    w32 = [751, 751, 300, 1, 751, 64]
+    w64 = [752, 751, 300, 1, 1472, 64]
+    cases += [
+        ("edge32_extz_cig_z100", band_launch(edge, w32, Flag.NONE, 100)),
+        ("edge32_extd_approxdrop_score_z100",
+         band_launch(edge, w32, Flag.SCORE_ONLY | approx, 100, EXTD)),
+        ("edge64_extz_generic_cig_right_z100",
+         band_launch(edge, w64, Flag.GENERIC_SC | Flag.RIGHT, 100,
+                     mat=_generic_mat())),
+        ("edge64_extd_cig_z100", band_launch(edge, w64, Flag.NONE, 100,
+                                             EXTD)),
+        ("edge64_extz_approx_cig_zm1",
+         band_launch(edge, w64, Flag.APPROX_MAX, -1)),
+        ("merged_mixed_extz_cig_z100", merged_band_launch(jobs, Flag.NONE)),
+    ]
     return cases
+
+
+def band_edge_pairs(rng):
+    """Pairs at the band kernel's edges: one that aligns for 600 bp and
+    then runs into unrelated sequence (it Z-drops at -z100), targets of
+    639, 640 and 641 bp (one short of, on and past a tile edge), one
+    shorter than a tile (20 bp) and a query much shorter than its target
+    (its band ends on the query's length, not on w)."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    out = []
+    t, q = random_pair(rng, 600, divergence=0.05, indel=0.02)
+    tail = "".join(rng.choice(list("ACGT"), size=300))
+    tail2 = "".join(rng.choice(list("ACGT"), size=300))
+    out.append((encode_dna(q + tail), encode_dna(t + tail2)))
+    for L in (639, 640, 641, 20):
+        t, q = random_pair(rng, L, divergence=0.12, indel=0.05)
+        out.append((encode_dna(q), encode_dna(t)))
+    t, q = random_pair(rng, 900, divergence=0.1, indel=0.04)
+    out.append((encode_dna(q[:200]), encode_dna(t)))
+    return out
+
+
+def merged_band_launch(jobs, flag):
+    """The band launch the scheduler makes of the mixed workload's first
+    six band pairs of 1500 bp or less at -w751 -z100 (CIGAR path): its
+    buckets merged into one, longest first."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.band import band_prep
+
+    mat = simple_mat(5, 2, -4)
+    pick = [p for p in jobs if 760 < len(p[1]) <= 1500][:6]
+    jl = [sched.AlignJob(q, t, BAND_W) for q, t in pick]
+    bks = sched._route(jl, mat, 6, [None] * len(jl),
+                       sched._cigar_chooser(flag, 5, mat, 100, 4, 2))
+    assert len({sched._bucket_key(len(q), len(t)) for q, t in pick}) > 1
+    (bk,) = bks
+    assert bk.route == "band"
+    (ln,) = band_prep([jl[i].query for i in bk.idxs],
+                      [jl[i].target for i in bk.idxs], bk.qlen, bk.tlen,
+                      bk.w, 5, mat, 4, 2, 100, flag, cig=True)
+    return ln
 
 
 def phase_band(cases):
@@ -2544,6 +2614,51 @@ def single_launch_plan(sb, spl4, slong):
                             "extz_walk": len(lcig) + len(lcut)}}
 
 
+def band_launch_plan(alns, long, jobs):
+    """The band launches a batch of each band path makes, by kernel, as
+    the scheduler plans them (host only): a batch's band buckets merged
+    into one, one score launch a batch and ceil(bytes / LAUNCH_BYTES)
+    CIGAR launches, the bytes their rotated stores (B x nd x ncol), each
+    walked once; asserted here.  ``alns`` are the band paths' aligners by
+    run name ("long_*" on the long-banded workload, "mixed751_*" on the
+    mixed one)."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import strips
+    from ksw2_tpu_torch.ops.band import band_prep
+
+    plan = {}
+    for name, aln in alns.items():
+        pairs, path = (long, "band") if name.startswith("long") else \
+            (jobs, "mixed751")
+        two = aln.q2 is not None
+        q2, e2 = (aln.q2, aln.e2) if two else (0, 0)
+        flag = Flag(int(aln.flag))
+        mat = np.asarray(aln.mat, np.int8).reshape(-1)
+        cig = not flag & Flag.SCORE_ONLY
+        chooser = sched._cigar_chooser if cig else sched._score_chooser
+        jl = [sched.AlignJob(q, t, aln.w) for q, t in pairs]
+        band = [bk for bk in sched._route(
+            jl, mat, aln.q + aln.e, [None] * len(jl),
+            chooser(flag, aln.m, mat, aln.zdrop, aln.q, aln.e, two, q2, e2))
+            if bk.route == "band"]
+        lns = [ln for bk in band for ln in band_prep(
+            [jl[i].query for i in bk.idxs], [jl[i].target for i in bk.idxs],
+            bk.qlen, bk.tlen, bk.w, aln.m, mat, aln.q, aln.e, aln.zdrop,
+            flag, cig=cig, two=two, q2=q2, e2=e2)]
+        nbytes = sum(len(ln.qlen) * ln.nd * ln.ncol for ln in lns)
+        want = -(-nbytes // strips.LAUNCH_BYTES) if cig else 1
+        if len(band) != 1 or len(lns) != want:
+            raise AssertionError(f"{name}: {len(band)} band buckets and "
+                                 f"{len(lns)} launches, planned {want}")
+        counts = plan.setdefault(path, {})
+        kern = "band_extd_fwd" if two else "band_fwd"
+        counts[kern] = counts.get(kern, 0) + len(lns)
+        if cig:
+            counts["band_walk"] = counts.get("band_walk", 0) + len(lns)
+    return plan
+
+
 def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
@@ -2862,6 +2977,7 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
              for path, spec, needs, never in paths]
     paths += local_paths(kernels + lg_kernels)
     plan = single_launch_plan(sb, spl4, slong)
+    plan.update(band_launch_plan(band, long, jobs))
     emit({"phase": "launch_plan", "per_batch": plan})
     counts = {}
     runs = {}
@@ -2874,7 +2990,7 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
         results.update(res)
         # each run's 5 batches (the first, 3 timed, the submit/wait one)
         # launch each kernel once for each LAUNCH_BYTES of the batch's
-        # single-pair buffers, whatever their buckets
+        # single-pair buffers or band stores, whatever their buckets
         if path in plan:
             want = {k: 5 * v for k, v in plan[path].items()}
             got = {k: c.get(k, 0) for k in want}
@@ -3437,6 +3553,8 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
             kname, cells, nbytes, int_rate, ln.prm.cig)
         row["band_cells"] = band_cells(pairs, BAND_W)
+        # the launch waits on its longest pair's chain of ln.nd diagonals
+        row["us_per_diagonal"] = row["fwd_ms"] * 1e3 / ln.nd
         row["fwd_band_gcells_per_s"] = row["band_cells"] / row["fwd_ms"] / 1e6
         if plain:
             row["fwd_plain_ms"] = PLAIN_MS[(plain, "fwd")]
@@ -3533,11 +3651,12 @@ def _kernel(name, src, replaces, launches, err, row, prefix):
             "bound_by": row[f"{prefix}_bound_by"], "library_ms": None}
 
 
-# ``--breakdown``: where a tile-diagonal of kernels 12-14 spends its
-# cycles.  A copy of csrc/extz_fwd.cu with clock64 stamps around its parts
-# (each anchor below must occur once in the source) is built on its own
-# into build/diag_breakdown/ and launched through the wrappers in place
-# of the library's kernel; the package never uses the copy.
+# ``--breakdown``: where a diagonal of kernels 12-14 (``extz``) and of
+# kernels 9 and 10 (``band``) spends its cycles.  A copy of the kernel's
+# source with clock64 stamps around its parts (each anchor below must
+# occur once in the source) is built on its own into
+# build/diag_breakdown/ and launched through the wrappers in place of the
+# library's kernel; the package never uses the copy.
 BREAKDOWN_PARTS = ("wait", "group_loads", "chunks", "diag_tail", "release",
                    "fold_atomics", "total", "diags", "first_wait")
 BREAKDOWN_STAMPS = (
@@ -3576,6 +3695,63 @@ BREAKDOWN_STAMPS = (
      "    for (int i = 0; i < 10; ++i)\n"
      "      atomicAdd(&g_prof[i], (unsigned long long)P[i]);\n}\n"),
 )
+# band_fwd.cu: each compute warp's lane 0 adds the cycles since the last
+# stamp to the part a stamp closes, a group of diagonals at a time
+# (summed over the warps' tile-diagonals: a block's warps run side by
+# side); the replay warp's lane 0 counts its waits and its work a group
+# (counters 0-5 the parts, 7 the tile-diagonals, 8 the total; 10-12 the
+# replay's wait, work and groups)
+BAND_BREAKDOWN_PARTS = ("ring_wait", "tile_before", "group_prep", "diagonals",
+                        "handoff", "fold_settle")
+BAND_BREAKDOWN_STAMPS = (
+    ("constexpr unsigned FULL = 0xffffffffu;\n",
+     "constexpr unsigned FULL = 0xffffffffu;\n"
+     "__device__ unsigned long long g_prof[16];\n"
+     "#define STAMP(i) { const long long t_ = clock64(); P[i] += t_ - tq; "
+     "tq = t_; }\n"),
+    ("    bool quit = false;\n",
+     "    bool quit = false;\n"
+     "    long long P[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "    const long long tT = clock64();\n    long long tq = tT;\n"),
+    ("      for (int r_lo = rA; r_lo <= rB;) {\n",
+     "      for (int r_lo = rA; r_lo <= rB;) {\n        tq = clock64();\n"),
+    ("        // the tile before's entries [cb, ce]: e0 = min(r - 1, pB) and,\n",
+     "        STAMP(0);\n"
+     "        // the tile before's entries [cb, ce]: e0 = min(r - 1, pB) and,\n"),
+    ("        // the query bases the group's cells read (r - t for r in the\n",
+     "        STAMP(1);\n"
+     "        // the query bases the group's cells read (r - t for r in the\n"),
+    ("#pragma unroll 4\n        for (int rr = 0; rr < nr; ++rr) {\n",
+     "        STAMP(2);\n"
+     "#pragma unroll 4\n        for (int rr = 0; rr < nr; ++rr) {\n"),
+    ("        myhi = r_hi;\n",
+     "        STAMP(3);\n        P[7] += nr;\n        myhi = r_hi;\n"),
+    ("        // the keys into the pair's ring, then no more below r_hi\n",
+     "        STAMP(4);\n"
+     "        // the keys into the pair's ring, then no more below r_hi\n"),
+    ("        r_lo = r_hi + 1;\n      }\n    }\n",
+     "        STAMP(5);\n        r_lo = r_hi + 1;\n      }\n    }\n"),
+    ("    // no more tiles: nothing to wait for from this warp\n",
+     "    P[8] = clock64() - tT;\n    if (lane == 0)\n"
+     "      for (int i = 0; i < 10; ++i)\n"
+     "        atomicAdd(&g_prof[i], (unsigned long long)P[i]);\n"
+     "    // no more tiles: nothing to wait for from this warp\n"),
+    ("    const long long t_start = clock64();\n    bool done = false;\n",
+     "    const long long t_start = clock64();\n    bool done = false;\n"
+     "    long long RP[3] = {0, 0, 0};\n    long long tr = clock64();\n"),
+    ("      long long dv = 0;\n",
+     "      RP[0] += clock64() - tr;\n      tr = clock64();\n"
+     "      long long dv = 0;\n"),
+    ("      __syncwarp();\n      if (lane == 0) st_release(done ? stopp : "
+     "replayed, done ? stop : hi);\n",
+     "      RP[1] += clock64() - tr;\n      RP[2] += 1;\n"
+     "      __syncwarp();\n      if (lane == 0) st_release(done ? stopp : "
+     "replayed, done ? stop : hi);\n      tr = clock64();\n"),
+    ("    if (rlim < ndb) zd = 1;\n",
+     "    if (lane == 0)\n      for (int i = 0; i < 3; ++i)\n"
+     "        atomicAdd(&g_prof[10 + i], (unsigned long long)RP[i]);\n"
+     "    if (rlim < ndb) zd = 1;\n"),
+)
 BREAKDOWN_READ = """
 extern "C" int ksw2t_prof_read(void* out) {
   cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
@@ -3589,58 +3765,72 @@ extern "C" const char* ksw2t_error_string(int err) {
 """
 
 
-def breakdown_library():
-    """Build the stamped copy of extz_fwd.cu; returns it loaded, with the
-    entry points' argument types set."""
+def breakdown_library(name, stamps, entry):
+    """Build the stamped copy of ``csrc/<name>.cu``; returns it loaded,
+    with the entry point's argument types set."""
     import ctypes
 
     from ksw2_tpu_torch import _build
 
-    src = (_build.CSRC / "extz_fwd.cu").read_text()
-    for anchor, stamped in BREAKDOWN_STAMPS:
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    for anchor, stamped in stamps:
         if src.count(anchor) != 1:
-            raise RuntimeError(f"breakdown: anchor not found once: "
-                               f"{anchor!r}")
+            raise RuntimeError(f"breakdown: anchor not found once in "
+                               f"{name}.cu: {anchor!r}")
         src = src.replace(anchor, stamped)
     out = _build.BUILD_DIR.parent / "diag_breakdown"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "extz_fwd_stamped.cu").write_text(src + BREAKDOWN_READ)
-    lib_path = out / "libextz_fwd_stamped.so"
+    (out / f"{name}_stamped.cu").write_text(src + BREAKDOWN_READ)
+    lib_path = out / f"lib{name}_stamped.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                    str(_build.CSRC), str(out / "extz_fwd_stamped.cu"), "-o",
+                    str(_build.CSRC), str(out / f"{name}_stamped.cu"), "-o",
                     str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.ksw2t_extz_fwd.argtypes = _build._SIGNATURES["ksw2t_extz_fwd"]
-    lib.ksw2t_extz_fwd.restype = ctypes.c_int
+    getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+    getattr(lib, entry).restype = ctypes.c_int
     lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
     lib.ksw2t_error_string.argtypes = [ctypes.c_int]
     lib.ksw2t_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def phase_breakdown() -> int:
+def _stamped_run(lib, launches, call):
+    """(stamped ms, the 16 counters) of ``call(args, launch)`` over
+    ``launches`` on the card."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+
+    prof = np.zeros(16, np.uint64)
+    args = [BD.band_upload(ln, "cuda") for ln in launches]
+    lib.ksw2t_prof_read(prof.ctypes.data)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for a, ln in zip(args, launches):
+        call(a, ln)
+    t1.record()
+    t1.synchronize()
+    lib.ksw2t_prof_read(prof.ctypes.data)
+    del args
+    torch.cuda.empty_cache()
+    return t0.elapsed_time(t1), prof
+
+
+def breakdown_extz():
     """Cycles a tile-diagonal of each part of kernels 12-14 (CUDA clock64
     sums over the tiles' lane 0, over the tile-diagonals computed), at
     each tile width on the long pairs and at the scheduler's tile on the
     splice-long scores and the sr-extension launch.  ``first_wait`` is a
     tile's wait before its first group (the pipeline's fill), ``wait``
     the later ones; the stamps themselves cost cycles."""
-    import torch
     from ksw2_tpu_torch.core.flags import Flag
-    from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import extd as ED
     from ksw2_tpu_torch.ops import exts as ES
     from ksw2_tpu_torch.ops import extz_fwd as F
 
-    if not torch.cuda.is_available():
-        raise RuntimeError("the breakdown needs a CUDA card")
-    emit({"phase": "device", "nvidia_smi": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip()})
-    lib = breakdown_library()
+    lib = breakdown_library("extz_fwd", BREAKDOWN_STAMPS, "ksw2t_extz_fwd")
+    saved = F.library
     F.library = lambda: lib
-    prof = np.zeros(16, np.uint64)
     SO = Flag.SCORE_ONLY
     single = single_pair(SINGLE_SEED, SINGLE_LEN)
     mt = single_pair(MT_SEED, MT_LEN)
@@ -3659,30 +3849,125 @@ def phase_breakdown() -> int:
                                 SPLICE_JUNC_BONUS), (None,)),
         ("sr_extz_cig", F.extz_forward_cuda,
          sr_launches(short_banded_jobs()), (None,))]
-    for name, fn, lns, tps in cases:
-        for tp in tps:
-            run = [at_tp(ln, tp) if tp else ln for ln in lns]
-            args = [BD.band_upload(ln, "cuda") for ln in run]
-            lib.ksw2t_prof_read(prof.ctypes.data)
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for a, ln in zip(args, run):
-                fn(*a, ln.prm, ln.lay)
-            t1.record()
-            t1.synchronize()
-            lib.ksw2t_prof_read(prof.ctypes.data)
+    try:
+        for name, fn, lns, tps in cases:
+            for tp in tps:
+                run = [at_tp(ln, tp) if tp else ln for ln in lns]
+                ms, prof = _stamped_run(
+                    lib, run, lambda a, ln: fn(*a, ln.prm, ln.lay))
+                nd = float(prof[7])
+                emit({"phase": "breakdown", "case": name,
+                      "tp": [ln.lay.tp for ln in run],
+                      "tiles": sum(int(ln.lay.tbase[-1]) for ln in run),
+                      "ms_stamped": ms, "tile_diagonals": int(nd),
+                      "cycles_per_tile_diagonal": {
+                          k: float(prof[i]) / nd
+                          for i, k in enumerate(BREAKDOWN_PARTS)
+                          if k != "diags"}})
+    finally:
+        F.library = saved
+
+
+def breakdown_band():
+    """Cycles a tile-diagonal of each part of kernels 9 and 10 (CUDA
+    clock64 sums over each compute warp's lane 0, over the tile-diagonals
+    computed), and the replay warp's cycles a group, on the long-banded
+    workload's 128 pairs in one score launch (one- and two-piece) and on
+    its shortest pair cut to 2 kb with CIG; then kernel 12 (and 13) on
+    the same 128 pairs at the layout ``extz.single_prep`` makes (its
+    launches), beside the band kernel unstamped."""
+    import torch
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import extd as ED
+    from ksw2_tpu_torch.ops import extz_fwd as F
+
+    long = long_banded_jobs()
+    SO = Flag.SCORE_ONLY
+    cases = [
+        ("long128_extz_score", band_launch(long, BAND_W, SO, 400)),
+        ("long1_extz_cig", band_launch(long1_pair(long), BAND_W, Flag.NONE,
+                                       400)),
+        ("long128_extd_score", band_launch(long, BAND_W, SO, 400, EXTD))]
+    lib = breakdown_library("band_fwd", BAND_BREAKDOWN_STAMPS,
+                            "ksw2t_band_fwd")
+    saved = BD.library
+    BD.library = lambda: lib
+    try:
+        for name, ln in cases:
+            ms, prof = _stamped_run(
+                lib, [ln], lambda a, ln: BD.band_forward_cuda(
+                    *a, ln.prm, ln.nd, ln.ncol))
             nd = float(prof[7])
-            emit({"phase": "breakdown", "case": name,
-                  "tp": [ln.lay.tp for ln in run],
-                  "tiles": sum(int(ln.lay.tbase[-1]) for ln in run),
-                  "ms_stamped": t0.elapsed_time(t1),
-                  "tile_diagonals": int(nd),
-                  "cycles_per_tile_diagonal": {
-                      k: float(prof[i]) / nd
-                      for i, k in enumerate(BREAKDOWN_PARTS) if k != "diags"}})
-            del args
-            torch.cuda.empty_cache()
+            parts = {k: float(prof[i]) / nd
+                     for i, k in enumerate(BAND_BREAKDOWN_PARTS)}
+            parts["total"] = float(prof[8]) / nd
+            groups = max(float(prof[12]), 1.0)
+            emit({"phase": "breakdown", "case": name, "kernel": "band",
+                  "pairs": len(ln.qlen), "layout": BD.band_layout(ln.ncol),
+                  "ms_stamped": ms, "tile_diagonals": int(nd),
+                  "cycles_per_tile_diagonal": parts,
+                  "replay_groups": int(prof[12]),
+                  "replay_cycles_per_group": {
+                      "wait": float(prof[10]) / groups,
+                      "work": float(prof[11]) / groups}})
+    finally:
+        BD.library = saved
+    # kernel 12 / 13 on the same pairs beside the band kernel: the
+    # launches single_prep makes of them (their boundary history splits
+    # the set by LAUNCH_BYTES), timed together
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.extd import extd_prep
+    from ksw2_tpu_torch.ops.extz import extz_prep
+
+    ql = np.array([len(q) for q, _ in long], np.int32)
+    tl = np.array([len(t) for _, t in long], np.int32)
+    wv = np.full(len(long), BAND_W, np.int32)
+    qs, ts = [q for q, _ in long], [t for _, t in long]
+    mat = simple_mat(5, 2, -4)
+    ez = extz_prep(qs, ts, ql, tl, wv, 5, mat, 4, 2, 400, SO, cig=False)
+    ed = extd_prep(qs, ts, ql, tl, wv, 5, mat, *EXTD, 400, SO, cig=False)
+    rows = {}
+    for name, lns, call in (
+            ("band_fwd", [cases[0][1]],
+             lambda a, ln: BD.band_forward_cuda(*a, ln.prm, ln.nd, ln.ncol)),
+            ("extz_fwd", ez, lambda a, ln: F.extz_forward_cuda(
+                *a, ln.prm, ln.lay)),
+            ("band_extd_fwd", [cases[2][1]],
+             lambda a, ln: BD.band_forward_cuda(*a, ln.prm, ln.nd, ln.ncol)),
+            ("extd_fwd", ed, lambda a, ln: ED.extd_forward_cuda(
+                *a, ln.prm, ln.lay))):
+        args = [BD.band_upload(ln, "cuda") for ln in lns]
+
+        def go():
+            return [call(a, ln)[0] for a, ln in zip(args, lns)]
+        ms = [cuda_ms(go, 2) for _ in range(2)]
+        rec = torch.cat(go()).cpu().numpy()
+        rows[name] = {"ms": ms, "launches": len(lns),
+                      "zdropped": int(rec[:, 8].sum()),
+                      "sum_max": int(rec[:, 0].sum()),
+                      "tp": [getattr(getattr(ln, "lay", None), "tp", None)
+                             for ln in lns]}
+        del args
+        torch.cuda.empty_cache()
+    emit({"phase": "breakdown", "case": "long128_score_launch",
+          "kernels": rows})
+
+
+def phase_breakdown(which=("extz", "band")) -> int:
+    """``--breakdown [extz|band]``: the clock64 breakdowns."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the breakdown needs a CUDA card")
+    emit({"phase": "device", "nvidia_smi": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()})
+    if "band" in which:
+        breakdown_band()
+    if "extz" in which:
+        breakdown_extz()
     return 0
 
 
@@ -3714,7 +3999,7 @@ def main() -> int:
     err_a = timed("kernel_a", phase_kernel_a, cases)
     err_b = timed("kernel_b", phase_kernel_b, cases)
     err_r = timed("rows", phase_rows, rcases)
-    err_band = timed("band", phase_band, band_cases(long))
+    err_band = timed("band", phase_band, band_cases(long, jobs))
     sb = short_banded_jobs()
     err_batch = timed("batch", phase_batch, batch_cases(sb))
     err_single = timed("single", phase_single, single_cases(sb))
@@ -3792,5 +4077,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(phase_breakdown() if sys.argv[1:] == ["--breakdown"]
-             else main())
+    if sys.argv[1:2] == ["--breakdown"]:
+        sys.exit(phase_breakdown(tuple(sys.argv[2:]) or ("extz", "band")))
+    sys.exit(main())

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "ksw2t_strips_walk": [_P, _P] + [_I] * 5 + [_P] * 3,
     # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
-    # two, nd, ncol, RB, threads, rec, p, stream
-    "ksw2t_band_fwd": [_P] * 6 + [_I] * 25 + [_P] * 3,
+    # two, nd, ncol, TP, NW, RING, rec, p, stream
+    "ksw2t_band_fwd": [_P] * 6 + [_I] * 26 + [_P] * 3,
     # p, starts, qlen, tlen, w, B, nd, ncol, wr, min_intron, res, runs,
     # stream
     "ksw2t_band_walk": [_P] * 5 + [_I] * 5 + [_P] * 3,

@@ -16,8 +16,8 @@ with N ops: strips in its ``spl`` form, then the batched exts engine,
 then the single-pair splice engine (kernel 14 with 17;
 ``scheduler.py:916-1119``).  The buckets that fall to a single-pair
 engine go out together, split only by ``ops.strips.LAUNCH_BYTES``, so
-their pairs' chains run at once.  Every launch is enqueued
-on the current CUDA stream before anything waits.  A handle's
+their pairs' chains run at once; so do the band route's.  Every launch
+is enqueued on the current CUDA stream before anything waits.  A handle's
 ``result()`` synchronises on the event recorded after the batch's
 device-to-host copies, so several batches in flight overlap one batch's
 host work with the next one's device work.  On ``device="cpu"`` the same
@@ -172,7 +172,8 @@ def _route(jobs, mat, qe: int, results, choose,
     bucket's pairs on the anti-diagonal routes are ordered longest first,
     so its launches pad little (and a block's warps finish together).
     The buckets routed to the single-pair engine ("any" or "single") come
-    back as one (:func:`_one_single_bucket`)."""
+    back as one, and so do the band route's (:func:`_merged`); the
+    batched route's keep their buckets."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -196,34 +197,34 @@ def _route(jobs, mat, qe: int, results, choose,
             idxs = [idxs[k] for k in order]
             qlen, tlen, wv = qlen[order], tlen[order], wv[order]
         out.append(_Bucket(idxs, qlen, tlen, wv, route))
-    return _one_single_bucket(out)
+    return _merged(_merged(out, _SINGLE), ("band",))
 
 
 _SINGLE = ("any", "single")
 
 
-def _one_single_bucket(buckets: List[_Bucket]) -> List[_Bucket]:
-    """``buckets`` with those of the single-pair engine merged into one at
-    the place of the first, its pairs longest first.  The JAX bucket key
-    only groups pairs: the single-pair forward takes mixed lengths in one
-    launch, so the batch's single-pair jobs go out together, split only
-    by ``ops.strips.LAUNCH_BYTES``, and their chains run at once instead
-    of one bucket after another.  A pair's result does not depend on the
-    launch it lands in."""
-    single = [bk for bk in buckets if bk.route in _SINGLE]
-    if len(single) < 2:
+def _merged(buckets: List[_Bucket], routes) -> List[_Bucket]:
+    """``buckets`` with those whose route is in ``routes`` merged into one
+    at the place of the first, its pairs longest first.  The JAX bucket
+    key only groups pairs: the single-pair forward and the band forward
+    take mixed lengths in one launch, so a batch's jobs on either go out
+    together, split only by ``ops.strips.LAUNCH_BYTES``, and their chains
+    run at once instead of one bucket after another.  A pair's result
+    does not depend on the launch it lands in."""
+    group = [bk for bk in buckets if bk.route in routes]
+    if len(group) < 2:
         return buckets
-    idxs = [i for bk in single for i in bk.idxs]
-    qlen, tlen, w = (np.concatenate([getattr(bk, f) for bk in single])
+    idxs = [i for bk in group for i in bk.idxs]
+    qlen, tlen, w = (np.concatenate([getattr(bk, f) for bk in group])
                      for f in ("qlen", "tlen", "w"))
     order = np.argsort(-(qlen.astype(np.int64) + tlen), kind="stable")
     merged = _Bucket([idxs[k] for k in order], qlen[order], tlen[order],
-                     w[order], single[0].route)
+                     w[order], group[0].route)
     out = []
     for bk in buckets:
-        if bk.route not in _SINGLE:
+        if bk.route not in routes:
             out.append(bk)
-        elif bk is single[0]:
+        elif bk is group[0]:
             out.append(merged)
     return out
 
@@ -337,6 +338,33 @@ def _cigar_path_score_chooser(flag, mat):
             return "band"
         if batch_ineligible_reason(Lt, ql, tl, mat, flag, -1, cigar=True,
                                    two=True) is None:
+            return "batch"
+        return "single"
+    return choose
+
+
+def _cigar_chooser(flag, m, mat, zdrop, q, e, two=False, q2=0, e2=0):
+    """The CIGAR path's route table for one bucket (``scheduler.py:
+    639-767``): strips, band, batched, then the single-pair engine of the
+    costs."""
+    def choose(Lt, ql, tl, w, raw, _idxs):
+        if two:
+            reason = strips_cigar_extd_ineligible_reason(
+                ql, tl, w, flag, m, mat, zdrop, q, e, q2, e2)
+        else:
+            reason = strips_cigar_ineligible_reason(ql, tl, w, flag, m, mat,
+                                                    zdrop, q, e)
+        if reason is None:
+            return "strips"
+        # the band route reads the jobs' RAW w (scheduler.py:672), the
+        # batched route the resolved one (scheduler.py:730)
+        band = band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
+                                      two=two)
+        if band is None:
+            return "band"
+        batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, zdrop,
+                                        cigar=True, two=two)
+        if batch is None:
             return "batch"
         return "single"
     return choose
@@ -527,30 +555,10 @@ def align_batch_async(
     q2, e2 = q2 or 0, e2 or 0
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
 
-    def choose(Lt, ql, tl, w, raw, _idxs):
-        if two:
-            reason = strips_cigar_extd_ineligible_reason(
-                ql, tl, w, flag, m, mat, zdrop, q, e, q2, e2)
-        else:
-            reason = strips_cigar_ineligible_reason(ql, tl, w, flag, m, mat,
-                                                    zdrop, q, e)
-        if reason is None:
-            return "strips"
-        # the band route reads the jobs' RAW w (scheduler.py:672), the
-        # batched route the resolved one (scheduler.py:730)
-        band = band_ineligible_reason(Lt, ql, tl, raw, mat, flag, cigar=True,
-                                      two=two)
-        if band is None:
-            return "band"
-        batch = batch_ineligible_reason(Lt, ql, tl, mat, flag, zdrop,
-                                        cigar=True, two=two)
-        if batch is None:
-            return "batch"
-        return "single"
-
     # the reference resets after its swap (ksw2_extd2_sse.c:93-100)
     qc, ec = canonical_costs(q, e, q2, e2)[:2] if two else (q, e)
-    buckets = _route(jobs, mat, qc + ec, results, choose)
+    buckets = _route(jobs, mat, qc + ec, results,
+                     _cigar_chooser(flag, m, mat, zdrop, q, e, two, q2, e2))
     cig_runs = {"band": (band_cigar_launch, unpack_band_cigars),
                 "batch": (batch_cigar_launch, unpack_batch_cigars)}
     pieces = []

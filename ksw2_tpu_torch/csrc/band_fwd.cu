@@ -1,5 +1,6 @@
-// Band forward: the anti-diagonal difference DP over a rotated band
-// (extz and extd, exact or approximate max, score and direction bytes).
+// Band forward (kernels 9 and 10): the anti-diagonal difference DP over a
+// rotated band (extz and extd, exact or approximate max, score and
+// direction bytes).
 //
 // Replaces ksw2_tpu/ops/wavefront_band.py:_band_kernel_body (one-piece,
 // counted as band_fwd) and ksw2_tpu/ops/wavefront_band_extd.py:
@@ -12,37 +13,69 @@
 // (APPROX), the mqe / mte captures and the score, written as the 9-field
 // record of ops/records.py; with CIG the reference's direction byte of
 // every cell of [st, en] into its rotated store p[b][r][t - st(r)] with
-// n_col bytes a diagonal.
+// n_col bytes a diagonal.  The plain version is ops/band.py:
+// band_forward_plain.
 //
-// Layout: one thread block per pair; thread `tid` owns the target
-// positions t with t % nt == tid, and the block loops over the pair's own
-// diagonals until its band empties or it Z-drops.  The band state lives
-// in shared memory as rings indexed by t mod RB (RB a power of two of at
-// least min(w + 1, qlen, tlen) + 48: the band, its 16-byte rounding on
-// both sides and the stale edge).  The deltas and H are double-buffered
-// by the parity of r: diagonal r reads the ring r - 1 wrote and writes
-// the other, so one barrier per diagonal suffices.  Reads stay exact
-// because the rounded band only moves forward: every position diagonal r
-// reads was written by r - 1 or never, and a position entering the ring
-// is set to the reference's init bytes one diagonal ahead.  The
-// reference's stale bytes are kept, not cleared: the edge byte at st - 1
-// and the score bytes left in [st, st0) and past the 16-byte fill.  H
-// keeps st0 - 1 fresh by copying it across, since the en0 cell reads
-// H(en0 - 1) of a possibly older diagonal.  The diagonal's maximum is a
-// 64-bit (H, tie rank) key reduced by warp shuffles and one shared-memory
-// step; every thread then updates its own copy of the per-pair scalars,
-// so no second barrier is needed.  Direction bytes are staged in a shared row
-// and stored the next diagonal as 16-byte words.
+// Layout: one block a pair, NW compute warps and one replay warp.  The
+// pair's target axis is cut into tiles of TP = 32 NC positions (NC = 1
+// or 2; ops/band.py:band_layout picks TP and NW from the launch's n_col).
+// Tile k belongs to warp k % NW, which walks the diagonals on which the
+// tile meets the band, then takes tile k + NW: NW is chosen so that a
+// tile's first diagonal comes after the last of the tile NW before it,
+// so the warps run the band's tiles in turn and no warp holds two tiles
+// at once.  As in kernel 12 (extz_fwd.cu), lane l keeps the positions
+// t0 + 32 c + l of its tile in registers, so the reference's stale bytes
+// persist as they do in its SSE rows: the edge byte at st - 1, the score
+// bytes in [st, st0) and past the 16-byte fill, H at st0 - 1 and the
+// older H(en0 - 1) that the en0 cell reads.  The int8 planes u, v, x, y
+// (x2, y2) sit in the top byte of an int32 (v << 24): int32 adds wrap as
+// the reference's epi8 adds do and compare as its signed and unsigned
+// byte compares do, so no cell spends instructions on sign extension.  A
+// lane's score against each query symbol is a table of bytes in two
+// registers, and one prmt picks a cell's score.  Neighbour t - 1 is one
+// shuffle a plane.  A tile that lies inside [st0, en0] past the first
+// column (most tile-diagonals of a long band) takes a form of the step
+// with no band-edge selects.  Diagonals go in groups of KD = 32, aligned
+// on multiples of KD for every tile; per group a lane a diagonal prepares
+// the diagonal's band row and the tile before's edge state, and the warp
+// stages the query window its cells read (TP + KD bases).  The tile
+// before hands on its last position's (x, v, x2, H) through a ring of
+// ERING entries in shared memory: one release a group by the writer, one
+// acquire a group by the reader, which then marks how far it has read,
+// so the writer never overwrites an entry still to be read.  No
+// block-wide barrier runs inside the loop.
 //
-// What bounds it on an H100: the serial chain of diagonals (tens of
-// thousands for a long pair) with a barrier and a block reduction each;
-// a cell is ~45 integer operations (~65 two-piece; chip_smoke.py: OPS)
-// over a band of ~w cells, so the SMs' integer rate is far from the limit, and with CIG the
-// n_col bytes a diagonal are the only large memory traffic.  One block a
-// pair leaves SMs idle when a launch has fewer pairs than the card has
-// SMs.  This version is the simple one that is right; DPX byte SIMD and
-// several pairs per block are later work.
+// The diagonal's maximum: each warp takes its tile's largest H with one
+// __reduce_max_sync and the lanes that hold it with a ballot; only a tie
+// ranks them (the SSE scan's 4-lane order).  At the group's end lane j
+// ranks diagonal r_lo + j's winner and folds its 64-bit (H, rank) key
+// into the pair's per-diagonal ring in shared memory with one atomicMax;
+// the lanes that hold st0 and en0 store their H beside it.  The replay
+// warp waits until every compute warp has passed a group, then replays
+// Z-drop, mqe / mte, the score and the stop in order over it
+// (ops/strips.py:replay_records and kernel 12's replay are the models)
+// and frees the ring's entries.  Under APPROX the H0 walk runs in the
+// compute warps (the tile that holds the walk's next cell takes the step
+// and stores (H0, t) in the ring) and the replay applies APPROX_DROP to
+// it.  A drop sets the pair's stop, which the compute warps read at each
+// group's start; they run at most the ring's length past it, every field
+// comes from the replay's exact stopping diagonal, and the store's rows
+// they wrote past the stop are zeroed before the kernel ends.
+//
+// What bounds it on an H100: the SM's integer pipe (16 lanes a
+// scheduler: one warp instruction every 2 cycles) over a pair's tile
+// steps, ~w / 32 a diagonal for tens of thousands of diagonals, all on
+// the pair's SM (~34 integer operations a cell that the recurrence needs,
+// ~44 two-piece; chip_smoke.py: OPS); with CIG the n_col bytes a diagonal
+// of store.  The parent design (state in shared byte planes, a barrier
+// and a block argmax every diagonal) spent ~4,000 cycles a warp-diagonal
+// on one latency-bound chain (chip_smoke.py --breakdown band).  Here a
+// tile step is ~140 instructions in the general form, fewer inside the
+// band; the hand-off, fold and replay leave the chain every KD diagonals.
+// A launch waits on its longest pair, on one SM: spreading a long pair
+// over SMs and byte SIMD are later work.
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -52,11 +85,70 @@ namespace {
 
 constexpr int NEG = -0x40000000;    // NEG_INF of core/flags.py
 constexpr int KT = 4096;            // tie-rank class stride (ops/band.py)
-constexpr int MAX_THREADS = 512;
-constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int KD = 32;              // diagonals a group (a lane each)
+constexpr int ERING = 4 * KD;       // entries of a tile edge's ring
+constexpr int MAX_NW = 25;          // compute warps (ops/band.py:NW_MAX)
+constexpr int MAX_THREADS = 32 * (MAX_NW + 1);
+// a wait may last SPIN_BASE + SPIN_DIAG cycles for each of the pair's
+// diagonals (~10 s + ~100 us a diagonal of SM clock) before it counts as
+// a fault and traps; between reads it sleeps up to SPIN_SLEEP_MAX ns
+constexpr long long SPIN_BASE = 20000000000LL;
+constexpr long long SPIN_DIAG = 200000LL;
+constexpr unsigned SPIN_SLEEP_MAX = 256;
 
-__device__ __forceinline__ int w8(int v) { return (int)(signed char)v; }
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// An int8 value in the top byte of an int32 (v << 24): the planes' form.
+// Sums and differences in that form wrap as the reference's epi8 ones do:
+// they are taken in unsigned arithmetic, where wrapping is defined.
+__device__ __forceinline__ int top(int v) { return (int)((unsigned)v << 24); }
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+
+// The byte of (hi:lo) that sel's low nibble picks, sign-extended (prmt's
+// sign mode: sel = Q * 0x1111 + 0x8880 picks byte Q).
+__device__ __forceinline__ int prmt(int lo, int hi, int sel) {
+  int d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(lo), "r"(hi), "r"(sel));
+  return d;
+}
+
+// The SSE scan's tie rank of cell t on a diagonal with band [st0, en0]:
+// the en0 cell, then 4 lane classes over [st0, en1), then the scalar
+// tail; smaller ranks win.  rank_pos inverts it.
+__device__ __forceinline__ int sse_rank(int t, int st0, int en0) {
+  const int rel = t - st0;
+  const int en1 = st0 + ((en0 - st0) & ~3);
+  return t == en0 ? 0 : t < en1 ? (rel & 3) * KT + rel + 1 : 4 * KT + rel + 1;
+}
+
+__device__ __forceinline__ int rank_pos(int rank, int st0, int en0) {
+  return rank == 0 ? en0
+         : rank <= 4 * KT ? st0 + (rank - 1) % KT
+                          : st0 + rank - 1 - 4 * KT;
+}
+
+__device__ __forceinline__ long long pack_walk(int H0, int t) {
+  return (long long)(((unsigned long long)(unsigned)H0 << 32) |
+                     (unsigned long long)(unsigned)t);
+}
 
 struct BandArgs {
   const uint8_t* qs;
@@ -66,387 +158,767 @@ struct BandArgs {
   const int* ws;
   const int* table;
   int Lq, Lt, m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N, zdrop;
-  int right, generic, adrop, nd, ncol, RB;
+  int generic, adrop, nd, ncol, NW, RING;
   int* rec;
   uint8_t* p;
 };
 
-template <bool TWO, bool CIG, bool APPROX>
+// One compute warp's shared memory: its group's band rows and boundary
+// state, the tile before's staged entries, its own edge ring, the
+// group's keys, the query window and two rows of direction bytes.
+template <int TP>
+struct WarpSmem {
+  int4 sdiag[KD];                  // st0, en0, hi_s - st0, colv | prevok
+  int4 sbnd[KD];                   // position t0 - 1 before the diagonal
+  __align__(16) uint8_t stage[2][TP];
+  int2 skey[KD];                   // the warp's best H and its position
+  int2 sprev[KD + 1];              // the tile before's entries, staged
+  int2 sedge[KD];                  // this tile's last position, a diagonal
+  int2 ering[ERING];               // ... published to the tile after
+  int2 plast;                      // the tile before's last entry
+  int sbvn[KD];                    // APPROX: v of t0 - 1 after the diagonal
+  unsigned short qsel[TP + KD];    // the query window's score selectors
+};
+
+// The block's shared memory after the per-diagonal rings: per warp the
+// diagonal its edge entries are published to (pub), the lowest entry of
+// the tile before it may still read (low), the diagonal up to which it
+// adds no more keys (settled) and the last diagonal it computed (hiw);
+// then the replay's progress and the pair's stop, and the score table.
+constexpr int CTL_INTS = 4 * 32 + 4 + 64;
+
+template <int TP>
+constexpr size_t band_smem_bytes(int NW, int RING) {
+  return (size_t)RING * (8 + 8) + 4 * CTL_INTS +
+         (size_t)NW * sizeof(WarpSmem<TP>);
+}
+
+// The first diagonal a tile starting at t0 can touch (the score fill runs
+// up to 15 positions past en0) and the last one whose band starts in it
+// (extz_fwd.cu's tile_first / tile_last).
+__device__ __forceinline__ int tile_first(int t0, int w) {
+  if (t0 == 0) return 0;
+  const int x = t0 - 15;
+  return max(x, 2 * x - w);
+}
+
+__device__ __forceinline__ int tile_last(int t0, int TP, int qlen, int w,
+                                         int rlim) {
+  const int X = t0 + TP - 1;
+  return min(min(rlim - 1, X + qlen - 1), 2 * X + w);
+}
+
+template <int NC>
+__device__ __forceinline__ int tile_pick(const int (&a)[NC], int li) {
+  int v = a[0];
+#pragma unroll
+  for (int c = 1; c < NC; ++c)
+    if (c == li >> 5) v = a[c];
+  return __shfl_sync(FULL, v, li & 31);
+}
+
+// Lane 0 spins (acquire) until *p >= need; false, with no wait, once the
+// pair's stop is at or before r (the caller then stops too).  A wait
+// past the spin limit is a fault: trap, do not hang.
+__device__ __forceinline__ bool wait_until(const int* p, int need,
+                                           const int* stopp, int r,
+                                           long long limit, int lane) {
+  int ok = 1;
+  if (lane == 0) {
+    const long long t_start = clock64();
+    unsigned nap = 16;
+    while (ld_acquire(p) < need) {
+      if (ld_acquire(stopp) <= r) {
+        ok = 0;
+        break;
+      }
+      if (clock64() - t_start > limit) __trap();
+      __nanosleep(nap);
+      nap = min(2 * nap, SPIN_SLEEP_MAX);
+    }
+  }
+  __syncwarp();
+  return __shfl_sync(FULL, ok, 0);
+}
+
+template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT>
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fwd_kernel(const BandArgs A) {
-  constexpr int PL = TWO ? 6 : 4;    // u, v, x, y (, x2, y2)
+  constexpr int TP = 32 * NC;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int RING = A.RING, RMASK = RING - 1, NW = A.NW;
+  long long* Dr = reinterpret_cast<long long*>(smem);   // keys, or walk
+  int2* Hs = reinterpret_cast<int2*>(Dr + RING);        // H at st0, en0
+  int* pub = reinterpret_cast<int*>(Hs + RING);
+  int* low = pub + 32;
+  int* settled = low + 32;
+  int* hiw = settled + 32;
+  int* replayed = hiw + 32;
+  int* stopp = replayed + 1;
+  int* stab = replayed + 4;
+  WarpSmem<TP>* wsm = reinterpret_cast<WarpSmem<TP>*>(stab + 64);
+
   const int b = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
-  const int RB = A.RB, MASK = RB - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int qlen = A.qlens[b], tlen = A.tlens[b], w = A.ws[b];
-  const int q = A.q, e = A.e, q2 = A.q2, e2 = A.e2;
-  const int qe = q + e, qe2 = q2 + e2;
-  const int ez = TWO ? e2 : e;       // Z-drop gap slope
-  const int ncolp = (A.ncol + 15) & ~15;
-  // the ring must hold the band, its rounding and the stale edge
-  // (ops/band.py:_ring sizes it from the launch's ncol)
-  if (min(min(w + 1, qlen), tlen) + 48 > RB) __trap();
-
-  long long* wbest = reinterpret_cast<long long*>(smem);  // [2][MAX_WARPS]
-  int* Hr = reinterpret_cast<int*>(wbest + 2 * MAX_WARPS);  // [2][RB]
-  int* tab = Hr + 2 * RB;                                    // [64]
-  int* sval = tab + 64;                                      // [2][8]
-  signed char* planes = reinterpret_cast<signed char*>(sval + 16);
-  signed char* sr = planes + 2 * PL * RB;                    // [RB]
-  uint8_t* rowb = reinterpret_cast<uint8_t*>(sr + RB);       // [2][ncolp]
-  auto pl = [&](int buf, int k) { return planes + (buf * PL + k) * RB; };
-
-  const uint8_t* tg = A.ts + (size_t)b * A.Lt;
-  const uint8_t* qy = A.qs + (size_t)b * A.Lq;
-  const int init = TWO ? w8(-qe) : 0;
-  const int init2 = w8(-qe2);
-  // positions [lo, hi] of this thread, first one
-  auto first = [&](int lo) { return lo + ((tid - lo % nt) % nt + nt) % nt; };
-  auto fresh = [&](int i) {          // the reference's init bytes at slot i
-    for (int buf = 0; buf < 2; ++buf) {
-      for (int k = 0; k < 4; ++k) pl(buf, k)[i] = (signed char)init;
-      if (TWO) {
-        pl(buf, 4)[i] = (signed char)init2;
-        pl(buf, 5)[i] = (signed char)init2;
-      }
-      Hr[buf * RB + i] = NEG;
-    }
-    sr[i] = 0;
-  };
-  for (int i = tid; i < RB; i += nt) fresh(i);
-  for (int k = tid; k < A.m * A.m; k += nt) tab[k] = A.table[k];
+  const int rlim = first_empty_diag(qlen, tlen, w);
+  const long long spin_limit = SPIN_BASE + SPIN_DIAG * rlim;
+  // NW was chosen for bands of at most n_col - 16 cells (ops/band.py:
+  // band_layout): a wider one would give a warp two tiles at once
+  if (min(min(w + 1, qlen), tlen) + 16 > A.ncol) __trap();
+  for (int i = threadIdx.x; i < RING; i += blockDim.x)
+    Dr[i] = APPROX ? -1LL : LLONG_MIN;
+  if (threadIdx.x < 32) {
+    pub[threadIdx.x] = -1;
+    low[threadIdx.x] = -1;
+    settled[threadIdx.x] = -1;
+    hiw[threadIdx.x] = -1;
+  }
+  if (threadIdx.x == 0) {
+    *replayed = -1;
+    *stopp = INT_MAX;
+  }
+  if (A.generic)
+    for (int i = threadIdx.x; i < A.m * A.m; i += blockDim.x)
+      stab[i] = A.table[i];
   __syncthreads();
 
-  int hw = RB - 1;                   // highest position given its init
-  int last_st = -1, last_en = -1, H0 = 0, lt0 = 0;
-  int mx = 0, mt = -1, mq = -1, mqe = NEG, mqet = -1, mte = NEG, mteq = -1;
-  int score = NEG, zd = 0, last_r = -1;
-  const int ndb = qlen + tlen - 1;
-  auto bounds = [&](int r, int& st0, int& en0) {
-    st0 = max(max(0, r - qlen + 1), (r - w + 1) >> 1);
-    en0 = min(min(tlen - 1, r), (r + w) >> 1);
-  };
-  auto fill_hi = [&](int st0, int en0) {
-    return A.generic ? en0 : st0 + ((en0 - st0) & ~15) + 15;
-  };
-  auto store_row = [&](int r) {      // the staged bytes of diagonal r
-    const uint4* src =
-        reinterpret_cast<const uint4*>(rowb + (r & 1) * ncolp);
-    uint4* dst = reinterpret_cast<uint4*>(A.p + ((size_t)b * A.nd + r) *
-                                          A.ncol);
-    for (int k = tid; k < A.ncol / 16; k += nt) dst[k] = src[k];
-  };
-  // ksw_apply_zdrop (ksw2.h:191-207): true when the pair drops
-  auto zdrop_apply = [&](int r, int Hm, int t) {
-    if (Hm > mx) {
-      mx = Hm;
-      mt = t;
-      mq = r - t;
-      return false;
-    }
-    if (t >= mt && r - t >= mq) {
-      const int tl_ = t - mt, ql_ = (r - t) - mq;
-      const int l = tl_ > ql_ ? tl_ - ql_ : ql_ - tl_;
-      return A.zdrop >= 0 && mx - Hm > A.zdrop + l * ez;
-    }
-    return false;
-  };
+  if (warp < NW) {
+    // ------------------------------------------------------------------
+    // a compute warp: tiles warp, warp + NW, ...
+    const int q = A.q, e = A.e, qe = q + e, qe2 = A.q2 + A.e2;
+    // the reference's init bytes: 0 one-piece; -(q + e) for u, v, x, y
+    // and -(q2 + e2) for x2, y2 two-piece
+    const int init = TWO ? -qe : 0, init2 = -qe2;
+    // the same in the planes' top-byte form
+    const int initS = top(init), init2S = top(init2), qS = top(q),
+              q2S = top(A.q2), qeS = top(qe), qe2S = top(qe2),
+              mchS = top(A.sc_mch), twoqeS = top(2 * qe);
+    const unsigned capS = (unsigned)top(A.sc_mch + 2 * qe);
+    const int ntiles = (tlen + 15 + TP - 1) / TP;
+    const uint8_t* tg = A.ts + (size_t)b * A.Lt;
+    const uint8_t* qy = A.qs + (size_t)b * A.Lq;
+    WarpSmem<TP>& S = wsm[warp];
+    const int pw = (warp + NW - 1) % NW, cw = (warp + 1) % NW;
+    const WarpSmem<TP>& Pv = wsm[pw];
+    uint8_t* pp = CIG ? A.p + (size_t)b * A.nd * A.ncol : nullptr;
+    int H0 = 0, lt = 0, known = -2;        // the H0 walk after `known`
+    int mylow = -1, mysettled = -1, myhi = -1;
+    bool quit = false;
 
-  for (int r = 0; r < ndb; ++r) {
-    int st0, en0;
-    bounds(r, st0, en0);
-    if (st0 > en0) {                 // the band is empty: the pair stops
-      zd = 1;
-      break;
-    }
-    const int st = st0 & ~15, en = en0 | 15;
-    const int ra = (r + 1) & 1, rb = r & 1;   // read / write buffers
-    if (CIG && r > 0) store_row(r - 1);
-    const signed char *uA = pl(ra, 0), *vA = pl(ra, 1), *xA = pl(ra, 2),
-                      *yA = pl(ra, 3);
-    signed char *uB = pl(rb, 0), *vB = pl(rb, 1), *xB = pl(rb, 2),
-                *yB = pl(rb, 3);
-    const int* HA = Hr + ra * RB;
-    int* HB = Hr + rb * RB;
-
-    // the boundary entering lane st (ksw2_extz2_sse.c:152-158) and the
-    // first-column values (the j == 0 cell at t == r)
-    const bool prevok = st > 0 && last_st <= st - 1 && st - 1 <= last_en;
-    const int colv =
-        TWO ? (r == 0 ? -qe : (r < A.lt ? -e : (r == A.lt ? A.ld : -e2)))
-            : (r ? q : 0);
-    const int hi = fill_hi(st0, en0);
-
-    // the score fill: [st0, hi]; the other lanes keep stale bytes
-    for (int t = first(st0); t <= hi; t += nt) {
-      const int T = t < tlen ? tg[t] : 0;
-      const int Q = r - t >= 0 ? qy[r - t] : 0;
-      int sv;
-      if (A.generic) {
-        sv = tab[T * A.m + Q];
-      } else {
-        sv = T == Q ? A.sc_mch : A.sc_mis;
-        if (T == A.m - 1 || Q == A.m - 1) sv = A.sc_N;
+    for (int k = warp; k < ntiles && !quit; k += NW) {
+      const int t0 = k * TP, X = t0 + TP - 1;
+      const int rA = tile_first(t0, w), rB = tile_last(t0, TP, qlen, w, rlim);
+      if (rA > rB) continue;
+      // this tile reads no entry of the tile before below rA - 1, and no
+      // key of this warp's comes below rA (nor, APPROX, a walk step:
+      // the walk reaches a tile's positions after its first diagonal)
+      // (tile 0 reads no tile before: this warp's next tile reads from
+      // its own first diagonal on)
+      mylow = max(mylow, k > 0 ? rA - 1
+                               : k + NW < ntiles ? tile_first(t0 + NW * TP, w) - 1
+                                                 : INT_MAX);
+      mysettled = max(mysettled, rA - 1);
+      if (lane == 0) {
+        st_release(low + warp, mylow);
+        st_release(settled + warp, mysettled);
       }
-      sr[t & MASK] = (signed char)w8(sv);
-    }
+      const bool feeds = k + 1 < ntiles;
 
-    long long best = LLONG_MIN;
-    for (int t = first(st); t <= en; t += nt) {
-      const int i = t & MASK, im = (t - 1) & MASK;
-      const int S = sr[i];
-      int X1, V1, X21 = 0;
-      if (t == st) {
-        X1 = prevok ? xA[im] : init;
-        V1 = prevok ? vA[im] : (st == 0 ? w8(colv) : init);
-        if (TWO) X21 = prevok ? pl(ra, 4)[im] : init2;
-      } else {
-        X1 = xA[im];
-        V1 = vA[im];
-        if (TWO) X21 = pl(ra, 4)[im];
-      }
-      const int U = t == r ? w8(colv) : uA[i];
-      const int Y = t == r ? init : yA[i];
-      int a = w8(X1 + V1), bb = w8(Y + U);
-      int d = 0, z, un, vn, xn, yn, x2n = 0, y2n = 0;
-      if (!TWO) {
-        const int zz = w8(S + 2 * qe);
-        d = A.right ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
-        z = max(zz, a);
-        d = A.right ? (z > bb ? d : DIR_F) : (bb > z ? DIR_F : d);
-        z = w8(max(z & 255, bb & 255));                // max_epu8
-        z = w8(min(z & 255, (A.sc_mch + 2 * qe) & 255));  // min_epu8
-        un = w8(z - V1);
-        vn = w8(z - U);
-        const int z2 = w8(z - q);
-        a = w8(a - z2);
-        bb = w8(bb - z2);
-        const bool ta = A.right ? a >= 0 : a > 0;
-        const bool tb = A.right ? bb >= 0 : bb > 0;
-        d |= (ta ? DIR_E_CONT : 0) | (tb ? DIR_F_CONT : 0);
-        xn = a > 0 ? a : 0;
-        yn = bb > 0 ? bb : 0;
-      } else {
-        const int Y2 = t == r ? init2 : pl(ra, 5)[i];
-        int a2 = w8(X21 + V1), b2 = w8(Y2 + U);
-        z = S;
-        const int cand[4] = {a, bb, a2, b2};
+      // lane l's state: position t0 + 32 c + l in chunk c's registers.
+      // The int8 planes are kept in the top byte (v << 24), so int32 adds
+      // wrap as the reference's epi8 adds do and compare as they do, with
+      // no sign extension; the score byte Sc as a plain int.  SL / SH:
+      // the lane's score against each query symbol, a byte each.
+      int U[NC], V[NC], Xp[NC], Y[NC], X2[NC], Y2[NC], H[NC], Sc[NC],
+          SL[NC], SH[NC];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          d = A.right ? (z > cand[c] ? d : c + 1) : (cand[c] > z ? c + 1 : d);
-          z = max(z, cand[c]);
-        }
-        z = min(z, w8(A.sc_mch));
-        un = w8(z - V1);
-        vn = w8(z - U);
-        const int t1 = w8(z - q), t2 = w8(z - q2);
-        a = w8(a - t1);
-        bb = w8(bb - t1);
-        a2 = w8(a2 - t2);
-        b2 = w8(b2 - t2);
-        const bool ca = A.right ? a >= 0 : a > 0;
-        const bool cb = A.right ? bb >= 0 : bb > 0;
-        const bool ca2 = A.right ? a2 >= 0 : a2 > 0;
-        const bool cb2 = A.right ? b2 >= 0 : b2 > 0;
-        d |= (ca ? DIR_E_CONT : 0) | (cb ? DIR_F_CONT : 0) |
-             (ca2 ? DIR_E2_CONT : 0) | (cb2 ? DIR_F2_CONT : 0);
-        xn = w8(max(a, 0) - qe);
-        yn = w8(max(bb, 0) - qe);
-        x2n = w8(max(a2, 0) - qe2);
-        y2n = w8(max(b2, 0) - qe2);
-      }
-      uB[i] = (signed char)un;
-      vB[i] = (signed char)vn;
-      xB[i] = (signed char)xn;
-      yB[i] = (signed char)yn;
-      if (TWO) {
-        pl(rb, 4)[i] = (signed char)x2n;
-        pl(rb, 5)[i] = (signed char)y2n;
-      }
-      if (CIG) rowb[rb * ncolp + (t - st)] = (uint8_t)d;
-
-      if (!APPROX) {
-        if (t >= st0 && t <= en0) {
-          // the H row (spec/common.py:exact_max_scan)
-          const int vv = TWO ? vn : (vn & 255), uu = TWO ? un : (un & 255);
-          const int sub = TWO ? 0 : qe;
-          int h;
-          if (r == 0)
-            h = vv - (TWO ? A.qe_pre : 2 * qe);
-          else if (t < en0)
-            h = HA[i] + vv - sub;
-          else if (en0 > 0)
-            h = HA[(en0 - 1) & MASK] + uu - sub;
-          else
-            h = HA[i] + vv - sub;
-          HB[i] = h;
-          // the SSE scan's tie rank: the en0 cell, then 4 lane classes
-          // over [st0, en1), then the scalar tail; smaller ranks win
-          const int rel = t - st0;
-          const int en1 = st0 + ((en0 - st0) & ~3);
-          const int rank = t == en0 ? 0
-                           : t < en1 ? (rel & 3) * KT + rel + 1
-                                     : 4 * KT + rel + 1;
-          const long long key =
-              (long long)h * 4294967296LL + (long long)(0x7fffffff - rank);
-          best = max(best, key);
-          if (t == st0) sval[rb * 8 + 0] = h;
-          if (t == en0) sval[rb * 8 + 1] = h;
-        }
-      } else {
-        if (t == lt0 || (r == 0 && t == 0)) sval[rb * 8 + 2] = vn;
-        if (t == lt0 + 1) sval[rb * 8 + 3] = un;
-      }
-    }
-    if (CIG) {                       // the row's bytes past en are 0
-      for (int k = en - st + 1 + tid; k < ncolp; k += nt)
-        rowb[rb * ncolp + k] = 0;
-    }
-    if (!APPROX) {
-      // H(st0 - 1) stays current in the write ring
-      if (st0 >= 1 && (st0 - 1) % nt == tid)
-        HB[(st0 - 1) & MASK] = HA[(st0 - 1) & MASK];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        best = max(best, __shfl_xor_sync(FULL, best, o));
-      if (lane == 0) wbest[rb * MAX_WARPS + warp] = best;
-    }
-    // positions the next diagonal brings into the ring get init bytes
-    if (r + 1 < ndb) {
-      int s1, e1;
-      bounds(r + 1, s1, e1);
-      const int nhw = s1 <= e1 ? max(e1 | 15, fill_hi(s1, e1)) : hw;
-      if (nhw > hw)
-        for (int t = first(hw + 1); t <= nhw; t += nt) fresh(t & MASK);
-      hw = max(hw, nhw);
-    }
-    __syncthreads();
-
-    // every thread updates its own copy of the per-pair scalars
-    bool drop = false;
-    int fin;
-    if (!APPROX) {
-      long long bk = wbest[rb * MAX_WARPS];
-      for (int k = 1; k < nwarps; ++k)
-        bk = max(bk, wbest[rb * MAX_WARPS + k]);
-      const int maxH = (int)(bk >> 32);
-      const int rank = 0x7fffffff - (int)(bk & 0xffffffffLL);
-      const int maxt = rank == 0       ? en0
-                       : rank <= 4 * KT ? st0 + (rank - 1) % KT
-                                        : st0 + rank - 1 - 4 * KT;
-      const int hst = sval[rb * 8 + 0], hen = sval[rb * 8 + 1];
-      if (en0 == tlen - 1 && hen > mte) {
-        mte = hen;
-        mteq = r - en;
-      }
-      if (r - st0 == qlen - 1 && hst > mqe) {
-        mqe = hst;
-        mqet = st0;
-      }
-      drop = zdrop_apply(r, maxH, maxt);
-      fin = hen;
-    } else {
-      if (r == 0) {
-        const int v0 = sval[rb * 8 + 2];
-        H0 = TWO ? v0 - A.qe_pre : (v0 & 255) - 2 * qe;
-        lt0 = 0;
-      } else {
-        const bool c1 = st0 <= lt0 && lt0 <= en0;
-        const bool c2 = st0 <= lt0 + 1 && lt0 + 1 <= en0;
-        int d0 = sval[rb * 8 + 2], d1 = sval[rb * 8 + 3];
-        if (!TWO) {
-          d0 = (d0 & 255) - qe;
-          d1 = (d1 & 255) - qe;
-        }
-        if (c1 && c2) {
-          if (d0 > d1) {
-            H0 += d0;
+      for (int c = 0; c < NC; ++c) {
+        const int t = t0 + 32 * c + lane;
+        const int T = t < tlen ? tg[t] : 0;
+        U[c] = V[c] = Xp[c] = Y[c] = initS;
+        X2[c] = Y2[c] = init2S;
+        H[c] = NEG;
+        Sc[c] = 0;
+        unsigned lo = 0, hi = 0;
+        for (int Qs = 0; Qs < 8; ++Qs) {
+          int sv;
+          if (A.generic) {
+            sv = Qs < A.m ? stab[T * A.m + Qs] : 0;
           } else {
-            H0 += d1;
-            ++lt0;
+            sv = T == Qs ? A.sc_mch : A.sc_mis;
+            sv = T == A.m - 1 || Qs == A.m - 1 ? A.sc_N : sv;
           }
-        } else if (c1) {
-          H0 += d0;
-        } else {
-          H0 += d1;
-          ++lt0;
+          const unsigned byte = (unsigned)(sv & 255);
+          if (Qs < 4)
+            lo |= byte << (8 * Qs);
+          else
+            hi |= byte << (8 * (Qs - 4));
         }
+        SL[c] = (int)lo;
+        SH[c] = (int)hi;
       }
-      if (A.adrop && (TWO || r > 0)) drop = zdrop_apply(r, H0, lt0);
-      fin = H0;
+      // the tile before and the diagonals it computes
+      int pA = 0, pB = -1;
+      if (k > 0) {
+        pA = tile_first(t0 - TP, w);
+        pB = tile_last(t0 - TP, TP, qlen, w, rlim);
+      }
+      int seen = -1;                       // entries of it known published
+      int buf = 0;
+
+      for (int r_lo = rA; r_lo <= rB;) {
+        const int r_hi = min(r_lo - r_lo % KD + KD - 1, rB);
+        const int nr = r_hi - r_lo + 1;
+        // the pair stops: the replay has passed its Z-drop
+        int sp = 0;
+        if (lane == 0) sp = ld_acquire(stopp);
+        if (__shfl_sync(FULL, sp, 0) <= r_lo) {
+          quit = true;
+          break;
+        }
+        // the per-diagonal ring's entries of this group are free
+        if (!wait_until(replayed, r_hi - RING, stopp, r_lo, spin_limit,
+                        lane)) {
+          quit = true;
+          break;
+        }
+        // the tile before's entries [cb, ce]: e0 = min(r - 1, pB) and,
+        // APPROX, e1 = min(r, pB) for r in the group
+        int cb = 0;
+        if (k > 0) {
+          const int need = min(APPROX ? r_hi : r_hi - 1, pB);
+          if (need >= pA && need > seen) {
+            if (!wait_until(pub + pw, need, stopp, r_lo, spin_limit, lane)) {
+              quit = true;
+              break;
+            }
+            seen = need;
+          }
+          cb = max(min(r_lo - 1, pB), pA);
+          const int ce = min(min(APPROX ? r_hi : r_hi - 1, pB), seen);
+          if (r_lo - 1 > pB) {
+            // past the tile before's last diagonal: its last entry, kept
+            if (lane == 0) S.sprev[0] = S.plast;
+          } else {
+            for (int j = lane; j <= ce - cb; j += 32) {
+              const int2 ent = Pv.ering[(cb + j) & (ERING - 1)];
+              S.sprev[j] = ent;
+              if (cb + j == pB) S.plast = ent;
+            }
+          }
+          __syncwarp();
+          // the next group reads the tile before from r_hi on
+          mylow = max(mylow, r_hi);
+          if (lane == 0) st_release(low + warp, mylow);
+        }
+        // the query bases the group's cells read (r - t for r in the
+        // group) as the prmt selector of their score byte, sign-extended
+        const int qb = r_lo - X;
+        for (int i = lane; i < TP + KD - 1; i += 32) {
+          const int qi = qb + i;
+          const int Q = qi >= 0 && qi < qlen ? qy[qi] : 0;
+          S.qsel[i] = (unsigned short)(Q * 0x1111 + 0x8880);
+        }
+        // what each diagonal of the group needs besides its cells, a lane
+        // a diagonal, off the chain of chunk steps
+        if (lane < nr) {
+          const int r = r_lo + lane;
+          const BandRow bd = band_row(r, qlen, tlen, w);
+          bool prevok = false;
+          if (r > 0 && bd.st > 0) {
+            const BandRow bp = band_row(r - 1, qlen, tlen, w);
+            prevok = bp.st <= bd.st - 1 && bd.st - 1 <= bp.en;
+          }
+          // the first column (the j == 0 cell at t == r): q one-piece;
+          // the two-piece switch at long_thres (ksw2_extd2_sse.c:156-163)
+          const int colv = !TWO ? (r ? q : 0)
+                                : r == 0 ? -qe
+                                         : r < A.lt ? -e
+                                                    : r == A.lt ? A.ld : -A.e2;
+          const int hi_s = A.generic ? bd.en0
+                                     : bd.st0 + ((bd.en0 - bd.st0) & ~15) + 15;
+          S.sdiag[lane] = make_int4(bd.st0, bd.en0, hi_s - bd.st0,
+                                    top(colv) | (prevok ? 1 : 0));
+          // position t0 - 1 before this diagonal (and, APPROX, v after
+          // it): the tile before's entry of min(r - 1, pB); the initial
+          // values before its first
+          int bx = initS, bv = initS, bx2 = init2S, bH = NEG, bvn = 0;
+          if (k > 0 && t0 >= bd.st && t0 <= bd.en) {
+            const int e0 = min(r - 1, pB);
+            const int e1 = APPROX ? min(r, pB) : e0;
+            if (e1 >= pA) {
+              if (e0 >= pA) {
+                const int2 ent = S.sprev[e0 - cb];
+                bx = top(ent.x);
+                bv = top(ent.x >> 8);
+                bx2 = top(ent.x >> 16);
+                bH = ent.y;
+              }
+              if (APPROX) bvn = top(S.sprev[e1 - cb].x >> 8);
+            }
+          }
+          S.sbnd[lane] = make_int4(bx, bv, bx2, bH);
+          if (APPROX) S.sbvn[lane] = bvn;
+        }
+        __syncwarp();
+
+#pragma unroll 4
+        for (int rr = 0; rr < nr; ++rr) {
+          const int r = r_lo + rr;
+          const int4 dg = S.sdiag[rr];
+          const int st0 = dg.x, en0 = dg.y, st = st0 & ~15, en = en0 | 15;
+          const int hs = dg.z, colv = dg.w & (int)0xff000000;
+          const bool prevok = dg.w & 1;
+          const int4 bw = S.sbnd[rr];
+          const int bvn = APPROX ? S.sbvn[rr] : 0;
+          // this lane's best cell of the diagonal: its H and position
+          int bh = INT_MIN, bt = 0;
+          // the old state of t - 1 for lane 0: the boundary, then each
+          // chunk's lane 31 (a rotation by one lane gives it to lane 0)
+          int cX = bw.x, cV = bw.y, cX2 = bw.z, cH = bw.w;
+          // a tile inside [st0, en0] and past the first column has no cell
+          // at an edge of the band: most tile-diagonals take this form
+          const bool interior = st0 < t0 && X < en0 && r > X;
+          auto cells = [&](auto in_) {
+            constexpr bool IN = decltype(in_)::value;
+#pragma unroll
+            for (int c = 0; c < NC; ++c) {
+              const int l = 32 * c + lane;
+              const int t = t0 + l;
+              const int src = (lane + 31) & 31;
+              const bool l0 = lane == 0;
+              const int sX = __shfl_sync(FULL, Xp[c], src);
+              const int sV = __shfl_sync(FULL, V[c], src);
+              const int sX2 = TWO ? __shfl_sync(FULL, X2[c], src) : 0;
+              const int sH = APPROX ? 0 : __shfl_sync(FULL, H[c], src);
+              const int Xm = l0 ? cX : sX, Vm = l0 ? cV : sV;
+              const int X2m = l0 ? cX2 : sX2, Hm = l0 ? cH : sH;
+              cX = sX;
+              cV = sV;
+              cX2 = sX2;
+              cH = sH;
+
+              // the score fill over [st0, hi_s]; the other lanes keep stale
+              // bytes
+              const int rel = t - st0;
+              const int sv = prmt(SL[c], SH[c], S.qsel[rr + TP - 1 - l]);
+              const int Sv = IN || (unsigned)rel <= (unsigned)hs ? sv : Sc[c];
+              Sc[c] = Sv;
+
+              const bool inb = IN || (unsigned)(t - st) <= (unsigned)(en - st);
+              const bool edge = !IN && t == st && !prevok;
+              const int X1 = edge ? initS : Xm, X21 = edge ? init2S : X2m;
+              const int V1 = edge ? (st == 0 ? colv : initS) : Vm;
+              const int Uc = !IN && t == r ? colv : U[c];
+              const int Yc = !IN && t == r ? initS : Y[c];
+              int a = wadd(X1, V1), bb = wadd(Yc, Uc);
+              int d, un, vn;
+              if (!TWO) {
+                const int zz = wadd(top(Sv), twoqeS);
+                d = RIGHT ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
+                int z = max(zz, a);
+                d = RIGHT ? (z > bb ? d : DIR_F) : (bb > z ? DIR_F : d);
+                z = (int)max((unsigned)z, (unsigned)bb);   // max_epu8
+                z = (int)min((unsigned)z, capS);           // min_epu8
+                un = wsub(z, V1);
+                vn = wsub(z, Uc);
+                const int z2 = wsub(z, qS);
+                a = wsub(a, z2);
+                bb = wsub(bb, z2);
+                const bool ta = RIGHT ? a >= 0 : a > 0;
+                const bool tb = RIGHT ? bb >= 0 : bb > 0;
+                d |= (ta ? DIR_E_CONT : 0) | (tb ? DIR_F_CONT : 0);
+                Xp[c] = inb ? max(a, 0) : Xp[c];
+                Y[c] = inb ? max(bb, 0) : Y[c];
+              } else {
+                const int Y2c = !IN && t == r ? init2S : Y2[c];
+                int a2 = wadd(X21, V1), b2 = wadd(Y2c, Uc);
+                int z = top(Sv);
+                d = 0;
+                const int cand[4] = {a, bb, a2, b2};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  d = RIGHT ? (z > cand[i] ? d : i + 1)
+                            : (cand[i] > z ? i + 1 : d);
+                  z = max(z, cand[i]);
+                }
+                z = min(z, mchS);
+                un = wsub(z, V1);
+                vn = wsub(z, Uc);
+                const int t1 = wsub(z, qS), t2 = wsub(z, q2S);
+                a = wsub(a, t1);
+                bb = wsub(bb, t1);
+                a2 = wsub(a2, t2);
+                b2 = wsub(b2, t2);
+                const bool ca = RIGHT ? a >= 0 : a > 0;
+                const bool cb_ = RIGHT ? bb >= 0 : bb > 0;
+                const bool ca2 = RIGHT ? a2 >= 0 : a2 > 0;
+                const bool cb2 = RIGHT ? b2 >= 0 : b2 > 0;
+                d |= (ca ? DIR_E_CONT : 0) | (cb_ ? DIR_F_CONT : 0) |
+                     (ca2 ? DIR_E2_CONT : 0) | (cb2 ? DIR_F2_CONT : 0);
+                Xp[c] = inb ? wsub(max(a, 0), qeS) : Xp[c];
+                Y[c] = inb ? wsub(max(bb, 0), qeS) : Y[c];
+                X2[c] = inb ? wsub(max(a2, 0), qe2S) : X2[c];
+                Y2[c] = inb ? wsub(max(b2, 0), qe2S) : Y2[c];
+              }
+              U[c] = inb ? un : U[c];
+              V[c] = inb ? vn : V[c];
+
+              if (!APPROX) {
+                // the H row (spec/common.py:exact_max_scan) over [st0, en0]:
+                // unsigned deltas less q + e one-piece, signed two-piece;
+                // seeded with 2 (q + e) one-piece, the PRE-swap q + e
+                // two-piece
+                const bool inh = IN || (unsigned)rel <= (unsigned)(en0 - st0);
+                const int vv = TWO ? vn >> 24 : (int)((unsigned)vn >> 24);
+                const int uu = TWO ? un >> 24 : (int)((unsigned)un >> 24);
+                const int sub = TWO ? 0 : qe;
+                const int h = !IN && r == 0 ? vv - (TWO ? A.qe_pre : 2 * qe)
+                              : IN || t < en0 || en0 == 0 ? H[c] + vv - sub
+                                                          : Hm + uu - sub;
+                H[c] = inh ? h : H[c];
+                // the lane's best: of its chunks the first, unless a later
+                // one is higher or is the en0 cell (the SSE scan's tie
+                // order ranks en0 first, then by position within a lane
+                // class of 4, and chunks are 32 apart)
+                const bool better =
+                    inh && (c == 0 || h > bh || (!IN && h == bh && t == en0));
+                bh = better ? h : bh;
+                bt = better ? t : bt;
+                if (!IN && inh && t == st0) Hs[r & RMASK].x = h;
+                if (!IN && inh && t == en0) Hs[r & RMASK].y = h;
+              }
+              if (CIG) S.stage[buf][l] = (uint8_t)(inb ? d : 0);
+            }
+          };
+          if (interior)
+            cells(std::true_type{});
+          else
+            cells(std::false_type{});
+          if (!APPROX) {
+            // the warp's best cell: the largest H, then the SSE tie order
+            // among the lanes that hold it (ballot, rank only on a tie);
+            // its position, ranked at the fold
+            const int hm = __reduce_max_sync(FULL, bh);
+            const unsigned M = __ballot_sync(FULL, bh == hm);
+            int tw = 0;
+            if (hm != INT_MIN) {
+              if ((M & (M - 1)) == 0) {
+                tw = __shfl_sync(FULL, bt, __ffs(M) - 1);
+              } else {
+                const int rk = bh == hm ? sse_rank(bt, st0, en0) : INT_MAX;
+                tw = rank_pos(__reduce_min_sync(FULL, rk), st0, en0);
+              }
+            }
+            if (lane == 0) S.skey[rr] = make_int2(hm, tw);
+          }
+
+          if (CIG) {
+            // 16-byte groups lie wholly inside or outside [st, en]; the two
+            // stage rows alternate, so one warp barrier a diagonal suffices
+            __syncwarp();
+            if (lane < 2 * NC) {
+              const int gs = t0 + 16 * lane;
+              if (gs >= st && gs + 15 <= en)
+                *reinterpret_cast<uint4*>(pp + (size_t)r * A.ncol +
+                                          (gs - st)) =
+                    *reinterpret_cast<const uint4*>(&S.stage[buf][16 * lane]);
+            }
+            buf ^= 1;
+          }
+
+          if (APPROX) {
+            // the H0 walk (ksw2_extz2_sse.c:262-279) on unsigned deltas
+            // less q + e one-piece, on signed deltas two-piece: the tile
+            // that holds the walk's next cell takes the step
+            if (r == 0) {
+              const int v0 = __shfl_sync(FULL, V[0], 0);
+              H0 = TWO ? (v0 >> 24) - A.qe_pre
+                       : (int)((unsigned)v0 >> 24) - 2 * qe;
+              lt = 0;
+              known = 0;
+              if (lane == 0) Dr[0] = pack_walk(H0, lt);
+            } else {
+              if (known != r - 1) {
+                const long long wv =
+                    *reinterpret_cast<volatile long long*>(
+                        Dr + ((r - 1) & RMASK));
+                if ((int)(unsigned)(wv & 0xffffffffLL) >= 0) {
+                  H0 = (int)(wv >> 32);
+                  lt = (int)(unsigned)(wv & 0xffffffffLL);
+                  known = r - 1;
+                }
+              }
+              if (known == r - 1) {
+                const bool c1 = st0 <= lt && lt <= en0;
+                const bool c2 = st0 <= lt + 1 && lt + 1 <= en0;
+                const int P = c2 ? lt + 1 : lt;
+                if (P >= t0 && P <= X) {
+                  int d0 = 0, d1 = 0;
+                  if (c1) d0 = lt >= t0 ? tile_pick<NC>(V, lt - t0) : bvn;
+                  if (c2) d1 = tile_pick<NC>(U, lt + 1 - t0);
+                  if (TWO) {
+                    d0 >>= 24;
+                    d1 >>= 24;
+                  } else {
+                    d0 = (int)((unsigned)d0 >> 24) - qe;
+                    d1 = (int)((unsigned)d1 >> 24) - qe;
+                  }
+                  if (c1 && c2) {
+                    if (d0 > d1) {
+                      H0 += d0;
+                    } else {
+                      H0 += d1;
+                      ++lt;
+                    }
+                  } else if (c1) {
+                    H0 += d0;
+                  } else {
+                    H0 += d1;
+                    ++lt;
+                  }
+                  known = r;
+                  if (lane == 0) Dr[r & RMASK] = pack_walk(H0, lt);
+                }
+              }
+            }
+          }
+
+          // lane 31 of the last chunk owns the tile's last position: its
+          // x, v (and x2) bytes and H
+          if (feeds && lane == 31)
+            S.sedge[rr] = make_int2(
+                TWO ? __byte_perm(__byte_perm(Xp[NC - 1], V[NC - 1], 0x0073),
+                                  X2[NC - 1], 0x2710)
+                    : __byte_perm(Xp[NC - 1], V[NC - 1], 0x0073),
+                H[NC - 1]);
+        }
+
+        myhi = r_hi;
+        // the group's hand-off: once the tile after has read what these
+        // entries overwrite, the edge entries and one release
+        __syncwarp();
+        if (feeds) {
+          if (!wait_until(low + cw, r_hi - ERING + 1, stopp, r_lo,
+                          spin_limit, lane)) {
+            quit = true;
+            break;
+          }
+          if (lane < nr) S.ering[(r_lo + lane) & (ERING - 1)] = S.sedge[lane];
+          __syncwarp();
+          if (lane == 0) st_release(pub + warp, r_hi);
+        }
+        // the keys into the pair's ring, then no more below r_hi
+        if (!APPROX && lane < nr) {
+          const int2 kv = S.skey[lane];
+          if (kv.x != INT_MIN) {
+            const int4 dg = S.sdiag[lane];
+            const int rank = sse_rank(kv.y, dg.x, dg.y);
+            atomicMax(Dr + ((r_lo + lane) & RMASK),
+                      (long long)kv.x * 4294967296LL +
+                          (long long)(0x7fffffff - rank));
+          }
+        }
+        if (APPROX && known != r_hi) {
+          // the walk's step of r_hi, if another tile took it, before the
+          // replay may free it (a later group of this tile may need it)
+          const long long wv = *reinterpret_cast<volatile long long*>(
+              Dr + (r_hi & RMASK));
+          if ((int)(unsigned)(wv & 0xffffffffLL) >= 0) {
+            H0 = (int)(wv >> 32);
+            lt = (int)(unsigned)(wv & 0xffffffffLL);
+            known = r_hi;
+          }
+        }
+        __threadfence_block();
+        __syncwarp();
+        mysettled = max(mysettled, r_hi);
+        if (lane == 0) st_release(settled + warp, mysettled);
+        r_lo = r_hi + 1;
+      }
     }
-    last_r = r;
-    if (drop) {
-      zd = 1;
-      break;
+    // no more tiles: nothing to wait for from this warp
+    if (lane == 0) {
+      hiw[warp] = myhi;
+      st_release(low + warp, INT_MAX);
+      st_release(settled + warp, INT_MAX);
     }
-    if (r == ndb - 1 && en0 == tlen - 1) score = fin;
-    last_st = st;
-    last_en = en;
+  } else if (warp == NW) {
+    // ------------------------------------------------------------------
+    // the replay: ksw_apply_zdrop (ksw2.h:191-207) with the form's gap
+    // slope (e one-piece, e2 two-piece), mqe / mte (mte_q keeps the
+    // reference's r - en rounding), the score and the stop, in order, a
+    // group of KD diagonals a round; APPROX_DROP from diagonal 1
+    // one-piece, 0 two-piece
+    const int ez = TWO ? A.e2 : A.e;
+    const int ndb = qlen + tlen - 1;
+    int mx = 0, mt = -1, mq = -1, mqe = NEG, mqet = -1, mte = NEG, mteq = -1;
+    int score = NEG, zd = 0, stop = rlim;
+    auto zdrop_apply = [&](int r, int Hm, int t) {
+      if (Hm > mx) {
+        mx = Hm;
+        mt = t;
+        mq = r - t;
+        return false;
+      }
+      if (t >= mt && r - t >= mq) {
+        const int tl_ = t - mt, ql_ = (r - t) - mq;
+        const int l = tl_ > ql_ ? tl_ - ql_ : ql_ - tl_;
+        return A.zdrop >= 0 && mx - Hm > A.zdrop + l * ez;
+      }
+      return false;
+    };
+    const long long t_start = clock64();
+    bool done = false;
+    for (int base = 0; base < rlim && !done; base += KD) {
+      const int n = min(KD, rlim - base);
+      const int hi = base + n - 1;
+      // every compute warp has passed the group
+      unsigned nap = 16;
+      while (true) {
+        const int s = lane < NW ? ld_acquire(settled + lane) : INT_MAX;
+        if (__all_sync(FULL, s >= hi)) break;
+        if (clock64() - t_start > spin_limit) __trap();
+        __nanosleep(nap);
+        nap = min(2 * nap, SPIN_SLEEP_MAX);
+      }
+      long long dv = 0;
+      int2 hv = make_int2(0, 0);
+      if (lane < n) {
+        const int i = (base + lane) & RMASK;
+        dv = Dr[i];
+        if (!APPROX) hv = Hs[i];
+        Dr[i] = APPROX ? -1LL : LLONG_MIN;
+      }
+      for (int j = 0; j < n; ++j) {
+        const int r = base + j;
+        const BandRow bd = band_row(r, qlen, tlen, w);
+        const long long key = __shfl_sync(FULL, dv, j);
+        bool drop = false;
+        int fin;
+        if (!APPROX) {
+          const int hst = __shfl_sync(FULL, hv.x, j);
+          const int hen = __shfl_sync(FULL, hv.y, j);
+          const int maxH = (int)(key >> 32);
+          const int rank = 0x7fffffff - (int)(key & 0xffffffffLL);
+          const int maxt = rank_pos(rank, bd.st0, bd.en0);
+          if (bd.en0 == tlen - 1 && hen > mte) {
+            mte = hen;
+            mteq = r - bd.en;
+          }
+          if (r - bd.st0 == qlen - 1 && hst > mqe) {
+            mqe = hst;
+            mqet = bd.st0;
+          }
+          drop = zdrop_apply(r, maxH, maxt);
+          fin = hen;
+        } else {
+          const int h0 = (int)(key >> 32);
+          const int t = (int)(unsigned)(key & 0xffffffffLL);
+          if (A.adrop && (TWO || r > 0)) drop = zdrop_apply(r, h0, t);
+          fin = h0;
+        }
+        if (drop) {
+          zd = 1;
+          stop = r + 1;
+          done = true;
+          break;
+        }
+        if (r == ndb - 1 && bd.en0 == tlen - 1) score = fin;
+      }
+      __syncwarp();
+      if (lane == 0) st_release(done ? stopp : replayed, done ? stop : hi);
+    }
+    if (rlim < ndb) zd = 1;
+    if (lane == 0) {
+      st_release(replayed, INT_MAX);
+      int* out = A.rec + (size_t)b * 9;
+      out[0] = mx;
+      out[1] = mt;
+      out[2] = mq;
+      out[3] = mqe;
+      out[4] = mqet;
+      out[5] = mte;
+      out[6] = mteq;
+      out[7] = score;
+      out[8] = zd;
+    }
   }
-  if (CIG && last_r >= 0) store_row(last_r);
-  if (tid == 0) {
-    int* out = A.rec + (size_t)b * 9;
-    out[0] = mx;
-    out[1] = mt;
-    out[2] = mq;
-    out[3] = mqe;
-    out[4] = mqet;
-    out[5] = mte;
-    out[6] = mteq;
-    out[7] = score;
-    out[8] = zd;
+  __syncthreads();
+  // the store's rows past the stop are 0, as the reference leaves them
+  if (CIG) {
+    const int stop = *stopp;
+    int top = -1;
+    for (int i = 0; i < NW; ++i) top = max(top, hiw[i]);
+    if (stop <= top) {
+      const int per = A.ncol / 16;
+      uint4* rows = reinterpret_cast<uint4*>(
+          A.p + ((size_t)b * A.nd + stop) * A.ncol);
+      const long long n = (long long)(top - stop + 1) * per;
+      for (long long i = threadIdx.x; i < n; i += blockDim.x)
+        rows[i] = make_uint4(0, 0, 0, 0);
+    }
   }
 }
 
-template <bool TWO, bool CIG, bool APPROX>
-cudaError_t launch(const BandArgs& a, int B, int threads, size_t smem,
-                   cudaStream_t stream) {
+template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT>
+cudaError_t launch(const BandArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = band_smem_bytes<32 * NC>(a.NW, a.RING);
   cudaError_t err = cudaFuncSetAttribute(
-      band_fwd_kernel<TWO, CIG, APPROX>,
+      band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  band_fwd_kernel<TWO, CIG, APPROX><<<B, threads, smem, stream>>>(a);
+  band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT>
+      <<<B, 32 * (a.NW + 1), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool TWO>
-cudaError_t launch_two(const BandArgs& a, int cig, int approx, int B,
-                       int threads, size_t smem, cudaStream_t stream) {
+template <bool TWO, int NC, bool RIGHT>
+cudaError_t launch_forms(const BandArgs& a, int cig, int approx, int B,
+                         cudaStream_t stream) {
   if (cig)
-    return approx ? launch<TWO, true, true>(a, B, threads, smem, stream)
-                  : launch<TWO, true, false>(a, B, threads, smem, stream);
-  return approx ? launch<TWO, false, true>(a, B, threads, smem, stream)
-                : launch<TWO, false, false>(a, B, threads, smem, stream);
+    return approx ? launch<TWO, true, true, NC, RIGHT>(a, B, stream)
+                  : launch<TWO, true, false, NC, RIGHT>(a, B, stream);
+  return approx ? launch<TWO, false, true, NC, RIGHT>(a, B, stream)
+                : launch<TWO, false, false, NC, RIGHT>(a, B, stream);
+}
+
+template <bool TWO>
+cudaError_t launch_two(const BandArgs& a, int cig, int approx, int right,
+                       int TP, int B, cudaStream_t stream) {
+  if (TP == 64)
+    return right ? launch_forms<TWO, 2, true>(a, cig, approx, B, stream)
+                 : launch_forms<TWO, 2, false>(a, cig, approx, B, stream);
+  return right ? launch_forms<TWO, 1, true>(a, cig, approx, B, stream)
+               : launch_forms<TWO, 1, false>(a, cig, approx, B, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success).  TP: the
+// tile (32 or 64 positions), NW: the compute warps a block (at most
+// MAX_NW), RING: the per-diagonal ring (a power of two of at least
+// (NW + 2) KD); ops/band.py:band_layout picks them.
 extern "C" int ksw2t_band_fwd(
     const void* qs, const void* ts, const void* qlen, const void* tlen,
     const void* w, const void* table, int B, int Lq, int Lt, int m, int q,
     int e, int q2, int e2, int qe_pre, int lt, int ld, int sc_mch,
     int sc_mis, int sc_N, int zdrop, int right, int generic, int approx,
-    int adrop, int cig, int two, int nd, int ncol, int RB, int threads,
+    int adrop, int cig, int two, int nd, int ncol, int TP, int NW, int RING,
     void* rec, void* p, void* stream) {
-  if (B <= 0 || threads <= 0 || threads > MAX_THREADS || threads % 32 ||
-      RB % threads || (RB & (RB - 1)) || m > 8 || ncol % 16 ||
+  if (B <= 0 || (TP != 32 && TP != 64) || NW < 2 || NW > MAX_NW ||
+      RING < (NW + 2) * KD || (RING & (RING - 1)) || m > 8 || ncol % 16 ||
       (cig && p == nullptr))
     return (int)cudaErrorInvalidValue;
+  const size_t smem = TP == 64 ? band_smem_bytes<64>(NW, RING)
+                               : band_smem_bytes<32>(NW, RING);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   BandArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
              (const int*)tlen, (const int*)w, (const int*)table, Lq, Lt, m,
              q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
-             right, generic, adrop, nd, ncol, RB, (int*)rec, (uint8_t*)p};
-  // the layout at the head of band_fwd_kernel (ops/band.py:
-  // fwd_smem_bytes mirrors it)
-  const size_t PL = two ? 6 : 4;
-  const size_t smem = 8 * 2 * MAX_WARPS + 4 * 2 * (size_t)RB + 4 * 64 +
-                      4 * 16 + 2 * PL * RB + RB +
-                      2 * (((size_t)ncol + 15) & ~15);
+             generic, adrop, nd, ncol, NW, RING, (int*)rec, (uint8_t*)p};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(two ? launch_two<true>(a, cig, approx, B, threads, smem, st)
-                   : launch_two<false>(a, cig, approx, B, threads, smem, st));
+  return (int)(two ? launch_two<true>(a, cig, approx, right, TP, B, st)
+                   : launch_two<false>(a, cig, approx, right, TP, B, st));
 }

@@ -19,9 +19,12 @@ int8; ``x2, y2`` two-piece) over the rotated band of each pair, as
   ``p[b, r, t - st(r)]`` with ``n_col_bytes`` columns, the store that
   ``ksw_backtrack`` reads with ``is_rot = 1``.
 
-It emits the 9-field records of ``ops/records.py`` directly: there is no
-replay.  The forward has two implementations: ``csrc/band_fwd.cu`` for
-CUDA tensors and :func:`band_forward_plain` for CPU tensors.  The TPU
+It emits the 9-field records of ``ops/records.py``.  The forward has two
+implementations: ``csrc/band_fwd.cu`` for CUDA tensors (a block a pair,
+whose warps take the pair's tiles in turn, and a replay warp in the same
+block that turns the per-diagonal keys into the records;
+:func:`band_layout`) and :func:`band_forward_plain` for CPU tensors,
+which computes the records diagonal by diagonal.  The TPU
 layout (the drifting 16-aligned origin and its jump shifts, the host-built
 injection planes, P sublane rows per pair, the packed 13-bit argmax key,
 the chunked early exit and the ``RMAX`` launch cap) is not ported: a
@@ -492,32 +495,48 @@ def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
     return rec, p
 
 
-def _ring(ncol: int) -> int:
-    """Ring length of the kernel's band state: a power of two of at least
-    ``ncol + 32``.  A band spans at most ``min(w + 1, qlen, tlen)`` cells,
-    ``ncol - 16`` or fewer; the ring holds it, its 16-byte rounding on
-    both sides and the stale edge.  Read from the launch's shape, so
-    planning a launch needs nothing from the device."""
-    return 1 << max(6, (ncol + 31).bit_length())
+TILES = (32, 64)           # the kernel's tile widths (target positions)
+NW_MAX = 25                # compute warps a block (csrc/band_fwd.cu MAX_NW)
+KD = 32                    # diagonals a hand-off group
 
 
-def fwd_smem_bytes(ncol: int, prm: BandParams) -> int:
-    """Dynamic shared memory of one kernel-C block (the layout at the head
-    of ``csrc/band_fwd.cu``): two int8 buffers of u, v, x, y (and x2, y2
-    two-piece), the score ring, two int32 H rings, two direction-byte
-    rows, the score table and the reduction slots."""
-    RB = _ring(ncol)
-    planes = 6 if prm.two else 4
-    return (2 * planes * RB + RB + 8 * RB + 2 * round_up(ncol, 16)
-            + 4 * 64 + 8 * 2 * 16 + 4 * 2 * 8)
+def band_layout(ncol: int):
+    """A launch's ``(tp, nw, ring)`` for ``csrc/band_fwd.cu``: the tile
+    ``tp``, the compute warps ``nw`` a block and the per-diagonal ring,
+    from the launch's ``ncol`` (so planning needs nothing from the
+    device).  A warp takes every ``nw``-th tile of its pair, so ``nw``
+    must keep a tile's first diagonal after the last one of the tile
+    ``nw`` before it: ``nw * tp > tp + min(w + 14, qlen + 13)``, or ``nw``
+    at least the pair's tiles, ``ceil((tlen + 15) / tp)``; ``nw = 2 +
+    (M + 13) // tp`` with ``M = min(qlen, tlen, w + 1)`` does both, and
+    ``M <= ncol - 16`` for every pair of the launch.  Tiles of 32
+    positions while that takes at most ``NW_MAX`` warps, else 64.  The
+    ring holds the diagonals between the replay and the leading tile
+    (about a group a warp) and a margin, a power of two."""
+    for tp in TILES:
+        nw = 2 + (ncol - 3) // tp
+        if nw <= NW_MAX:
+            break
+    else:
+        raise ValueError(f"ncol {ncol}: the band kernel takes w <= {W_MAX}")
+    ring = 1 << max(8, ((nw + 8) * KD - 1).bit_length())
+    return tp, nw, ring
+
+
+def fwd_smem_bytes(tp: int, nw: int, ring: int) -> int:
+    """Dynamic shared memory of one block (the layout at the head of
+    ``csrc/band_fwd.cu``): the per-diagonal rings of keys and of H at
+    st0 / en0, the control words and the score table, and each compute
+    warp's ``WarpSmem``."""
+    return 16 * ring + 4 * (4 * 32 + 4 + 64) + nw * (3024 + 4 * tp)
 
 
 def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
                       nd: int, ncol: int):
     """Launch ``csrc/band_fwd.cu`` on the current stream; same contract
-    as :func:`band_forward_plain`.  Nothing here reads the device, so a
-    batch's launches queue without a host synchronisation; a pair whose
-    band outgrows the ring that ``ncol`` sizes traps in the kernel."""
+    as :func:`band_forward_plain`.  The block's layout comes from ``ncol``
+    (:func:`band_layout`), so nothing here reads the device and a batch's
+    launches queue without a host synchronisation."""
     B, Lq = qs.shape
     Lt = ts.shape[1]
     _check_cuda(qs, torch.uint8, (B, Lq), "query")
@@ -530,8 +549,8 @@ def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
         raise ValueError("the band kernel takes m <= 8")
     if ncol % 16 or ncol > n_col_bytes(2 * W_MAX, 2 * W_MAX, W_MAX):
         raise ValueError(f"ncol {ncol}: a band is at most {W_MAX} wide")
-    RB = _ring(ncol)
-    smem = fwd_smem_bytes(ncol, prm)
+    tp, nw, ring = band_layout(ncol)
+    smem = fwd_smem_bytes(tp, nw, ring)
     if smem > SMEM_MAX:
         raise ValueError(f"launch needs {smem} B of shared memory")
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
@@ -550,7 +569,7 @@ def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
             int(bool(f & int(Flag.GENERIC_SC))),
             int(bool(f & int(Flag.APPROX_MAX))),
             int(bool(f & int(Flag.APPROX_DROP))), prm.cig, prm.two, nd,
-            ncol, RB, min(512, RB // 4), rec.data_ptr(),
+            ncol, tp, nw, ring, rec.data_ptr(),
             p.data_ptr() if p is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "band_fwd")
@@ -606,5 +625,6 @@ def band_records(launch: BandLaunch, device, cuda=band_forward_cuda,
 __all__ = ["W_MAX", "BandParams", "BandLaunch", "beyond",
            "band_ineligible_reason",
            "make_band_params", "band_prep", "split_launches", "band_forward",
-           "band_forward_plain", "band_forward_cuda", "fwd_smem_bytes",
+           "band_forward_plain", "band_layout", "band_forward_cuda",
+           "fwd_smem_bytes",
            "band_upload", "band_records"]

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_pair, spliced_pair
+from chip_smoke import band_edge_pairs, random_pair, spliced_pair
 from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.core.matrix import encode_dna, simple_mat
@@ -218,6 +218,69 @@ def test_band_walk_kernel_matches_plain(cuda_device, costs, flag):
     for b in range(len(ql)):
         n = int(kres[b, 2])
         assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+# the band kernel's edges (chip_smoke.band_edge_pairs: a pair that
+# Z-drops, targets around a tile edge, a pair shorter than a tile, a short
+# query): bands that give tiles of 32 positions (widest 751, 25 warps) and
+# of 64 (752)
+BAND_EDGE_W = {32: [751, 751, 300, 1, 751, 64], 64: [752, 751, 300, 1, 1472,
+                                                     64]}
+BAND_EDGE_FORMS = [(Flag.NONE, 100), (Flag.RIGHT | Flag.GENERIC_SC, 100),
+                   (Flag.SCORE_ONLY | Flag.APPROX_MAX | Flag.APPROX_DROP,
+                    100), (Flag.APPROX_MAX, -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [32, 64])
+@pytest.mark.parametrize("costs", [None] + TWO_PIECE)
+@pytest.mark.parametrize("flag,zdrop", BAND_EDGE_FORMS)
+def test_band_forward_edges_match_plain(cuda_device, tp, costs, flag, zdrop):
+    """Tile edges, the H0 walk across tiles and the Z-drop stop: records
+    and every byte (the rows past a stop are 0) equal the plain twin's, at
+    both tile widths."""
+    pairs = band_edge_pairs(np.random.default_rng(10))
+    q, e, q2, e2 = (4, 2, 0, 0) if costs is None else costs
+    mat = GEN if flag & Flag.GENERIC_SC else MAT
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    (ln,) = BD.band_prep(qs, ts, [len(a) for a in qs], [len(b) for b in ts],
+                         BAND_EDGE_W[tp], 5, mat, q, e, zdrop, flag,
+                         cig=not flag & Flag.SCORE_ONLY,
+                         two=costs is not None, q2=q2, e2=e2)
+    assert BD.band_layout(ln.ncol)[0] == tp
+    args = BD.band_upload(ln, cuda_device)
+    krec, kp = BD.band_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
+    prec, pp = BD.band_forward_plain(*args, ln.prm, ln.nd, ln.ncol)
+    assert torch.equal(krec, prec)
+    if zdrop >= 0 and not flag & Flag.APPROX_MAX:
+        assert int(krec[0, 8]) == 1          # the first pair Z-drops
+    if ln.prm.cig:
+        assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+def test_band_forward_pair_does_not_depend_on_its_launch(cuda_device):
+    """A pair's records and bytes are the same alone and in a launch with
+    wider bands (another tile width, warps and ring)."""
+    pairs = band_edge_pairs(np.random.default_rng(11))
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    w = [752, 751, 300, 1, 1472, 64]
+    out = []
+    for idx in ([1], list(range(len(pairs)))):
+        (ln,) = BD.band_prep([qs[i] for i in idx], [ts[i] for i in idx],
+                             [len(qs[i]) for i in idx],
+                             [len(ts[i]) for i in idx], [w[i] for i in idx],
+                             5, MAT, 4, 2, 100, Flag.NONE, cig=True)
+        rec, p = BD.band_forward_cuda(*BD.band_upload(ln, cuda_device),
+                                      ln.prm, ln.nd, ln.ncol)
+        k = idx.index(1)
+        n = int(ln.qlen[k]) + int(ln.tlen[k]) - 1
+        out.append((rec[k], p[k, :n], BD.band_layout(ln.ncol)))
+    assert out[0][2] != out[1][2]
+    assert torch.equal(out[0][0], out[1][0])
+    width = out[0][1].shape[1]
+    assert torch.equal(out[0][1], out[1][1][:, :width])
+    assert not out[1][1][:, width:].any()
 
 
 def _batch_launch(seed, flag, zdrop, costs=None, mat=MAT):
