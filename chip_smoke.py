@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line.  Phase 6 runs right after 2b; then
+the kernel phases 3-5h and phase 6's check against the CPU route run
+side by side in ``PHASE_WORKERS`` processes on the one card (they are
+bound by the host: a plain version launches many small operations), and
+their lines follow in phase order; phase 7 runs last, alone.  Each
+phase's seconds go to stderr as it ends.
 
 1. device: the card's name and power limit (nvidia-smi) and its int32
    rate (132 SMs x 64 lanes x the maximum SM clock);
@@ -61,10 +66,13 @@ Phases, each printing one JSON line:
    against their plain version's records, kernels 8 and 16 (batched and
    single-pair gg2) against theirs (without and with the reference's
    u/v/x/y/s block overrun) on scores and every byte of the flat store,
-   and band_walk's flat form on the kernels' bytes, exactly: seeded
-   pairs of 30-1500 bp, banded and unbanded, xdrop -1 and 40, two pairs
-   with qlen > tlen + w, and the first 64 pairs of each launch of the
-   CLI path (below);
+   kernels 15 and 16 at tiles of 32 and 64 positions, and band_walk's
+   flat form on the kernels' bytes, exactly: seeded pairs of 30-1500 bp,
+   banded and unbanded, xdrop -1 and 40, two pairs with qlen > tlen + w,
+   the first 64 pairs of each launch of the CLI path (below) and the
+   tiled kernels' edge cases (X-drops at diagonal 1 and at tile edges,
+   first empty bands before the last diagonal, gg2 walks that run off u,
+   an empty query);
 5h. local: kernel 18 (batched local alignment, one warp a pair) against
    its plain version, (score, te, qe) exactly, on the JAX bench's local
    set, local-mixed and edge pairs (empty, all-N, all-mismatch, tied
@@ -131,6 +139,14 @@ Phases, each printing one JSON line:
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
+
+    python3 chip_smoke.py --breakdown [extz|band|lg]
+    python3 chip_smoke.py --lg-times
+
+print clock64 breakdowns of a tile-diagonal of kernels 12-14, 9-10 and
+15-16, and phase 7's times of kernels 7, 8, 15 and 16 alone (which also
+run on a tree before the tiled kernels 15 and 16, to compare two trees
+in one call).
 """
 from __future__ import annotations
 
@@ -361,6 +377,7 @@ EXTS_REPLACES = "ksw2_tpu/ops/wavefront_exts.py:54"
 EXTZ_WALK_REPLACES = "ksw2_tpu/ops/traceback_device.py:50"
 EXTF_SRC = "ksw2_tpu_torch/csrc/batch_extf_fwd.cu"
 GG2_SRC = "ksw2_tpu_torch/csrc/gg2_fwd.cu"
+LG_SRC = "ksw2_tpu_torch/csrc/lg_fwd.cu"
 BATCH_EXTF_REPLACES = "ksw2_tpu/ops/wavefront_batch_extf.py:42"
 EXTF_REPLACES = "ksw2_tpu/ops/wavefront_extf.py:41"
 BATCH_GG2_REPLACES = "ksw2_tpu/ops/wavefront_batch_gg2.py:42"
@@ -2018,15 +2035,58 @@ def cli_split(jobs, algo):
             [p for p, k in zip(jobs, ok) if not k])
 
 
+def lg_edge_cases():
+    """The tiled kernels' edge cases (kernels 15 and 16, and 7 and 8 where
+    their route takes the pairs): (name, kind, pairs, resolved bands,
+    xdrop) of extf pairs that X-drop at diagonal 1 (every first cell
+    mismatches, xdrop 5), extf pairs that X-drop where the walk crosses a
+    tile edge (a shared prefix of 4-60 bases, then tails that mismatch
+    everywhere, xdrop 40: the walk's lt at the drop sweeps 31 / 32 and 63
+    / 64), extf pairs whose first empty band comes before qlen + tlen - 1
+    (xdrop -1), and
+    gg2 pairs with qlen > tlen + w whose walk runs off u into the
+    reference's block (targets not a multiple of 16, bands 0-16) with an
+    empty query."""
+    rng = np.random.default_rng(15)
+
+    def seq(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    r1 = [(np.zeros(L, np.uint8), np.ones(L, np.uint8)) for L in (40, 300)]
+    edges = []
+    for L0 in range(4, 61):
+        pre = seq(L0)
+        edges.append((np.concatenate([pre, np.zeros(60, np.uint8)]),
+                      np.concatenate([pre, np.ones(60, np.uint8)])))
+    rl, w_rl = [], [16, 30, 100]
+    for tl, ql in ((100, 300), (500, 90), (40, 700)):
+        t = seq(tl)
+        rl.append((np.concatenate([t, seq(ql - tl)]) if ql > tl else t[:ql],
+                   t))
+    ov, w_ov = [], []
+    for tl, ql, w in ((20, 60, 0), (20, 90, 1), (17, 41, 0), (33, 200, 1),
+                      (100, 300, 8), (300, 700, 16), (45, 0, 3)):
+        t = seq(tl)
+        q = np.concatenate([t, seq(ql - tl)]) if ql >= tl else seq(ql)
+        ov.append((q.astype(np.uint8), t))
+        w_ov.append(w)
+    return [("extf_xdrop_r1", "extf", r1, _resolve(r1, -1), 5),
+            ("extf_xdrop_edges", "extf", edges, _resolve(edges, -1), 40),
+            ("extf_first_empty", "extf", rl, w_rl, -1),
+            ("gg2_run_off", "gg2", ov, w_ov, None)]
+
+
 def lg_cases(jobs):
     """(name, kind, pairs, resolved bands, xdrop, forms) cases for kernels
     7 and 15 (kind "extf") and 8 and 16 (kind "gg2"): seeded pairs of
     30-1500 bp (N bases) with w 0, 16, 100 and unbanded, xdrop -1 and
     40; two pairs with qlen > tlen + w for kernel 16's block overrun;
-    and the first 64 pairs of each launch the CLI run makes of the
+    the first 64 pairs of each launch the CLI run makes of the
     mixed-512 workload (-t extf2_sse -z 40, -t gg2_sse -w 100: the
-    batched launch and the single-pair one).  ``forms`` names the
-    kernels a case holds: "batch" (7 / 8), "single" (15 / 16)."""
+    batched launch and the single-pair one); and the tiled kernels' edge
+    cases (:func:`lg_edge_cases`).  ``forms`` names the kernels a case
+    holds: "batch" (7 / 8), "single" (15 / 16, at tiles of 32 and 64
+    positions)."""
     from ksw2_tpu_torch.core.matrix import encode_dna
 
     rng = np.random.default_rng(14)
@@ -2059,15 +2119,17 @@ def lg_cases(jobs):
         ("cli64_gg2_batch", "gg2", gb, [100] * len(gb), None, ("batch",)),
         ("cli64_gg2_single", "gg2", gs, [100] * len(gs), None,
          ("single",)),
-    ]
+    ] + [(name, kind, pairs, w, xdrop, both if kind == "extf" else
+          ("single",)) for name, kind, pairs, w, xdrop in lg_edge_cases()]
 
 
 def phase_linear_global(cases):
     """Kernels 7 and 15 (batch_extf_fwd, extf_fwd) against their plain
     version's records, kernels 8 and 16 (batch_gg2_fwd, gg2_fwd) against
     theirs (without and with the block overrun) on scores and every byte
-    of the flat store, and band_walk's flat form against its plain
-    version on the kernels' bytes (end cells and runs), exactly."""
+    of the flat store, kernels 15 and 16 at tiles of 32 and of 64
+    positions, and band_walk's flat form against its plain version on the
+    kernels' bytes (end cells and runs), exactly."""
     import torch
     from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops import band_walker as BW
@@ -2075,6 +2137,7 @@ def phase_linear_global(cases):
     from ksw2_tpu_torch.ops import batch_gg2 as BG
     from ksw2_tpu_torch.ops import extf as XF
     from ksw2_tpu_torch.ops import gg2 as G1
+    from ksw2_tpu_torch.ops import lg_tiles as LT
 
     table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
     worst = dict.fromkeys(("batch_extf_fwd", "extf_fwd", "batch_gg2_fwd",
@@ -2085,28 +2148,38 @@ def phase_linear_global(cases):
         errs = {}
         row = {"pairs": len(pairs), "forms": list(forms),
                "Lt": int(args[1].shape[1])}
+        ql_np = [len(a) for a, _ in pairs]
+        tl_np = [len(b) for _, b in pairs]
         if kind == "extf":
             want = plain_run((name, "fwd"), BF.extf_forward_plain, *args,
                              2, -4, 2, xdrop)
             if "batch" in forms:
                 errs["batch_extf_fwd"] = _max_err(
                     BF.batch_extf_forward_cuda(*args, 2, -4, 2, xdrop), want)
-            errs["extf_fwd"] = _max_err(
-                XF.extf_single_forward_cuda(*args, 2, -4, 2, xdrop), want)
+            errs["extf_fwd"] = max(_max_err(XF.extf_single_forward_cuda(
+                *args, 2, -4, 2, xdrop,
+                lay=LT.lg_layout("extf_fwd", ql_np, tl_np, w, tp)), want)
+                for tp in LT.TILES)
             row["zdropped"] = int(want[:, 8].sum())
         else:
             single = "single" in forms
-            ql_np = [len(a) for a, _ in pairs]
-            tl_np = [len(b) for _, b in pairs]
             pb_np, total = BG.flat_layout(ql_np, tl_np, w)
             pb = torch.from_numpy(pb_np).cuda()
             ws, wp = plain_run((name, "fwd"), BG.gg2_forward_plain, *args,
                                table, 5, 4, 2, pb, total, single)
-            fwd = (G1.gg2_single_forward_cuda if single
-                   else BG.batch_gg2_forward_cuda)
-            ks, kp = fwd(*args, table, 5, 4, 2, pb, total)
             kname = "gg2_fwd" if single else "batch_gg2_fwd"
-            errs[kname] = max(_max_err(ks, ws), _max_err(kp, wp))
+            if single:
+                errs[kname] = 0
+                for tp in LT.TILES:
+                    ks, kp = G1.gg2_single_forward_cuda(
+                        *args, table, 5, 4, 2, pb, total,
+                        lay=LT.lg_layout("gg2_fwd", ql_np, tl_np, w, tp))
+                    errs[kname] = max(errs[kname], _max_err(ks, ws),
+                                      _max_err(kp, wp))
+            else:
+                ks, kp = BG.batch_gg2_forward_cuda(*args, table, 5, 4, 2, pb,
+                                                   total)
+                errs[kname] = max(_max_err(ks, ws), _max_err(kp, wp))
             del wp
             _, _, ql, tl, wt = args
             kres, kruns = BW.flat_walk_cuda(kp, pb, ql, tl, wt)
@@ -2292,8 +2365,9 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
     """Kernels 7, 8, 15 and 16 and the flat walk at the main path's
     shapes: each on the first 64 pairs of the CLI run's launches beside
     its plain version's time there (phase 5g), on the CLI run's whole
-    launches, and kernels 15 and 16 on the 50 kb and MT pairs (no plain
-    version runs there: it takes milliseconds a diagonal)."""
+    launches, kernel 15 on the 50 kb pair and its first LG_PREFIX bp and
+    kernel 16 on the MT pair (no plain version runs there: it takes
+    milliseconds a diagonal)."""
     import torch
     from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops import band_walker as BW
@@ -2301,9 +2375,14 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
     from ksw2_tpu_torch.ops import batch_gg2 as BG
     from ksw2_tpu_torch.ops import extf as XF
     from ksw2_tpu_torch.ops import gg2 as G1
+    try:    # a tree before the tiled kernels 15 and 16 (--lg-times)
+        from ksw2_tpu_torch.ops import lg_tiles as LT
+    except ImportError:
+        LT = None
 
     table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
     by_name = {c[0]: c for c in lcases}
+    cut = (single[0][:LG_PREFIX], single[1][:LG_PREFIX])
     eb, es = cli_split(jobs, "extf2_sse")
     gb, gs = cli_split(jobs, "gg2_sse")
     runs = [
@@ -2317,6 +2396,7 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
         ("cli_gg2_single", "gg2_fwd", (gs, [100] * len(gs), None), 3),
         ("single50k_extf", "extf_fwd", ([single], _resolve([single], -1), -1),
          2),
+        ("single2k_extf", "extf_fwd", ([cut], _resolve([cut], -1), -1), 5),
         ("mt_gg2", "gg2_fwd", ([mt], _resolve([mt], -1), None), 2)]
     fwds = {"batch_extf_fwd": BF.batch_extf_forward_cuda,
             "extf_fwd": XF.extf_single_forward_cuda,
@@ -2331,9 +2411,15 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
         fn = fwds[kname]
         row = {"kernel": kname, "pairs": len(pairs),
                "Lt": int(args[1].shape[1])}
+        # kernels 15 and 16 on the layout their main path makes on the host
+        kw = {}
+        if LT is not None and kname in LT.KINDS:
+            kw["lay"] = LT.lg_layout(kname, [len(a) for a, _ in pairs],
+                                     [len(b) for _, b in pairs], w)
+            row["tp"] = kw["lay"].tp
         if kname.endswith("extf_fwd"):
-            def fwd(args=args, fn=fn, xdrop=xdrop):
-                return fn(*args, 2, -4, 2, xdrop)
+            def fwd(args=args, fn=fn, xdrop=xdrop, kw=kw):
+                return fn(*args, 2, -4, 2, xdrop, **kw)
             row["fwd_ms"] = cuda_ms(fwd, reps)
             cells, nbytes = lg_work(pairs, w, fwd())
             row["zdropped"] = int(fwd()[:, 8].sum())
@@ -2342,8 +2428,8 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
                                           [len(b) for _, b in pairs], w)
             pb = torch.from_numpy(pb_np).cuda()
 
-            def fwd(args=args, fn=fn, pb=pb, total=total):
-                return fn(*args, table, 5, 4, 2, pb, total)
+            def fwd(args=args, fn=fn, pb=pb, total=total, kw=kw):
+                return fn(*args, table, 5, 4, 2, pb, total, **kw)
             row["fwd_ms"] = cuda_ms(fwd, reps)
             cells, nbytes = lg_work(pairs, w, store=True)
             row["store_bytes"] = total
@@ -2363,6 +2449,9 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
             kname, cells, nbytes, int_rate, kname.endswith("gg2_fwd"))
         row["fwd_gcells_per_s"] = cells / row["fwd_ms"] / 1e6
+        if len(pairs) == 1 and kname in ("extf_fwd", "gg2_fwd"):
+            row["us_per_diag"] = 1e3 * row["fwd_ms"] / (
+                len(pairs[0][0]) + len(pairs[0][1]) - 1)
         if (name, "fwd") in PLAIN_MS:
             row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
         out[name] = row
@@ -2998,29 +3087,50 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
                 raise AssertionError(f"{path}: {got} launches, planned "
                                      f"{want}")
 
-    # sampled pairs against the port's plain CPU route (which the CPU
-    # test suite holds against the JAX package and the NumPy spec)
+    return counts, runs, results
+
+
+def oracle_tasks(results):
+    """The main path's sampled pairs, one pool task a run (see
+    :func:`oracle_refs`): ``sample`` or 8 random pairs of the run."""
     rng = np.random.default_rng(16)
-    checked = 0
+    tasks = []
     for name, (pairs, ezs, aln, sample, juncs) in results.items():
-        cpu = Aligner(q=aln.q, e=aln.e, q2=aln.q2, e2=aln.e2, w=aln.w,
-                      zdrop=aln.zdrop, end_bonus=aln.end_bonus,
-                      flag=aln.flag, m=aln.m, mat=aln.mat,
-                      splice=aln.splice, noncan=aln.noncan,
-                      junc_bonus=aln.junc_bonus, device="cpu")
         idx = sample if sample is not None else \
             rng.choice(len(pairs), min(8, len(pairs)), replace=False)
         if len(idx) == 0:
             continue
-        ref = cpu.extend_batch([pairs[i] for i in idx],
-                               juncs=None if juncs is None else
-                               [juncs[i] for i in idx])
-        for i, r in zip(idx, ref):
-            g = ezs[i]
-            a = (g.max, g.max_t, g.max_q, g.mqe, g.mqe_t, g.mte, g.mte_q,
-                 g.score, g.zdropped, g.cigar)
-            b = (r.max, r.max_t, r.max_q, r.mqe, r.mqe_t, r.mte, r.mte_q,
-                 r.score, r.zdropped, r.cigar)
+        idx = [int(i) for i in idx]
+        kw = dict(q=aln.q, e=aln.e, q2=aln.q2, e2=aln.e2, w=aln.w,
+                  zdrop=aln.zdrop, end_bonus=aln.end_bonus, flag=aln.flag,
+                  m=aln.m, mat=aln.mat, splice=aln.splice,
+                  noncan=aln.noncan, junc_bonus=aln.junc_bonus,
+                  device="cpu")
+        tasks.append(("oracle", name, kw, idx, [pairs[i] for i in idx],
+                      None if juncs is None else [juncs[i] for i in idx]))
+    return tasks
+
+
+def _oracle_fields(ez):
+    return _fields9(ez) + (list(ez.cigar),)
+
+
+def oracle_refs(kw, pairs, juncs):
+    """The pairs through the port's plain CPU route (which the CPU test
+    suite holds against the JAX package and the NumPy spec)."""
+    from ksw2_tpu_torch import Aligner
+
+    return [_oracle_fields(r)
+            for r in Aligner(**kw).extend_batch(pairs, juncs=juncs)]
+
+
+def oracle_check(results, tasks, refs):
+    """Each sampled pair's card result against its CPU reference."""
+    checked = 0
+    for _, name, _, idx, _, _ in tasks:
+        ezs = results[name][1]
+        for i, b in zip(idx, refs[name]):
+            a = _oracle_fields(ezs[i])
             if a != b:
                 raise AssertionError(f"{name} pair {i}: GPU {a[:9]} vs "
                                      f"CPU {b[:9]}")
@@ -3028,7 +3138,6 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     emit({"phase": "oracle", "pairs_checked": checked,
           "runs": sorted(results),
           "against": "Aligner(device='cpu') plain route"})
-    return counts, runs
 
 
 def phase_profile(long, sb, spl, jobs, mt):
@@ -3752,6 +3861,81 @@ BAND_BREAKDOWN_STAMPS = (
      "        atomicAdd(&g_prof[10 + i], (unsigned long long)RP[i]);\n"
      "    if (rlim < ndb) zd = 1;\n"),
 )
+# lg_fwd.cu (kernels 15 and 16): each tile's lane 0 adds the cycles of
+# its parts: the group's prep (band rows, query loads), the wait, the
+# loads after it, a diagonal's chunk steps and its tail (the walk's step
+# or read and the edge entry), the hand-off and the group's byte flush
+# (gg2);
+# counter 10 is the longest tile's cycles, 11 and 12 the nanoseconds
+# (%globaltimer, one clock for every SM) from a release to the end of a
+# wait that it ended, and the number of such waits; per (tile, group) the
+# release time, and the cycles before the diagonals and from them to the
+# release
+LG_BREAKDOWN_PARTS = ("wait", "group_loads", "chunks", "diag_tail",
+                      "release", "group_prep", "total", "diags",
+                      "first_wait", "byte_flush")
+LG_BREAKDOWN_STAMPS = (
+    ("constexpr unsigned FULL = 0xffffffffu;\n",
+     "constexpr unsigned FULL = 0xffffffffu;\n"
+     "__device__ unsigned long long g_prof[16];\n"
+     "__device__ unsigned long long g_relts[1 << 22];\n"
+     "__device__ unsigned long long g_work[1 << 22];\n"
+     "__device__ unsigned long long g_pre[1 << 22];\n"
+     "__device__ __forceinline__ unsigned long long gtime() {\n"
+     "  unsigned long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+     "  return t;\n}\n"),
+    ("          while ((pv = ld_acquire(pg)) < need) {\n",
+     "          bool spun_ = false;\n"
+     "          while ((pv = ld_acquire(pg)) < need) {\n"
+     "            spun_ = true;\n"),
+    ("            nap = min(2 * nap, SPIN_SLEEP_MAX);\n          }\n",
+     "            nap = min(2 * nap, SPIN_SLEEP_MAX);\n          }\n"
+     "          if (spun_ && pv >= need) {\n"
+     "            atomicAdd(&g_prof[11], gtime() - g_relts[(size_t)(g - 1) * "
+     "2048 + need / 32]);\n"
+     "            atomicAdd(&g_prof[12], 1ull);\n          }\n"),
+    ("  for (int r_lo = rA; r_lo <= rB;) {\n",
+     "  long long P[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  const long long tT = clock64();\n  bool firstg = true;\n"
+     "  long long tq, tw = 0, tgs = 0;\n"
+     "  for (int r_lo = rA; r_lo <= rB;) {\n"
+     "    tq = clock64();\n    tgs = tq;\n"),
+    ("    int cb = 0, wl = -1;\n",
+     "    P[5] += clock64() - tq;\n    tq = clock64();\n"
+     "    int cb = 0, wl = -1;\n"),
+    ("        seen = __shfl_sync(FULL, pv, 0);\n      }\n",
+     "        seen = __shfl_sync(FULL, pv, 0);\n      }\n"
+     "      P[firstg ? 8 : 0] += clock64() - tq;\n      tq = clock64();\n"),
+    ("    // the group's diagonals; WALK: the walk's step (EXTF) or one of its\n",
+     "    P[1] += clock64() - tq;\n    firstg = false;\n    tw = clock64();\n"
+     "    if (lane == 0) g_pre[(size_t)g * 2048 + r_hi / 32] = tw - tgs;\n"
+     "    // the group's diagonals; WALK: the walk's step (EXTF) or one of its\n"),
+    ("        const int r = r_lo + rr;\n        const int4 dg = sdiag[rr];\n",
+     "        long long td = clock64();\n        const int r = r_lo + rr;\n"
+     "        const int4 dg = sdiag[rr];\n"),
+    ("        // the walk's step (EXTF) or read (GG2), when it may fall here\n",
+     "        P[2] += clock64() - td;\n        td = clock64();\n"
+     "        // the walk's step (EXTF) or read (GG2), when it may fall here\n"),
+    ("                         : (Ent)u8(V[NC - 1]);\n      }\n",
+     "                         : (Ent)u8(V[NC - 1]);\n"
+     "        P[3] += clock64() - td;\n        P[7] += 1;\n      }\n"),
+    ("    // the group's hand-off: its edge entries, then one release\n",
+     "    tq = clock64();\n"
+     "    // the group's hand-off: its edge entries, then one release\n"),
+    ("      if (lane == 0) st_release(A.progress + g, r_hi);\n    }\n",
+     "      if (lane == 0) g_relts[(size_t)g * 2048 + r_hi / 32] = gtime();\n"
+     "      if (lane == 0) g_work[(size_t)g * 2048 + r_hi / 32] =\n"
+     "          clock64() - tw;\n"
+     "      if (lane == 0) st_release(A.progress + g, r_hi);\n    }\n"
+     "    __syncwarp();\n    P[4] += clock64() - tq;\n    tq = clock64();\n"),
+    ("    __syncwarp();\n    r_lo = r_hi + 1;\n  }\n",
+     "    __syncwarp();\n    P[9] += clock64() - tq;\n    r_lo = r_hi + 1;\n"
+     "  }\n  P[6] = clock64() - tT;\n  if (lane == 0) {\n"
+     "    for (int i = 0; i < 10; ++i)\n"
+     "      atomicAdd(&g_prof[i], (unsigned long long)P[i]);\n"
+     "    atomicMax(&g_prof[10], (unsigned long long)P[6]);\n  }\n"),
+)
 BREAKDOWN_READ = """
 extern "C" int ksw2t_prof_read(void* out) {
   cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
@@ -3765,9 +3949,10 @@ extern "C" const char* ksw2t_error_string(int err) {
 """
 
 
-def breakdown_library(name, stamps, entry):
-    """Build the stamped copy of ``csrc/<name>.cu``; returns it loaded,
-    with the entry point's argument types set."""
+def breakdown_library(name, stamps, entry, read=BREAKDOWN_READ):
+    """Build the stamped copy of ``csrc/<name>.cu`` with the readers
+    ``read``; returns it loaded, with the argument types of its entry
+    point (or points) set."""
     import ctypes
 
     from ksw2_tpu_torch import _build
@@ -3780,14 +3965,15 @@ def breakdown_library(name, stamps, entry):
         src = src.replace(anchor, stamped)
     out = _build.BUILD_DIR.parent / "diag_breakdown"
     out.mkdir(parents=True, exist_ok=True)
-    (out / f"{name}_stamped.cu").write_text(src + BREAKDOWN_READ)
+    (out / f"{name}_stamped.cu").write_text(src + read)
     lib_path = out / f"lib{name}_stamped.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
                     str(_build.CSRC), str(out / f"{name}_stamped.cu"), "-o",
                     str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
-    getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
-    getattr(lib, entry).restype = ctypes.c_int
+    for fn in (entry,) if isinstance(entry, str) else entry:
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
     lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
     lib.ksw2t_error_string.argtypes = [ctypes.c_int]
     lib.ksw2t_error_string.restype = ctypes.c_char_p
@@ -3954,8 +4140,145 @@ def breakdown_band():
           "kernels": rows})
 
 
-def phase_breakdown(which=("extz", "band")) -> int:
-    """``--breakdown [extz|band]``: the clock64 breakdowns."""
+# lg_fwd.cu's stamped copy also reads out each (tile, group)'s release time
+LG_BREAKDOWN_READ = BREAKDOWN_READ + """
+extern "C" int ksw2t_relts_read(void* out, void* work, void* pre) {
+  cudaMemcpyFromSymbol(out, g_relts, sizeof(g_relts));
+  cudaMemcpyFromSymbol(work, g_work, sizeof(g_work));
+  cudaMemcpyFromSymbol(pre, g_pre, sizeof(g_pre));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def release_lags(relts, lay, kind, ql, tl, w):
+    """Medians (ns) of a tile's time from one group's release to its
+    next (its period) and of the time from a tile's release of a group to
+    the next tile's release of the same group (the lag a tile adds), over
+    the stamped launch's release times ``relts`` (tile x 2048 groups)."""
+    from ksw2_tpu_torch.ops import lg_tiles as LT
+
+    n = int(LT.n_diags(kind, ql, tl, w)[0])
+    tiles = lay.tiles
+    period, lag = [], []
+    for k in range(tiles - 1):
+        first, last = (int(x) for x in LT.tile_range(k * lay.tp, lay.tp,
+                                                     ql[0], w[0], n))
+        if last < first:
+            continue
+        row = relts[k, first // 32:last // 32 + 1].astype(np.int64)
+        period += list(np.diff(row))
+        if k + 1 < tiles - 1:
+            f1, l1 = (int(x) for x in LT.tile_range(
+                (k + 1) * lay.tp, lay.tp, ql[0], w[0], n))
+            lo, hi = max(first, f1) // 32, min(last, l1) // 32
+            if lo <= hi:
+                lag += list(relts[k + 1, lo:hi + 1].astype(np.int64)
+                            - relts[k, lo:hi + 1].astype(np.int64))
+    return (float(np.median(period)) if period else None,
+            float(np.median(lag)) if lag else None)
+
+
+def breakdown_lg():
+    """Cycles a tile-diagonal of each part of kernels 15 and 16 (CUDA
+    clock64 sums over the tiles' lane 0, over the tile-diagonals
+    computed) at each tile width: kernels 15 and 16 on the 50 kb pair's
+    first LG_PREFIX bp (unbanded, xdrop -1) and kernel 16 on the MT pair
+    (unbanded), each one launch as its main path makes it; with the
+    time a tile takes from one release to the next and the lag from a
+    tile's release of a group to the next tile's (up to 2,048 groups a
+    tile), and, for the first 4 tiles' first 6 groups, the cycles before
+    the group's diagonals (prep, wait, loads) and from them to the
+    release."""
+    import ctypes
+
+    import torch
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import extf as XF
+    from ksw2_tpu_torch.ops import gg2 as G1
+    from ksw2_tpu_torch.ops import lg_tiles as LT
+
+    lib = breakdown_library("lg_fwd", LG_BREAKDOWN_STAMPS,
+                            ("ksw2t_extf_fwd", "ksw2t_gg2_fwd"),
+                            LG_BREAKDOWN_READ)
+    lib.ksw2t_relts_read.argtypes = [ctypes.c_void_p] * 3
+    saved = XF.library, G1.library
+    XF.library = G1.library = lambda: lib
+    single = single_pair(SINGLE_SEED, SINGLE_LEN)
+    cut = (single[0][:LG_PREFIX], single[1][:LG_PREFIX])
+    mt = single_pair(MT_SEED, MT_LEN)
+    table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
+    try:
+        for name, kind, pair in (("single2k_extf", "extf_fwd", cut),
+                                 ("single2k_gg2", "gg2_fwd", cut),
+                                 ("mt_gg2", "gg2_fwd", mt)):
+            w = _resolve([pair], -1)
+            args = BF.pack_pairs([pair], w, "cuda")
+            ql, tl = [len(pair[0])], [len(pair[1])]
+            pb_np, total = BG.flat_layout(ql, tl, w)
+            pb = torch.from_numpy(pb_np).cuda()
+            for tp in LT.TILES:
+                lay = LT.lg_layout(kind, ql, tl, w, tp)
+                if kind == "extf_fwd":
+                    def call(lay=lay):
+                        return XF.extf_single_forward_cuda(
+                            *args, 2, -4, 2, -1, lay=lay)
+                else:
+                    def call(lay=lay):
+                        return G1.gg2_single_forward_cuda(
+                            *args, table, 5, 4, 2, pb, total, lay=lay)
+                call()
+                torch.cuda.synchronize()
+                prof = np.zeros(16, np.uint64)
+                lib.ksw2t_prof_read(prof.ctypes.data)
+                # the stream sleeps while the host enqueues the call, so
+                # the events time the device alone
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SLEEP_CYCLES)
+                t0.record()
+                call()
+                t1.record()
+                t1.synchronize()
+                ms = t0.elapsed_time(t1)
+                lib.ksw2t_prof_read(prof.ctypes.data)
+                relts = np.zeros(((1 << 22) // 2048, 2048), np.uint64)
+                work, pre = np.zeros_like(relts), np.zeros_like(relts)
+                lib.ksw2t_relts_read(relts.ctypes.data, work.ctypes.data,
+                                     pre.ctypes.data)
+                # the first tiles' first groups: cycles before the
+                # diagonals (prep, wait, loads) and from them to the
+                # release
+                g0 = LT.tile_range(np.arange(4) * tp, tp, ql[0], w[0],
+                                   ql[0] + tl[0] - 1)[0] // 32
+                first_groups = [[(int(pre[k, G]), int(work[k, G]))
+                                 for G in range(g0[k], g0[k] + 6)]
+                                for k in range(4)]
+                period, lag = release_lags(relts, lay, kind, ql, tl, w)
+                nd = float(prof[7])
+                emit({"phase": "breakdown", "case": name, "kernel": kind,
+                      "tp": tp, "tiles": lay.tiles, "ms_stamped": ms,
+                      "tile_diagonals": int(nd),
+                      "longest_tile_cycles": int(prof[10]),
+                      "sm_ghz": float(prof[10]) / ms / 1e6,
+                      "handoff_waits": int(prof[12]),
+                      "handoff_ns": float(prof[11]) / max(int(prof[12]), 1),
+                      "group_period_ns": period, "tile_lag_ns": lag,
+                      "first_groups_cycles": first_groups,
+                      "cycles_per_tile_diagonal": {
+                          k: float(prof[i]) / nd
+                          for i, k in enumerate(LG_BREAKDOWN_PARTS)
+                          if k != "diags"}})
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        XF.library, G1.library = saved
+
+
+def phase_breakdown(which=("extz", "band", "lg")) -> int:
+    """``--breakdown [extz|band|lg]``: the clock64 breakdowns."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3968,7 +4291,195 @@ def phase_breakdown(which=("extz", "band")) -> int:
         breakdown_band()
     if "extz" in which:
         breakdown_extz()
+    if "lg" in which:
+        breakdown_lg()
     return 0
+
+
+def phase_lg_times() -> int:
+    """``--lg-times``: the times of kernels 7, 8, 15 and 16 of phase 7
+    alone (linear_global_times), with no plain version and no check; it
+    also runs on a tree whose kernels 15 and 16 are not tiled, for
+    comparing two trees in one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    int_rate = phase_device()
+    phase_build()
+    jobs = mixed_jobs()
+    times = linear_global_times(lg_cases(jobs),
+                                single_pair(SINGLE_SEED, SINGLE_LEN),
+                                single_pair(MT_SEED, MT_LEN), jobs, int_rate)
+    emit({"phase": "lg_times", "cases": times})
+    return 0
+
+
+START = time.perf_counter()
+
+
+def progress(msg: str) -> None:
+    """One line on stderr with the run's seconds so far: where a run that
+    is stopped got to."""
+    print(f"[chip_smoke {time.perf_counter() - START:7.1f} s] {msg}",
+          file=sys.stderr, flush=True)
+
+
+# the kernel phases (3-5h) and the main path's CPU references are
+# independent of each other and bound by the host (a plain version
+# launches many small operations one after another), so most of them run
+# side by side in PHASE_WORKERS processes on the one card, each
+# rebuilding its inputs from their seeds.  The cases whose plain times
+# phase 7 reports (ALONE: by phase, a pattern on the case's name) run
+# first, alone in this process: a plain version that shares the host
+# with the workers takes up to 4x as long.  A phase's two parts print
+# one line, in phase order, once all have ended.
+PHASE_WORKERS = 4
+POOL_TIMEOUT_S = 800          # a stuck worker fails the run, not the limit
+KERNEL_PHASES = ("splice", "kernel_a", "kernel_b", "rows", "band", "batch",
+                 "single", "single2", "linear_global", "local")
+ALONE = {"splice": r"main_.*", "kernel_a": r"(whale|mixed700)_.*",
+         "kernel_b": r"(whale|mixed700)_.*", "rows": r"short_score_z100",
+         "band": r"long1_.*", "batch": r"sb_ext[zd]_score_z100_launch\d+",
+         "single": r"sr_launch\d+", "single2": r"(sr_extd|splice_ends)_256",
+         "linear_global": r"cli64_.*", "local": r".*"}
+# the pool's part, longest first (seconds alone on one H100: single2
+# ~120, band ~80, splice ~90, batch ~55, single ~50, linear_global ~25,
+# kernel_a ~25), the CPU references after them, then the short ones
+POOL_FIRST = ("single2", "splice", "band", "batch", "single",
+              "linear_global", "kernel_a")
+POOL_LAST = ("kernel_b", "rows")
+
+
+def run_kernel_phase(name, alone):
+    """Kernel phase ``name`` on its cases in ALONE (``alone``) or on the
+    others, rebuilt from their seeds; None when there are none."""
+    import re
+
+    if name == "local":
+        return phase_local() if alone else None
+    fn, cases = {
+        "splice": lambda: (phase_splice, splice_cases(splice_jobs())),
+        "kernel_a": lambda: (phase_kernel_a, fwd_cases(mixed_jobs())),
+        "kernel_b": lambda: (phase_kernel_b, fwd_cases(mixed_jobs())),
+        "rows": lambda: (phase_rows, rows_cases(short_jobs())),
+        "band": lambda: (phase_band, band_cases(long_banded_jobs(),
+                                                mixed_jobs())),
+        "batch": lambda: (phase_batch, batch_cases(short_banded_jobs())),
+        "single": lambda: (phase_single, single_cases(short_banded_jobs())),
+        "single2": lambda: (phase_single2, single2_cases(
+            short_banded_jobs(), splice_jobs())),
+        "linear_global": lambda: (phase_linear_global,
+                                  lg_cases(mixed_jobs())),
+    }[name]()
+    part = [c for c in cases
+            if (re.fullmatch(ALONE[name], c[0]) is not None) == alone]
+    return fn(part) if part else None
+
+
+def _captured(fn, *args):
+    """(fn(*args), what it printed, seconds, the traceback or None)."""
+    import traceback
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    out, err = None, None
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+    except Exception:
+        err = traceback.format_exc()
+    return out, buf.getvalue(), time.perf_counter() - t0, err
+
+
+def _pool_init():
+    import torch
+
+    torch.set_num_threads(1)
+    torch.manual_seed(0)
+
+
+def _pool_task(task):
+    """One pool task, ("phase", name) or an :func:`oracle_tasks` entry:
+    (kind, name, (result, printed lines, seconds, error)).  Its plain
+    times stay in its phase's line."""
+    if task[0] == "phase":
+        res = _captured(run_kernel_phase, task[1], False)
+    else:
+        _, _, kw, _, pairs, juncs = task
+        res = _captured(oracle_refs, kw, pairs, juncs)
+    return task[0], task[1], res
+
+
+def _fail(what, text, err):
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    raise AssertionError(f"{what} failed:\n{err}")
+
+
+def _merge_worst(a, b):
+    if a is None or b is None:
+        return b if a is None else a
+    if isinstance(a, dict):
+        return {k: max(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
+    return max(a, b)
+
+
+def _merge_lines(texts):
+    """A phase's summary lines from its parts as one line."""
+    objs = [json.loads(ln) for t in texts for ln in t.splitlines()
+            if ln.strip()]
+    line = {"phase": objs[0]["phase"], "max_abs_err": None, "cases": {}}
+    for o in objs:
+        line["max_abs_err"] = _merge_worst(line["max_abs_err"],
+                                           o["max_abs_err"])
+        line["cases"].update(o["cases"])
+    return json.dumps(line) + "\n"
+
+
+def run_kernel_phases(oracle):
+    """The kernel phases' ALONE cases here, one after another, then their
+    other cases and the ``oracle`` tasks in PHASE_WORKERS processes:
+    {phase: result}, {run: CPU references}, {part: seconds}.  Fails on
+    the first part that fails, and when the pool outlasts
+    POOL_TIMEOUT_S."""
+    import multiprocessing as mp
+
+    import torch
+
+    res, texts, secs, refs = {}, {}, {}, {}
+    for name in KERNEL_PHASES:
+        out, text, s, err = _captured(run_kernel_phase, name, True)
+        progress(f"alone {name}: {s:.1f} s")
+        if err:
+            _fail(f"phase {name} (alone)", text, err)
+        res[name], texts[name], secs[f"alone:{name}"] = out, [text], s
+        torch.cuda.empty_cache()
+    tasks = [("phase", n) for n in POOL_FIRST] + list(oracle) + \
+        [("phase", n) for n in POOL_LAST]
+    assert {n for k, n, *_ in tasks if k == "phase"} | {"local"} == \
+        set(KERNEL_PHASES)
+    t0 = time.perf_counter()
+    with mp.get_context("spawn").Pool(PHASE_WORKERS,
+                                      initializer=_pool_init) as pool:
+        it = pool.imap_unordered(_pool_task, tasks)
+        for _ in tasks:
+            left = POOL_TIMEOUT_S - (time.perf_counter() - t0)
+            kind, name, (out, text, s, err) = it.next(max(left, 1))
+            progress(f"{kind} {name}: {s:.1f} s")
+            if err:
+                _fail(f"{kind} {name}", text, err)
+            secs[f"{kind}:{name}"] = s
+            if kind == "oracle":
+                refs[name] = out
+                continue
+            res[name] = _merge_worst(res[name], out)
+            texts[name].append(text)
+    secs["pool"] = time.perf_counter() - t0
+    for name in KERNEL_PHASES:
+        sys.stdout.write(_merge_lines(texts[name]))
+    sys.stdout.flush()
+    return res, refs, secs
 
 
 def main() -> int:
@@ -3982,6 +4493,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn(*args)
         clock[name] = time.perf_counter() - t0
+        progress(f"{name}: {clock[name]:.1f} s")
         return out
 
     int_rate = phase_device()
@@ -3989,33 +4501,35 @@ def main() -> int:
     timed("build", phase_build)
     timed("operations", phase_operations)
     spl = splice_jobs()
-    scases = splice_cases(spl)
-    err_spl = timed("splice", phase_splice, scases)
     jobs = mixed_jobs()
     short = short_jobs()
     long = long_banded_jobs()
-    cases = fwd_cases(jobs)
-    rcases = rows_cases(short)
-    err_a = timed("kernel_a", phase_kernel_a, cases)
-    err_b = timed("kernel_b", phase_kernel_b, cases)
-    err_r = timed("rows", phase_rows, rcases)
-    err_band = timed("band", phase_band, band_cases(long, jobs))
     sb = short_banded_jobs()
-    err_batch = timed("batch", phase_batch, batch_cases(sb))
-    err_single = timed("single", phase_single, single_cases(sb))
-    err_single2 = timed("single2", phase_single2, single2_cases(sb, spl))
-    lcases = lg_cases(jobs)
-    err_lg = timed("linear_global", phase_linear_global, lcases)
-    err_local = timed("local", phase_local)
     single = single_pair(SINGLE_SEED, SINGLE_LEN)
     mt = single_pair(MT_SEED, MT_LEN)
     slong = splice_long_jobs()
-    counts, _ = timed("main_path", phase_main_path, jobs, short, long, sb,
-                      spl, single, mt, slong)
+    counts, _, results = timed("main_path", phase_main_path, jobs, short,
+                               long, sb, spl, single, mt, slong)
+    torch.cuda.empty_cache()
+    oracle = oracle_tasks(results)
+    errs, refs, secs = timed("kernel_phases", run_kernel_phases, oracle)
+    oracle_check(results, oracle, refs)
+    del results
+    for name in KERNEL_PHASES:
+        clock[name] = secs[f"alone:{name}"] + secs.get(f"phase:{name}", 0)
+    clock["pool"] = secs["pool"]
+    clock["oracle_cpu"] = sum(s for k, s in secs.items()
+                              if k.startswith("oracle:"))
+    err_spl, err_a, err_b, err_r, err_band, err_batch, err_single, \
+        err_single2, err_lg, err_local = (errs[n] for n in KERNEL_PHASES)
+    scases = splice_cases(spl)
+    cases = fwd_cases(jobs)
+    rcases = rows_cases(short)
+    lcases = lg_cases(jobs)
     times = timed("times", phase_times, cases, rcases, long, sb, scases,
                   single, spl, slong, int_rate, lcases, mt, jobs)
     timed("profile", phase_profile, long, sb, spl, jobs, mt)
-    emit({"phase": "clock", "seconds": clock})
+    emit({"phase": "clock", "workers": PHASE_WORKERS, "seconds": clock})
     whale = times["whale_cig_z100"]
     rows = times["short_score_z100"]
     ld = times["long1_extd_score"]
@@ -4061,9 +4575,9 @@ def main() -> int:
         _kernel("batch_gg2_fwd", GG2_SRC, BATCH_GG2_REPLACES,
                 counts["batch_gg2_fwd"], err_lg["batch_gg2_fwd"],
                 times["cli64_gg2_batch"], "fwd"),
-        _kernel("extf_fwd", EXTF_SRC, EXTF_REPLACES, counts["extf_fwd"],
+        _kernel("extf_fwd", LG_SRC, EXTF_REPLACES, counts["extf_fwd"],
                 err_lg["extf_fwd"], times["cli64_extf_single"], "fwd"),
-        _kernel("gg2_fwd", GG2_SRC, GG2_REPLACES, counts["gg2_fwd"],
+        _kernel("gg2_fwd", LG_SRC, GG2_REPLACES, counts["gg2_fwd"],
                 err_lg["gg2_fwd"], times["cli64_gg2_single"], "fwd"),
         _kernel("batch_local_fwd", LOCAL_SRC, LOCAL_REPLACES,
                 counts["batch_local_fwd"],
@@ -4077,6 +4591,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lg-times"]:
+        sys.exit(phase_lg_times())
     if sys.argv[1:2] == ["--breakdown"]:
-        sys.exit(phase_breakdown(tuple(sys.argv[2:]) or ("extz", "band")))
+        sys.exit(phase_breakdown(tuple(sys.argv[2:])
+                                 or ("extz", "band", "lg")))
     sys.exit(main())

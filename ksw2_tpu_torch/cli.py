@@ -10,8 +10,8 @@ and TSV output as the reference CLI (``cli.c:159-259``).  Extensions:
   through the batched gg2 kernel (kernel 8) with the flat walk, for pairs
   of targets up to 1024 (gg2_sse also ``qlen <= tlen + w``,
   ``ksw2_tpu/cli.py:147-152``); extf2 and gg2_sse pairs beyond take the
-  single-pair kernels 15 and 16 in one launch, the others the per-pair
-  dispatch.
+  single-pair kernels 15 and 16 (one launch for each ``LAUNCH_BYTES`` of
+  their buffers), the others the per-pair dispatch.
 * ``--device {cuda,cpu}``: ``cuda`` (the default) runs the CUDA kernels
   and raises without a card; ``cpu`` runs their plain PyTorch versions.
 * exts2 CIGARs print intron ops as ``N`` and use the JAX CLI's fixed A1
@@ -143,8 +143,9 @@ def batch_other(algo: str, pairs, mat, q: int, e: int, w: int, zdrop: int,
     """Whole-file batched dispatch for gg2_sse / extf2_sse / exts2_sse
     (``ksw2_tpu/cli.py:_batch_other``): pairs with targets of up to 1024
     (and, for gg2_sse, ``qlen <= tlen + w``) take the batched kernels;
-    extf2 and gg2_sse pairs beyond take kernels 15 and 16 in one launch,
-    exts2 pairs beyond the per-pair dispatch."""
+    extf2 and gg2_sse pairs beyond take kernels 15 and 16 (one launch for
+    each ``LAUNCH_BYTES`` of their buffers), exts2 pairs beyond the
+    per-pair dispatch."""
     enc = [(encode_dna(qrec.seq), encode_dna(trec.seq))
            for trec, qrec in pairs]
     n = len(enc)

@@ -1,12 +1,14 @@
 // Definitions shared by the strips forward (strips_fwd.cu), the rows
 // forward (rows_fwd.cu), the band forward (band_fwd.cu), the batched exts
-// forward (batch_exts_fwd.cu), the single-pair forward (extz_fwd.cu) and
-// the walkers (strips_walk.cu, band_walk.cu, extz_walk.cu): the record
-// sentinel, the virtual column boundaries, the SSE merge-order tie key,
-// the direction-byte codes, ksw_backtrack's per-byte state step and the
-// rows of the single-pair engine's compact byte store.  Their
-// Python twins live in ksw2_tpu_torch/ops/strips.py and the walkers'
-// plain versions.
+// forward (batch_exts_fwd.cu), the single-pair forwards (extz_fwd.cu,
+// lg_fwd.cu) and the walkers (strips_walk.cu, band_walk.cu,
+// extz_walk.cu): the record sentinel, the virtual column boundaries, the
+// SSE merge-order tie key, the direction-byte codes, ksw_backtrack's
+// per-byte state step, the rows of the single-pair engine's compact byte
+// store and the single-pair forwards' tiles (their diagonal ranges and
+// the hand-off between them).  Their Python twins live in
+// ksw2_tpu_torch/ops/strips.py, ops/extz_fwd.py and the walkers' plain
+// versions.
 #pragma once
 
 #include <cstdint>
@@ -167,6 +169,74 @@ __device__ inline long long store_row_off(int r, int qlen, int tlen, int w) {
   }
   return 16 * s;
 }
+
+// The single-pair forwards' tiles (extz_fwd.cu, lg_fwd.cu; band_fwd.cu
+// keeps its own, block-scoped): a warp owns TP target positions of a pair
+// and hands its last position's state on to the next tile once a group of
+// KD diagonals (at most 32: a lane a diagonal at the group's end), with
+// one release at GPU scope; the next tile waits once a group, one lane
+// spinning with acquire semantics.
+namespace tiles {
+
+constexpr int KD = 32;
+// a wait on the tile before may last SPIN_BASE + SPIN_DIAG cycles for each
+// of the pair's diagonals (~10 s + ~100 us a diagonal of SM clock) before
+// it counts as a fault; between reads it asks for a sleep that doubles
+// from 16 ns up to SPIN_SLEEP_MAX ns
+constexpr long long SPIN_BASE = 20000000000LL;
+constexpr long long SPIN_DIAG = 200000LL;
+constexpr unsigned SPIN_SLEEP_MAX = 128;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// The first diagonal a tile starting at t0 can touch (the score fill runs
+// up to 15 positions past en0) and the last one whose band starts in it
+// (ops/extz_fwd.py:tile_range).
+__device__ __forceinline__ int tile_first(int t0, int w) {
+  if (t0 == 0) return 0;
+  const int x = t0 - 15;
+  return max(x, 2 * x - w);
+}
+
+__device__ __forceinline__ int tile_last(int t0, int TP, int qlen, int w,
+                                         int rlim) {
+  const int X = t0 + TP - 1;
+  return min(min(rlim - 1, X + qlen - 1), 2 * X + w);
+}
+
+// The value of a per-chunk register array at a warp-uniform local
+// position li of the tile: the owning chunk's register, from lane li % 32.
+template <int NC>
+__device__ __forceinline__ int tile_pick(const int (&a)[NC], int li) {
+  int v = a[0];
+#pragma unroll
+  for (int c = 1; c < NC; ++c)
+    if (c == li >> 5) v = a[c];
+  return __shfl_sync(0xffffffffu, v, li & 31);
+}
+
+}  // namespace tiles
 
 }  // namespace ksw2t
 

@@ -87,38 +87,15 @@
 #include "common.cuh"
 
 using namespace ksw2t;
+using namespace ksw2t::tiles;
 
 namespace {
 
 constexpr int NEG = -0x40000000;   // NEG_INF of core/flags.py
 constexpr int KT = 1 << 24;        // tie-rank class stride (> a band)
 constexpr unsigned FULL = 0xffffffffu;
-// diagonals a hand-off: a tile publishes its edge and releases once a
-// group of KD diagonals (at most 32: a lane a diagonal at the group's end)
-constexpr int KD = 32;
-// a wait on the tile before may last SPIN_BASE + SPIN_DIAG cycles for each
-// of the pair's diagonals (~10 s + ~100 us a diagonal of SM clock) before
-// it counts as a fault; between reads it asks for a sleep that doubles
-// from 16 ns up to SPIN_SLEEP_MAX ns
-constexpr long long SPIN_BASE = 20000000000LL;
-constexpr long long SPIN_DIAG = 200000LL;
-constexpr unsigned SPIN_SLEEP_MAX = 128;
 
 __device__ __forceinline__ int w8(int v) { return (int)(signed char)v; }
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
 
 __device__ __forceinline__ long long pack_walk(int H0, int t) {
   return (long long)(((unsigned long long)(unsigned)H0 << 32) |
@@ -153,31 +130,6 @@ struct FwdArgs {
   long long* W;            // per diagonal (APPROX): (H0, its t)
   uint8_t* p;
 };
-
-// The first diagonal a tile starting at t0 can touch (the score fill runs
-// up to 15 positions past en0) and the last one whose band starts in it.
-__device__ __forceinline__ int tile_first(int t0, int w) {
-  if (t0 == 0) return 0;
-  const int x = t0 - 15;
-  return max(x, 2 * x - w);
-}
-
-__device__ __forceinline__ int tile_last(int t0, int TP, int qlen, int w,
-                                         int rlim) {
-  const int X = t0 + TP - 1;
-  return min(min(rlim - 1, X + qlen - 1), 2 * X + w);
-}
-
-// The value of a per-chunk register array at a warp-uniform local
-// position li of the tile: the owning chunk's register, from lane li % 32.
-template <int NC>
-__device__ __forceinline__ int tile_pick(const int (&a)[NC], int li) {
-  int v = a[0];
-#pragma unroll
-  for (int c = 1; c < NC; ++c)
-    if (c == li >> 5) v = a[c];
-  return __shfl_sync(FULL, v, li & 31);
-}
 
 template <int MODE, bool CIG, bool APPROX, int NC, bool RIGHT>
 __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {

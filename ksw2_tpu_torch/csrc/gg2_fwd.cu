@@ -1,18 +1,17 @@
-// Banded global alignment forward (gg2_sse): the batched form, one warp a
-// pair (kernel 8), and the single-pair form, one block a pair (kernel 16).
+// Banded global alignment forward (gg2_sse), batched: one warp a pair
+// (kernel 8, counted as batch_gg2_fwd).
 //
-// Replaces ksw2_tpu/ops/wavefront_batch_gg2.py:_batch_gg2_kernel
-// (batched, counted as batch_gg2_fwd) and ksw2_tpu/ops/wavefront_gg2.py:
-// _gg2_kernel_body (single pair, counted as gg2_fwd).  Both compute what
-// spec/diagdiff.py:gg2_sse specifies (ksw2_gg2_sse.c): per anti-diagonal
-// r = i + j the deltas u, v, x, y in wrapping int8 over the 16-rounded
-// band [st, en], the score bytes gathered from the matrix over [st0, en0]
-// (gg2 always scores through it, ksw2_gg2_sse.c:60-66), no unsigned
-// clamp, the direction byte of every cell of [st, en], and the O(1) H0
-// walk that reconstructs the corner score.  No band stops the sweep: a
-// rounded band that is empty skips the update and leaves its byte row
-// zero, and the walk still advances (global alignment reaches the
-// corner).
+// Replaces ksw2_tpu/ops/wavefront_batch_gg2.py:_batch_gg2_kernel.  It
+// computes what spec/diagdiff.py:gg2_sse specifies (ksw2_gg2_sse.c): per
+// anti-diagonal r = i + j the deltas u, v, x, y in wrapping int8 over the
+// 16-rounded band [st, en], the score bytes gathered from the matrix over
+// [st0, en0] (gg2 always scores through it, ksw2_gg2_sse.c:60-66), no
+// unsigned clamp, the direction byte of every cell of [st, en], and the
+// O(1) H0 walk that reconstructs the corner score.  No band stops the
+// sweep: a rounded band that is empty skips the update and leaves its byte
+// row zero, and the walk still advances (global alignment reaches the
+// corner).  The plain version is ops/batch_gg2.py:gg2_forward_plain
+// without overrun; the single-pair kernel 16 is lg_fwd.cu.
 //
 // The bytes go to the reference's flat layout (ksw2_gg2_sse.c:41-47):
 // pair b's rows start at pbase[b], row r is n_col = ((min(w + 1, tlen) +
@@ -22,31 +21,21 @@
 // band upward reads the next row's bytes, as the reference's does;
 // band_walk.cu's flat form walks this store.
 //
-// The single-pair form keeps the reference's one allocation of u, v, x, y
-// and s (ksw2_gg2_sse.c:32-34): a zeroed global block a pair, the five
-// arrays at a stride of tlen_ * 16 bytes and s 16 bytes longer.  When
-// qlen > tlen + w the bands go empty and the H0 walk runs past u into v,
-// x, y and s; reading that block gives the reference's bytes exactly
-// (spec/diagdiff.py:_blk_u8; past the block it reads 0).  The batched form
-// takes only pairs with qlen <= tlen + w (the JAX route's rule), keeps its
-// strips in shared memory, and reads v[lt] and u[lt + 1] in its own strips
-// clamped to TP - 1, which such pairs never reach.
-//
-// Layout and barriers are batch_extf_fwd.cu's: one warp a pair (batched)
-// or one block a pair (single), the band cut into one segment a warp,
-// lane l owning t = lo + 32 c + l, the old x[t - 1] and v[t - 1] from
-// lane l - 1 by __shfl_up_sync, a segment's first from a read before the
-// group barrier, in-place writes after it, and the walk after a second
-// barrier, computed by every thread.  One block a pair also keeps the
-// contiguous block exact, which tiles over many SMs could not.
+// Layout: a pair's u, v, x, y and s planes are strips in the t coordinate
+// of TP bytes in shared memory.  Lane l owns t = st + 32 c + l, takes the
+// old x[t - 1] and v[t - 1] from lane l - 1 by __shfl_up_sync, the first
+// from a read before the warp barrier, writes in place after it, and the
+// walk runs after a second barrier, computed by every lane.  The route
+// takes only pairs with qlen <= tlen + w (the JAX route's rule), so the
+// walk reads v[lt] and u[lt + 1] in its own strips, clamped to TP - 1,
+// which such pairs never reach.
 //
 // What bounds it on an H100: the serial chain of qlen + tlen - 1
-// diagonals, each a few chunk steps and two barriers; a cell costs ~60
-// integer operations as written here against the recurrence's ~30 and the
-// byte's ~11 (chip_smoke.py: OPS, BYTE_OPS), and each cell writes its
-// direction byte once, which is the only large memory traffic (0.55 GB
-// for an unbanded 16.5 kb pair, ~0.2 ms at the card's rate).  This is the
-// simple version that is right; DPX byte SIMD is later work.
+// diagonals, each a few chunk steps and two warp barriers; a cell costs
+// ~60 integer operations as written here against the recurrence's ~13 and
+// the byte's ~11 (chip_smoke.py: OPS, BYTE_OPS), and each cell writes its
+// direction byte once, which is the only large memory traffic.  DPX byte
+// SIMD is later work.
 #include "common.cuh"
 
 using namespace ksw2t;
@@ -67,57 +56,35 @@ struct Gg2Args {
   const int* table;
   const long long* pbase;
   int B, Lq, Lt, m, q, e, TP;
-  long long blk;           // single-pair form: bytes of a pair's block
   int* score;
   uint8_t* p;
-  signed char* scratch;    // single-pair form: B x blk bytes, zeroed
 };
 
-template <bool SINGLE>
-__global__ void __launch_bounds__(SINGLE ? 1024 : MAX_WARPS * 32)
+__global__ void __launch_bounds__(MAX_WARPS * 32)
 gg2_fwd_kernel(const Gg2Args A) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
-  const int W = SINGLE ? (int)(blockDim.x >> 5) : 1;
-  const int g = SINGLE ? (int)(threadIdx.x >> 5) : 0;
-  const int b = SINGLE ? (int)blockIdx.x
-                       : (int)(blockIdx.x * (blockDim.x >> 5) +
-                               (threadIdx.x >> 5));
-  if (b >= A.B) return;              // a whole warp (batched form)
+  const int b = (int)(blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5));
+  if (b >= A.B) return;              // a whole warp
   const int qlen = A.qlens[b], tlen = A.tlens[b], w = A.ws[b];
-  // the single-pair block's stride is the reference's tlen_ * 16; the
-  // batched strips' is TP
-  const int NS = SINGLE ? (tlen + 15) & ~15 : A.TP;
-  signed char* u = SINGLE ? A.scratch + (size_t)b * A.blk
-                          : reinterpret_cast<signed char*>(smem) +
-                                (size_t)(threadIdx.x >> 5) * 5 * A.TP;
+  const int NS = A.TP;
+  signed char* u = reinterpret_cast<signed char*>(smem) +
+                   (size_t)(threadIdx.x >> 5) * 5 * A.TP;
   signed char* v = u + NS;
   signed char* x = v + NS;
   signed char* y = x + NS;
   signed char* s = y + NS;
-  auto gsync = [&]() {
-    if (SINGLE)
-      __syncthreads();
-    else
-      __syncwarp();
-  };
   // unsigned byte k of array `region` (0 = u, 1 = v) as the H0 walk reads
-  // it: through the contiguous block (single) or in the strip (batched)
+  // it, in the strip
   auto rd = [&](int region, int k) -> int {
-    if (SINGLE) {
-      const long long f = (long long)region * NS + k;
-      return f < 5LL * NS + 16 ? (int)(uint8_t)u[f] : 0;
-    }
     return (int)(uint8_t)(region ? v : u)[min(k, A.TP - 1)];
   };
 
   const int q = A.q, qe = A.q + A.e;
   const uint8_t* tg = A.ts + (size_t)b * A.Lt;
   const uint8_t* qy = A.qs + (size_t)b * A.Lq;
-  if (!SINGLE) {                     // the reference's zeroed arrays
-    for (int t = lane; t < 5 * A.TP; t += 32) u[t] = 0;
-    __syncwarp();
-  }
+  for (int t = lane; t < 5 * A.TP; t += 32) u[t] = 0;   // the reference's
+  __syncwarp();                                          // zeroed arrays
   const int wc = min(w + 1, tlen);
   const int ncol = ((wc + 15) / 16 + 1) * 16;
   uint8_t* prow = A.p + A.pbase[b];
@@ -139,18 +106,12 @@ gg2_fwd_kernel(const Gg2Args A) {
       } else {
         V1 = w8(r ? q : 0);
       }
-      const int seg = (((en - st + 1) + W - 1) / W + 31) & ~31;
-      const int lo = st + g * seg, sh = min(lo + seg - 1, en);
       int cX = X1, cV = V1;          // old x, v of t - 1 for lane 0
-      if (g > 0 && lo <= en) {
-        cX = x[lo - 1];
-        cV = v[lo - 1];
-      }
-      gsync();
+      __syncwarp();
       uint8_t* pr = prow + (long long)r * ncol;
-      for (int c0 = lo; c0 <= sh; c0 += 32) {
+      for (int c0 = st; c0 <= en; c0 += 32) {
         const int t = c0 + lane;
-        const bool in = t <= sh;
+        const bool in = t <= en;
         int Uo = 0, Vo = 0, Xo = 0, Yo = 0;
         if (in) {
           if (t >= st0 && t <= en0)
@@ -189,7 +150,7 @@ gg2_fwd_kernel(const Gg2Args A) {
           pr[t - st] = (uint8_t)d;
         }
       }
-      gsync();
+      __syncwarp();
     }
     // the O(1) H0 walk along the band (ksw2_gg2_sse.c:102-106); the next
     // diagonal's first barrier orders these reads before its writes
@@ -205,15 +166,15 @@ gg2_fwd_kernel(const Gg2Args A) {
     last_st = st;
     last_en = en;
   }
-  if (lane == 0 && g == 0) A.score[b] = H0;
+  if (lane == 0) A.score[b] = H0;
 }
 
 }  // namespace
 
-// Batched form (kernel 8): one warp a pair, `warps` pairs a block, the
-// strips (5 x TP bytes a warp) in shared memory; p the flat store of
-// every pair, pair b's at pbase[b] (zeroed by the caller).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// Kernel 8: one warp a pair, `warps` pairs a block, the strips (5 x TP
+// bytes a warp) in shared memory; p the flat store of every pair, pair
+// b's at pbase[b] (zeroed by the caller).  Returns cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int ksw2t_batch_gg2_fwd(const void* qs, const void* ts,
                                    const void* qlen, const void* tlen,
                                    const void* w, const void* table,
@@ -225,35 +186,14 @@ extern "C" int ksw2t_batch_gg2_fwd(const void* qs, const void* ts,
     return (int)cudaErrorInvalidValue;
   Gg2Args a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
             (const int*)tlen, (const int*)w, (const int*)table,
-            (const long long*)pbase, B, Lq, Lt, m, q, e, TP, 0,
-            (int*)score, (uint8_t*)p, nullptr};
+            (const long long*)pbase, B, Lq, Lt, m, q, e, TP, (int*)score,
+            (uint8_t*)p};
   const size_t smem = (size_t)warps * 5 * TP;
   cudaError_t err = cudaFuncSetAttribute(
-      gg2_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gg2_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gg2_fwd_kernel<false><<<(B + warps - 1) / warps, warps * 32, smem,
-                          (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// Single-pair form (kernel 16): one block of `warps` warps a pair, the
-// reference's u, v, x, y, s block of each pair at b * blk in `scratch`
-// (zeroed by the caller; blk >= 5 * round_up(tlen, 16) + 16).
-extern "C" int ksw2t_gg2_fwd(const void* qs, const void* ts,
-                             const void* qlen, const void* tlen,
-                             const void* w, const void* table,
-                             const void* pbase, int B, int Lq, int Lt, int m,
-                             int q, int e, long long blk, int warps,
-                             void* scratch, void* score, void* p,
-                             void* stream) {
-  if (B <= 0 || warps <= 0 || warps > 32 || p == nullptr ||
-      scratch == nullptr || blk < 5LL * ((Lt + 15) & ~15) + 16)
-    return (int)cudaErrorInvalidValue;
-  Gg2Args a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
-            (const int*)tlen, (const int*)w, (const int*)table,
-            (const long long*)pbase, B, Lq, Lt, m, q, e, 0, blk,
-            (int*)score, (uint8_t*)p, (signed char*)scratch};
-  gg2_fwd_kernel<true><<<B, warps * 32, 0, (cudaStream_t)stream>>>(a);
+  gg2_fwd_kernel<<<(B + warps - 1) / warps, warps * 32, smem,
+                   (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

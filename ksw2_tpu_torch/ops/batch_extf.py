@@ -4,8 +4,8 @@ the batched form's CUDA wrapper and the batched entry point.
 Port of ``ksw2_tpu/ops/batch_pallas.py:extf_batch_device`` with the
 kernel ``wavefront_batch_extf.py:_batch_extf_kernel`` (kernel 7,
 ``csrc/batch_extf_fwd.cu`` in its batched form, one warp a pair, counted
-as ``batch_extf_fwd``).  The single-pair form of the same source
-(kernel 15) and ``extf2_device`` are in :mod:`ops.extf`.
+as ``batch_extf_fwd``).  The single-pair kernel 15 (``csrc/lg_fwd.cu``,
+tiles over many blocks) and ``extf2_device`` are in :mod:`ops.extf`.
 
 Both kernels compute ``spec/diagdiff.py:extf2`` (``ksw2_extf2_sse.c``),
 and :func:`extf_forward_plain`, vectorised over pairs, is the plain
@@ -69,9 +69,10 @@ def pack_pairs(pairs, w, device):
 
 def extf_forward_plain(qs, ts, qlen, tlen, w, mch: int, mis: int, e: int,
                        xdrop: int):
-    """Plain version of kernels 7 and 15 (``csrc/batch_extf_fwd.cu``):
-    the extf2 recurrence of every pair at once, one diagonal a step, on
-    ``qs``'s device.  Returns the (B, 9) int32 records."""
+    """Plain version of kernels 7 (``csrc/batch_extf_fwd.cu``) and 15
+    (``csrc/lg_fwd.cu``): the extf2 recurrence of every pair at once, one
+    diagonal a step, on ``qs``'s device.  Returns the (B, 9) int32
+    records."""
     dev = qs.device
     B, Lq = qs.shape
     Lt = ts.shape[1]

@@ -5,8 +5,8 @@ entry point.
 Port of ``ksw2_tpu/ops/batch_pallas.py:gg2_batch_align`` with the kernel
 ``wavefront_batch_gg2.py:_batch_gg2_kernel`` (kernel 8,
 ``csrc/gg2_fwd.cu`` in its batched form, one warp a pair, counted as
-``batch_gg2_fwd``).  The single-pair form of the same source (kernel 16)
-and ``gg2_device`` are in :mod:`ops.gg2`.
+``batch_gg2_fwd``).  The single-pair kernel 16 (``csrc/lg_fwd.cu``,
+tiles over many blocks) and ``gg2_device`` are in :mod:`ops.gg2`.
 
 Both kernels compute ``spec/diagdiff.py:gg2_sse`` (``ksw2_gg2_sse.c``),
 and :func:`gg2_forward_plain`, vectorised over pairs, is the plain
@@ -39,6 +39,7 @@ from .._build import LAUNCHES, check, library
 from .band_walker import flat_walk, flat_walk_cigars
 from .batch import strip_len
 from .batch_extf import _check_args, w8
+from .lg_tiles import byte_groups, launch_bytes, lg_layout
 from . import strips
 from .strips import SMEM_MAX, _check_cuda
 
@@ -67,11 +68,13 @@ def flat_layout(qlen, tlen, w) -> Tuple[np.ndarray, int]:
 
 
 def gg2_forward_plain(qs, ts, qlen, tlen, w, table, m: int, q: int, e: int,
-                      pbase, total: int, overrun: bool):
-    """Plain version of kernels 8 (``overrun`` False) and 16 (``overrun``
-    True), ``csrc/gg2_fwd.cu``: the gg2_sse recurrence of every pair at
-    once, one diagonal a step, on ``qs``'s device.  Returns the (B,)
-    int32 corner scores and the flat byte store (``total`` uint8)."""
+                      pbase, total: int, overrun: bool, planes=None):
+    """Plain version of kernels 8 (``overrun`` False, ``csrc/gg2_fwd.cu``)
+    and 16 (``overrun`` True, ``csrc/lg_fwd.cu``): the gg2_sse recurrence
+    of every pair at once, one diagonal a step, on ``qs``'s device.
+    Returns the (B,) int32 corner scores and the flat byte store
+    (``total`` uint8).  A list ``planes`` receives, after each diagonal,
+    the (B, TP) int64 planes (u, v, x, y, s) as they then stand."""
     dev = qs.device
     B, Lq = qs.shape
     Lt = ts.shape[1]
@@ -150,6 +153,8 @@ def gg2_forward_plain(qs, ts, qlen, tlen, w, table, m: int, q: int, e: int,
         y = torch.where(band, torch.where(b2 > 0, b2, 0), y)
         idx = pb[:, None] + r * ncol[:, None] + (t - st[:, None])
         p[idx[band]] = d[band].to(torch.uint8)
+        if planes is not None:
+            planes.append((u, v, x, y, s))
         # the O(1) H0 walk along the band (ksw2_gg2_sse.c:102-106)
         if r == 0:
             H0 = torch.where(act, rd(1, zero) - 2 * qe, H0)
@@ -198,15 +203,15 @@ def batch_gg2_forward_cuda(qs, ts, qlen, tlen, w, table, m: int, q: int,
 
 
 def gg2_forward(qs, ts, qlen, tlen, w, table, m, q, e, pbase, total,
-                single: bool):
-    """The forward on the tensors' device: kernel 16 (``single``) or 8 for
-    CUDA tensors, the plain version (``overrun = single``) for CPU
-    tensors."""
+                single: bool, lay=None):
+    """The forward on the tensors' device: kernel 16 (``single``, on the
+    ``lg_tiles`` layout ``lay``) or 8 for CUDA tensors, the plain version
+    (``overrun = single``) for CPU tensors."""
     if qs.is_cuda:
         if single:
             from .gg2 import gg2_single_forward_cuda
             return gg2_single_forward_cuda(qs, ts, qlen, tlen, w, table, m,
-                                           q, e, pbase, total)
+                                           q, e, pbase, total, lay)
         return batch_gg2_forward_cuda(qs, ts, qlen, tlen, w, table, m, q,
                                       e, pbase, total)
     if qs.device.type != "cpu":
@@ -215,27 +220,23 @@ def gg2_forward(qs, ts, qlen, tlen, w, table, m, q, e, pbase, total,
                              total, single)
 
 
-def launch_groups(qlen, tlen, w):
-    """Consecutive index ranges whose flat stores each fit
+def launch_groups(qlen, tlen, w, single: bool = False):
+    """Consecutive index ranges whose flat stores, and for kernel 16
+    (``single``) its tiles' history (``lg_tiles.launch_bytes``), each fit
     ``strips.LAUNCH_BYTES`` (a pair larger than that goes alone)."""
     size = ((np.asarray(qlen, np.int64) + np.asarray(tlen, np.int64))
             * gg2_ncol(tlen, w))
-    out, lo, acc = [], 0, 0
-    for k, sz in enumerate(size):
-        if k > lo and acc + sz > strips.LAUNCH_BYTES:
-            out.append((lo, k))
-            lo, acc = k, 0
-        acc += int(sz)
-    if len(size):
-        out.append((lo, len(size)))
-    return out
+    if single:
+        size = size + launch_bytes("gg2_fwd", qlen, tlen, w)
+    return byte_groups(size, strips.LAUNCH_BYTES)
 
 
 def gg2_run(pairs, m: int, mat, q: int, e: int, w, single: bool,
             device) -> List[Tuple[int, list]]:
     """Forward (kernel 16 or 8, or the plain version) and flat walk of
     (query, target) pairs with resolved bands ``w``, split into launches
-    by the store's bytes; returns (score, cigar) a pair."""
+    by their buffers' bytes (:func:`launch_groups`); returns (score,
+    cigar) a pair."""
     from .batch_extf import pack_pairs
 
     dev = torch.device(device)
@@ -245,12 +246,15 @@ def gg2_run(pairs, m: int, mat, q: int, e: int, w, single: bool,
     ql = np.array([len(a) for a, _ in pairs], np.int64)
     tl = np.array([len(b) for _, b in pairs], np.int64)
     out = []
-    for lo, hi in launch_groups(ql, tl, wv):
+    for lo, hi in launch_groups(ql, tl, wv, single):
         sub = pairs[lo:hi]
         args = pack_pairs(sub, wv[lo:hi], dev)
         pbase_np, total = flat_layout(ql[lo:hi], tl[lo:hi], wv[lo:hi])
         pbase = torch.from_numpy(pbase_np).to(dev)
-        score, p = gg2_forward(*args, table, m, q, e, pbase, total, single)
+        lay = lg_layout("gg2_fwd", ql[lo:hi], tl[lo:hi], wv[lo:hi]) \
+            if single else None
+        score, p = gg2_forward(*args, table, m, q, e, pbase, total, single,
+                               lay)
         _, _, qlt, tlt, wt = args
         cigs = flat_walk_cigars(*flat_walk(p, pbase, qlt, tlt, wt))
         out.extend(zip([int(x) for x in score.cpu().numpy()], cigs))

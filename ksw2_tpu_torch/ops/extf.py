@@ -2,18 +2,20 @@
 ``extf2_device``.
 
 Port of ``ksw2_tpu/ops/extf.py:extf2_device`` with the kernel
-``wavefront_extf.py:_extf_kernel_body``: ``csrc/batch_extf_fwd.cu`` in
-its single-pair form (one block a pair, the strips in global scratch;
-counted as ``extf_fwd``), whose plain version is kernel 7's,
-``ops.batch_extf.extf_forward_plain``.  The host side follows
-``extf2_device``: the reset ez for an empty sequence, ``mis``
+``wavefront_extf.py:_extf_kernel_body``: ``csrc/lg_fwd.cu`` in its
+``MODE_EXTF`` form (counted as ``extf_fwd``), which spreads each pair
+over many blocks in tiles of target positions (``ops/lg_tiles.py``) and
+runs the H0 walk and its X-drop inside the forward; its plain version
+is kernel 7's, ``ops.batch_extf.extf_forward_plain``.  The host side
+follows ``extf2_device``: the reset ez for an empty sequence, ``mis``
 canonicalised to <= 0 and ``w < 0`` as ``max(qlen, tlen)``.  Score only
-(``ksw2_extf2_sse.c:12-15``).  A launch takes any number of pairs, one
-block each: :func:`extf_pairs` runs the pairs the batched route refuses in
-one launch.
+(``ksw2_extf2_sse.c:12-15``).  A launch takes any number of pairs:
+:func:`extf_pairs` runs the pairs the batched route refuses in as few
+launches as ``strips.LAUNCH_BYTES`` of buffers allow.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import numpy as np
@@ -21,44 +23,48 @@ import torch
 
 from .._build import LAUNCHES, check, library
 from ..core.result import ExtzResult
+from . import strips
 from .bands import resolve_bands
-from .batch import strip_len
 from .batch_extf import _check_args, canonical_mis, extf_forward, pack_pairs
-
-MAX_BLOCK_WARPS = 32
-
-
-def block_warps(band: int) -> int:
-    """Warps of a single-pair block for a band of ``band`` positions: one
-    per 256, 1 to 32."""
-    return max(1, min(MAX_BLOCK_WARPS, -(-int(band) // 256)))
-
-
-def widest_band(qlen, tlen, w) -> int:
-    """The widest 16-rounded band of a launch's pairs (positions)."""
-    ql = np.asarray(qlen, np.int64)
-    tl = np.asarray(tlen, np.int64)
-    wl = np.asarray(w, np.int64)
-    return int(np.max(np.minimum(np.minimum(ql, tl), wl + 1) + 32,
-                      initial=32))
+from .lg_tiles import (byte_groups, ctl_ptrs, launch_bytes, lg_buffers,
+                       lg_layout, meta)
 
 
 def extf_single_forward_cuda(qs, ts, qlen, tlen, w, mch: int, mis: int,
-                             e: int, xdrop: int):
-    """Launch kernel 15 (``csrc/batch_extf_fwd.cu``, one block a pair) on
+                             e: int, xdrop: int, lay=None):
+    """Launch kernel 15 (``csrc/lg_fwd.cu``, tiles over many blocks) on
     the current stream; the contract of
-    :func:`ops.batch_extf.extf_forward_plain` for targets of any length."""
+    :func:`ops.batch_extf.extf_forward_plain` for targets of any length.
+    ``lay`` is the launch's ``lg_tiles.LgLayout`` (by default
+    ``lg_layout`` at ``extz_fwd.choose_tp``'s tile, from the lengths read
+    back).  A launch whose buffers do not fit in the card's memory raises
+    with their size."""
     B, Lq, Lt, dev = _check_args(qs, ts, qlen, tlen, w)
-    TP = strip_len(Lt)
-    warps = block_warps(widest_band(qlen.cpu(), tlen.cpu(), w.cpu()))
-    scratch = torch.zeros((B, 3 * TP), dtype=torch.int8, device=dev)
+    if lay is None:
+        lay = lg_layout("extf_fwd", qlen.cpu().numpy(), tlen.cpu().numpy(),
+                        w.cpu().numpy())
+    if lay.kind != "extf_fwd" or len(lay.n) != B:
+        raise ValueError(f"a {lay.kind} layout of {len(lay.n)} pairs for "
+                         f"{B} extf pairs")
+    tbase, dbase, bbase = meta(lay, dev)
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
+    try:
+        buf = lg_buffers(lay, dev)
+    except torch.OutOfMemoryError as err:
+        raise RuntimeError(f"this launch's buffers take "
+                           f"{lay.device_bytes()} bytes, more than {dev} "
+                           f"holds") from err
+    ctl = ctl_ptrs(lay, buf["ctl"])
     lib = library()
+    # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
         err = lib.ksw2t_extf_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-            w.data_ptr(), B, Lq, Lt, int(mch), int(mis), int(e), int(xdrop),
-            TP, warps, scratch.data_ptr(), rec.data_ptr(),
+            w.data_ptr(), tbase.data_ptr(), dbase.data_ptr(),
+            bbase.data_ptr(), B, Lq, Lt, int(mch), int(mis), int(e),
+            int(xdrop), lay.tp, lay.tiles, ctl["ticket"], ctl["progress"],
+            buf["bnd"].data_ptr(), ctl["wlt"], buf["wst"].data_ptr(),
+            ctl["stop"], rec.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "extf_fwd")
     LAUNCHES["extf_fwd"] += 1
@@ -77,15 +83,25 @@ def _ez(rec_row) -> ExtzResult:
 
 def extf_pairs(pairs: Sequence, mch: int, mis: int, e: int, w,
                xdrop: int = -1, device="cuda") -> List[ExtzResult]:
-    """extf2 of every (query, target) pair in one launch of kernel 15 (its
-    plain version on the CPU); ``w`` a band per pair, < 0 unbanded."""
+    """extf2 of every (query, target) pair on kernel 15 (its plain version
+    on the CPU), in as few launches as the byte budget allows; ``w`` a band
+    per pair, < 0 unbanded."""
     if not pairs:
         return []
-    args = pack_pairs(pairs, resolve_bands(pairs, w), torch.device(device))
-    rec = extf_forward(*args, int(mch), canonical_mis(mis), int(e),
-                       int(xdrop),
-                       cuda=extf_single_forward_cuda).cpu().numpy()
-    return [_ez(rec[k]) for k in range(len(pairs))]
+    pairs = list(pairs)
+    wv = np.asarray(resolve_bands(pairs, w), np.int64)
+    ql = np.array([len(q) for q, _ in pairs], np.int64)
+    tl = np.array([len(t) for _, t in pairs], np.int64)
+    out = []
+    for lo, hi in byte_groups(launch_bytes("extf_fwd", ql, tl, wv),
+                              strips.LAUNCH_BYTES):
+        args = pack_pairs(pairs[lo:hi], wv[lo:hi], torch.device(device))
+        lay = lg_layout("extf_fwd", ql[lo:hi], tl[lo:hi], wv[lo:hi])
+        rec = extf_forward(*args, int(mch), canonical_mis(mis), int(e),
+                           int(xdrop), cuda=functools.partial(
+                               extf_single_forward_cuda, lay=lay))
+        out.extend(_ez(r) for r in rec.cpu().numpy())
+    return out
 
 
 def extf2_device(query: np.ndarray, target: np.ndarray, mch: int, mis: int,
@@ -101,5 +117,4 @@ def extf2_device(query: np.ndarray, target: np.ndarray, mch: int, mis: int,
                       e, [w], xdrop, device)[0]
 
 
-__all__ = ["block_warps", "widest_band", "extf_single_forward_cuda",
-           "extf_pairs", "extf2_device"]
+__all__ = ["extf_single_forward_cuda", "extf_pairs", "extf2_device"]

@@ -733,8 +733,8 @@ def _lg_pairs(seed, n=10, lo=30, hi=1500, overrun=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdrop", [-1, 40])
 def test_extf_kernels_match_plain(cuda_device, xdrop):
-    """Kernels 7 (one warp a pair) and 15 (one block a pair) give the
-    plain version's records exactly."""
+    """Kernels 7 (one warp a pair) and 15 (tiles over many blocks) give
+    the plain version's records exactly."""
     from ksw2_tpu_torch.ops import batch_extf as BF
     from ksw2_tpu_torch.ops import extf as XF
     pairs, ws = _lg_pairs(71 + xdrop)
@@ -782,6 +782,63 @@ def test_gg2_kernels_match_plain(cuda_device):
         assert torch.equal(kres, pres)
         assert BW.flat_walk_cigars(kres, kruns) == \
             BW.flat_walk_cigars(pres, pruns)
+
+
+def _lg_tiled(pairs, w, kind, xdrop, tp, device):
+    """Kernel 15 or 16 at tiles of ``tp`` positions and its plain version
+    on ``pairs``: (kernel outputs, plain outputs)."""
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import extf as XF
+    from ksw2_tpu_torch.ops import gg2 as G1
+    from ksw2_tpu_torch.ops import lg_tiles as LT
+    args = BF.pack_pairs(pairs, w, device)
+    ql = [len(q) for q, _ in pairs]
+    tl = [len(t) for _, t in pairs]
+    lay = LT.lg_layout(kind, ql, tl, w, tp)
+    if kind == "extf_fwd":
+        return ((XF.extf_single_forward_cuda(*args, 2, -4, 2, xdrop,
+                                             lay=lay),),
+                (BF.extf_forward_plain(*args, 2, -4, 2, xdrop),))
+    table = torch.from_numpy(MAT.astype(np.int32)).to(device)
+    pb_np, total = BG.flat_layout(ql, tl, w)
+    pb = torch.from_numpy(pb_np).to(device)
+    return (G1.gg2_single_forward_cuda(*args, table, 5, 4, 2, pb, total,
+                                       lay=lay),
+            BG.gg2_forward_plain(*args, table, 5, 4, 2, pb, total, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [32, 64])
+@pytest.mark.parametrize("name", ["extf_xdrop_r1", "extf_xdrop_edges",
+                                  "extf_first_empty", "gg2_run_off"])
+def test_tiled_lg_kernels_on_edge_cases(cuda_device, name, tp):
+    """Kernels 15 and 16 at tiles of 32 and 64 positions give the plain
+    version's records, scores and bytes exactly on chip_smoke's edge
+    cases: an X-drop at diagonal 1 and where the walk crosses a tile edge,
+    a first empty band before the last diagonal, and gg2 walks that run
+    off u into the reference's block (with an empty query)."""
+    from chip_smoke import lg_edge_cases
+    (_, kind, pairs, w, xdrop), = [c for c in lg_edge_cases()
+                                   if c[0] == name]
+    got, want = _lg_tiled(pairs, w, f"{kind}_fwd", xdrop, tp, cuda_device)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp", [32, 64])
+@pytest.mark.parametrize("kind,xdrop", [("extf_fwd", -1), ("extf_fwd", 40),
+                                        ("gg2_fwd", None)])
+def test_tiled_lg_kernels_on_many_pairs(cuda_device, kind, xdrop, tp):
+    """Kernels 15 and 16 on 24 pairs of 30-1500 bp in one launch (bands 0,
+    1, 16, 100 and unbanded, queries past tlen + w) at either tile."""
+    pairs, ws = _lg_pairs(83, n=24, overrun=True)
+    got, want = _lg_tiled(pairs, ws, kind, xdrop, tp, cuda_device)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
 
 
 @pytest.mark.cuda
