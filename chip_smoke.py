@@ -23,7 +23,10 @@ phase's seconds go to stderr as it ends.
 3. kernel A (strips forward) against its plain PyTorch version on the
    card, one- and two-piece, score and with bytes, default and swapped
    two-piece costs: D, Dq, hl, the 9-field records and the direction
-   bytes, exactly;
+   bytes, exactly; also on queries at strip edges (128 k +- 1 bp), short
+   pairs packed several to a block, a 4608 bp query over a cluster of 8
+   blocks and the one score launch the scheduler makes of the mixed-512
+   batch, one- and two-piece;
 4. kernel B (strips walker) against its plain version on 3-state and
    7-bit bytes: end cells and runs;
 5. the rows kernel against its plain version and against kernel A's
@@ -48,8 +51,8 @@ phase's seconds go to stderr as it ends.
    pair; score, CIG and APPROX) with kernel D walking its bytes with
    min_intron, against their plain versions exactly, on seeded spliced
    pairs of 30-900 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
-   tracks) and on the one launch of each form the scheduler makes of the
-   splice workload (below);
+   tracks), on queries at strip edges and on the one launch of each form
+   the scheduler makes of the splice workload (below);
 5e. single: kernel 12 (single-pair forward, tiles of 32 positions:
    pairs of 30-1500 bp over 1-48 tiles; score, CIG and APPROX forms,
    w -1, 0, 1, 16, 751 and 2000, zdrop -1/100, RIGHT, GENERIC_SC,
@@ -82,7 +85,9 @@ phase's seconds go to stderr as it ends.
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
    workload (seed 777, A2 B4 O4 E2, z100), two-piece (extd, O4,13 E2,1)
-   scores and CIGARs on the same workload, short-pair scores on a second
+   scores and CIGARs on the same workload (a score batch launches kernel
+   A once, its strips buckets merged; a CIGAR batch once a bucket:
+   asserted against the planner), short-pair scores on a second
    seeded workload (seed 778, q and t <= 128) that takes the rows route,
    the band route on the seeded long-banded workload (seed 779, 128
    pairs of 4-16 kb at -w751 -z400: extz, extd and approx scores, extz
@@ -134,24 +139,29 @@ phase's seconds go to stderr as it ends.
    and Gcells/s (band cells on the band and batched routes), kernel 18
    on each local set beside its bound and plain time (held to the plain
    version exactly on local-64k, which phase 5h leaves out), and a
-   profile of the long-banded, short-banded, splice, sr-extension and
-   local-64k batches with the device's idle share.
+   profile of the long-banded, short-banded, splice, sr-extension,
+   mixed-512 / mixed-2048 score, whale CIGAR and local-64k batches with
+   the device's idle share.
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 
-    python3 chip_smoke.py --breakdown [extz|band|lg]
+    python3 chip_smoke.py --breakdown [extz|band|lg|strips]
     python3 chip_smoke.py --lg-times
+    python3 chip_smoke.py --strips-times
 
 print clock64 breakdowns of a tile-diagonal of kernels 12-14, 9-10 and
-15-16, and phase 7's times of kernels 7, 8, 15 and 16 alone (which also
-run on a tree before the tiled kernels 15 and 16, to compare two trees
-in one call).
+15-16 and of a strip-row of kernel A, phase 7's times of kernels 7, 8,
+15 and 16 alone (which also run on a tree before the tiled kernels 15
+and 16, to compare two trees in one call), and phase 7's times of
+kernel A alone (which also run on a tree whose kernel A takes no
+layout).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import inspect
 import io
 import json
 import os
@@ -929,7 +939,130 @@ def fwd_cases(jobs):
          _launch(sample2, Flag.NONE, 100, True, costs=SWAPPED)),
         ("sample_swapped_cig_right_zm1",
          _launch(sample2, Flag.RIGHT, -1, True, costs=SWAPPED)),
+    ] + strips_layout_cases(jobs)
+
+
+# kernel A's layout of a phase-3 case, where it is not the default one
+# (ops/strips.py:strips_layout's keywords): short pairs packed into
+# blocks of 8 warps, no clusters
+FWD_LAYOUT = {"sample_packed_score_z100": dict(cl=1, nw=8),
+              "sample_packed_extd_cig_z100": dict(cl=1, nw=8)}
+
+
+def strip_edge_pairs(seed: int = 786):
+    """Seeded pairs whose queries end at a strip edge (128 k - 1, 128 k,
+    128 k + 1 bp, up to 4608), targets of 1-400 bp."""
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for k, ql in enumerate((127, 128, 129, 255, 256, 257, 383, 385, 1023,
+                            1025, 4095, 4097, 4607, 4608)):
+        tl = int((1, 40, 129, 3, 400, 77, 260, 1, 200, 31, 150, 64, 97,
+                  300)[k])
+        t, q = random_pair(rng, max(ql, tl), divergence=0.12, indel=0.05)
+        out.append((np.resize(encode_dna(q), ql).astype(np.uint8),
+                    encode_dna(t)[:tl]))
+    return out
+
+
+def merged_strips_launch(jobs, costs=None):
+    """The one strips launch the scheduler makes of a score batch of
+    ``jobs`` at A2 B4 O4 E2 -z100 (or the two-piece ``costs``): the
+    batch's strips buckets merged (batch/scheduler.py:_merged_strips)."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.strips import canonical_costs, strips_prep
+
+    mat = simple_mat(5, 2, -4)
+    two = costs is not None
+    q, e, q2, e2 = costs if two else (4, 2, 0, 0)
+    SO = Flag.SCORE_ONLY
+    jl = [sched.AlignJob(qq, t, -1) for qq, t in jobs]
+    choose = sched._score_chooser(SO, 5, mat, 100, q, e, two, q2, e2)
+    # the buckets' pairs longest first, as _merged orders them (built
+    # here, so that a tree whose scheduler does not merge them times the
+    # same launch)
+    bks = [bk for bk in sched._route(jl, mat, q + e, [None] * len(jl),
+                                     choose) if bk.route == "strips"]
+    idxs = [i for bk in bks for i in bk.idxs]
+    ql = np.concatenate([bk.qlen for bk in bks])
+    tl = np.concatenate([bk.tlen for bk in bks])
+    order = np.argsort(-(ql.astype(np.int64) + tl), kind="stable")
+    idxs = [idxs[k] for k in order]
+    if "strips_costs" in inspect.signature(sched._route).parameters:
+        got = [bk.idxs for bk in sched._route(
+            jl, mat, q + e, [None] * len(jl), choose,
+            strips_costs=canonical_costs(q, e, q2, e2)[:2])
+            if bk.route == "strips"]
+        assert got == [idxs], "the scheduler merges another launch"
+    lns = strips_prep([jl[i].query for i in idxs],
+                      [jl[i].target for i in idxs], ql[order], tl[order], 5,
+                      mat, q, e, 100, SO, two=two, q2=q2, e2=e2)
+    assert len(lns) == 1, len(lns)
+    return lns[0]
+
+
+def strips_layout_cases(jobs):
+    """Kernel A's layout cases: queries at strip edges (one- and
+    two-piece, score and bytes, RIGHT), short pairs packed several to a
+    block (FWD_LAYOUT), one 4608 bp query over a cluster of 8 blocks, and
+    the one score launch the scheduler makes of the mixed-512 batch, one-
+    and two-piece (whose times phase 7 reports)."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import encode_dna
+    from ksw2_tpu_torch.ops import strips as S
+
+    SO = Flag.SCORE_ONLY
+    edge = strip_edge_pairs()
+    short = [p for p in jobs if len(p[0]) <= 256][:64]
+    rng = np.random.default_rng(787)
+    t, q = random_pair(rng, 4608, divergence=0.1, indel=0.04)
+    big = [(np.resize(encode_dna(q), 4608).astype(np.uint8),
+            encode_dna(t)[:900])]
+    assert not hasattr(S, "strips_layout") or \
+        S.strips_layout([4608]).cl == 8
+    return [
+        ("sample_edge_score_z100", _launch(edge, SO, 100, False)),
+        ("sample_edge_cig_right_z30", _launch(edge, Flag.RIGHT, 30, True)),
+        ("sample_edge_extd_score_zm1",
+         _launch(edge, SO, -1, False, costs=EXTD)),
+        ("sample_edge_extd_cig_z100",
+         _launch(edge, Flag.NONE, 100, True, costs=EXTD)),
+        ("sample_packed_score_z100", _launch(short, SO, 100, False)),
+        ("sample_packed_extd_cig_z100",
+         _launch(short, Flag.NONE, 100, True, costs=EXTD)),
+        ("sample_cluster_cig_z100", _launch(big, Flag.NONE, 100, True)),
+        ("sample_cluster_extd_score_z100",
+         _launch(big, SO, 100, False, costs=EXTD)),
+        ("mixed512_merged_score", merged_strips_launch(jobs)),
+        ("mixed512_merged_extd_score", merged_strips_launch(jobs, EXTD)),
     ]
+
+
+def fwd_layout(name, ln, device="cuda"):
+    """Kernel A's layout of case ``name`` on ``device``: FWD_LAYOUT's, else
+    the default one (None on a tree without ops/strips.py:strips_layout,
+    whose wrapper takes none)."""
+    from ksw2_tpu_torch.ops import strips as S
+
+    if not hasattr(S, "strips_layout"):
+        return None
+    return S.layout_on(S.strips_layout(ln.qlen, **FWD_LAYOUT.get(name, {})),
+                       device)
+
+
+def fwd_call(name, ln, args, sites=None):
+    """A zero-argument launch of kernel A on case ``name``'s uploaded
+    ``args`` with its layout made once (so a timed loop neither reads
+    qlen back nor uploads a table)."""
+    from ksw2_tpu_torch.ops import strips as S
+
+    lay = fwd_layout(name, ln)
+    if lay is None:
+        return lambda: S.strips_forward_cuda(*args, ln.prm, sites)
+    return lambda: S.strips_forward_cuda(*args, ln.prm, sites, lay)
 
 
 def rows_cases(short):
@@ -963,7 +1096,8 @@ def phase_kernel_a(cases):
     out = {}
     for name, ln in cases:
         qs, ts, ql, tl, tab = S.upload(ln, "cuda")
-        kd = S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm)
+        lay = fwd_layout(name, ln)
+        kd = S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm, None, lay)
         pd = plain_run((name, "fwd"), S.strips_forward_plain, qs, ts, ql, tl,
                        tab, ln.prm)
         errs = {k: _max_err(a, b)
@@ -980,7 +1114,8 @@ def phase_kernel_a(cases):
         worst = max(worst, *errs.values())
         out[name] = {"pairs": int(qs.shape[0]), "Lq": int(qs.shape[1]),
                      "tv": ln.prm.tv, "two": ln.prm.two,
-                     "off0": ln.prm.off0, "max_abs_err": errs}
+                     "off0": ln.prm.off0, "nw": lay.nw, "cl": lay.cl,
+                     "blocks": lay.blocks, "max_abs_err": errs}
         if any(errs.values()):
             emit({"phase": "kernel_a", "case": name, "FAIL": errs})
             raise AssertionError(f"kernel A differs from plain on {name}")
@@ -1459,6 +1594,16 @@ def splice_cases(spl):
                                     gen)):
         for k, (route, ln) in enumerate(splice_launches(
                 small, flag, empty, 0, zdrop, mat)):
+            cases.append((f"small_{name}_{k}", route, ln))
+    # kernel A's spl form on queries at strip edges (128 k +- 1 bp)
+    edge = [(rng.integers(0, 5, ql).astype(np.uint8),
+             rng.integers(0, 5, tl).astype(np.uint8))
+            for ql, tl in ((127, 60), (128, 1), (129, 129), (255, 40),
+                           (257, 257), (385, 30), (1025, 90))]
+    for name, flag, zdrop in (("edge_score_z200", SPL | SO, 200),
+                              ("edge_cig_right_zm1", SPL | Flag.RIGHT, -1)):
+        for k, (route, ln) in enumerate(splice_launches(edge, flag, None, 0,
+                                                        zdrop)):
             cases.append((f"small_{name}_{k}", route, ln))
     spl4 = spl * SPLICE_TILES
     junc = [splice_junc()] * len(spl4)
@@ -2703,6 +2848,48 @@ def single_launch_plan(sb, spl4, slong):
                             "extz_walk": len(lcig) + len(lcut)}}
 
 
+def strips_launch_plan(runs):
+    """Kernel A's launches on the extz and extd paths, as the scheduler
+    plans them (host only): a score batch's strips buckets merged into
+    one launch (asserted: one a score batch), a CIGAR batch's one a
+    bucket.  ``runs`` are (path, aligner, pairs, batches): the batches
+    a run makes in ``_path`` (its function four times, and one more with
+    an aligner; a stream of 8 handles is 8 batches a call).  Returns
+    {path: strips_fwd launches}."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops.strips import canonical_costs, strips_prep
+
+    want = {}
+    for path, aln, pairs, nb in runs:
+        two = aln.q2 is not None
+        q2, e2 = (aln.q2, aln.e2) if two else (0, 0)
+        qc, ec = canonical_costs(aln.q, aln.e, q2, e2)[:2] if two else \
+            (aln.q, aln.e)
+        flag = Flag(int(aln.flag))
+        mat = np.asarray(aln.mat, np.int8).reshape(-1)
+        cig = not flag & Flag.SCORE_ONLY
+        jl = [sched.AlignJob(q, t, aln.w) for q, t in pairs]
+        args = (flag, aln.m, mat, aln.zdrop, aln.q, aln.e, two, q2, e2)
+        if cig:
+            bks = sched._route(jl, mat, qc + ec, [None] * len(jl),
+                               sched._cigar_chooser(*args))
+        else:
+            bks = sched._route(jl, mat, aln.q + aln.e, [None] * len(jl),
+                               sched._score_chooser(*args),
+                               strips_costs=(qc, ec))
+        n = sum(len(strips_prep(
+            [jl[i].query for i in bk.idxs], [jl[i].target for i in bk.idxs],
+            bk.qlen, bk.tlen, aln.m, mat, aln.q, aln.e, aln.zdrop, flag,
+            cig=cig, two=two, q2=q2, e2=e2)) for bk in bks
+            if bk.route == "strips")
+        if not cig and n != 1:
+            raise AssertionError(f"{path}: {n} strips launches a score "
+                                 "batch, planned one")
+        want[path] = want.get(path, 0) + nb * n
+    return want
+
+
 def band_launch_plan(alns, long, jobs):
     """The band launches a batch of each band path makes, by kernel, as
     the scheduler plans them (host only): a batch's band buckets merged
@@ -3067,7 +3254,15 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     paths += local_paths(kernels + lg_kernels)
     plan = single_launch_plan(sb, spl4, slong)
     plan.update(band_launch_plan(band, long, jobs))
-    emit({"phase": "launch_plan", "per_batch": plan})
+    # kernel A: one launch a score batch (the batch's strips buckets
+    # merged), one a bucket for CIGARs
+    strips_plan = strips_launch_plan([
+        ("extz", scorer, jobs, 5), ("extz", scorer, prod, 4),
+        ("extz", scorer, jobs, 32), ("extz", cigar, short1536, 5),
+        ("extz", cigar, whale, 5), ("extd", scorer2, jobs, 5),
+        ("extd", scorer2, jobs, 32), ("extd", cigar2, whale, 5)])
+    emit({"phase": "launch_plan", "per_batch": plan,
+          "strips_fwd_per_path": strips_plan})
     counts = {}
     runs = {}
     results = {}
@@ -3086,6 +3281,11 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
             if got != want:
                 raise AssertionError(f"{path}: {got} launches, planned "
                                      f"{want}")
+        if path in strips_plan and \
+                c.get("strips_fwd", 0) != strips_plan[path]:
+            raise AssertionError(f"{path}: {c.get('strips_fwd', 0)} "
+                                 f"strips_fwd launches, planned "
+                                 f"{strips_plan[path]}")
 
     return counts, runs, results
 
@@ -3145,9 +3345,10 @@ def phase_profile(long, sb, spl, jobs, mt):
     the long-banded (-w751 -z400) and of the short-banded (-w100 -z100)
     workloads, one CIGAR batch of the splice workload unannotated and
     annotated, the sr-extension CIGAR batch (one- and two-piece), the
-    splice-ends CIGAR batch, the MT pair's global alignment and the two
-    CLI runs (torch.profiler), beside the run's host wall and the
-    device's idle share of it."""
+    splice-ends CIGAR batch, the mixed-512 and mixed-2048 score batches
+    (one- and two-piece mixed-512) and the whale CIGAR batch, the MT
+    pair's global alignment and the two CLI runs (torch.profiler),
+    beside the run's host wall and the device's idle share of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3182,6 +3383,19 @@ def phase_profile(long, sb, spl, jobs, mt):
         juncs = [splice_junc()] * len(pairs) if "junc" in name else None
         runs.append((name, lambda aln=aln, pairs=pairs, juncs=juncs:
                      aln.extend_batch(pairs, juncs=juncs)))
+    # kernel A's score batches (one strips launch each) and the whale
+    # CIGAR batch: is a batch bound by kernel A?
+    q, e, q2, e2 = EXTD
+    scorer = Aligner(a=2, b=4, q=4, e=2, zdrop=100, flag=Flag.SCORE_ONLY)
+    scorer2 = Aligner(a=2, b=4, q=q, e=e, q2=q2, e2=e2, zdrop=100,
+                      flag=Flag.SCORE_ONLY)
+    cigar = Aligner(a=2, b=4, q=4, e=2, zdrop=100)
+    whale = [p for p in jobs if len(p[1]) > 2048]
+    prod = jobs * 4
+    runs += [("mixed512_score", lambda: scorer.extend_batch(jobs)),
+             ("mixed2048_score", lambda: scorer.extend_batch(prod)),
+             ("mixed512_extd_score", lambda: scorer2.extend_batch(jobs)),
+             ("whale_cigar", lambda: cigar.extend_batch(whale))]
     glob = Aligner()
     runs.append(("single_gg2_mt", lambda: glob.global_align(*mt)))
     files = cli_files(jobs)
@@ -3313,23 +3527,12 @@ def splice_times(scases, int_rate):
         if route == "strips":
             qs, ts, ql, tl, tab = S.upload(ln, "cuda")
             sites = S.site_rows(ln, "cuda")
-            B, Lq = qs.shape
-            tv = ln.prm.tv
-            row.update(kernel="strips_fwd (spl)", Lq=int(Lq), tv=tv)
-
-            def fwd():
-                return S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm,
-                                             sites)
-            row["fwd_ms"] = cuda_ms(fwd, 5)
-            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
-            row["cells"] = int((ql.long() * tl.long()).sum())
-            nbytes = B * (Lq + tv + 8 + 4 * Lq + 8 * (Lq + tv) + 4 * tv
-                          + (tv * Lq if ln.prm.cig else 0))
-            row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
-                "strips_spl_fwd", row["cells"], nbytes, int_rate,
-                ln.prm.cig)
+            B = qs.shape[0]
+            row.update(kernel="strips_fwd (spl)",
+                       **kernel_a_row(name, ln, int_rate))
             if ln.prm.cig:
-                D, Dq, hl, d8 = fwd()
+                D, Dq, hl, d8 = fwd_call(name, ln, (qs, ts, ql, tl, tab),
+                                         sites)()
                 rec = S.replay_records(ln.prm, D, Dq, hl, ql, tl)
                 n = min(256, B)
                 starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)[:n]
@@ -3576,6 +3779,37 @@ def single2_times(single, sb, spl, slong, int_rate):
     return out
 
 
+def kernel_a_row(name, ln, int_rate, plain=True):
+    """Kernel A on case ``name``'s launch: its ms (CUDA events, the
+    layout made once), cells, Gcells/s and bound, its layout, and with
+    ``plain`` the plain version's ms from its kernel phase."""
+    from ksw2_tpu_torch.ops import strips as S
+
+    qs, ts, ql, tl, tab = S.upload(ln, "cuda")
+    sites = S.site_rows(ln, "cuda")
+    B, Lq = qs.shape
+    tv = ln.prm.tv
+    row = {"pairs": int(B), "Lq": int(Lq), "tv": tv}
+    lay = fwd_layout(name, ln)
+    if lay is not None:
+        row.update(nw=lay.nw, cl=lay.cl, blocks=lay.blocks)
+    row["fwd_ms"] = cuda_ms(fwd_call(name, ln, (qs, ts, ql, tl, tab),
+                                     sites), 5)
+    if plain:
+        row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+    row["cells"] = int((ql.long() * tl.long()).sum())
+    # inputs (symbols, lengths) and outputs (D, Dq, hl, d8) once each,
+    # and a splice launch's site rows
+    nbytes = B * (Lq + tv + 8 + 4 * Lq + 8 * (Lq + tv)
+                  + (4 * tv if ln.prm.spl else 0)
+                  + (tv * Lq if ln.prm.cig else 0))
+    row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+        "strips_spl_fwd" if ln.prm.spl else "strips_fwd", row["cells"],
+        nbytes, int_rate, ln.prm.cig)
+    row["fwd_gcells_per_s"] = row["cells"] / row["fwd_ms"] / 1e6
+    return row
+
+
 def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
                 int_rate, lcases, mt, jobs):
     import torch
@@ -3591,20 +3825,10 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
     for name, ln in cases:
         if name.startswith("sample"):
             continue
+        row = kernel_a_row(name, ln, int_rate)
         qs, ts, ql, tl, tab = S.upload(ln, "cuda")
-        B, Lq = qs.shape
-        row = {"pairs": int(B), "Lq": int(Lq), "tv": ln.prm.tv}
-        row["fwd_ms"] = cuda_ms(
-            lambda: S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 5)
-        row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
-        row["cells"] = int((ql.long() * tl.long()).sum())
-        nbytes = B * (Lq + ln.prm.tv + 8 + 4 * Lq + 8 * (Lq + ln.prm.tv)
-                      + (ln.prm.tv * Lq if ln.prm.cig else 0))
-        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
-            "strips_fwd", row["cells"], nbytes, int_rate, ln.prm.cig)
         if ln.prm.cig:
-            D, Dq, hl, d8 = S.strips_forward_cuda(qs, ts, ql, tl, tab,
-                                                  ln.prm)
+            D, Dq, hl, d8 = fwd_call(name, ln, (qs, ts, ql, tl, tab))()
             rec = S.replay_records(ln.prm, D, Dq, hl, ql, tl)
             starts = W.start_cells(rec, ql, tl, ln.prm.flag, 0)
             row["walk_ms"] = cuda_ms(lambda: W.strips_walk_cuda(d8, starts),
@@ -3613,7 +3837,6 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
             steps, nbytes = walk_work(*W.strips_walk_cuda(d8, starts), 20)
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
                 "strips_walk", steps, nbytes, int_rate)
-        row["fwd_gcells_per_s"] = row["cells"] / row["fwd_ms"] / 1e6
         out[name] = row
     for name, ln in rcases:
         if name.startswith("short_sample"):
@@ -3624,8 +3847,8 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
         row["rows_ms"] = cuda_ms(
             lambda: R.rows_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20)
         row["rows_plain_ms"] = PLAIN_MS[(name, "rows")]
-        row["fwd_ms"] = cuda_ms(
-            lambda: S.strips_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20)
+        row["fwd_ms"] = cuda_ms(fwd_call(name, ln, (qs, ts, ql, tl, tab)),
+                                20)
         row["cells"] = int((ql.long() * tl.long()).sum())
         row["rows_bound_ms"], row["rows_bound_by"] = bound(
             "rows_fwd", row["cells"],
@@ -3936,13 +4159,16 @@ LG_BREAKDOWN_STAMPS = (
      "      atomicAdd(&g_prof[i], (unsigned long long)P[i]);\n"
      "    atomicMax(&g_prof[10], (unsigned long long)P[6]);\n  }\n"),
 )
-BREAKDOWN_READ = """
+PROF_READ = """
 extern "C" int ksw2t_prof_read(void* out) {
   cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
   unsigned long long z[16] = {0};
   cudaMemcpyToSymbol(g_prof, z, sizeof(z));
   return (int)cudaGetLastError();
 }
+"""
+# the readers of a source that does not define ksw2t_error_string
+BREAKDOWN_READ = PROF_READ + """
 extern "C" const char* ksw2t_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -3967,9 +4193,13 @@ def breakdown_library(name, stamps, entry, read=BREAKDOWN_READ):
     out.mkdir(parents=True, exist_ok=True)
     (out / f"{name}_stamped.cu").write_text(src + read)
     lib_path = out / f"lib{name}_stamped.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-                    str(_build.CSRC), str(out / f"{name}_stamped.cu"), "-o",
-                    str(lib_path)], check=True, capture_output=True)
+    nvcc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+         str(_build.CSRC), str(out / f"{name}_stamped.cu"), "-o",
+         str(lib_path)], capture_output=True, text=True)
+    if nvcc.returncode:
+        raise RuntimeError(f"breakdown: nvcc failed on {name}_stamped.cu:\n"
+                           f"{nvcc.stdout[-4000:]}{nvcc.stderr[-4000:]}")
     lib = ctypes.CDLL(str(lib_path))
     for fn in (entry,) if isinstance(entry, str) else entry:
         getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
@@ -4277,8 +4507,103 @@ def breakdown_lg():
         XF.library, G1.library = saved
 
 
-def phase_breakdown(which=("extz", "band", "lg")) -> int:
-    """``--breakdown [extz|band|lg]``: the clock64 breakdowns."""
+# strips_fwd.cu: per strip-row, lane 0's wait for the edge (acquire and
+# ring read), its scans (1-3 warp scans) and the whole row, lane 31's
+# hand-on (the ring's free entry, the entry and its release) and the
+# strip-rows (counters 0-4)
+STRIPS_BREAKDOWN_PARTS = ("wait", "scan", "row", "publish", "strip_rows")
+STRIPS_BREAKDOWN_STAMPS = (
+    ("constexpr unsigned FULL = 0xffffffffu;\n",
+     "constexpr unsigned FULL = 0xffffffffu;\n"
+     "__device__ unsigned long long g_prof[16];\n"),
+    ("    for (int i = 0; i < tlen; ++i) {\n      if ((i & 31) == 0) {\n",
+     "    long long P[5] = {0, 0, 0, 0, 0};\n"
+     "    for (int i = 0; i < tlen; ++i) {\n"
+     "      const long long tr = clock64();\n      if ((i & 31) == 0) {\n"),
+    ("      // the edge: H(i, j0s - 1) and each chain's run through it\n",
+     "      const long long tw = clock64();\n"
+     "      // the edge: H(i, j0s - 1) and each chain's run through it\n"),
+    ("      const int hup = __shfl_up_sync(FULL, H[3], 1);\n",
+     "      P[0] += clock64() - tw;\n"
+     "      const int hup = __shfl_up_sync(FULL, H[3], 1);\n"),
+    ("      int run = chain_in(lmax, er1, lane, out1);\n",
+     "      long long tsc = clock64();\n"
+     "      int run = chain_in(lmax, er1, lane, out1);\n"
+     "      P[1] += clock64() - tsc;\n"),
+    ("        int run2 = chain_in(lmax2, er2, lane, out2);\n",
+     "        tsc = clock64();\n"
+     "        int run2 = chain_in(lmax2, er2, lane, out2);\n"
+     "        P[1] += clock64() - tsc;\n"),
+    ("          int run3 = chain_in(lmax3, er3, lane, out3);\n",
+     "          tsc = clock64();\n"
+     "          int run3 = chain_in(lmax3, er3, lane, out3);\n"
+     "          P[1] += clock64() - tsc;\n"),
+    ("      if (has_out && lane == 31) {\n",
+     "      if (has_out && lane == 31) {\n"
+     "        const long long tp = clock64();\n"),
+    ("          st_rel(prog_out, i + 1, out_remote);\n      }\n",
+     "          st_rel(prog_out, i + 1, out_remote);\n"
+     "        P[3] += clock64() - tp;\n      }\n"),
+    ("j0 + 3 < qlen ? H[3] : SENT);\n      }\n    }\n",
+     "j0 + 3 < qlen ? H[3] : SENT);\n      }\n"
+     "      P[2] += clock64() - tr;\n      P[4] += 1;\n    }\n"
+     "    if (lane == 0)\n      for (int k = 0; k < 5; ++k)\n"
+     "        if (k != 3) atomicAdd(&g_prof[k], (unsigned long long)P[k]);\n"
+     "    if (lane == 31) atomicAdd(&g_prof[3], (unsigned long long)P[3]);\n"),
+)
+STRIPS_BREAKDOWN_CASES = ("whale_cig_z100", "whale_extd_cig_z100",
+                          "mixed700_score_z100", "mixed700_extd_score_z100",
+                          "mixed512_merged_score",
+                          "mixed512_merged_extd_score")
+
+
+def breakdown_strips():
+    """Cycles a strip-row of kernel A by part (CUDA clock64 sums over the
+    strips' lanes 0 and 31, over the strip-rows computed) on the whale
+    CIGAR launches, the mixed700 score launches and the merged mixed-512
+    score launches: ``wait`` is the wait for the edge of the strip before,
+    ``scan`` the warp scans, ``cells`` the rest of the row (the cells'
+    passes, the bytes, the diagonal maxima), ``publish`` lane 31's hand-on
+    (its wait for a free ring entry included; strips with no strip after
+    count 0); the stamps themselves cost cycles."""
+    import torch
+    from ksw2_tpu_torch.ops import strips as S
+
+    lib = breakdown_library("strips_fwd", STRIPS_BREAKDOWN_STAMPS,
+                            "ksw2t_strips_fwd", PROF_READ)
+    saved = S.library
+    S.library = lambda: lib
+    try:
+        for name, ln in fwd_cases(mixed_jobs()):
+            if name not in STRIPS_BREAKDOWN_CASES:
+                continue
+            call = fwd_call(name, ln, S.upload(ln, "cuda"))
+            lay = fwd_layout(name, ln)
+            call()
+            torch.cuda.synchronize()
+            prof = np.zeros(16, np.uint64)
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            call()
+            t1.record()
+            t1.synchronize()
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            rows = float(prof[4])
+            part = {k: float(prof[i]) / rows
+                    for i, k in enumerate(STRIPS_BREAKDOWN_PARTS[:4])}
+            part["cells"] = part["row"] - part["wait"] - part["scan"]
+            emit({"phase": "breakdown", "case": name, "kernel": "strips",
+                  "nw": lay.nw, "cl": lay.cl, "blocks": lay.blocks,
+                  "ms_stamped": t0.elapsed_time(t1),
+                  "strip_rows": int(rows), "cycles_per_strip_row": part})
+    finally:
+        S.library = saved
+
+
+def phase_breakdown(which=("extz", "band", "lg", "strips")) -> int:
+    """``--breakdown [extz|band|lg|strips]``: the clock64 breakdowns."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4293,6 +4618,8 @@ def phase_breakdown(which=("extz", "band", "lg")) -> int:
         breakdown_extz()
     if "lg" in which:
         breakdown_lg()
+    if "strips" in which:
+        breakdown_strips()
     return 0
 
 
@@ -4312,6 +4639,31 @@ def phase_lg_times() -> int:
                                 single_pair(SINGLE_SEED, SINGLE_LEN),
                                 single_pair(MT_SEED, MT_LEN), jobs, int_rate)
     emit({"phase": "lg_times", "cases": times})
+    return 0
+
+
+def phase_strips_times() -> int:
+    """``--strips-times``: kernel A's times of phase 7 alone (its ALONE
+    cases: the whale and mixed700 launches and the merged mixed-512 score
+    launches, and the splice path's strips launches), with no plain
+    version and no check; it also runs on a tree whose kernel A takes no
+    layout, for comparing two trees in one call."""
+    import re
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    int_rate = phase_device()
+    phase_build()
+    times = {}
+    for name, ln in fwd_cases(mixed_jobs()):
+        if re.fullmatch(ALONE["kernel_a"], name):
+            times[name] = kernel_a_row(name, ln, int_rate, plain=False)
+    for name, route, ln in splice_cases(splice_jobs()):
+        if route == "strips" and re.fullmatch(ALONE["splice"], name):
+            times[name] = kernel_a_row(name, ln, int_rate, plain=False)
+    emit({"phase": "strips_times", "cases": times})
     return 0
 
 
@@ -4338,7 +4690,8 @@ PHASE_WORKERS = 4
 POOL_TIMEOUT_S = 800          # a stuck worker fails the run, not the limit
 KERNEL_PHASES = ("splice", "kernel_a", "kernel_b", "rows", "band", "batch",
                  "single", "single2", "linear_global", "local")
-ALONE = {"splice": r"main_.*", "kernel_a": r"(whale|mixed700)_.*",
+ALONE = {"splice": r"main_.*",
+         "kernel_a": r"(whale|mixed700|mixed512)_.*",
          "kernel_b": r"(whale|mixed700)_.*", "rows": r"short_score_z100",
          "band": r"long1_.*", "batch": r"sb_ext[zd]_score_z100_launch\d+",
          "single": r"sr_launch\d+", "single2": r"(sr_extd|splice_ends)_256",
@@ -4593,7 +4946,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lg-times"]:
         sys.exit(phase_lg_times())
+    if sys.argv[1:2] == ["--strips-times"]:
+        sys.exit(phase_strips_times())
     if sys.argv[1:2] == ["--breakdown"]:
         sys.exit(phase_breakdown(tuple(sys.argv[2:])
-                                 or ("extz", "band", "lg")))
+                                 or ("extz", "band", "lg", "strips")))
     sys.exit(main())

@@ -35,9 +35,10 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # qs, ts, qlen, tlen, table, don, acc, B, Lq, tv, m, q, e, q2, e2, lt,
-    # ld, mat0, kb, right, cig, two, spl, threads, D, Dq, hl, d8, stream
-    "ksw2t_strips_fwd": [_P] * 7 + [_I] * 17 + [_P] * 5,
+    # qs, ts, qlen, tlen, table, don, acc, wtab, nblocks, Lq, tv, m, q, e,
+    # q2, e2, lt, ld, mat0, kb, right, cig, two, spl, nw, cl, D, Dq, hl,
+    # d8, stream
+    "ksw2t_strips_fwd": [_P] * 8 + [_I] * 18 + [_P] * 5,
     # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, mat0, kb, D, Dq, hl,
     # stream
     "ksw2t_rows_fwd": [_P] * 5 + [_I] * 8 + [_P] * 4,

@@ -16,7 +16,8 @@ with N ops: strips in its ``spl`` form, then the batched exts engine,
 then the single-pair splice engine (kernel 14 with 17;
 ``scheduler.py:916-1119``).  The buckets that fall to a single-pair
 engine go out together, split only by ``ops.strips.LAUNCH_BYTES``, so
-their pairs' chains run at once; so do the band route's.  Every launch
+their pairs' chains run at once; so do the band route's and, on the
+score paths, the strips route's.  Every launch
 is enqueued on the current CUDA stream before anything waits.  A handle's
 ``result()`` synchronises on the event recorded after the batch's
 device-to-host copies, so several batches in flight overlap one batch's
@@ -53,8 +54,8 @@ from ..ops.batch_exts import (batch_exts_cigar_launch,
                               unpack_exts_cigars)
 from ..ops.records import NFIELDS
 from ..ops.rows import rows_eligible, rows_records
-from ..ops.strips import (TMAX, QMAX, canonical_costs,
-                          strips_extd_ineligible_reason,
+from ..ops.strips import (TMAX, QMAX, canonical_costs, launch_tv,
+                          packing_fits, strips_extd_ineligible_reason,
                           strips_exts_ineligible_reason,
                           strips_ineligible_reason, strips_exts_prep,
                           strips_prep, strips_records)
@@ -163,8 +164,8 @@ class _Bucket(NamedTuple):
     #                      "single" (the single-pair engine of the costs)
 
 
-def _route(jobs, mat, qe: int, results, choose,
-           key=_bucket_key) -> List[_Bucket]:
+def _route(jobs, mat, qe: int, results, choose, key=_bucket_key,
+           strips_costs=None) -> List[_Bucket]:
     """Reset empty jobs, and every job when scoring is degenerate
     (``-min_sc > 2 * qe``); bucket the rest by ``key`` and pick every
     bucket's route (``_Bucket.route``) with ``choose(Lt, qlen, tlen, w,
@@ -173,7 +174,9 @@ def _route(jobs, mat, qe: int, results, choose,
     so its launches pad little (and a block's warps finish together).
     The buckets routed to the single-pair engine ("any" or "single") come
     back as one, and so do the band route's (:func:`_merged`); the
-    batched route's keep their buckets."""
+    batched route's keep their buckets.  With ``strips_costs``, the
+    (post-swap) ``(q, e)`` of a score path, the strips route's buckets
+    come back as one too (:func:`_merged_strips`)."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -197,7 +200,10 @@ def _route(jobs, mat, qe: int, results, choose,
             idxs = [idxs[k] for k in order]
             qlen, tlen, wv = qlen[order], tlen[order], wv[order]
         out.append(_Bucket(idxs, qlen, tlen, wv, route))
-    return _merged(_merged(out, _SINGLE), ("band",))
+    out = _merged(_merged(out, _SINGLE), ("band",))
+    if strips_costs is not None:
+        out = _merged_strips(out, mat, *strips_costs)
+    return out
 
 
 _SINGLE = ("any", "single")
@@ -227,6 +233,25 @@ def _merged(buckets: List[_Bucket], routes) -> List[_Bucket]:
         elif bk is group[0]:
             out.append(merged)
     return out
+
+
+def _merged_strips(buckets: List[_Bucket], mat, q: int,
+                   e: int) -> List[_Bucket]:
+    """``buckets`` with the strips route's score buckets merged into one
+    (:func:`_merged`): kernel A lays each pair's strips out by its own
+    query, so a launch of mixed lengths runs each pair at its own
+    size, and the launch's ``tv`` (its largest bucket's) only widens the
+    merge key, which the replay decodes with the same ``tv``.  Each
+    bucket passed the strips envelope at its own ``tv``; when the int32
+    packing guard fails at the merged one, the buckets stay apart."""
+    group = [bk for bk in buckets if bk.route == "strips"]
+    if len(group) < 2:
+        return buckets
+    qlen = np.concatenate([bk.qlen for bk in group])
+    tlen = np.concatenate([bk.tlen for bk in group])
+    if not packing_fits(qlen, tlen, mat, q, e, launch_tv(tlen)):
+        return buckets
+    return _merged(buckets, ("strips",))
 
 
 def _to_host(tensors: List[torch.Tensor], dev: torch.device):
@@ -417,7 +442,8 @@ def align_batch_scores_async(
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
     buckets = _route(jobs, mat, q + e, results,
-                     _score_chooser(flag, m, mat, zdrop, q, e))
+                     _score_chooser(flag, m, mat, zdrop, q, e),
+                     strips_costs=(q, e))
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev)
     return _pending_scores(results, pieces, dev, False)
 
@@ -480,10 +506,11 @@ def _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, device,
     """The two-piece score path with the route table ``choose``."""
     dev = resolve_device(device)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
-    buckets = _route(jobs, mat, q + e, results, choose)
+    qc, ec = canonical_costs(q, e, q2, e2)[:2]
+    buckets = _route(jobs, mat, q + e, results, choose,
+                     strips_costs=(qc, ec))
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev,
                            True, q2, e2)
-    qc, ec = canonical_costs(q, e, q2, e2)[:2]
     min_sc = int(mat[1:].min())
     return _pending_scores(results, pieces, dev, -min_sc > 2 * (qc + ec))
 

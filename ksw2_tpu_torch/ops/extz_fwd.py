@@ -49,11 +49,10 @@ from .._build import LAUNCHES, check, library
 from ..core.flags import Flag
 from .band import BandParams, band_forward_plain
 from .bands import first_empty_diag, n_col_bytes
-from .strips import _check_cuda
+from .strips import _check_cuda, n_sms
 
 TILES = (32, 64)           # the kernel's tile widths (target positions)
 TP_MIN, TP_MAX = TILES
-SMS = 132                  # an H100's SMs: n_sms() without a card
 NARROW_PER_SM = 16         # tiles of TP_MIN a launch may put on each SM
 
 
@@ -107,14 +106,6 @@ def store_bytes(qlen, tlen, w) -> np.ndarray:
     """Each pair's store, the bytes of its rows up to the first empty
     diagonal."""
     return row_off(first_empty_diag(qlen, tlen, w), qlen, tlen, w)
-
-
-def n_sms() -> int:
-    """The current CUDA device's SM count, else ``SMS``."""
-    if not torch.cuda.is_available():
-        return SMS
-    return torch.cuda.get_device_properties(
-        torch.cuda.current_device()).multi_processor_count
 
 
 def choose_tp(tlen) -> int:

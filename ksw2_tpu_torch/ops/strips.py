@@ -32,11 +32,13 @@ splice.py``), one value a target row.
 automaton from those streams (``_postprocess`` in the JAX package).
 
 The forward has two implementations: ``csrc/strips_fwd.cu`` for CUDA
-tensors and :func:`strips_forward_plain` for CPU tensors.  The TPU
-layout (128-column strips pipelined over plane rows, skewed bit-packed
-symbols, the (8, 128) padding ladders) is not ported: a launch is just
+tensors and :func:`strips_forward_plain` for CPU tensors.  A launch is
 ``B`` pairs padded to the launch's longest query and its canonical
-target capacity ``tv``.
+target capacity ``tv``.  The kernel keeps the TPU kernel's strips of 128
+query columns pipelined over the target rows (not its skewed bit-packed
+symbols or (8, 128) padding ladders): a warp owns a strip, and
+:func:`strips_layout` lays a launch's strips out on warps, blocks and
+clusters.
 """
 from __future__ import annotations
 
@@ -54,6 +56,16 @@ QMAX = 4608                # query cap
 TMAX = 3072                # target cap
 SMEM_MAX = 232448          # shared memory one H100 block may use
 LAUNCH_BYTES = 1 << 30     # device bytes one launch may allocate
+SMS = 132                  # an H100's SMs: n_sms() without a card
+
+# kernel A's layout (csrc/strips_fwd.cu): a warp owns STRIP query columns,
+# a block has at most MAX_WARPS warps (the kernel's MAXW), a cluster at
+# most MAX_CLUSTER blocks; a block outside a cluster has at least
+# MIN_WARPS warps, so that short pairs share it
+STRIP = 128
+MAX_WARPS = 16
+MAX_CLUSTER = 8
+MIN_WARPS = 4
 
 # canonical target capacities: tv sets the merge-key width KB, so the
 # kernel, the plain version and the replay all use this one value
@@ -150,15 +162,10 @@ def strips_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
     if qlen.max() > QMAX or tlen.max() > TMAX:
         return "targets over 3072 or queries over 4608"
     mat = np.asarray(mat).reshape(-1)
-    tv = _canon_tlenp(int(tlen.max()))
+    tv = launch_tv(tlen)
     if _n_diag(_canon_s((int(qlen.max()) + 127) // 128), tv) > 8191:
         return "the diagonal index exceeds 13 bits"
-    KB, _ = key_params(tv)
-    hmax = int(mat.max()) * int(np.minimum(qlen, tlen).max())
-    hneg = 2 * (int(q) + int(e)) + int(e) * (int(qlen.max()) +
-                                             int(tlen.max()))
-    if hmax >= (1 << 17) or hneg >= (1 << 17) or \
-            (max(hmax, hneg) + 1) * KB + KB >= (1 << 31):
+    if not packing_fits(qlen, tlen, mat, q, e, tv):
         return "scores outside the int32 packed-key range"
     w = np.asarray(w).astype(np.int64)
     ql = qlen.astype(np.int64)
@@ -173,6 +180,24 @@ def strips_ineligible_reason(qlen, tlen, w, flag, m, mat, zdrop,
     if ((st_clip | en_clip) & live).any():
         return "bands that clip"
     return None
+
+
+def packing_fits(qlen, tlen, mat, q, e, tv: int) -> bool:
+    """The int32 packing guard of the strips envelope: every H of the
+    pairs (one-piece or post-swap ``q, e``) packs with its merge key at
+    capacity ``tv``."""
+    KB, _ = key_params(tv)
+    qlen, tlen = np.asarray(qlen), np.asarray(tlen)
+    hmax = int(np.asarray(mat).max()) * int(np.minimum(qlen, tlen).max())
+    hneg = 2 * (int(q) + int(e)) + int(e) * (int(qlen.max()) +
+                                             int(tlen.max()))
+    return hmax < (1 << 17) and hneg < (1 << 17) and \
+        (max(hmax, hneg) + 1) * KB + KB < (1 << 31)
+
+
+def launch_tv(tlen) -> int:
+    """The canonical target capacity of a launch of targets ``tlen``."""
+    return _canon_tlenp(int(np.asarray(tlen).max()))
 
 
 def strips_eligible(qlen, tlen, w, flag, m, mat, zdrop,
@@ -322,7 +347,7 @@ def strips_prep(query, target, qlen, tlen, m, mat, q, e, zdrop, flag,
     tlen = np.asarray(tlen, np.int32)
     B = len(query)
     Lq = round_up(int(qlen.max()), 32)
-    tv = _canon_tlenp(int(tlen.max()))
+    tv = launch_tv(tlen)
     per_pair = 12 * (Lq + tv) + (tv * Lq if cig else 0) + (4 * tv if spl
                                                             else 0)
     bmax = max(1, LAUNCH_BYTES // per_pair)
@@ -358,6 +383,99 @@ def strips_exts_prep(query, target, qlen, tlen, m, mat, q, e, q2, noncan,
 
 
 # --------------------------------------------------------------------------
+# Kernel A's layout: strips on warps, blocks and clusters
+
+
+def n_sms() -> int:
+    """The current CUDA device's SM count, else ``SMS``."""
+    if not torch.cuda.is_available():
+        return SMS
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
+class StripLayout(NamedTuple):
+    """Kernel A's grid: blocks of ``nw`` warps in clusters of ``cl``
+    blocks, and each warp's (pair, strip), pair -1 for an idle warp; a
+    cluster's warps are numbered block by block.  ``table`` is a numpy
+    array, or its copy on the launch's device (:func:`layout_on`)."""
+    nw: int
+    cl: int
+    table: object          # (blocks * nw, 2) int32
+
+    @property
+    def blocks(self) -> int:
+        return len(self.table) // self.nw
+
+
+def n_strips(qlen) -> np.ndarray:
+    """Strips of each pair: ceil(qlen / STRIP), at least one."""
+    return np.maximum(1, -(-np.asarray(qlen, np.int64) // STRIP))
+
+
+def strips_layout(qlen, sms: Optional[int] = None, cl: Optional[int] = None,
+                  nw: Optional[int] = None) -> StripLayout:
+    """Lay a launch's pairs (queries ``qlen``) out for kernel A.
+
+    A pair's strips are consecutive warps of one cluster of ``cl`` blocks
+    of ``nw`` warps; pairs are packed in order, a pair going to the next
+    cluster when it does not fit in what is left of this one.  By
+    default ``cl`` is the fewest blocks a cluster that hold the longest
+    pair at ``MAX_WARPS`` a block, raised, while the launch has fewer
+    pairs than the card has SMs (``sms``), to spread each pair over up
+    to ``sms // pairs`` blocks; ``nw`` the fewest warps a block that then
+    hold the longest pair (at least ``MIN_WARPS`` without clusters, so
+    that short pairs share a block).  Either may be forced.
+    """
+    ns = n_strips(qlen)
+    P, nsmax = len(ns), int(ns.max())
+    if cl is None and nw is None:
+        cl = -(-nsmax // MAX_WARPS)
+        sms = n_sms() if sms is None else int(sms)
+        if P < sms:
+            cl = max(cl, min(MAX_CLUSTER, sms // P, nsmax))
+        nw = -(-nsmax // cl)
+        cl = -(-nsmax // nw)
+        if cl == 1:
+            nw = max(nw, MIN_WARPS)
+    elif nw is None:
+        nw = -(-nsmax // cl)
+    elif cl is None:
+        cl = -(-nsmax // nw)
+    cl, nw = int(cl), int(nw)
+    if not (1 <= nw <= MAX_WARPS and 1 <= cl <= MAX_CLUSTER) or \
+            cl * nw < nsmax:
+        raise ValueError(f"no kernel-A layout of {nsmax} strips a pair in "
+                         f"clusters of {cl} blocks of {nw} warps")
+    V = cl * nw
+    first = np.empty(P, np.int64)          # each pair's strip-0 warp
+    fill, top = V, -V
+    for k, n in enumerate(ns.tolist()):
+        if fill + n > V:
+            top, fill = top + V, 0
+        first[k] = top + fill
+        fill += n
+    table = np.full((top + V, 2), -1, np.int32)
+    table[:, 1] = 0
+    strip = np.arange(int(ns.sum())) - np.repeat(np.cumsum(ns) - ns, ns)
+    warp = np.repeat(first, ns) + strip
+    table[warp, 0] = np.repeat(np.arange(P), ns)
+    table[warp, 1] = strip
+    return StripLayout(nw, cl, table)
+
+
+def layout_on(lay: StripLayout, device) -> StripLayout:
+    """``lay`` with its table on ``device`` (a CUDA copy is staged
+    through pinned memory, as :func:`upload` stages)."""
+    if isinstance(lay.table, torch.Tensor):
+        return lay
+    t = torch.from_numpy(lay.table)
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return lay._replace(table=t)
+
+
+# --------------------------------------------------------------------------
 # Kernel A: the forward, its plain version and its wrapper
 
 
@@ -387,10 +505,11 @@ def _chain(seed: int, A, j, e: int):
 
 
 def strips_forward_plain(qs, ts, qlen, tlen, table, prm: StripParams,
-                         sites=None):
+                         sites=None, lay=None):
     """Plain PyTorch version of ``csrc/strips_fwd.cu`` (same inputs and
-    outputs): batched over the pairs, one Python step per target row,
-    ``torch.cummax`` for the F prefix scans and ``scatter_reduce`` for D.
+    outputs; the kernel's layout ``lay`` does not change them): batched
+    over the pairs, one Python step per target row, ``torch.cummax`` for
+    the F prefix scans and ``scatter_reduce`` for D.
 
     Two-piece rows (``spec/strips_extd.py``): ``hnof = max(M, E, E2)``;
     F opens from ``min(hnof, cv)``; ``Hc1 = min(max(hnof, F), cv)``; F2
@@ -537,23 +656,13 @@ def _check_cuda(t: torch.Tensor, dtype, shape, name: str,
         raise ValueError(f"{name} must be contiguous")
 
 
-def fwd_smem_bytes(Lq: int, tv: int, prm: StripParams) -> int:
-    """Dynamic shared memory of one kernel-A block (the layout at the
-    head of ``csrc/strips_fwd.cu``): D, two H rows, E, the score table,
-    the scans' warp totals and the query; two-piece adds E2 and one row
-    of scratch and a warp-total array per extra scan, splice the NI
-    row."""
-    if not prm.two:
-        return 4 * (Lq + tv + (4 if prm.spl else 3) * Lq + 64 + 32) + Lq
-    nscan = 3 if prm.cig else 2
-    return 4 * (Lq + tv + 5 * Lq + 64 + 32 * nscan) + Lq
-
-
 def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams,
-                        sites=None):
+                        sites=None, lay: Optional[StripLayout] = None):
     """Launch ``csrc/strips_fwd.cu`` on the current stream; same
     contract as :func:`strips_forward_plain` (outputs from torch.empty:
-    d8 cells outside a pair's (tlen, qlen) are left unwritten)."""
+    d8 cells outside a pair's (tlen, qlen) are left unwritten).  ``lay``
+    is the launch's :func:`strips_layout`; without it the wrapper reads
+    ``qlen`` back to the host to make one, which waits for the stream."""
     B, Lq = qs.shape
     tv = prm.tv
     nd = Lq + tv
@@ -565,6 +674,8 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams,
     _check_cuda(table, torch.int32, (prm.m * prm.m,), "table", dev)
     if prm.m > 8:
         raise ValueError("the forward kernel takes m <= 8")
+    if Lq % 32:
+        raise ValueError(f"the query width {Lq} is not a multiple of 32")
     don = acc = None
     if prm.spl:
         if sites is None:
@@ -572,9 +683,12 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams,
         don, acc = sites
         _check_cuda(don, torch.int16, (B, tv), "donor rows", dev)
         _check_cuda(acc, torch.int16, (B, tv), "acceptor rows", dev)
-    smem = fwd_smem_bytes(Lq, tv, prm)
-    if smem > SMEM_MAX:
-        raise ValueError(f"launch needs {smem} B of shared memory")
+    if lay is None:
+        with torch.cuda.device(dev):
+            lay = strips_layout(qlen.cpu().numpy())
+    lay = layout_on(lay, dev)
+    _check_cuda(lay.table, torch.int32, (lay.blocks * lay.nw, 2),
+                "layout table", dev)
     D = torch.empty((B, nd), dtype=torch.int32, device=dev)
     Dq = torch.empty((B, nd), dtype=torch.int32, device=dev)
     hl = torch.empty((B, Lq), dtype=torch.int32, device=dev)
@@ -587,10 +701,10 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams,
         err = lib.ksw2t_strips_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             table.data_ptr(), don.data_ptr() if prm.spl else None,
-            acc.data_ptr() if prm.spl else None, B, Lq, tv, prm.m, prm.q,
-            prm.e, prm.q2, prm.e2, prm.lt, prm.ld, prm.mat0, KB,
-            int(bool(prm.flag & int(Flag.RIGHT))), prm.cig, prm.two,
-            prm.spl, min(512, round_up(Lq, 32)),
+            acc.data_ptr() if prm.spl else None, lay.table.data_ptr(),
+            lay.blocks, Lq, tv, prm.m, prm.q, prm.e, prm.q2, prm.e2, prm.lt,
+            prm.ld, prm.mat0, KB, int(bool(prm.flag & int(Flag.RIGHT))),
+            prm.cig, prm.two, prm.spl, lay.nw, lay.cl,
             D.data_ptr(), Dq.data_ptr(), hl.data_ptr(),
             d8.data_ptr() if d8 is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -600,15 +714,17 @@ def strips_forward_cuda(qs, ts, qlen, tlen, table, prm: StripParams,
 
 
 def strips_forward(qs, ts, qlen, tlen, table, prm: StripParams,
-                   sites=None):
+                   sites=None, lay: Optional[StripLayout] = None):
     """The forward on the tensors' device: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  ``sites`` are a splice
-    launch's donor and acceptor rows (:func:`site_rows`)."""
+    launch's donor and acceptor rows (:func:`site_rows`), ``lay`` the
+    kernel's layout (:func:`launch_layout`)."""
     if qs.is_cuda:
-        return strips_forward_cuda(qs, ts, qlen, tlen, table, prm, sites)
+        return strips_forward_cuda(qs, ts, qlen, tlen, table, prm, sites,
+                                   lay)
     if qs.device.type != "cpu":
         raise ValueError(f"unsupported device {qs.device}")
-    return strips_forward_plain(qs, ts, qlen, tlen, table, prm, sites)
+    return strips_forward_plain(qs, ts, qlen, tlen, table, prm, sites, lay)
 
 
 # --------------------------------------------------------------------------
@@ -754,21 +870,35 @@ def site_rows(launch: Launch, device):
     return tuple(t.pin_memory().to(device, non_blocking=True) for t in rows)
 
 
+def launch_layout(launch: Launch, device) -> Optional[StripLayout]:
+    """Kernel A's layout of ``launch`` with its table on a CUDA
+    ``device``, from the launch's host query lengths; None elsewhere
+    (the plain version needs none)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    with torch.cuda.device(dev):
+        return layout_on(strips_layout(launch.qlen), dev)
+
+
 def strips_records(launch: Launch, device):
     """Forward + replay of one score launch; (B, 9) int32 records on
     ``device`` (enqueued, not synchronised)."""
     qs, ts, ql, tl, table = upload(launch, device)
     D, Dq, hl, _ = strips_forward(qs, ts, ql, tl, table, launch.prm,
-                                  site_rows(launch, device))
+                                  site_rows(launch, device),
+                                  launch_layout(launch, device))
     return replay_records(launch.prm, D, Dq, hl, ql, tl)
 
 
 __all__ = ["StripParams", "Launch", "SENT", "QMAX", "TMAX",
-           "TLENP_LADDER", "key_params", "strips_eligible",
+           "TLENP_LADDER", "key_params", "packing_fits", "launch_tv",
+           "strips_eligible",
            "strips_ineligible_reason", "long_params", "canonical_costs",
            "strips_extd_eligible", "strips_extd_ineligible_reason",
            "strips_exts_ineligible_reason", "make_params", "score_table",
-           "strips_prep", "strips_exts_prep", "boundary_h",
-           "fwd_smem_bytes", "strips_forward", "strips_forward_plain",
+           "strips_prep", "strips_exts_prep", "boundary_h", "n_sms",
+           "StripLayout", "n_strips", "strips_layout", "layout_on",
+           "launch_layout", "strips_forward", "strips_forward_plain",
            "strips_forward_cuda", "replay_records", "upload", "site_rows",
            "strips_records"]

@@ -31,7 +31,7 @@ from .._build import LAUNCHES, check, library
 from ..core.flags import CigarOp, Flag
 from ..core.result import ExtzResult
 from .records import unpack_records
-from .strips import (Launch, replay_records, site_rows,
+from .strips import (Launch, launch_layout, replay_records, site_rows,
                      strips_extd_ineligible_reason, strips_forward,
                      strips_ineligible_reason, upload)
 
@@ -284,7 +284,8 @@ def strips_cigar_launch(launch: Launch, end_bonus: int, device):
         raise ValueError("a CIGAR launch needs cig=1 params")
     qs, ts, ql, tl, table = upload(launch, device)
     D, Dq, hl, d8 = strips_forward(qs, ts, ql, tl, table, prm,
-                                   site_rows(launch, device))
+                                   site_rows(launch, device),
+                                   launch_layout(launch, device))
     rec = replay_records(prm, D, Dq, hl, ql, tl)
     starts = start_cells(rec, ql, tl, prm.flag, end_bonus)
     res, runs = strips_walk(d8, starts, walk_min_intron(prm.lt, prm.spl))

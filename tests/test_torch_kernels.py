@@ -123,6 +123,66 @@ def test_forward_kernel_two_piece_matches_plain(cuda_device, costs, flag,
                                pd[3][b, :len(t), :len(q)])
 
 
+def _strip_edge_pairs(seed):
+    """Queries at strip edges (128 k - 1, 128 k, 128 k + 1 bp), targets of
+    1-300 bp."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ql, tl in ((127, 1), (128, 40), (129, 129), (255, 3), (256, 300),
+                   (257, 77), (383, 1), (385, 64), (1025, 33)):
+        t, q = random_pair(rng, max(ql, tl), divergence=0.12, indel=0.05)
+        out.append((np.resize(encode_dna(q), ql).astype(np.uint8),
+                    encode_dna(t)[:tl]))
+    return out
+
+
+def _held_to_plain(ln, pairs, dev, lay=None):
+    args = S.upload(ln, dev)
+    kd = S.strips_forward_cuda(*args, ln.prm, None,
+                               None if lay is None else S.layout_on(lay, dev))
+    pd = S.strips_forward_plain(*args, ln.prm)
+    for a, b in zip(kd[:3], pd[:3]):
+        assert torch.equal(a, b)
+    if ln.prm.cig:
+        for b, (q, t) in enumerate(pairs):
+            assert torch.equal(kd[3][b, :len(t), :len(q)],
+                               pd[3][b, :len(t), :len(q)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [None] + TWO_PIECE)
+@pytest.mark.parametrize("flag,cig", [(Flag.SCORE_ONLY, False),
+                                      (Flag.RIGHT, True)])
+@pytest.mark.parametrize("shape", [None, (1, 9), (1, 16), (2, 5), (8, 2)])
+def test_forward_kernel_layouts_match_plain(cuda_device, costs, flag, cig,
+                                            shape):
+    """Kernel A on queries at strip edges (up to 9 strips) under its
+    default layout and forced ones: 1 block of 9 or 16 warps, where short
+    pairs share a block, and clusters of 2 blocks of 5 warps or 8 blocks
+    of 2, where a pair's strips cross blocks (distributed shared
+    memory)."""
+    pairs = _strip_edge_pairs(16)
+    ln = _launch(pairs, flag, 100, cig, costs)
+    lay = None if shape is None else S.strips_layout(ln.qlen, cl=shape[0],
+                                                     nw=shape[1])
+    _held_to_plain(ln, pairs, cuda_device, lay)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [None] + TWO_PIECE)
+def test_forward_kernel_over_a_cluster_matches_plain(cuda_device, costs):
+    """One 4608 bp query (36 strips) over a cluster of 8 blocks, beside a
+    short pair, with bytes."""
+    rng = np.random.default_rng(17)
+    t, q = random_pair(rng, 4608, divergence=0.1, indel=0.04)
+    pairs = [(np.resize(encode_dna(q), 4608).astype(np.uint8),
+              encode_dna(t)[:700]), _strip_edge_pairs(18)[2]]
+    ln = _launch(pairs, Flag.NONE, 100, True, costs)
+    lay = S.strips_layout(ln.qlen)
+    assert lay.cl == 8
+    _held_to_plain(ln, pairs, cuda_device, lay)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("costs", TWO_PIECE)
 @pytest.mark.parametrize("flag", [Flag.NONE, Flag.RIGHT])
