@@ -81,6 +81,15 @@ phase's seconds go to stderr as it ends.
    set, local-mixed and edge pairs (empty, all-N, all-mismatch, tied
    maxima, targets of 128, queries of 129-512 bp), at A2 B4 q4 e2 and
    on a generic matrix;
+5i. walk: kernels 17 and D (the walkers, a block of two warps a pair
+   over windows of the store staged in shared memory) against their
+   plain versions, exactly, at the main path's launch shapes that
+   phases 5b-5g leave out (the 50 kb pair's one- and two-piece compact
+   stores, the MT pair's, splice-long's 4 launches with min_intron, the
+   long-banded CIGAR launches' rotated bytes, the MT pair's flat store)
+   and on random bytes (walks across hundreds of windows, starts at the
+   windows' edges, min_intron, upper_force 0, flat overruns, launches
+   of 1 to 4096 pairs);
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -146,16 +155,21 @@ phase's seconds go to stderr as it ends.
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 
-    python3 chip_smoke.py --breakdown [extz|band|lg|strips]
+    python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk]
     python3 chip_smoke.py --lg-times
     python3 chip_smoke.py --strips-times
+    python3 chip_smoke.py --walk-times
 
 print clock64 breakdowns of a tile-diagonal of kernels 12-14, 9-10 and
-15-16 and of a strip-row of kernel A, phase 7's times of kernels 7, 8,
-15 and 16 alone (which also run on a tree before the tiled kernels 15
-and 16, to compare two trees in one call), and phase 7's times of
-kernel A alone (which also run on a tree whose kernel A takes no
-layout).
+15-16, of a strip-row of kernel A and of a step of kernels 17 and D
+(its wait for a staged window, asking for one, the rest; a block's
+loads, steps and hand-over; the stager's copies a window), phase
+7's times of kernels 7, 8, 15 and 16 alone (which also run on a tree
+before the tiled kernels 15 and 16, to compare two trees in one call),
+phase 7's times of kernel A alone (which also run on a tree whose
+kernel A takes no layout), and the times of kernels 17 and D alone at
+every launch shape of the main path (``WALK_CASES``; they also run on
+the tree before the windowed walkers).
 """
 from __future__ import annotations
 
@@ -3447,15 +3461,22 @@ def bound(name, ops_units, nbytes, int_rate, cig=False):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def pair_steps(res, runs):
+    """Each pair's steps in one walk's ``(res, runs)``: the summed
+    lengths of the runs it wrote (``res[:, 2]`` of them)."""
+    n = res[:, 2].cpu().numpy().astype(np.int64)
+    r = runs.cpu().numpy()
+    return np.array([(r[b, :n[b]].astype(np.int64) >> 4).sum()
+                     for b in range(len(n))], np.int64)
+
+
 def walk_work(res, runs, per_pair):
     """(steps, bytes) of one walk on this run's data: the steps are the
     summed lengths of its runs, each reading one direction byte; the
     bytes add one int32 for each run written (``res[:, 2]``, the runs a
     pair wrote) and ``per_pair`` bytes of start cell and result."""
     n = res[:, 2].cpu().numpy().astype(np.int64)
-    r = runs.cpu().numpy()
-    steps = int(sum((r[b, :n[b]].astype(np.int64) >> 4).sum()
-                    for b in range(len(n))))
+    steps = int(pair_steps(res, runs).sum())
     return steps, steps + 4 * int(n.sum()) + per_pair * len(n)
 
 
@@ -3973,6 +3994,342 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
     out.update(local_times(int_rate))
     emit({"phase": "times", "cases": out})
     return out
+
+
+# Kernels 17 and D, the walkers, at the main path's launch shapes: each
+# case's stores come from the forward kernels on the card, then only the
+# walks are timed (``--walk-times``, which also runs on the parent's tree),
+# broken down (``--breakdown walk``) or held to the plain walkers (phase
+# "walk").  name -> the kernel's counter.
+WALK_CASES = {
+    "single50k_cig": "extz_walk",       # the 50 kb pair's compact store
+    "single50k_extd_cig": "extz_walk",  # kernel 13's
+    "mt_cig": "extz_walk",              # the MT pair, -z100
+    "mt_extz_cig": "extz_walk",         # EXTZ_ONLY, --end-bonus 10
+    "sr_extz_cig": "extz_walk",         # sr-extension: 4096 pairs
+    "sr_extd_cig": "extz_walk",         # sr-extension-extd
+    "splice_ends_cig": "extz_walk",     # 1024 splice ends, min_intron
+    "splice_long_cig": "extz_walk",     # 64 pairs of 2-12 kb, 4 launches
+    "long1_extz_cig": "band_walk",      # the 2 kb cut long-banded pair
+    "long128_cig": "band_walk",         # the long-banded CIGAR launches
+    "sb_extz_cig": "band_walk",         # the batched route's 4096 pairs
+    "main_junc_cig": "band_walk",       # kernel 6's bytes, min_intron
+    "mt_gg2": "band_walk",              # flat: the MT pair (kernel 16)
+    "cli64_gg2_batch": "band_walk",     # flat: the CLI's kernel 8 pairs
+    "cli64_gg2_single": "band_walk",    # flat: its kernel 16 pairs
+}
+# the launch shapes phase "walk" holds to the plain walkers (the 4096-pair
+# launches are held in phases 5c and 5e, the 1024-pair ones in 5d and 5f)
+WALK_CHECKED = ("single50k_cig", "single50k_extd_cig", "mt_cig",
+                "mt_extz_cig", "splice_long_cig", "long128_cig", "mt_gg2")
+_WORKLOADS = {}
+
+
+def _workload(key):
+    """The seeded workloads, built once a process."""
+    if key not in _WORKLOADS:
+        _WORKLOADS[key] = {
+            "single": lambda: single_pair(SINGLE_SEED, SINGLE_LEN),
+            "mt": lambda: single_pair(MT_SEED, MT_LEN),
+            "sb": short_banded_jobs, "spl": splice_jobs,
+            "slong": splice_long_jobs, "long": long_banded_jobs,
+            "jobs": mixed_jobs}[key]()
+    return _WORKLOADS[key]
+
+
+def walk_launches(name):
+    """Walk case ``name`` on the card: (the kernel's wrapper, its plain
+    version, one argument tuple a launch as the main path makes them,
+    the bytes of start cell and result a pair); the forwards' stores are
+    made here by the forward kernels."""
+    import torch
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch as BT
+    from ksw2_tpu_torch.ops import batch_exts as BE
+    from ksw2_tpu_torch.ops import extd as ED
+    from ksw2_tpu_torch.ops import exts as ES
+    from ksw2_tpu_torch.ops import extz_fwd as F
+    from ksw2_tpu_torch.ops import strips_walker as W
+    from ksw2_tpu_torch.ops import traceback_device as TB
+
+    X, SPL, N = Flag.EXTZ_ONLY, Flag.SPLICE_FOR, Flag.NONE
+    single = lambda: [_workload("single")]        # noqa: E731
+    mt = lambda: [_workload("mt")]                # noqa: E731
+    compact = {
+        "single50k_cig": ("extz", lambda: [extz_launch(single(), [-1], N,
+                                                       -1)], 0),
+        "single50k_extd_cig": ("extd", lambda: [extd_launch(single(), [-1],
+                                                            N, -1)], 0),
+        "mt_cig": ("extz", lambda: [extz_launch(mt(), [-1], N, 100)], 0),
+        "mt_extz_cig": ("extz", lambda: [extz_launch(mt(), [-1], X, 100)],
+                        END_BONUS),
+        "sr_extz_cig": ("extz", lambda: sr_launches(_workload("sb")),
+                        END_BONUS),
+        "sr_extd_cig": ("extd", lambda: sr_extd_launches(_workload("sb"), X),
+                        END_BONUS),
+        "splice_ends_cig": ("exts", lambda: splice_single_launches(
+            _workload("spl") * SPLICE_TILES, SPL | X), 0),
+        "splice_long_cig": ("exts", lambda: splice_single_launches(
+            _workload("slong")[0], SPL, _workload("slong")[1],
+            SPLICE_JUNC_BONUS), 0),
+    }
+    if name in compact:
+        kind, make, eb = compact[name]
+        fwd = {"extz": F.extz_forward_cuda, "extd": ED.extd_forward_cuda,
+               "exts": ES.exts_forward_cuda}[kind]
+        walks = []
+        for ln in make():
+            a = BD.band_upload(ln, "cuda")
+            rec, p, _ = fwd(*a, ln.prm, ln.lay)
+            _, _, ql, tl, w = a[:5]
+            walks.append((p, torch.from_numpy(ln.lay.pbase).cuda(),
+                          W.start_cells(rec, ql, tl, ln.prm.flag, eb),
+                          ql, tl, w,
+                          ln.query.shape[1] + ln.target.shape[1] + 2,
+                          ln.prm.lt if kind == "exts" else 0))
+            del a, rec
+        return TB.extz_walk_cuda, TB.extz_walk_plain, walks, 24
+    if name in ("long1_extz_cig", "long128_cig", "sb_extz_cig",
+                "main_junc_cig"):
+        mi = 0
+        fwd = BD.band_forward_cuda
+        if name == "long1_extz_cig":
+            lns = [band_launch(long1_pair(_workload("long")), BAND_W, N,
+                               400)]
+        elif name == "long128_cig":
+            # one merged CIGAR bucket, longest first, split by its bytes
+            long = _workload("long")
+            order = np.argsort([-(len(q) + len(t)) for q, t in long],
+                               kind="stable")
+            ps = [long[k] for k in order]
+            lns = BD.band_prep([q for q, _ in ps], [t for _, t in ps],
+                               np.array([len(q) for q, _ in ps], np.int32),
+                               np.array([len(t) for _, t in ps], np.int32),
+                               np.full(len(ps), BAND_W, np.int32), 5,
+                               simple_mat(5, 2, -4), 4, 2, 400, N, cig=True)
+        elif name == "sb_extz_cig":
+            lns, _, _ = short_banded_launches(_workload("sb"), N)
+            fwd = BT.batch_forward_cuda
+        else:
+            spl4 = _workload("spl") * SPLICE_TILES
+            ((_, ln),) = splice_launches(spl4, SPL, [splice_junc()] *
+                                         len(spl4), SPLICE_JUNC_BONUS)
+            lns = [ln]
+            fwd = BE.batch_exts_forward_cuda
+            mi = W.walk_min_intron(ln.prm.lt, True)
+        walks = []
+        for ln in lns:
+            a = BD.band_upload(ln, "cuda")
+            rec, p = fwd(*a, ln.prm, ln.nd, ln.ncol)
+            _, _, ql, tl, w = a[:5]
+            walks.append((p, W.start_cells(rec, ql, tl, ln.prm.flag, 0), ql,
+                          tl, w, mi))
+            del a, rec
+        return BW.band_walk_cuda, BW.band_walk_plain, walks, 20
+    # flat: kernel 16 (single) or 8 (batch) on the MT pair or the CLI's
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import gg2 as G1
+    try:    # a tree before the tiled kernel 16 takes no layout
+        from ksw2_tpu_torch.ops import lg_tiles as LT
+    except ImportError:
+        LT = None
+    if name == "mt_gg2":
+        pairs, w, kname = mt(), _resolve(mt(), -1), "gg2_fwd"
+    else:
+        case = {c[0]: c for c in lg_cases(_workload("jobs"))}[name]
+        pairs, w = case[2], case[3]
+        kname = "batch_gg2_fwd" if name.endswith("batch") else "gg2_fwd"
+    table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
+    args = BF.pack_pairs(pairs, w, "cuda")
+    kw = {}
+    if LT is not None and kname in LT.KINDS:
+        kw["lay"] = LT.lg_layout(kname, [len(a) for a, _ in pairs],
+                                 [len(b) for _, b in pairs], w)
+    fn = G1.gg2_single_forward_cuda if kname == "gg2_fwd" else \
+        BG.batch_gg2_forward_cuda
+    pb_np, total = BG.flat_layout([len(a) for a, _ in pairs],
+                                  [len(b) for _, b in pairs], w)
+    pb = torch.from_numpy(pb_np).cuda()
+    _, p = fn(*args, table, 5, 4, 2, pb, total, **kw)
+    _, _, ql, tl, wt = args
+    return BW.flat_walk_cuda, BW.flat_walk_plain, [(p, pb, ql, tl, wt)], 20
+
+
+def walk_steps(outs):
+    """(all steps, the longest walk's steps) of walks' ``(res, runs)``."""
+    steps = np.concatenate([pair_steps(res, runs) for res, runs in outs])
+    return int(steps.sum()), int(steps.max(initial=0))
+
+
+def walk_times(int_rate, names=None):
+    """Kernels 17 and D on each walk case (CUDA events, the launches as
+    the main path makes them, timed together), beside their bounds: the
+    walks' steps, the longest walk's, and ns a step of the longest walk
+    (a launch waits on it)."""
+    import torch
+
+    out = {}
+    for name in names or WALK_CASES:
+        fn, _, walks, per_pair = walk_launches(name)
+        outs = [fn(*a) for a in walks]
+        steps, longest = walk_steps(outs)
+        _, nbytes = walks_work(outs, per_pair)
+        row = {"kernel": WALK_CASES[name], "launches": len(walks),
+               "pairs": sum(len(res) for res, _ in outs), "steps": steps,
+               "longest_walk_steps": longest}
+        del outs
+        row["ms"] = cuda_ms(lambda: [fn(*a) for a in walks],
+                            3 if longest > 10000 else 10)
+        row["ns_per_step_longest"] = row["ms"] * 1e6 / max(longest, 1)
+        row["bound_ms"], row["bound_by"] = bound(WALK_CASES[name], steps,
+                                                 nbytes, int_rate)
+        out[name] = row
+        del walks
+        torch.cuda.empty_cache()
+    return out
+
+
+def walk_window_rows():
+    """The walkers' rows a window (``R`` in csrc/walk.cuh)."""
+    import re
+
+    from ksw2_tpu_torch import _build
+
+    src = (_build.CSRC / "walk.cuh").read_text()
+    return int(re.search(r"constexpr int R = (\d+);", src).group(1))
+
+
+def walk_random_cases(seed=787, device="cuda"):
+    """(name, wrapper, plain version, args) walks of random direction
+    bytes (mostly state 0, continuation bits at random) that the forwards'
+    stores do not give: compact and rotated stores walked across hundreds
+    of windows from their last stored cell and from inner cells at the
+    window's edges (r0 = R - 2 .. R + 1, 2R - 1, 3.5 R), min_intron and
+    upper_force 0; flat stores whose narrow bands the walk leaves upward
+    (reads into the next rows); one-base pairs; and launches of 1, 16,
+    128 and 4096 pairs."""
+    import torch
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops import traceback_device as TB
+    from ksw2_tpu_torch.ops.bands import first_empty_diag
+    from ksw2_tpu_torch.ops.extz_fwd import row_off
+
+    rng = np.random.default_rng(seed)
+    R = walk_window_rows()
+
+    def rand_bytes(n, states=3):
+        st = rng.choice(states, n, p=[0.6] + [0.4 / (states - 1)] *
+                        (states - 1))
+        return (st | (rng.integers(0, 16, n) << 3)).astype(np.uint8)
+
+    def cell(r, tl, w):
+        i = min(tl - 1, (r + w) // 2, r)
+        return i, r - i
+
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    cases = []
+    for qlen, tlen, w, B in ((9000, 8990, 3, 8), (9000, 8990, 24, 8),
+                             (700, 650, 700, 8), (2000, 2100, 50, 1),
+                             (600, 610, 16, 4096)):
+        rows = int(first_empty_diag(qlen, tlen, w))
+        p = t(rand_bytes(int(row_off(rows, qlen, tlen, w)[0]) + 32, 4),
+              torch.uint8)
+        ends = [rows - 1] + [r for r in (R - 2, R - 1, R, R + 1, 2 * R - 1,
+                                         7 * R // 2) if r < rows - 1]
+        sts = [cell(int(rng.choice(ends)) if k >= len(ends) else ends[k],
+                    tlen, w) for k in range(B)]
+        args = (p, t(np.zeros(B), torch.int64), t(sts), t([qlen] * B),
+                t([tlen] * B), t([w] * B), qlen + tlen + 2)
+        for mi, uf in ((0, 1), (5, 1), (0, 0)):
+            cases.append((f"compact_{qlen}x{tlen}_w{w}_B{B}_mi{mi}_uf{uf}",
+                          TB.extz_walk_cuda, TB.extz_walk_plain,
+                          args + (mi, uf)))
+    for qlen, tlen, w, B in ((3000, 3020, 5, 4), (3000, 3020, 40, 16),
+                             (300, 290, 1, 128), (200, 210, 0, 16)):
+        nd = qlen + tlen - 1
+        ncol = max((min(tlen - 1, r, (r + w) >> 1) | 15) -
+                   (max(0, r - qlen + 1, (r - w + 1) >> 1) & ~15) + 1
+                   for r in range(nd))
+        p = t(rand_bytes(B * nd * ncol, 4).reshape(B, nd, ncol), torch.uint8)
+        ends = [R - 1, R, 2 * R + 1]
+        sts = [(tlen - 1, qlen - 1) if k % 4 == 0 else
+               cell(ends[k % 4 - 1], tlen, w) for k in range(B)]
+        for mi in (0, 4):
+            cases.append((f"rotated_{qlen}x{tlen}_w{w}_B{B}_mi{mi}",
+                          BW.band_walk_cuda, BW.band_walk_plain,
+                          (p, t(sts), t([qlen] * B), t([tlen] * B),
+                           t([w] * B), mi)))
+    dims = [(2000, 2100, 30), (1500, 1500, 1), (1, 1, 0), (3, 1, 0),
+            (700, 400, 8), (400, 900, 0), (500, 1400, 3)]
+    ql, tl, wt = (np.array(c, np.int32) for c in zip(*dims))
+    pb, total = BG.flat_layout(ql, tl, wt)
+    pf = rand_bytes(total)
+    ncol = BG.gg2_ncol(tl, wt)
+    for b in range(len(dims)):         # the zero row after each pair's rows
+        end = int(pb[b] + (ql[b] + tl[b]) * ncol[b])
+        pf[end - int(ncol[b]):end] = 0
+    cases.append(("flat_random", BW.flat_walk_cuda, BW.flat_walk_plain,
+                  (t(pf, torch.uint8), t(pb, torch.int64), t(ql), t(tl),
+                   t(wt))))
+    return cases
+
+
+def _walk_err(kout, pout):
+    """Largest difference between a kernel's and a plain walker's
+    ``(res, runs)``: res exactly, the runs each pair wrote."""
+    kres, kruns = kout
+    pres, pruns = pout
+    err = _max_err(kres, pres)
+    for b in range(len(kres)):
+        k = int(kres[b, 2])
+        err = max(err, _max_err(kruns[b, :k], pruns[b, :k]))
+    return err
+
+
+def phase_walk(names):
+    """Kernels 17 and D against their plain walkers, exactly (end cells,
+    run counts, escapes and runs), on the launch shapes of
+    ``WALK_CHECKED`` (the 50 kb and MT compact stores, splice-long's 4
+    launches, the long-banded CIGAR launches, the MT flat store) and on
+    :func:`walk_random_cases`."""
+    import torch
+
+    worst = {"extz_walk": 0, "band_walk": 0}
+    out = {}
+    for name in names:
+        if name == "random":
+            for cname, fn, plain, args in walk_random_cases():
+                err = _walk_err(fn(*args), plain(*args))
+                kname = "extz_walk" if fn.__name__.startswith("extz") \
+                    else "band_walk"
+                worst[kname] = max(worst[kname], err)
+                out[cname] = {"kernel": kname, "max_abs_err": err}
+                if err:
+                    emit({"phase": "walk", "case": cname, "FAIL": err})
+                    raise AssertionError(f"the walkers differ on {cname}")
+            continue
+        fn, plain, walks, _ = walk_launches(name)
+        err = 0
+        for a in walks:
+            err = max(err, _walk_err(fn(*a), plain(*a)))
+        kname = WALK_CASES[name]
+        worst[kname] = max(worst[kname], err)
+        out[name] = {"kernel": kname, "launches": len(walks),
+                     "max_abs_err": err}
+        del walks
+        torch.cuda.empty_cache()
+        if err:
+            emit({"phase": "walk", "case": name, "FAIL": err})
+            raise AssertionError(f"the walkers differ on {name}")
+    emit({"phase": "walk", "max_abs_err": worst, "cases": out})
+    return worst
 
 
 def _kernel(name, src, replaces, launches, err, row, prefix):
@@ -4602,8 +4959,185 @@ def breakdown_strips():
         S.library = saved
 
 
-def phase_breakdown(which=("extz", "band", "lg", "strips")) -> int:
-    """``--breakdown [extz|band|lg|strips]``: the clock64 breakdowns."""
+# walk.cuh: the walker warp's lane 0 sums the cycles of its walk (0 its
+# waits for staged windows: the first and each switch, 1 asking the
+# stager for one, 2 the whole walk) and counts its steps (3), windows (4)
+# and blocks of steps (5); the stager warp's lane 0 sums the cycles of
+# issuing a window's copies (6) and of waiting for them to land (7)
+WALK_BREAKDOWN_STAMPS = (
+    ('#include "common.cuh"\n',
+     '#include "common.cuh"\n'
+     "__device__ unsigned long long g_prof[16];\n"),
+    ("    stage<FORM>(P, W, S.buf[k], S.row[k], S.rel[k], lane);\n"
+     "    cp_wait();\n",
+     "    const long long t0 = clock64();\n"
+     "    stage<FORM>(P, W, S.buf[k], S.row[k], S.rel[k], lane);\n"
+     "    const long long t1 = clock64();\n    cp_wait();\n"
+     "    if (lane == 0) {\n"
+     "      atomicAdd(&g_prof[6], (unsigned long long)(t1 - t0));\n"
+     "      atomicAdd(&g_prof[7], (unsigned long long)(clock64() - t1));\n"
+     "    }\n"),
+    ("    S.req = W;\n    S.req_buf = 0;\n    bar_arrive(BAR_REQ);\n"
+     "    bar_sync(BAR_DONE);\n",
+     "    long long PF[6] = {0, 0, 0, 0, 1, 0};\n"
+     "    const long long tT = clock64();\n"
+     "    S.req = W;\n    S.req_buf = 0;\n    bar_arrive(BAR_REQ);\n"
+     "    bar_sync(BAR_DONE);\n    PF[0] += clock64() - tT;\n"
+     "    long long t1;\n"),
+    ("          bar_sync(BAR_DONE);\n          W = N;\n",
+     "          t1 = clock64();\n          bar_sync(BAR_DONE);\n"
+     "          PF[0] += clock64() - t1;\n          W = N;\n"),
+    ("          bar_arrive(BAR_REQ);\n          pending = true;\n",
+     "          t1 = clock64();\n          bar_arrive(BAR_REQ);\n"
+     "          PF[1] += clock64() - t1;\n          PF[4] += 1;\n"
+     "          pending = true;\n"),
+    ("        ++t;\n        step_back(o, i, j);\n",
+     "        ++t;\n        PF[3] += 1;\n        step_back(o, i, j);\n"),
+    # a block's parts, each stamp after an add that waits on its inputs:
+    # its loads (8), its steps (9) and the hand-over to all lanes (10)
+    ("      const int d1 = d + dd1, d2 = d + dd2, d3 = d + dd3;\n",
+     "      const long long tb0 = clock64();\n"
+     "      const int d1 = d + dd1, d2 = d + dd2, d3 = d + dd3;\n"),
+    ("      const int f3 = cell_code<FORM>(i3, e3, up);\n",
+     "      const int f3 = cell_code<FORM>(i3, e3, up);\n"
+     "      int sink_;\n"
+     "      asm volatile(\"add.s32 %0, %1, %2;\" : \"=r\"(sink_)"
+     " : \"r\"(b0 + b1 + f1), \"r\"(b2 + b3 + f2 + f3));\n"
+     "      const long long tb1 = clock64();\n"),
+    ("      const int best = __reduce_max_sync(FULL, (n << 5) | lane);\n",
+     "      asm volatile(\"add.s32 %0, %1, %2;\" : \"=r\"(sink_)"
+     " : \"r\"(n + s + sink_), \"r\"(ci + cj + got));\n"
+     "      const long long tb2 = clock64();\n"
+     "      const int best = __reduce_max_sync(FULL, (n << 5) | lane);\n"),
+    ("      t += n;\n",
+     "      t += n;\n"
+     "      asm volatile(\"add.s32 %0, %1, %2;\" : \"=r\"(sink_)"
+     " : \"r\"(state + i + sink_), \"r\"(j + got));\n"
+     "      if (lane == 0) {\n"
+     "        const long long tb3 = clock64();\n"
+     "        atomicAdd(&g_prof[8], (unsigned long long)(tb1 - tb0));\n"
+     "        atomicAdd(&g_prof[9], (unsigned long long)(tb2 - tb1));\n"
+     "        atomicAdd(&g_prof[10], (unsigned long long)(tb3 - tb2));\n"
+     "      }\n"),
+    ("      if ((i | j) < 0) break;\n    }\n  }\n",
+     "      PF[3] += n;\n      PF[5] += 1;\n"
+     "      if ((i | j) < 0) break;\n    }\n"
+     "    PF[2] += clock64() - tT;\n    if (lane == 0)\n"
+     "      for (int k = 0; k < 6; ++k)\n"
+     "        atomicAdd(&g_prof[k], (unsigned long long)PF[k]);\n  }\n"),
+)
+WALK_BREAKDOWN_CASES = ("single50k_cig", "mt_cig", "splice_long_cig",
+                        "sr_extz_cig", "long1_extz_cig", "long128_cig",
+                        "sb_extz_cig", "mt_gg2")
+
+
+def walk_breakdown_library():
+    """Both walkers' sources built as one file with a clock64-stamped copy
+    of walk.cuh in build/diag_breakdown/walk/; returns it loaded with its
+    three entry points' argument types set."""
+    import ctypes
+
+    from ksw2_tpu_torch import _build
+
+    hdr = (_build.CSRC / "walk.cuh").read_text()
+    for anchor, stamped in WALK_BREAKDOWN_STAMPS:
+        if hdr.count(anchor) != 1:
+            raise RuntimeError(f"breakdown: anchor not found once in "
+                               f"walk.cuh: {anchor!r}")
+        hdr = hdr.replace(anchor, stamped)
+    out = _build.BUILD_DIR.parent / "diag_breakdown" / "walk"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "walk.cuh").write_text(hdr)
+    src = "".join((_build.CSRC / f).read_text()
+                  for f in ("extz_walk.cu", "band_walk.cu"))
+    (out / "walks_stamped.cu").write_text(src + BREAKDOWN_READ)
+    lib_path = out / "libwalks_stamped.so"
+    nvcc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+         str(_build.CSRC), str(out / "walks_stamped.cu"), "-o",
+         str(lib_path)], capture_output=True, text=True)
+    if nvcc.returncode:
+        raise RuntimeError("breakdown: nvcc failed on walks_stamped.cu:\n"
+                           f"{nvcc.stdout[-4000:]}{nvcc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in ("ksw2t_extz_walk", "ksw2t_band_walk", "ksw2t_flat_walk"):
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def breakdown_walk():
+    """Cycles a step of kernels 17 and D by part (CUDA clock64 sums over
+    each walker warp's lane 0, over all its launches' steps): ``wait`` for
+    a staged window (the first, and each switch to one asked for at the
+    half), ``ask`` asking the stager for one, ``step`` the rest; and the
+    stager warp's cycles a window, issuing its copies and waiting for
+    them to land.  The cycles a step of the longest walk bound a launch's
+    time from below (the stamps cost cycles themselves)."""
+    import torch
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import traceback_device as TB
+
+    lib = walk_breakdown_library()
+    saved = TB.library, BW.library
+    TB.library = BW.library = lambda: lib
+    try:
+        for name in WALK_BREAKDOWN_CASES:
+            fn, _, walks, _ = walk_launches(name)
+            [fn(*a) for a in walks]
+            torch.cuda.synchronize()
+            prof = np.zeros(16, np.uint64)
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            outs = [fn(*a) for a in walks]
+            t1.record()
+            t1.synchronize()
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            steps, longest = walk_steps(outs)
+            n = max(float(prof[3]), 1.0)
+            part = {"wait": float(prof[0]) / n, "ask": float(prof[1]) / n,
+                    "walk": float(prof[2]) / n}
+            part["step"] = part["walk"] - part["wait"] - part["ask"]
+            blocks = max(float(prof[5]), 1.0)
+            block = {k: float(prof[8 + q]) / blocks for q, k in enumerate(
+                ("loads", "steps", "hand_over"))}
+            wins = max(float(prof[4]), 1.0)
+            stager = {"issue": float(prof[6]) / wins,
+                      "land": float(prof[7]) / wins}
+            emit({"phase": "breakdown", "case": name, "kernel":
+                  WALK_CASES[name], "launches": len(walks),
+                  "ms_stamped": t0.elapsed_time(t1), "steps": int(prof[3]),
+                  "walk_steps": steps, "longest_walk_steps": longest,
+                  "windows": int(prof[4]), "blocks": int(prof[5]),
+                  "steps_per_block": n / max(float(prof[5]), 1.0),
+                  "cycles_per_step": part, "cycles_per_block": block,
+                  "stager_cycles_per_window": stager})
+            del walks, outs
+            torch.cuda.empty_cache()
+    finally:
+        TB.library, BW.library = saved
+
+
+def phase_walk_times() -> int:
+    """``--walk-times``: kernels 17 and D on every walk case
+    (:func:`walk_times`), with no plain version and no check; it also
+    runs on the parent's tree, to compare two trees in one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    int_rate = phase_device()
+    phase_build()
+    emit({"phase": "walk_times", "cases": walk_times(int_rate)})
+    return 0
+
+
+def phase_breakdown(which=("extz", "band", "lg", "strips", "walk")) -> int:
+    """``--breakdown [extz|band|lg|strips|walk]``: the clock64
+    breakdowns."""
     import torch
 
     if not torch.cuda.is_available():
@@ -4620,6 +5154,8 @@ def phase_breakdown(which=("extz", "band", "lg", "strips")) -> int:
         breakdown_lg()
     if "strips" in which:
         breakdown_strips()
+    if "walk" in which:
+        breakdown_walk()
     return 0
 
 
@@ -4689,17 +5225,17 @@ def progress(msg: str) -> None:
 PHASE_WORKERS = 4
 POOL_TIMEOUT_S = 800          # a stuck worker fails the run, not the limit
 KERNEL_PHASES = ("splice", "kernel_a", "kernel_b", "rows", "band", "batch",
-                 "single", "single2", "linear_global", "local")
+                 "single", "single2", "linear_global", "local", "walk")
 ALONE = {"splice": r"main_.*",
          "kernel_a": r"(whale|mixed700|mixed512)_.*",
          "kernel_b": r"(whale|mixed700)_.*", "rows": r"short_score_z100",
          "band": r"long1_.*", "batch": r"sb_ext[zd]_score_z100_launch\d+",
          "single": r"sr_launch\d+", "single2": r"(sr_extd|splice_ends)_256",
-         "linear_global": r"cli64_.*", "local": r".*"}
+         "linear_global": r"cli64_.*", "local": r".*", "walk": r"$^"}
 # the pool's part, longest first (seconds alone on one H100: single2
 # ~120, band ~80, splice ~90, batch ~55, single ~50, linear_global ~25,
 # kernel_a ~25), the CPU references after them, then the short ones
-POOL_FIRST = ("single2", "splice", "band", "batch", "single",
+POOL_FIRST = ("single2", "splice", "band", "walk", "batch", "single",
               "linear_global", "kernel_a")
 POOL_LAST = ("kernel_b", "rows")
 
@@ -4724,9 +5260,11 @@ def run_kernel_phase(name, alone):
             short_banded_jobs(), splice_jobs())),
         "linear_global": lambda: (phase_linear_global,
                                   lg_cases(mixed_jobs())),
+        "walk": lambda: (phase_walk, [*WALK_CHECKED, "random"]),
     }[name]()
     part = [c for c in cases
-            if (re.fullmatch(ALONE[name], c[0]) is not None) == alone]
+            if (re.fullmatch(ALONE[name], c if isinstance(c, str) else c[0])
+                is not None) == alone]
     return fn(part) if part else None
 
 
@@ -4874,7 +5412,8 @@ def main() -> int:
     clock["oracle_cpu"] = sum(s for k, s in secs.items()
                               if k.startswith("oracle:"))
     err_spl, err_a, err_b, err_r, err_band, err_batch, err_single, \
-        err_single2, err_lg, err_local = (errs[n] for n in KERNEL_PHASES)
+        err_single2, err_lg, err_local, err_walk = (errs[n]
+                                                    for n in KERNEL_PHASES)
     scases = splice_cases(spl)
     cases = fwd_cases(jobs)
     rcases = rows_cases(short)
@@ -4903,7 +5442,8 @@ def main() -> int:
         _kernel("band_walk", BAND_WALK_SRC, BAND_WALK_REPLACES,
                 counts["band_walk"],
                 max(err_band["band_walk"], err_batch["band_walk"],
-                    err_spl["band_walk"], err_lg["band_walk"]), lc, "walk"),
+                    err_spl["band_walk"], err_lg["band_walk"],
+                    err_walk["band_walk"]), lc, "walk"),
         _kernel("batch_fwd", BATCH_SRC, BATCH_REPLACES, counts["batch_fwd"],
                 err_batch["batch_fwd"], times["sb_extz_score"], "fwd"),
         _kernel("batch_extd_fwd", BATCH_SRC, BATCH_EXTD_REPLACES,
@@ -4916,7 +5456,8 @@ def main() -> int:
                 err_single["extz_fwd"], times["sr_extz_cig"], "fwd"),
         _kernel("extz_walk", EXTZ_WALK_SRC, EXTZ_WALK_REPLACES,
                 counts["extz_walk"],
-                max(err_single["extz_walk"], err_single2["extz_walk"]),
+                max(err_single["extz_walk"], err_single2["extz_walk"],
+                    err_walk["extz_walk"]),
                 times["sr_extz_cig"], "walk"),
         _kernel("extd_fwd", EXTZ_SRC, EXTD_REPLACES, counts["extd_fwd"],
                 err_single2["extd_fwd"], times["sr_extd_256"], "fwd"),
@@ -4948,7 +5489,9 @@ if __name__ == "__main__":
         sys.exit(phase_lg_times())
     if sys.argv[1:2] == ["--strips-times"]:
         sys.exit(phase_strips_times())
+    if sys.argv[1:2] == ["--walk-times"]:
+        sys.exit(phase_walk_times())
     if sys.argv[1:2] == ["--breakdown"]:
         sys.exit(phase_breakdown(tuple(sys.argv[2:])
-                                 or ("extz", "band", "lg", "strips")))
+                                 or ("extz", "band", "lg", "strips", "walk")))
     sys.exit(main())

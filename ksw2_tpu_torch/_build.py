@@ -49,8 +49,8 @@ _SIGNATURES = {
     # two, nd, ncol, TP, NW, RING, rec, p, stream
     "ksw2t_band_fwd": [_P] * 6 + [_I] * 26 + [_P] * 3,
     # p, starts, qlen, tlen, w, B, nd, ncol, wr, min_intron, res, runs,
-    # stream
-    "ksw2t_band_walk": [_P] * 5 + [_I] * 5 + [_P] * 3,
+    # ops, stream
+    "ksw2t_band_walk": [_P] * 5 + [_I] * 5 + [_P] * 4,
     # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
     # two, nd, ncol, TP, warps, rec, p, stream
@@ -65,10 +65,10 @@ _SIGNATURES = {
     # progress, bnd, D, hse, W, rec, stop, p, stream
     "ksw2t_extz_fwd": [_I] + [_P] * 12 + [_I] * 22 + [_P] * 10,
     # p, pbase, starts, qlen, tlen, w, B, wr, min_intron, upper_force, res,
-    # runs, stream
-    "ksw2t_extz_walk": [_P] * 6 + [_I] * 4 + [_P] * 3,
-    # p, pbase, starts, qlen, tlen, w, B, wr, res, runs, stream
-    "ksw2t_flat_walk": [_P] * 6 + [_I] * 2 + [_P] * 3,
+    # runs, ops, stream
+    "ksw2t_extz_walk": [_P] * 6 + [_I] * 4 + [_P] * 4,
+    # p, pbase, starts, qlen, tlen, w, B, wr, res, runs, ops, stream
+    "ksw2t_flat_walk": [_P] * 6 + [_I] * 2 + [_P] * 4,
     # qs, ts, qlen, tlen, w, B, Lq, Lt, mch, mis, e, xdrop, TP, warps, rec,
     # stream
     "ksw2t_batch_extf_fwd": [_P] * 5 + [_I] * 9 + [_P] * 2,

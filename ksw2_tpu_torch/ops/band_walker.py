@@ -24,6 +24,9 @@ tensors and :func:`band_walk_plain` for CPU tensors.  Its flat form
 ``ksw_backtrack`` (``ksw2_gg2_sse.c:124``): no upper force state (NULL
 ``off_end``), so a walk that leaves the band upward reads on into the
 next rows, and past the pair's store it reads 0 (``spec/backtrack.py``).
+Both forms (``csrc/walk.cuh``) give each pair a block of two warps, one
+staging windows of the store in shared memory in whole 16-byte copies,
+the other walking them, so a store must start on a 16-byte boundary.
 """
 from __future__ import annotations
 
@@ -113,6 +116,8 @@ def band_walk_cuda(p, starts, qlen, tlen, w, min_intron: int = 0):
     dev = p.device
     if p.dtype != torch.uint8 or p.dim() != 3 or not p.is_contiguous():
         raise ValueError("p must be a contiguous (B, nd, ncol) uint8 tensor")
+    if p.data_ptr() % 16:
+        raise ValueError("p must start on a 16-byte boundary")
     B, nd, ncol = p.shape
     for t, name, shape in ((starts, "starts", (B, 2)), (qlen, "qlen", (B,)),
                            (tlen, "tlen", (B,)), (w, "w", (B,))):
@@ -123,13 +128,14 @@ def band_walk_cuda(p, starts, qlen, tlen, w, min_intron: int = 0):
     wr = nd + 3                 # from the shape: no device read
     res = torch.empty((B, 3), dtype=torch.int32, device=dev)
     runs = torch.empty((B, wr), dtype=torch.int32, device=dev)
+    ops = torch.empty(B * wr, dtype=torch.uint8, device=dev)   # scratch
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
         err = lib.ksw2t_band_walk(
             p.data_ptr(), starts.data_ptr(), qlen.data_ptr(),
             tlen.data_ptr(), w.data_ptr(), B, nd, ncol, wr, int(min_intron),
-            res.data_ptr(), runs.data_ptr(),
+            res.data_ptr(), runs.data_ptr(), ops.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "band_walk")
     LAUNCHES["band_walk"] += 1
@@ -188,6 +194,8 @@ def flat_walk_cuda(p, pbase, qlen, tlen, w):
     dev = p.device
     if p.dtype != torch.uint8 or p.dim() != 1 or not p.is_contiguous():
         raise ValueError("p must be a contiguous 1-d uint8 tensor")
+    if p.data_ptr() % 16:
+        raise ValueError("p must start on a 16-byte boundary")
     B = qlen.shape[0]
     for t, name in ((qlen, "qlen"), (tlen, "tlen"), (w, "w")):
         if t.device != dev or t.dtype != torch.int32 or \
@@ -201,12 +209,13 @@ def flat_walk_cuda(p, pbase, qlen, tlen, w):
     wr = int((qlen + tlen).max()) + 2 if B else 2
     res = torch.empty((B, 3), dtype=torch.int32, device=dev)
     runs = torch.empty((B, wr), dtype=torch.int32, device=dev)
+    ops = torch.empty(B * wr, dtype=torch.uint8, device=dev)   # scratch
     lib = library()
     with torch.cuda.device(dev):
         err = lib.ksw2t_flat_walk(
             p.data_ptr(), pbase.data_ptr(), starts.data_ptr(),
             qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), B, wr,
-            res.data_ptr(), runs.data_ptr(),
+            res.data_ptr(), runs.data_ptr(), ops.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "band_walk")
     LAUNCHES["band_walk"] += 1

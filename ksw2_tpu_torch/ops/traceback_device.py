@@ -18,6 +18,10 @@ op rows, block streaming and 2-bit packing are gone.
 The walker has two implementations: ``csrc/extz_walk.cu`` for CUDA tensors
 and :func:`extz_walk_plain` for CPU tensors, which finds each row's offset
 by a running sum of the row widths where the kernel uses the closed form.
+The kernel (``csrc/walk.cuh``) gives each pair a block of two warps, one
+staging windows of the store in shared memory in whole 16-byte copies,
+the other walking them: the store must start on a 16-byte boundary (the
+compact layout's pair bases and rows are multiples of 16).
 """
 from __future__ import annotations
 
@@ -114,6 +118,8 @@ def extz_walk_cuda(p, pbase, starts, qlen, tlen, w, wr: int,
     dev = p.device
     if p.dtype != torch.uint8 or p.dim() != 1 or not p.is_contiguous():
         raise ValueError("p must be a contiguous 1-D uint8 tensor")
+    if p.data_ptr() % 16:
+        raise ValueError("p must start on a 16-byte boundary")
     B = len(qlen)
     for t, name, shape, dt in ((pbase, "pbase", (B,), torch.int64),
                                (starts, "starts", (B, 2), torch.int32),
@@ -126,6 +132,7 @@ def extz_walk_cuda(p, pbase, starts, qlen, tlen, w, wr: int,
                              f"tensor on {dev}")
     res = torch.empty((B, 4), dtype=torch.int32, device=dev)
     runs = torch.empty((B, wr), dtype=torch.int32, device=dev)
+    ops = torch.empty(B * wr, dtype=torch.uint8, device=dev)   # scratch
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
@@ -133,7 +140,8 @@ def extz_walk_cuda(p, pbase, starts, qlen, tlen, w, wr: int,
             p.data_ptr(), pbase.data_ptr(), starts.data_ptr(),
             qlen.data_ptr(), tlen.data_ptr(), w.data_ptr(), B, wr,
             int(min_intron), int(upper_force), res.data_ptr(),
-            runs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            runs.data_ptr(), ops.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check(err, "extz_walk")
     LAUNCHES["extz_walk"] += 1
     return res, runs

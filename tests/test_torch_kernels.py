@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import band_edge_pairs, random_pair, spliced_pair
+from chip_smoke import (band_edge_pairs, random_pair, spliced_pair,
+                        walk_random_cases)
 from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.core.matrix import encode_dna, simple_mat
@@ -935,3 +936,41 @@ def test_local_kernel_matches_plain(cuda_device, mat):
         want = BL.local_forward_plain(*args, prm)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["compact", "rotated", "flat"])
+def test_walk_kernels_on_random_stores(cuda_device, form):
+    """Kernels 17 (compact) and D (rotated, flat) against their plain
+    walkers on random bytes: walks across hundreds of windows, starts at
+    the window's edges, min_intron, upper_force 0, flat overruns into the
+    next rows, one-base pairs, launches of 1 to 4096 pairs."""
+    n = 0
+    for name, fn, plain, args in walk_random_cases():
+        if not name.startswith(form):
+            continue
+        n += 1
+        kres, kruns = fn(*args)
+        pres, pruns = plain(*args)
+        assert torch.equal(kres.cpu(), pres.cpu()), name
+        kr, pr = kruns.cpu(), pruns.cpu()
+        for b in range(len(kres)):
+            k = int(kres[b, 2])
+            assert torch.equal(kr[b, :k], pr[b, :k]), (name, b)
+    assert n > 0
+
+
+@pytest.mark.cuda
+def test_walk_kernels_reject_a_misaligned_store(cuda_device):
+    """The walkers copy 16-byte chunks: a store that does not start on a
+    16-byte boundary raises before any launch."""
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    one = torch.ones(1, **i32)
+    starts = torch.zeros((1, 2), **i32)
+    p = torch.zeros(80, dtype=torch.uint8, device=cuda_device)[1:65]
+    with pytest.raises(ValueError, match="16-byte"):
+        TB.extz_walk_cuda(p, torch.zeros(1, dtype=torch.int64,
+                                         device=cuda_device), starts, one,
+                          one, one, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        BW.band_walk_cuda(p.view(1, 4, 16), starts, one, one, one)
