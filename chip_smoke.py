@@ -41,11 +41,17 @@ phase's seconds go to stderr as it ends.
    bytes;
 5c. batch: kernels E / E2 (batched forward, one- and two-piece, one warp
    a pair) against their plain version, records and direction bytes
-   exactly, in score, CIG and APPROX forms with w 0, 1, 16, 100 and
-   unbanded on targets up to 1700 (P = 1-14 rows a pair on the TPU),
-   zdrop -1/100, RIGHT, GENERIC_SC, default and swapped two-piece costs,
-   and on the launches the scheduler makes of the short-banded workload
-   (below); kernel D on their bytes;
+   exactly, in both forms: the wide form (shared-memory strips) on
+   launches of w 0, 1, 16, 100 and unbanded pairs on targets up to 1700
+   (P = 1-14 rows a pair on the TPU), and the register form (a window of
+   128 or 256 positions in registers) at w 16 and 100 and at its
+   windows' edges (w 63, 64, 191), on long pairs whose window slides
+   dozens of times and on a sweep of Z-drops over every diagonal of a
+   group; score, CIG and APPROX, zdrop -1/20/100, RIGHT, GENERIC_SC,
+   default and swapped two-piece costs; and at every launch shape of the
+   main path: the one launch a form of the short-banded workload and the
+   wide form's largest EQX CIGAR and end_bonus score launches (below);
+   kernel D on their bytes;
 5d. splice: kernel A's spl form (score and CIG) with kernel B's nop
    form on its bytes, and kernel 6 (batched exts forward, one warp a
    pair; score, CIG and APPROX) with kernel D walking its bytes with
@@ -107,7 +113,10 @@ phase's seconds go to stderr as it ends.
    seeded short-banded workload (seed 780, 4096 pairs of 150-512 bp at
    -w100 -z100: extz, extd and approx scores, extz and extd CIGARs; EQX
    CIGARs and two-piece end_bonus scores on the mixed workload's pairs
-   of 1536 bp or less; only kernels E, E2 and D may launch), and the
+   of 1536 bp or less; only kernels E, E2 and D may launch; a batch's
+   register-form buckets go out as one launch: one score launch a
+   short-banded batch and ceil(bytes / LAUNCH_BYTES) CIGAR launches,
+   asserted against the planner), and the
    splice path on the JAX bench's spliced workload (seed 1234, 256 pairs
    of 290 x 512 bp with a GT..AG intron, tiled 4x; minimap2 -x splice
    costs A1 B2 -O2,32 -E1,0 -C9 -z200): CIGARs, scores and 4 async
@@ -155,21 +164,26 @@ phase's seconds go to stderr as it ends.
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 
-    python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk]
+    python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk|batch]
     python3 chip_smoke.py --lg-times
     python3 chip_smoke.py --strips-times
     python3 chip_smoke.py --walk-times
+    python3 chip_smoke.py --batch-times
 
 print clock64 breakdowns of a tile-diagonal of kernels 12-14, 9-10 and
-15-16, of a strip-row of kernel A and of a step of kernels 17 and D
+15-16, of a strip-row of kernel A, of a step of kernels 17 and D
 (its wait for a staged window, asking for one, the rest; a block's
-loads, steps and hand-over; the stager's copies a window), phase
+loads, steps and hand-over; the stager's copies a window) and of a
+diagonal of kernels E / E2's register form (head, cells, argmax,
+store; a group's replay and staging), phase
 7's times of kernels 7, 8, 15 and 16 alone (which also run on a tree
 before the tiled kernels 15 and 16, to compare two trees in one call),
 phase 7's times of kernel A alone (which also run on a tree whose
 kernel A takes no layout), and the times of kernels 17 and D alone at
 every launch shape of the main path (``WALK_CASES``; they also run on
-the tree before the windowed walkers).
+the tree before the windowed walkers), and the times of kernels E / E2
+alone at the main path's launch shapes (``BATCH_TIME_CASES``; they also
+run on the tree before the register form).
 """
 from __future__ import annotations
 
@@ -1227,8 +1241,9 @@ def short_banded_launches(sb, flag, costs=None, choose=None):
     """The launches the scheduler makes of the short-banded workload
     (-w100 -z100) in one form: its buckets as ``scheduler._route`` makes
     them (the bucket ladder, longest pairs first, routed by ``choose``;
-    by default every bucket takes the batched route, as phase 6 checks),
-    each split by ``band_prep`` as the scheduler splits it.  Returns the
+    by default every bucket takes the batched route, as phase 6 checks;
+    the batched route's register-form buckets merged into one), each
+    split by ``band_prep`` as the scheduler splits it.  Returns the
     launches and the host seconds of the routing and of the prep."""
     from ksw2_tpu_torch.batch import scheduler as sched
     from ksw2_tpu_torch.core.flags import Flag
@@ -1239,8 +1254,9 @@ def short_banded_launches(sb, flag, costs=None, choose=None):
     q, e, q2, e2 = (4, 2, 0, 0) if costs is None else costs
     jobs = [sched.AlignJob(a, b, SHORT_BANDED_W) for a, b in sb]
     t0 = time.perf_counter()
-    buckets = sched._route(jobs, mat, q + e, [None] * len(jobs),
-                           choose or (lambda *_: "batch"))
+    buckets = sched._merged_batch(sched._route(
+        jobs, mat, q + e, [None] * len(jobs), choose or (lambda *_: "batch")),
+        5)
     t1 = time.perf_counter()
     launches = [ln for bk in buckets for ln in band_prep(
         [jobs[i].query for i in bk.idxs], [jobs[i].target for i in bk.idxs],
@@ -1248,6 +1264,57 @@ def short_banded_launches(sb, flag, costs=None, choose=None):
         cig=not int(flag) & int(Flag.SCORE_ONLY), two=costs is not None,
         q2=q2, e2=e2)]
     return launches, t1 - t0, time.perf_counter() - t1
+
+
+def batch_route_launches(aln, pairs):
+    """The batched route's launches the scheduler makes of ``pairs``
+    under the aligner ``aln`` (host only): the route table of its path
+    (scores, two-piece scores with end_bonus or EXTZ_ONLY on the CIGAR
+    path's table, CIGARs), the buckets merged as ``_route`` merges them,
+    then ``band_prep``."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops.band import band_prep
+    from ksw2_tpu_torch.ops.strips import canonical_costs
+
+    two = aln.q2 is not None
+    q2, e2 = (aln.q2, aln.e2) if two else (0, 0)
+    flag = Flag(int(aln.flag))
+    mat = np.asarray(aln.mat, np.int8).reshape(-1)
+    cig = not flag & Flag.SCORE_ONLY
+    qc, ec = canonical_costs(aln.q, aln.e, q2, e2)[:2] if two else \
+        (aln.q, aln.e)
+    args = (flag, aln.m, mat, aln.zdrop, aln.q, aln.e, two, q2, e2)
+    kw = {}
+    if cig:
+        choose, qe = sched._cigar_chooser(*args), qc + ec
+    else:
+        kw["strips_costs"] = (qc, ec)
+        qe = aln.q + aln.e
+        choose = sched._cigar_path_score_chooser(flag, mat) if two and (
+            aln.end_bonus or flag & Flag.EXTZ_ONLY) else \
+            sched._score_chooser(*args)
+    jl = [sched.AlignJob(q, t, aln.w) for q, t in pairs]
+    bks = sched._merged_batch(
+        sched._route(jl, mat, qe, [None] * len(jl), choose, **kw), aln.m)
+    return [ln for bk in bks if bk.route == "batch" for ln in band_prep(
+        [jl[i].query for i in bk.idxs], [jl[i].target for i in bk.idxs],
+        bk.qlen, bk.tlen, bk.w, aln.m, mat, aln.q, aln.e, aln.zdrop, flag,
+        cig=cig, two=two, q2=q2, e2=e2)]
+
+
+def batch_wide_aligners():
+    """The batched route's wide-form runs of phase 6 (its aligners by
+    run name, on the mixed workload's pairs of 1536 bp or less): EQX
+    CIGARs and two-piece end_bonus scores, unbanded."""
+    from ksw2_tpu_torch import Aligner
+    from ksw2_tpu_torch.core.flags import Flag
+
+    q, e, q2, e2 = EXTD
+    return {"short1536_eqx_cigar": Aligner(zdrop=100, flag=Flag.EQX),
+            "short1536_extd_end_bonus_score": Aligner(
+                q=q, e=e, q2=q2, e2=e2, zdrop=100, end_bonus=END_BONUS,
+                flag=Flag.SCORE_ONLY)}
 
 
 LONG1_CUT = 2000
@@ -1414,14 +1481,15 @@ def phase_band(cases):
 
 def batch_cases(sb):
     """(name, launch) cases for kernels E and E2: seeded launches on
-    targets up to 512 (P = 1-4 rows a pair on the TPU; N bases, one
-    clipped query) with w 0, 1, 16, 100 and unbanded in score, CIG and
-    APPROX forms, zdrop -1/100, RIGHT and GENERIC_SC, one-piece,
-    two-piece and swapped costs; two wide launches on targets of 1000 to
-    1700 (P = 8, 10, 14; the score form's targets over 1536), score and
-    CIG; and the launches the main path makes of the short-banded
-    workload's 4096 pairs, one- and two-piece score, and the first of
-    its two-piece CIG launches."""
+    targets up to 512 (N bases, one clipped query) with w 0, 1, 16, 100
+    and unbanded in one launch (the wide form: its unbanded pairs set
+    the launch's ncol) in score, CIG and APPROX forms, zdrop -1/100,
+    RIGHT and GENERIC_SC, one-piece, two-piece and swapped costs; two
+    wide launches on targets of 1000 to 1700, score and CIG; the register
+    form at its edges (``reg_cases``); and the main path's launch shapes:
+    the one launch a form of the short-banded workload's 4096 pairs (one-
+    and two-piece scores, two-piece CIG) and the wide form's largest
+    launch of its EQX CIGARs and end_bonus scores (``batch_main_wide``)."""
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import encode_dna
 
@@ -1436,8 +1504,32 @@ def batch_cases(sb):
         wide.append((encode_dna(q), encode_dna(t)))
     w_small = [0, 1, 16, 100, 600]          # 600: unbanded
     w_wide = [100, 1300, 1800]              # the last two unbanded
+    cases = [(f"small_{name}",
+              band_launch(small, w_small, flag, zdrop, costs,
+                          _generic_mat() if flag & Flag.GENERIC_SC
+                          else None))
+             for name, flag, zdrop, costs in batch_forms()]
+    cases += [
+        ("wide_extz_score_z100",
+         band_launch(wide, w_wide, Flag.SCORE_ONLY, 100)),
+        ("wide_extd_cig_right_zm1",
+         band_launch(wide, w_wide, Flag.RIGHT, -1, EXTD)),
+    ]
+    cases += reg_cases(small, rng)
+    for name, flag, costs in (("sb_extz_score_z100", Flag.SCORE_ONLY, None),
+                              ("sb_extd_score_z100", Flag.SCORE_ONLY, EXTD),
+                              ("sb_extd_cig_z100", Flag.NONE, EXTD)):
+        launches, _, _ = short_banded_launches(sb, flag, costs)
+        cases += [(f"{name}_launch{k}", ln) for k, ln in enumerate(launches)]
+    return cases + batch_main_wide()
+
+
+def batch_forms():
+    """The batched cases' forms: (name, flag, zdrop, two-piece costs)."""
+    from ksw2_tpu_torch.core.flags import Flag
+
     approx = Flag.APPROX_MAX | Flag.APPROX_DROP
-    forms = [
+    return [
         ("extz_score_z100", Flag.SCORE_ONLY, 100, None),
         ("extz_cig_right_zm1", Flag.RIGHT, -1, None),
         ("extz_approx_score_zm1", Flag.SCORE_ONLY | Flag.APPROX_MAX, -1,
@@ -1452,32 +1544,86 @@ def batch_cases(sb):
         ("swapped_score_right_zm1", Flag.SCORE_ONLY | Flag.RIGHT, -1,
          SWAPPED),
     ]
-    cases = [(f"small_{name}",
-              band_launch(small, w_small, flag, zdrop, costs,
-                          _generic_mat() if flag & Flag.GENERIC_SC
-                          else None))
-             for name, flag, zdrop, costs in forms]
-    cases += [
-        ("wide_extz_score_z100",
-         band_launch(wide, w_wide, Flag.SCORE_ONLY, 100)),
-        ("wide_extd_cig_right_zm1",
-         band_launch(wide, w_wide, Flag.RIGHT, -1, EXTD)),
-    ]
-    for name, flag, costs in (("sb_extz_score_z100", Flag.SCORE_ONLY, None),
-                              ("sb_extd_score_z100", Flag.SCORE_ONLY, EXTD),
-                              ("sb_extd_cig_z100", Flag.NONE, EXTD)):
-        launches, _, _ = short_banded_launches(sb, flag, costs)
-        if flag == Flag.NONE:
-            launches = launches[:1]
-        cases += [(f"{name}_launch{k}", ln) for k, ln in enumerate(launches)]
-    return cases
+
+
+def reg_cases(small, rng):
+    """Kernel E / E2's register form at its edges: launches at w 100 in
+    every form, and at w 16, at the widest band the window takes (w 191,
+    ncol 208) and the narrowest of the wide form (w 192), one- and
+    two-piece CIG, the small pairs plus a one-base pair (the plain twin
+    takes milliseconds a diagonal, so the sweep keeps the fewest launches
+    that cover each form and edge); long pairs at w 30 whose window
+    slides dozens of times, clipped on the query and on the target; and
+    a sweep of pairs that align for 10-89 bp and then run into unrelated
+    sequence at -z20, so that Z-drops fall on every diagonal of a group
+    (its first and last among them), score, CIG and APPROX."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    pairs = small + [(small[0][0][:1], small[0][1][:1])]
+    out = []
+    for w in (16, 100, 191, 192):
+        for name, flag, zdrop, costs in batch_forms():
+            if w != 100 and name not in ("extz_cig_right_zm1",
+                                         "extd_cig_z100"):
+                continue
+            out.append((f"reg_w{w}_{name}", band_launch(
+                pairs, w, flag, zdrop, costs,
+                _generic_mat() if flag & Flag.GENERIC_SC else None)))
+    longp = []
+    for L in (1400, 900, 1500):
+        t, q = random_pair(rng, L, divergence=0.12, indel=0.05)
+        longp.append((encode_dna(q), encode_dna(t)))
+    longp[1] = (longp[1][0][:100], longp[1][1])
+    longp.append((longp[0][0], longp[0][1][:200]))
+    drop = []
+    for A in range(10, 90):
+        t, q = random_pair(rng, A, divergence=0.04, indel=0.01)
+        tails = ["".join(rng.choice(list("ACGT"), size=140)) for _ in "ab"]
+        drop.append((encode_dna(q + tails[0]), encode_dna(t + tails[1])))
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    for name, flag, zdrop, costs in (
+            ("extz_cig_zm1", Flag.NONE, -1, None),
+            ("extd_score_zm1", Flag.SCORE_ONLY, -1, EXTD),
+            ("extz_approxdrop_cig_z100", approx, 100, None)):
+        out.append((f"reg_slides_{name}", band_launch(longp, 30, flag, zdrop,
+                                                      costs)))
+    for name, flag, costs in (("extz_cig", Flag.NONE, None),
+                              ("extd_score", Flag.SCORE_ONLY, EXTD),
+                              ("extz_approxdrop_score",
+                               Flag.SCORE_ONLY | approx, None),
+                              ("extd_cig_right", Flag.RIGHT, EXTD)):
+        out.append((f"reg_drops_{name}_z20", band_launch(drop, 40, flag, 20,
+                                                         costs)))
+    return out
+
+
+def batch_main_wide():
+    """The wide form's largest launch (longest target) of each wide run of
+    phase 6's batched path, as the scheduler plans it."""
+    jobs = mixed_jobs()
+    short1536 = [p for p in jobs if len(p[1]) <= 1536]
+    out = []
+    for name, aln in batch_wide_aligners().items():
+        lns = batch_route_launches(aln, short1536)
+        ln = max(lns, key=lambda x: x.target.shape[1])
+        out.append((f"main_{name}", ln))
+    return out
+
+
+# pairs of a large CIGAR launch phase 5c holds to the plain forward
+BATCH_PLAIN_PAIRS = 512
 
 
 def phase_batch(cases):
     """Kernels E / E2 (batch_fwd, batch_extd_fwd) against the plain
     forward on every case, records and direction bytes exactly; kernel D
     (band_walk) against the plain walker on the kernels' bytes (the
-    first 256 pairs of a launch)."""
+    first 256 pairs of a launch).  The kernel runs every launch whole; a
+    CIGAR launch of more than ``BATCH_PLAIN_PAIRS`` pairs is held to the
+    plain forward on that many of its pairs, spread from its longest to
+    its shortest (a pair's result does not depend on its launch; the
+    score launches, whose plain times phase 7 reports, run whole)."""
     import torch
     from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import band_walker as BW
@@ -1489,11 +1635,17 @@ def phase_batch(cases):
     for name, ln in cases:
         args = BD.band_upload(ln, "cuda")
         krec, kp = BT.batch_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
-        prec, pp = plain_run((name, "fwd"), BD.band_forward_plain, *args,
+        B = len(ln.qlen)
+        pick = slice(None)
+        if ln.prm.cig and B > BATCH_PLAIN_PAIRS:
+            pick = torch.from_numpy(np.unique(np.linspace(
+                0, B - 1, BATCH_PLAIN_PAIRS).round().astype(np.int64))).cuda()
+        pargs = [a[pick] for a in args[:5]] + list(args[5:])
+        prec, pp = plain_run((name, "fwd"), BD.band_forward_plain, *pargs,
                              ln.prm, ln.nd, ln.ncol)
-        errs = {"records": _max_err(krec, prec)}
+        errs = {"records": _max_err(krec[pick], prec)}
         if ln.prm.cig:
-            errs["bytes"] = _max_err(kp, pp)
+            errs["bytes"] = _max_err(kp[pick], pp)
             del pp
             _, _, ql, tl, w, _ = args
             n = min(256, len(ln.qlen))
@@ -1510,8 +1662,8 @@ def phase_batch(cases):
         kname = "batch_extd_fwd" if ln.prm.two else "batch_fwd"
         worst[kname] = max(worst[kname], errs["records"],
                            errs.get("bytes", 0))
-        out[name] = {"pairs": len(ln.qlen), "nd": ln.nd, "ncol": ln.ncol,
-                     "Lt": int(ln.target.shape[1]),
+        out[name] = {"pairs": B, "plain_pairs": len(prec), "nd": ln.nd,
+                     "ncol": ln.ncol, "Lt": int(ln.target.shape[1]),
                      "w": sorted({int(x) for x in ln.w})[:8],
                      "max_abs_err": errs}
         del kp
@@ -2949,6 +3101,38 @@ def band_launch_plan(alns, long, jobs):
     return plan
 
 
+def batch_launch_plan(runs):
+    """The batched launches a batch of the batched path makes, by kernel,
+    as the scheduler plans them (host only): a batch's register-form
+    buckets merged into one, so one score launch a short-banded batch and
+    ceil(bytes / LAUNCH_BYTES) CIGAR launches, the bytes their rotated
+    stores (B x nd x ncol), each in the register form and walked once
+    (asserted here); the wide form's buckets a launch each.  ``runs``
+    are the path's (aligner, pairs) by run name."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops import strips
+    from ksw2_tpu_torch.ops.batch import batch_form
+
+    counts = {}
+    for name, (aln, pairs) in runs.items():
+        lns = batch_route_launches(aln, pairs)
+        cig = not Flag(int(aln.flag)) & Flag.SCORE_ONLY
+        if name.startswith("short_banded"):
+            nbytes = sum(len(ln.qlen) * ln.nd * ln.ncol for ln in lns)
+            want = -(-nbytes // strips.LAUNCH_BYTES) if cig else 1
+            if len(lns) != want or \
+                    not all(batch_form(ln.ncol, aln.m) for ln in lns):
+                raise AssertionError(
+                    f"{name}: {len(lns)} batched launches (forms "
+                    f"{[batch_form(ln.ncol, aln.m) for ln in lns]}), "
+                    f"planned {want} in the register form")
+        kern = "batch_extd_fwd" if aln.q2 is not None else "batch_fwd"
+        counts[kern] = counts.get(kern, 0) + len(lns)
+        if cig:
+            counts["band_walk"] = counts.get("band_walk", 0) + len(lns)
+    return {"batch": counts}
+
+
 def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
@@ -3010,9 +3194,9 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
         "short_banded_cigar": Aligner(w=SW, zdrop=100),
         "short_banded_extd_cigar": Aligner(q2=q2, e2=e2, w=SW, zdrop=100),
     }
-    eqx = Aligner(zdrop=100, flag=Flag.EQX)
-    bonus = Aligner(q=q, e=e, q2=q2, e2=e2, zdrop=100, end_bonus=END_BONUS,
-                    flag=Flag.SCORE_ONLY)
+    wide = batch_wide_aligners()
+    eqx = wide["short1536_eqx_cigar"]
+    bonus = wide["short1536_extd_end_bonus_score"]
     ref_bonus = [_fields9(ez) for ez in scorer2.extend_batch(short1536)]
 
     def same9(out):
@@ -3268,6 +3452,9 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     paths += local_paths(kernels + lg_kernels)
     plan = single_launch_plan(sb, spl4, slong)
     plan.update(band_launch_plan(band, long, jobs))
+    plan.update(batch_launch_plan({
+        **{name: (aln, sb) for name, aln in sbat.items()},
+        **{name: (aln, short1536) for name, aln in wide.items()}}))
     # kernel A: one launch a score batch (the batch's strips buckets
     # merged), one a bucket for CIGARs
     strips_plan = strips_launch_plan([
@@ -3363,10 +3550,6 @@ def phase_profile(long, sb, spl, jobs, mt):
     (one- and two-piece mixed-512) and the whale CIGAR batch, the MT
     pair's global alignment and the two CLI runs (torch.profiler),
     beside the run's host wall and the device's idle share of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from ksw2_tpu_torch import Aligner
     from ksw2_tpu_torch.core.flags import Flag
     from ksw2_tpu_torch.core.matrix import simple_mat
@@ -3419,6 +3602,19 @@ def phase_profile(long, sb, spl, jobs, mt):
     l64k = local_sets()["local_64k"]
     runs.append(("local_64k", lambda: local_batch_device(*l64k, 5, lmat, q,
                                                          e)))
+    out = profile_runs(runs)
+    emit({"phase": "profile", "runs": out})
+    return out
+
+
+def profile_runs(runs):
+    """Each (name, fn) of ``runs`` once warm and once under
+    torch.profiler: its host wall, its device time by kernel and in all,
+    and the device's idle share of the wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     out = {}
     for name, fn in runs:
         fn()
@@ -3447,7 +3643,6 @@ def phase_profile(long, sb, spl, jobs, mt):
                          rows.items(), key=lambda kv: -kv[1])[:8]),
                      "device_ms": round(busy, 3),
                      "idle_share": round(1 - busy / (wall * 1e3), 4)}
-    emit({"phase": "profile", "runs": out})
     return out
 
 
@@ -3926,24 +4121,86 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
         out[name] = row
         torch.cuda.empty_cache()
 
-    # the batched kernels at the main path's shape: the launches the
-    # scheduler makes of the short-banded workload's 4096 pairs
-    # (-w100 -z100), timed together as the path runs them; the plain
-    # forward's time on the same launches (phase 5c) for the score forms
+    # the batched kernels at the main path's shapes (batch_times), with
+    # the plain forward's time on the same launches (phase 5c) for the
+    # score forms, and the host's work before the score batch's launch
     from ksw2_tpu_torch.batch import scheduler as sched
+    for name, row in batch_times(int_rate).items():
+        plain = {"sb_extz_score": "sb_extz_score_z100",
+                 "sb_extd_score": "sb_extd_score_z100"}.get(name)
+        if plain:
+            row["fwd_plain_ms"] = sum(
+                PLAIN_MS[(f"{plain}_launch{k}", "fwd")]
+                for k in range(len(row["launches"])))
+        if name == "sb_extz_score":
+            # the route table on every bucket (rows, strips and band refuse
+            # them), and the buckets' padding (host clock)
+            _, route_s, prep_s = short_banded_launches(
+                sb, Flag.SCORE_ONLY, None,
+                sched._score_chooser(Flag.SCORE_ONLY, 5,
+                                     simple_mat(5, 2, -4), 100, 4, 2))
+            row["host_route_ms"] = route_s * 1e3
+            row["host_prep_ms"] = prep_s * 1e3
+        out[name] = row
+    out.update(splice_times(scases, int_rate))
+    out.update(single_times(single, mt, sb, int_rate))
+    out.update(single2_times(single, sb, spl, slong, int_rate))
+    out.update(linear_global_times(lcases, single, mt, jobs, int_rate))
+    out.update(local_times(int_rate))
+    emit({"phase": "times", "cases": out})
+    return out
+
+
+# Kernels E / E2 at the main path's launch shapes: the short-banded
+# workload's launches in five forms (one launch a form since the merge)
+# and the wide form's EQX CIGAR and end_bonus score launches of the mixed
+# pairs of 1536 bp or less; timed alone by ``--batch-times`` (which also
+# runs on the parent's tree) and in phase 7.
+BATCH_TIME_CASES = ("sb_extz_score", "sb_extd_score", "sb_approx_score",
+                    "sb_extz_cig", "sb_extd_cig", "short1536_eqx_cigar",
+                    "short1536_extd_end_bonus_score")
+
+
+def batch_time_launches(name):
+    """Batched time case ``name``: (its kernel's counter, its launches as
+    the scheduler makes them)."""
+    from ksw2_tpu_torch.core.flags import Flag
+
+    approx = Flag.APPROX_MAX | Flag.APPROX_DROP
+    if name.startswith("sb_"):
+        flag, costs = {
+            "sb_extz_score": (Flag.SCORE_ONLY, None),
+            "sb_extd_score": (Flag.SCORE_ONLY, EXTD),
+            "sb_approx_score": (Flag.SCORE_ONLY | approx, None),
+            "sb_extz_cig": (Flag.NONE, None),
+            "sb_extd_cig": (Flag.NONE, EXTD)}[name]
+        lns, _, _ = short_banded_launches(_workload("sb"), flag, costs)
+    else:
+        jobs = _workload("jobs")
+        lns = batch_route_launches(batch_wide_aligners()[name],
+                                   [p for p in jobs if len(p[1]) <= 1536])
+    return ("batch_extd_fwd" if lns[0].prm.two else "batch_fwd"), lns
+
+
+def batch_times(int_rate, names=BATCH_TIME_CASES):
+    """Kernels E / E2 on each batched time case (CUDA events, a case's
+    launches timed together as the path runs them) beside their bound:
+    the true band cells each pair computed (to its Z-drop) at ``OPS``
+    (+ ``BYTE_OPS`` with bytes) over the card's int32 rate, and the
+    longest pair's diagonals with the microseconds a diagonal of it (a
+    launch waits on its longest pair)."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import batch as BT
-    for name, flag, costs, plain in (
-            ("sb_extz_score", Flag.SCORE_ONLY, None, "sb_extz_score_z100"),
-            ("sb_extd_score", Flag.SCORE_ONLY, EXTD, "sb_extd_score_z100"),
-            ("sb_approx_score", Flag.SCORE_ONLY | approx, None, None),
-            ("sb_extz_cig", Flag.NONE, None, None),
-            ("sb_extd_cig", Flag.NONE, EXTD, None)):
-        lns, _, _ = short_banded_launches(sb, flag, costs)
+
+    out = {}
+    for name in names:
+        kname, lns = batch_time_launches(name)
         args = [BD.band_upload(ln, "cuda") for ln in lns]
-        kname = "batch_extd_fwd" if costs else "batch_fwd"
-        row = {"pairs": len(sb), "kernel": kname,
+        row = {"kernel": kname, "pairs": sum(len(ln.qlen) for ln in lns),
                "launches": [{"pairs": len(ln.qlen), "nd": ln.nd,
-                             "ncol": ln.ncol, "Lt": int(ln.target.shape[1])}
+                             "ncol": ln.ncol, "Lt": int(ln.target.shape[1]),
+                             "cpl": BT.batch_form(ln.ncol, ln.prm.m)}
                             for ln in lns]}
 
         def fwd(lns=lns, args=args):
@@ -3956,26 +4213,19 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
         row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
             kname, row["computed_cells"], sum(b for _, b in work), int_rate,
             lns[0].prm.cig)
-        row["band_cells"] = band_cells(sb, SHORT_BANDED_W)
-        row["fwd_band_gcells_per_s"] = row["band_cells"] / row["fwd_ms"] / 1e6
-        if plain:
-            row["fwd_plain_ms"] = sum(PLAIN_MS[(f"{plain}_launch{k}", "fwd")]
-                                      for k in range(len(lns)))
-        if plain and costs is None:
-            # host work of the score batch before its launches (host
-            # clock): the route table on every bucket (rows, strips and
-            # band refuse them), and the buckets' padding
-            _, route_s, prep_s = short_banded_launches(
-                sb, flag, costs,
-                sched._score_chooser(flag, 5, simple_mat(5, 2, -4), 100, 4,
-                                     2))
-            row["host_route_ms"] = route_s * 1e3
-            row["host_prep_ms"] = prep_s * 1e3
-        if lns[0].prm.cig:
-            walks = []
-            for (rec, p), (_, _, ql, tl, w, _), ln in zip(outs, args, lns):
-                walks.append((p, W.start_cells(rec, ql, tl, ln.prm.flag, 0),
-                              ql, tl, w))
+        longest = max(ln.nd for ln in lns)
+        row["longest_pair_diagonals"] = longest
+        row["us_per_diagonal_longest"] = row["fwd_ms"] * 1e3 / longest
+        if name.startswith("sb_"):
+            row["band_cells"] = band_cells(_workload("sb"), SHORT_BANDED_W)
+            row["fwd_band_gcells_per_s"] = \
+                row["band_cells"] / row["fwd_ms"] / 1e6
+        if lns[0].prm.cig and name.startswith("sb_"):
+            from ksw2_tpu_torch.ops import band_walker as BW
+            from ksw2_tpu_torch.ops import strips_walker as W
+            walks = [(p, W.start_cells(rec, ql, tl, ln.prm.flag, 0), ql, tl,
+                      w) for (rec, p), (_, _, ql, tl, w, _), ln in
+                     zip(outs, args, lns)]
             row["walk_ms"] = cuda_ms(
                 lambda: [BW.band_walk_cuda(*a) for a in walks], 5)
             steps, nbytes = walks_work(
@@ -3984,15 +4234,9 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
                 "band_walk", steps, nbytes, int_rate)
             del walks
-        del outs
+        del outs, args
         out[name] = row
         torch.cuda.empty_cache()
-    out.update(splice_times(scases, int_rate))
-    out.update(single_times(single, mt, sb, int_rate))
-    out.update(single2_times(single, sb, spl, slong, int_rate))
-    out.update(linear_global_times(lcases, single, mt, jobs, int_rate))
-    out.update(local_times(int_rate))
-    emit({"phase": "times", "cases": out})
     return out
 
 
@@ -5135,8 +5379,156 @@ def phase_walk_times() -> int:
     return 0
 
 
-def phase_breakdown(which=("extz", "band", "lg", "strips", "walk")) -> int:
-    """``--breakdown [extz|band|lg|strips|walk]``: the clock64
+def batch_walls(reps=5):
+    """The short-banded score and CIGAR batches end to end through
+    ``Aligner.extend_batch_async``, after a warm one: each run's host
+    submit (until the call returns) and wall (until ``result()``), and one
+    profiled run's device time and idle share (:func:`profile_runs`); and
+    apart from them, ``reps`` times, the host's part that the batched
+    route's merge touches: its routing (the buckets and their merge, every
+    bucket on the batched route) and ``band_prep`` of its launches
+    (:func:`short_banded_launches`)."""
+    import torch
+    from ksw2_tpu_torch import Aligner
+    from ksw2_tpu_torch.core.flags import Flag
+
+    sb = _workload("sb")
+    flags = {"short_banded_score": Flag.SCORE_ONLY,
+             "short_banded_cigar": Flag.NONE}
+    alns = {name: Aligner(w=SHORT_BANDED_W, zdrop=100, flag=flag)
+            for name, flag in flags.items()}
+    out = {}
+    for name, aln in alns.items():
+        aln.extend_batch(sb)
+        row = out[name] = {"submit_ms": [], "wall_ms": []}
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = aln.extend_batch_async(sb)
+            t1 = time.perf_counter()
+            h.result()
+            row["submit_ms"].append((t1 - t0) * 1e3)
+            row["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        host = [short_banded_launches(sb, flags[name])[1:]
+                for _ in range(reps)]
+        row["host_route_ms"] = [r * 1e3 for r, _ in host]
+        row["host_prep_ms"] = [p * 1e3 for _, p in host]
+    prof = profile_runs([(name, lambda aln=aln: aln.extend_batch(sb))
+                         for name, aln in alns.items()])
+    for name, row in out.items():
+        row["profiled"] = prof[name]
+    return out
+
+
+def phase_batch_times() -> int:
+    """``--batch-times``: kernels E / E2 on every batched time case
+    (:func:`batch_times`), with no plain version and no check, and the
+    short-banded batches' walls (:func:`batch_walls`).  It also runs on
+    the parent's tree, to compare two trees in one call: a scheduler with
+    no ``_merged_batch`` keeps the batched route's buckets apart, and a
+    kernel with no ``batch_form`` has one form."""
+    import torch
+    from ksw2_tpu_torch.batch import scheduler as sched
+    from ksw2_tpu_torch.ops import batch as BT
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    if not hasattr(sched, "_merged_batch"):
+        sched._merged_batch = lambda buckets, m: buckets
+    if not hasattr(BT, "batch_form"):
+        BT.batch_form = lambda ncol, m: None
+    int_rate = phase_device()
+    phase_build()
+    emit({"phase": "batch_times", "cases": batch_times(int_rate)})
+    emit({"phase": "batch_walls", "runs": batch_walls()})
+    return 0
+
+
+# csrc/batch_fwd.cu's register form with its BATCH_STAMP hooks defined
+# (32-bit clock() stamps: a pair's sums fit, and 64-bit ones spill the CIG
+# forms): each warp's lane 0 sums the cycles of a diagonal's parts (0 the
+# head:
+# band row, slide, query shift, score fill, first column, neighbour
+# shuffles; 1 the cells; 2 the argmax (or the H0 walk) and the group
+# capture; 3 the store) and of a group's (4 the replay, 5 the staging),
+# and counts its diagonals (8) and pairs (9)
+BATCH_STAMPS = """#define BATCH_STAMPS 1
+__device__ unsigned long long g_prof[16];
+#define BATCH_STAMP_INIT() unsigned pf_[6] = {0, 0, 0, 0, 0, 0}; \\
+  unsigned pt_ = (unsigned)clock();
+#define BATCH_STAMP(part) { const unsigned pn_ = (unsigned)clock(); \\
+  pf_[part] += pn_ - pt_; pt_ = pn_; }
+#define BATCH_STAMP_FLUSH(diags) if (lane == 0) { \\
+  for (int i_ = 0; i_ < 6; ++i_) \\
+    atomicAdd(&g_prof[i_], (unsigned long long)pf_[i_]); \\
+  atomicAdd(&g_prof[8], (unsigned long long)(diags)); \\
+  atomicAdd(&g_prof[9], 1ull); }
+"""
+BATCH_BREAKDOWN_PARTS = ("head", "cells", "argmax", "store", "replay",
+                         "staging")
+# the score forms: the CIG forms sit at the compiler's 128 registers, and
+# the stamps' registers spill their cells (a stamped run 4-7x slower)
+BATCH_BREAKDOWN_CASES = ("sb_extz_score", "sb_extd_score", "sb_approx_score")
+
+
+def breakdown_batch():
+    """Cycles a diagonal of kernels E / E2's register form by part (CUDA
+    clock sums over each warp's lane 0, over the diagonals its pair
+    computed) on the short-banded workload's score launches, and the
+    stamped run's milliseconds (the stamps cost cycles themselves)."""
+    import ctypes
+
+    from ksw2_tpu_torch import _build
+    from ksw2_tpu_torch.ops import batch as BT
+
+    src = (_build.CSRC / "batch_fwd.cu").read_text()
+    out = _build.BUILD_DIR.parent / "diag_breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "batch_fwd_stamped.cu").write_text(BATCH_STAMPS + src +
+                                              BREAKDOWN_READ)
+    lib_path = out / "libbatch_fwd_stamped.so"
+    nvcc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+         str(_build.CSRC), str(out / "batch_fwd_stamped.cu"), "-o",
+         str(lib_path)], capture_output=True, text=True)
+    if nvcc.returncode:
+        raise RuntimeError("breakdown: nvcc failed on batch_fwd_stamped.cu:"
+                           f"\n{nvcc.stdout[-4000:]}{nvcc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.ksw2t_batch_fwd.argtypes = _build._SIGNATURES["ksw2t_batch_fwd"]
+    lib.ksw2t_batch_fwd.restype = ctypes.c_int
+    lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
+    lib.ksw2t_error_string.argtypes = [ctypes.c_int]
+    lib.ksw2t_error_string.restype = ctypes.c_char_p
+    saved = BT.library
+    BT.library = lambda: lib
+    try:
+        for name in BATCH_BREAKDOWN_CASES:
+            _, lns = batch_time_launches(name)
+            ms, prof = _stamped_run(lib, lns, lambda a, ln: BT.
+                                    batch_forward_cuda(*a, ln.prm, ln.nd,
+                                                       ln.ncol))
+            diags = max(float(prof[8]), 1.0)
+            groups = sum(-(-int(ln.nd) // 32) for ln in lns)
+            emit({"phase": "breakdown", "case": name,
+                  "kernel": "batch_extd_fwd" if lns[0].prm.two
+                  else "batch_fwd", "launches": len(lns),
+                  "cpl": [BT.batch_form(ln.ncol, ln.prm.m) for ln in lns],
+                  "ms_stamped": ms, "pairs": int(prof[9]),
+                  "diagonals": int(prof[8]),
+                  "cycles_per_diagonal": {
+                      k: float(prof[i]) / diags
+                      for i, k in enumerate(BATCH_BREAKDOWN_PARTS)},
+                  "cycles_per_diagonal_total": float(
+                      sum(int(prof[i]) for i in range(6))) / diags,
+                  "longest_pair_groups": groups})
+    finally:
+        BT.library = saved
+
+
+def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
+                           "batch")) -> int:
+    """``--breakdown [extz|band|lg|strips|walk|batch]``: the clock64
     breakdowns."""
     import torch
 
@@ -5156,6 +5548,8 @@ def phase_breakdown(which=("extz", "band", "lg", "strips", "walk")) -> int:
         breakdown_strips()
     if "walk" in which:
         breakdown_walk()
+    if "batch" in which:
+        breakdown_batch()
     return 0
 
 
@@ -5491,7 +5885,10 @@ if __name__ == "__main__":
         sys.exit(phase_strips_times())
     if sys.argv[1:2] == ["--walk-times"]:
         sys.exit(phase_walk_times())
+    if sys.argv[1:2] == ["--batch-times"]:
+        sys.exit(phase_batch_times())
     if sys.argv[1:2] == ["--breakdown"]:
         sys.exit(phase_breakdown(tuple(sys.argv[2:])
-                                 or ("extz", "band", "lg", "strips", "walk")))
+                                 or ("extz", "band", "lg", "strips", "walk",
+                                     "batch")))
     sys.exit(main())

@@ -16,8 +16,9 @@ with N ops: strips in its ``spl`` form, then the batched exts engine,
 then the single-pair splice engine (kernel 14 with 17;
 ``scheduler.py:916-1119``).  The buckets that fall to a single-pair
 engine go out together, split only by ``ops.strips.LAUNCH_BYTES``, so
-their pairs' chains run at once; so do the band route's and, on the
-score paths, the strips route's.  Every launch
+their pairs' chains run at once; so do the band route's, the batched
+route's whose pairs take kernel E's register form (score and CIGAR
+paths) and, on the score paths, the strips route's.  Every launch
 is enqueued on the current CUDA stream before anything waits.  A handle's
 ``result()`` synchronises on the event recorded after the batch's
 device-to-host copies, so several batches in flight overlap one batch's
@@ -40,7 +41,9 @@ from ..core.flags import NEG_INF, Flag
 from ..core.result import ExtzResult
 from ..ops.band import band_ineligible_reason, band_prep, band_records
 from ..ops.band_walker import band_cigar_launch, unpack_band_cigars
-from ..ops.batch import batch_forward_cuda, batch_ineligible_reason
+from ..ops.bands import n_col_bytes
+from ..ops.batch import (batch_form, batch_forward_cuda,
+                         batch_ineligible_reason)
 from ..ops.batch_xla import any_device_prep
 from ..ops.extd import (extd_cigar_launch, extd_prep, extd_records,
                         unpack_extd_cigars)
@@ -173,10 +176,11 @@ def _route(jobs, mat, qe: int, results, choose, key=_bucket_key,
     bucket's pairs on the anti-diagonal routes are ordered longest first,
     so its launches pad little (and a block's warps finish together).
     The buckets routed to the single-pair engine ("any" or "single") come
-    back as one, and so do the band route's (:func:`_merged`); the
-    batched route's keep their buckets.  With ``strips_costs``, the
-    (post-swap) ``(q, e)`` of a score path, the strips route's buckets
-    come back as one too (:func:`_merged_strips`)."""
+    back as one, and so do the band route's (:func:`_merged`).  With
+    ``strips_costs``, the (post-swap) ``(q, e)`` of a score path, the
+    strips route's buckets come back as one too (:func:`_merged_strips`).
+    The score and CIGAR paths merge the batched route's register-form
+    buckets afterwards (:func:`_merged_batch`)."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -209,15 +213,17 @@ def _route(jobs, mat, qe: int, results, choose, key=_bucket_key,
 _SINGLE = ("any", "single")
 
 
-def _merged(buckets: List[_Bucket], routes) -> List[_Bucket]:
-    """``buckets`` with those whose route is in ``routes`` merged into one
-    at the place of the first, its pairs longest first.  The JAX bucket
-    key only groups pairs: the single-pair forward and the band forward
-    take mixed lengths in one launch, so a batch's jobs on either go out
-    together, split only by ``ops.strips.LAUNCH_BYTES``, and their chains
-    run at once instead of one bucket after another.  A pair's result
-    does not depend on the launch it lands in."""
-    group = [bk for bk in buckets if bk.route in routes]
+def _merged(buckets: List[_Bucket], routes,
+            joins=lambda bk: True) -> List[_Bucket]:
+    """``buckets`` with those whose route is in ``routes`` (and that
+    ``joins``) merged into one at the place of the first, its pairs
+    longest first.  The JAX bucket key only groups pairs: the single-pair
+    forward and the band forward take mixed lengths in one launch, so a
+    batch's jobs on either go out together, split only by
+    ``ops.strips.LAUNCH_BYTES``, and their chains run at once instead of
+    one bucket after another.  A pair's result does not depend on the
+    launch it lands in."""
+    group = [bk for bk in buckets if bk.route in routes and joins(bk)]
     if len(group) < 2:
         return buckets
     idxs = [i for bk in group for i in bk.idxs]
@@ -226,12 +232,13 @@ def _merged(buckets: List[_Bucket], routes) -> List[_Bucket]:
     order = np.argsort(-(qlen.astype(np.int64) + tlen), kind="stable")
     merged = _Bucket([idxs[k] for k in order], qlen[order], tlen[order],
                      w[order], group[0].route)
+    taken = {id(bk) for bk in group}
     out = []
     for bk in buckets:
-        if bk.route not in routes:
-            out.append(bk)
-        elif bk is group[0]:
+        if bk is group[0]:
             out.append(merged)
+        elif id(bk) not in taken:
+            out.append(bk)
     return out
 
 
@@ -252,6 +259,24 @@ def _merged_strips(buckets: List[_Bucket], mat, q: int,
     if not packing_fits(qlen, tlen, mat, q, e, launch_tv(tlen)):
         return buckets
     return _merged(buckets, ("strips",))
+
+
+def _merged_batch(buckets: List[_Bucket], m: int) -> List[_Bucket]:
+    """``buckets`` with the batched route's buckets whose pairs all take
+    kernel E's register form (``ops.batch.batch_form`` of their widest
+    ``n_col_bytes``) merged into one (:func:`_merged`): that form keeps a
+    pair's state in registers whatever the launch's target length, so a
+    batch's short-banded jobs go out as one launch, split only by
+    ``ops.strips.LAUNCH_BYTES``.  The wide form's buckets stay apart: its
+    shared-memory strip is sized by the launch's longest target."""
+    def narrow(bk):
+        # n_col_bytes grows with min(qlen, tlen, w + 1): its widest pair's
+        widest = np.minimum(np.minimum(bk.qlen, bk.tlen),
+                            bk.w.astype(np.int64) + 1).argmax()
+        return batch_form(n_col_bytes(int(bk.qlen[widest]),
+                                      int(bk.tlen[widest]),
+                                      int(bk.w[widest])), m) > 0
+    return _merged(buckets, ("batch",), narrow)
 
 
 def _to_host(tensors: List[torch.Tensor], dev: torch.device):
@@ -441,9 +466,9 @@ def align_batch_scores_async(
     flag = Flag(int(flag)) | Flag.SCORE_ONLY
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
-    buckets = _route(jobs, mat, q + e, results,
-                     _score_chooser(flag, m, mat, zdrop, q, e),
-                     strips_costs=(q, e))
+    buckets = _merged_batch(_route(jobs, mat, q + e, results,
+                                   _score_chooser(flag, m, mat, zdrop, q, e),
+                                   strips_costs=(q, e)), m)
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev)
     return _pending_scores(results, pieces, dev, False)
 
@@ -507,8 +532,8 @@ def _scores2_async(jobs, m, mat, q, e, q2, e2, zdrop, flag, device,
     dev = resolve_device(device)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
     qc, ec = canonical_costs(q, e, q2, e2)[:2]
-    buckets = _route(jobs, mat, q + e, results, choose,
-                     strips_costs=(qc, ec))
+    buckets = _merged_batch(_route(jobs, mat, q + e, results, choose,
+                                   strips_costs=(qc, ec)), m)
     pieces = _score_pieces(jobs, buckets, m, mat, q, e, zdrop, flag, dev,
                            True, q2, e2)
     min_sc = int(mat[1:].min())
@@ -584,8 +609,9 @@ def align_batch_async(
 
     # the reference resets after its swap (ksw2_extd2_sse.c:93-100)
     qc, ec = canonical_costs(q, e, q2, e2)[:2] if two else (q, e)
-    buckets = _route(jobs, mat, qc + ec, results,
-                     _cigar_chooser(flag, m, mat, zdrop, q, e, two, q2, e2))
+    buckets = _merged_batch(_route(
+        jobs, mat, qc + ec, results,
+        _cigar_chooser(flag, m, mat, zdrop, q, e, two, q2, e2)), m)
     cig_runs = {"band": (band_cigar_launch, unpack_band_cigars),
                 "batch": (batch_cigar_launch, unpack_batch_cigars)}
     pieces = []

@@ -1,6 +1,6 @@
-// Batched forward: the anti-diagonal difference DP of many short pairs at
-// once, one warp a pair (extz and extd, exact or approximate max, score
-// and direction bytes).
+// Batched forward (kernels E and E2): the anti-diagonal difference DP of
+// many pairs at once, one warp a pair (extz and extd, exact or
+// approximate max, score and direction bytes).
 //
 // Replaces ksw2_tpu/ops/wavefront_batch.py:_batch_kernel_body (one-piece,
 // counted as batch_fwd) and ksw2_tpu/ops/wavefront_batch_extd.py:
@@ -18,54 +18,144 @@
 // walks it unchanged.  The plain version is ops/band.py:
 // band_forward_plain.
 //
-// Layout: one warp per pair, several pairs a block, no block barrier.  A
-// pair's state lives in its warp's shared-memory strip in the t
-// coordinate, as the reference's own arrays do: int8 u, v, x, y (x2, y2),
-// the score bytes s, the target and the int32 H row, each TP =
-// round_up(Lt + 16, 32) long (the 16-rounded band and the score fill's
-// stale overshoot).  Lane `l` owns the positions t = 32 c + l and is the
-// only thread that ever reads or writes them, so the strip needs no
-// __syncwarp: a diagonal walks its chunks c in order, each lane reads
-// its cell's old state, and the neighbour t - 1 of the previous diagonal
-// (x, v, x2, and H for the en0 cell) comes from lane l - 1 by
-// __shfl_up_sync, or for lane 0 from lane 31 of the previous chunk,
-// carried in registers.  Every read is of the state before this
-// diagonal's writes, so the update is in place, and positions outside
-// the band keep the reference's stale bytes (the edge byte at st - 1,
-// the score bytes left in [st, st0) and past the 16-byte fill).  The
-// diagonal's maximum is a 64-bit (H, tie rank) key in the SSE merge
-// order, reduced by warp shuffles, so every lane holds the per-pair
-// scalars (max, Z-drop state, the H0 walk) in registers; each pair stops
-// at its own first empty-band diagonal (the closed form of
-// batch_pallas.py:42-48) or its Z-drop.
+// Two forms, chosen on the host from the launch's n_col and m
+// (ops/batch.py:batch_form), never at run time:
 //
-// What bounds it on an H100: the serial chain of diagonals of each pair
-// (qlen + tlen - 1 of them, a few hundred on short reads), each a few
-// chunk steps and 5 shuffle rounds of the argmax.  A cell costs ~105
-// integer operations as written here (~135 two-piece): the recurrence's
-// ~45 (~65; chip_smoke.py: OPS, the bound) plus this kernel's own
-// overhead, the score fill, the old state's loads, the neighbour
-// shuffles and the 64-bit tie key.  With CIG the n_col bytes a diagonal
-// are the only large memory traffic.  Shared
-// memory (TP x 10 bytes a warp, 12 two-piece) bounds the warps an SM
-// holds: about 40 at Lt = 512, 6 at Lt = 3072; registers (58-77 a
-// thread) bound them to 24-32.  This version is the simple one that is
-// right; registers for the t <= 512 strips, DPX byte SIMD and staging
-// the byte rows are later work.
+// The register form (batch_reg_kernel) keeps a pair's state in its warp's
+// registers: a window of W = 32 CPL = 256 target positions based at
+// (st - 1) & ~31, lane l holding positions base + CPL l .. + CPL - 1.
+// The window holds every position a diagonal reads or writes (st - 1 up
+// to en0 + 15 >= en and the score fill's end) while n_col + 48 <= W, so
+// the reference's stale bytes (the edge byte at st - 1, the score bytes
+// in [st, st0) and past the fill, H at st0 - 1) persist as they do in its
+// SSE rows.  The int8 planes sit in the top byte of an int32 (v << 24),
+// so int32 adds wrap as epi8 adds and compare as signed and unsigned byte
+// compares do.  A cell reads t - 1's old state from its own lane's
+// registers: the warp makes one shuffle a plane a diagonal.  [st, en] is
+// whole lanes (st is a multiple of 16, en + 1 too), so a lane either
+// computes all its cells or none.  A lane keeps its positions' target
+// and query symbols a nibble each in one register apiece (bit 3 marks N)
+// and their score bytes four to a register: a diagonal's simple scores
+// are a code a cell (the symbols differ, either is N) made for 8 cells
+// with a few word operations, and one prmt of the 4-byte table [mch,
+// mis, scN, scN] scores 4 cells (generic scores come from the matrix in
+// shared memory).  The query symbols move up one position a diagonal (the
+// query advances along the anti-diagonal), a new one entering at the
+// window's bottom from 64 symbols staged a group of 32 diagonals.  When
+// st - 1 passes base + 32 the window slides up 32 positions (4 lanes)
+// by shuffles; the positions that enter are fresh (init bytes, the
+// target's symbols, prefetched a group ahead).  The diagonal's maximum is
+// one __reduce_max_sync of the lanes' best H, and its position one
+// __reduce_min_sync of each lane's best SSE rank among its cells that
+// hold it (ties are common on short reads), taken
+// from bit masks with no branch: the en0 cell, then the lowest lane class
+// (the same for every lane), then the tail.  Lane j keeps diagonal
+// r_lo + j's (maxH, t) (or the
+// H0 walk's) and H(st0), H(en0) over a group of 32; at the group's end
+// the warp replays Z-drop, mqe / mte and the score in order: an
+// exclusive running maximum with its first position (ksw_apply_zdrop's
+// strict >) is a 5-round scan, and the first diagonal whose test fails,
+// by ballot, is the stop.  The warp has run up to 31 diagonals past a
+// drop; it zeroes the store rows it wrote past the stop.  With CIG a lane
+// writes its CPL direction bytes with one 8-byte store.
+//
+// The wide form (batch_wide_kernel) takes launches whose band is wider
+// than the window (unbanded pairs up to 1536 / 3072) or m > 8: a
+// pair's state in its warp's shared-memory strip in the t coordinate,
+// each lane owning t = 32 c + l; a diagonal walks its 32-lane chunks in
+// order with the t - 1 neighbour from lane l - 1 (or lane 31 of the chunk
+// before) and reduces a 64-bit (H, tie rank) key in 5 shuffle rounds.
+//
+// What bounds them on an H100.  The register form: each warp's chain of
+// a diagonal's steps (about 2,500 cycles a warp-diagonal with clock
+// stamps at w = 100: the head (band row, slide, query, score fill,
+// neighbour shuffles) and the two warp reductions of the argmax ~70%,
+// the cells ~25%; chip_smoke.py --breakdown batch), interleaved over the
+// 3-4 warps a sub-partition that 128 registers leave, so a launch of
+// many pairs runs at 3.2-3.8x the integer-pipe bound of its band cells
+// (chip_smoke.py: OPS); half the window's cells are idle at w = 100. The
+// wide form: one warp's chain of chunk steps through shared memory, all
+// of its band's chunks a diagonal, a few thousand cycles a diagonal on a
+// long unbanded pair, so a launch waits ~20 us a diagonal on its longest
+// pair (150x its bound on the mixed pairs of up to 1536 bp).  With CIG
+// the n_col bytes a diagonal are the only large memory traffic.
 #include <climits>
 
 #include "common.cuh"
 
 using namespace ksw2t;
 
+// clock64 stamps of a diagonal's parts, empty here: chip_smoke.py
+// --breakdown batch builds a copy that defines them
+#ifndef BATCH_STAMPS
+#define BATCH_STAMP_INIT()
+#define BATCH_STAMP(part)
+#define BATCH_STAMP_FLUSH(diags)
+#endif
+
 namespace {
 
 constexpr int NEG = -0x40000000;    // NEG_INF of core/flags.py
 constexpr int KT = 4096;            // tie-rank class stride (ops/band.py)
 constexpr int MAX_WARPS = 8;
+constexpr int KD = 32;              // diagonals a group (a lane each)
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int CPL = 8;              // register form: positions a lane
 
 __device__ __forceinline__ int w8(int v) { return (int)(signed char)v; }
+
+// An int8 value in the top byte of an int32 (v << 24); sums and
+// differences in that form wrap as the reference's epi8 ones do (taken in
+// unsigned arithmetic, where wrapping is defined).
+__device__ __forceinline__ int top(int v) { return (int)((unsigned)v << 24); }
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+
+// The byte of (hi:lo) that sel's low nibble picks in the low byte (a
+// nibble below 8 selects without sign replication; the other bytes are
+// the other nibbles' picks).
+__device__ __forceinline__ int prmt(int lo, int hi, unsigned sel) {
+  int d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(lo), "r"(hi), "r"(sel));
+  return d;
+}
+
+// The position of the SSE scan's tie rank on a diagonal with band [st0,
+// en0]: rank 0 the en0 cell, then 4 lane classes over [st0, en1) (rank
+// class * KT + rel + 1), then the scalar tail (4 KT + rel + 1).
+__device__ __forceinline__ int rank_pos(int rank, int st0, int en0) {
+  return rank == 0 ? en0
+         : rank <= 4 * KT ? st0 + (rank - 1) % KT
+                          : st0 + rank - 1 - 4 * KT;
+}
+
+// ops/batch.py:window_base: the register window's first position
+__device__ __forceinline__ int window_base(int st) {
+  return st > 0 ? (st - 1) & ~31 : 0;
+}
+
+// The bits [lo, hi] of a lane's N cells (lo, hi relative to its first)
+template <int N>
+__device__ __forceinline__ unsigned cell_mask(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, N - 1);
+  return hi >= lo ? (2u << hi) - (1u << lo) : 0u;
+}
+
+// a[k] at a warp-uniform position k of a lane's register array, from the
+// lane that owns it
+template <int N>
+__device__ __forceinline__ int pick(const int (&a)[N], int slot, int owner) {
+  int v = a[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k)
+    if (k == slot) v = a[k];
+  return __shfl_sync(FULL, v, owner);
+}
 
 struct BatchArgs {
   const uint8_t* qs;
@@ -80,9 +170,562 @@ struct BatchArgs {
   uint8_t* p;
 };
 
+// A symbol as the register form keeps it, a nibble: bits 0-2 the symbol
+// (m <= 8), bit 3 set for N (m - 1), the wildcard of the simple scores
+__device__ __forceinline__ unsigned nib(int c, int m) {
+  return (unsigned)c | (c == m - 1 ? 8u : 0u);
+}
+
+// The CPL target bytes tw as nibbles, position k at bits 4k
+__device__ __forceinline__ unsigned target_nibbles(
+    const unsigned (&tw)[CPL / 4], int m) {
+  unsigned tn = 0;
+#pragma unroll
+  for (int k = 0; k < CPL; ++k)
+    tn |= nib((tw[k >> 2] >> (8 * (k & 3))) & 255, m) << (4 * k);
+  return tn;
+}
+
+// Cell k's score byte in the top-byte form (zero below)
+template <int N>
+__device__ __forceinline__ int score_top(const unsigned (&s4)[N], int k) {
+  return prmt((int)s4[k >> 2], 0, 0x444u | (unsigned)(k & 3) << 12);
+}
+
+// Four cells' bits of a cell mask as byte masks (bit i -> byte i)
+__device__ __forceinline__ unsigned byte_mask(unsigned bits4) {
+  return ((bits4 & 15u) * 0x00204081u & 0x01010101u) * 0xffu;
+}
+
+// The target's CPL bytes at position p (a multiple of CPL; the launch's
+// rows are zero past each target and Lt is a multiple of 16)
+__device__ __forceinline__ void load_target(const uint8_t* tg, int Lt, int p,
+                                            unsigned (&tw)[CPL / 4]) {
+  if (p >= 0 && p < Lt) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(tg + p));
+    tw[0] = v.x;
+    tw[1] = v.y;
+  } else {
+    tw[0] = tw[1] = 0;
+  }
+}
+
+// Query symbol i as a nibble (0 outside the query)
+__device__ __forceinline__ int load_q(const uint8_t* qy, int qlen, int m,
+                                      int i) {
+  return (int)nib(i >= 0 && i < qlen ? (int)__ldg(qy + i) : 0, m);
+}
+
+// The register form: see the head of the file.  RIGHT only where it
+// matters (the direction bytes).
+template <bool TWO, bool CIG, bool APPROX, bool RIGHT>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+batch_reg_kernel(const BatchArgs A) {
+  constexpr int W = 32 * CPL, SLANES = 32 / CPL;
+  __shared__ int stab[64];
+  if (A.generic)
+    for (int i = threadIdx.x; i < A.m * A.m; i += blockDim.x)
+      stab[i] = A.table[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= A.B) return;              // a whole warp; no barrier after this
+  const int qlen = A.qlens[b], tlen = A.tlens[b], w = A.ws[b];
+  // the launch's form holds bands of at most n_col - 16 cells
+  if (min(min(w + 1, qlen), tlen) + 16 > A.ncol || A.ncol + 48 > W) __trap();
+  const int q = A.q, e = A.e;
+  const int qe = q + e, qe2 = A.q2 + A.e2;
+  const int ez = TWO ? A.e2 : e;     // Z-drop gap slope
+  const int initS = top(TWO ? -qe : 0), init2S = top(-qe2);
+  const int qS = top(q), q2S = top(A.q2), qeS = top(qe), qe2S = top(qe2),
+            mchS = top(A.sc_mch), twoqeS = top(2 * qe);
+  const unsigned capS = (unsigned)top(A.sc_mch + 2 * qe);
+  const uint8_t* tg = A.ts + (size_t)b * A.Lt;
+  const uint8_t* qy = A.qs + (size_t)b * A.Lq;
+  uint8_t* prow = CIG ? A.p + (size_t)b * A.nd * A.ncol : nullptr;
+  const int ndb = qlen + tlen - 1;
+  const int rlim = first_empty_diag(qlen, tlen, w);
+
+  // lane l's positions base + CPL l + k: the planes in the top-byte form
+  // and H; the positions' score bytes (S4, cell k in byte k & 3 of S4[k /
+  // 4]); their target and their query symbols on the last diagonal, a
+  // nibble each (Tn, Qn: cell k at bits 4k)
+  int U[CPL], V[CPL], X[CPL], Y[CPL], X2[CPL], Y2[CPL], H[CPL];
+  unsigned S4[CPL / 4], Tn, Qn = 0;  // Qn: diagonal -1's, query -1 - t
+  // the simple scores by a cell's code: 0 match, 1 mismatch, 2-3 N
+  const int TAB = (int)((unsigned)(A.sc_mch & 255) |
+                        (unsigned)(A.sc_mis & 255) << 8 |
+                        (unsigned)(A.sc_N & 255) * 0x10100u << 8);
+  int base = 0;
+  {
+    unsigned tw[CPL / 4];
+    load_target(tg, A.Lt, CPL * lane, tw);
+    Tn = target_nibbles(tw, A.m);
+#pragma unroll
+    for (int i = 0; i < CPL / 4; ++i) S4[i] = 0;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      U[k] = V[k] = X[k] = Y[k] = initS;
+      X2[k] = Y2[k] = init2S;
+      H[k] = NEG;
+    }
+    // the seed diagonal 0's generic H step reads (t = 0)
+    if (lane == 0) H[0] = TWO ? -A.qe_pre : -qe;
+  }
+
+  int last_st = -1, last_en = -1, H0 = 0, lt0 = 0;
+  int mx = 0, mt = -1, mq = -1, mqe = NEG, mqet = -1, mte = NEG, mteq = -1;
+  int score = NEG, zd = 0, done_diags = 0;
+  BATCH_STAMP_INIT();
+  // the slide target of the first group and its fresh target bytes; the
+  // query symbols of the first group
+  auto group_base = [&](int r) {
+    return window_base(band_row(r, qlen, tlen, w).st);
+  };
+  unsigned tnext[CPL / 4];
+  int qAn, qBn;
+  {
+    const int r_hi = min(KD - 1, rlim - 1);
+    load_target(tg, A.Lt, group_base(r_hi) + CPL * lane, tnext);
+    const int q0 = 0 - group_base(0);
+    qAn = load_q(qy, qlen, A.m, q0 - 32 + lane);
+    qBn = load_q(qy, qlen, A.m, q0 + lane);
+  }
+
+  for (int r_lo = 0; r_lo < rlim; r_lo += KD) {
+    const int r_hi = min(r_lo + KD - 1, rlim - 1), n = r_hi - r_lo + 1;
+    // this group's staged query and slide bytes; the next group's, in
+    // flight while this one runs
+    const int qA = qAn, qB = qBn;
+    const int q0 = r_lo - group_base(r_lo);
+    unsigned tcur[CPL / 4];
+#pragma unroll
+    for (int i = 0; i < CPL / 4; ++i) tcur[i] = tnext[i];
+    if (r_hi + 1 < rlim) {
+      const int n_lo = r_hi + 1, n_hi = min(n_lo + KD - 1, rlim - 1);
+      load_target(tg, A.Lt, group_base(n_hi) + CPL * lane, tnext);
+      const int nq0 = n_lo - group_base(n_lo);
+      qAn = load_q(qy, qlen, A.m, nq0 - 32 + lane);
+      qBn = load_q(qy, qlen, A.m, nq0 + lane);
+    }
+    // lane j's diagonal r_lo + j: its maximum and position (or the H0
+    // walk's H0 and lt0), H(st0) and H(en0)
+    int gH = INT_MIN, gT = 0, gS = 0, gE = 0;
+    BATCH_STAMP(5);
+
+    for (int rr = 0; rr < n; ++rr) {
+      const int r = r_lo + rr;
+      const BandRow bd = band_row(r, qlen, tlen, w);
+      const int st0 = bd.st0, en0 = bd.en0, st = bd.st, en = bd.en;
+      const int nb = window_base(st);
+      if (nb != base) {
+        // the slide (nb == base + 32): 32 positions down, fresh on top
+        const bool fresh = lane >= 32 - SLANES;
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) {
+          const int u = __shfl_down_sync(FULL, U[k], SLANES);
+          const int v = __shfl_down_sync(FULL, V[k], SLANES);
+          const int x = __shfl_down_sync(FULL, X[k], SLANES);
+          const int y = __shfl_down_sync(FULL, Y[k], SLANES);
+          const int h = __shfl_down_sync(FULL, H[k], SLANES);
+          U[k] = fresh ? initS : u;
+          V[k] = fresh ? initS : v;
+          X[k] = fresh ? initS : x;
+          Y[k] = fresh ? initS : y;
+          H[k] = fresh ? NEG : h;
+          if (TWO) {
+            const int x2 = __shfl_down_sync(FULL, X2[k], SLANES);
+            const int y2 = __shfl_down_sync(FULL, Y2[k], SLANES);
+            X2[k] = fresh ? init2S : x2;
+            Y2[k] = fresh ? init2S : y2;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < CPL / 4; ++i) {
+          const unsigned s4 = __shfl_down_sync(FULL, S4[i], SLANES);
+          S4[i] = fresh ? 0u : s4;
+        }
+        const unsigned tn = __shfl_down_sync(FULL, Tn, SLANES);
+        Tn = fresh ? target_nibbles(tcur, A.m) : tn;
+        // a fresh position's query symbol is never filled before the
+        // symbols from below have replaced it
+        const unsigned qd = __shfl_down_sync(FULL, Qn, SLANES);
+        Qn = fresh ? 0u : qd;
+        base = nb;
+      }
+      const int p0 = base + CPL * lane;
+      // the query moves up one position; symbol r - base enters at the
+      // bottom, from the group's staged 64 (the group slides at most once)
+      {
+        const int idx = r - base - (q0 - 32);
+        const int ins = __shfl_sync(FULL, idx < 32 ? qA : qB, idx & 31);
+        const unsigned up =
+            (__shfl_up_sync(FULL, Qn, 1) >> (4 * (CPL - 1))) & 15u;
+        Qn = (Qn << 4) | (lane == 0 ? (unsigned)ins : up);
+      }
+      if (CIG && en - st + 1 > A.ncol) __trap();   // the store's row width
+      // the boundary entering lane st (ksw2_extz2_sse.c:152-158) and the
+      // first-column value (the j == 0 cell at t == r)
+      const bool prevok = st > 0 && last_st <= st - 1 && st - 1 <= last_en;
+      const int colv =
+          TWO ? (r == 0 ? -qe : (r < A.lt ? -e : (r == A.lt ? A.ld : -A.e2)))
+              : (r ? q : 0);
+      const int colvS = top(colv);
+      // the score fill: [st0, hi]; the other positions keep stale bytes
+      const int hi = A.generic ? en0 : st0 + ((en0 - st0) & ~15) + 15;
+      const unsigned fm = cell_mask<CPL>(st0 - p0, hi - p0);
+      {
+        // the cells' scores: simple ones by a code a cell (bit 0: the
+        // symbols differ, bit 1: either is N) and one prmt for 4 cells,
+        // generic ones from the matrix
+        unsigned sn[CPL / 4];
+        if (!A.generic) {
+          const unsigned d = (Tn ^ Qn) & 0x77777777u;
+          const unsigned code = ((d | d >> 1 | d >> 2) & 0x11111111u) |
+                                ((Tn | Qn) & 0x88888888u) >> 2;
+#pragma unroll
+          for (int i = 0; i < CPL / 4; ++i)
+            sn[i] = (unsigned)prmt(TAB, TAB, code >> (16 * i));
+        } else {
+#pragma unroll
+          for (int i = 0; i < CPL / 4; ++i) sn[i] = 0;
+#pragma unroll
+          for (int k = 0; k < CPL; ++k) {
+            const int T = (Tn >> (4 * k)) & 7, Q = (Qn >> (4 * k)) & 7;
+            sn[k >> 2] |= (unsigned)(stab[T * A.m + Q] & 255) << (8 * (k & 3));
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < CPL / 4; ++i) {
+          const unsigned bm = byte_mask(fm >> (4 * i));
+          S4[i] = (S4[i] & ~bm) | (sn[i] & bm);
+        }
+      }
+      if (r <= en) {
+        // the first column lies in the band: its cell reads colv, init
+        const int kc = r - p0;
+#pragma unroll
+        for (int k = 0; k < CPL; ++k)
+          if (k == kc) {
+            U[k] = colvS;
+            Y[k] = initS;
+            Y2[k] = init2S;
+          }
+      }
+      // t - 1's old state for the first cell (lane 0's first position is
+      // below st, never in the band)
+      int Xm0 = __shfl_up_sync(FULL, X[CPL - 1], 1);
+      int Vm0 = __shfl_up_sync(FULL, V[CPL - 1], 1);
+      int X2m0 = TWO ? __shfl_up_sync(FULL, X2[CPL - 1], 1) : 0;
+      const int Hm0 = APPROX ? 0 : __shfl_up_sync(FULL, H[CPL - 1], 1);
+      if (p0 == st && !prevok) {
+        Xm0 = initS;
+        Vm0 = st == 0 ? colvS : initS;
+        X2m0 = init2S;
+      }
+      const bool inb = p0 >= st && p0 + CPL - 1 <= en;
+      const unsigned hmask = cell_mask<CPL>(st0 - p0, en0 - p0);
+      const int ke = en0 > 0 ? en0 - p0 : -1;   // the en0 cell's H form
+      const int sub = TWO ? 0 : qe;
+      int bh = INT_MIN;
+      unsigned dw[CPL / 4];
+#pragma unroll
+      for (int i = 0; i < CPL / 4; ++i) dw[i] = 0;
+      BATCH_STAMP(0);
+      // the diagonal's cells, last first: cell k reads k - 1's old state
+      if (inb) {
+#pragma unroll
+        for (int k = CPL - 1; k >= 0; --k) {
+          const int X1 = k ? X[k - 1] : Xm0, V1 = k ? V[k - 1] : Vm0;
+          const int X21 = TWO ? (k ? X2[k - 1] : X2m0) : 0;
+          const int Hp = APPROX ? 0 : (k ? H[k - 1] : Hm0);
+          const int Uc = U[k];
+          int a = wadd(X1, V1), bb = wadd(Y[k], Uc);
+          int d = 0, un, vn;
+          if (!TWO) {
+            const int zz = wadd(score_top(S4, k), twoqeS);
+            if (CIG) d = RIGHT ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
+            int z = max(zz, a);
+            if (CIG) d = RIGHT ? (z > bb ? d : DIR_F) : (bb > z ? DIR_F : d);
+            z = (int)max((unsigned)z, (unsigned)bb);     // max_epu8
+            z = (int)min((unsigned)z, capS);             // min_epu8
+            un = wsub(z, V1);
+            vn = wsub(z, Uc);
+            const int z2 = wsub(z, qS);
+            a = wsub(a, z2);
+            bb = wsub(bb, z2);
+            if (CIG) {
+              const bool ta = RIGHT ? a >= 0 : a > 0;
+              const bool tb = RIGHT ? bb >= 0 : bb > 0;
+              d |= (ta ? DIR_E_CONT : 0) | (tb ? DIR_F_CONT : 0);
+            }
+            X[k] = max(a, 0);
+            Y[k] = max(bb, 0);
+          } else {
+            int a2 = wadd(X21, V1), b2 = wadd(Y2[k], Uc);
+            int z = score_top(S4, k);
+            if (CIG) {
+              const int cand[4] = {a, bb, a2, b2};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                d = RIGHT ? (z > cand[i] ? d : i + 1)
+                          : (cand[i] > z ? i + 1 : d);
+                z = max(z, cand[i]);
+              }
+            } else {
+              z = __vimax3_s32(__vimax3_s32(z, a, bb), a2, b2);
+            }
+            z = min(z, mchS);
+            un = wsub(z, V1);
+            vn = wsub(z, Uc);
+            const int t1 = wsub(z, qS), t2 = wsub(z, q2S);
+            a = wsub(a, t1);
+            bb = wsub(bb, t1);
+            a2 = wsub(a2, t2);
+            b2 = wsub(b2, t2);
+            if (CIG) {
+              const bool ca = RIGHT ? a >= 0 : a > 0;
+              const bool cb = RIGHT ? bb >= 0 : bb > 0;
+              const bool ca2 = RIGHT ? a2 >= 0 : a2 > 0;
+              const bool cb2 = RIGHT ? b2 >= 0 : b2 > 0;
+              d |= (ca ? DIR_E_CONT : 0) | (cb ? DIR_F_CONT : 0) |
+                   (ca2 ? DIR_E2_CONT : 0) | (cb2 ? DIR_F2_CONT : 0);
+            }
+            X[k] = wsub(max(a, 0), qeS);
+            Y[k] = wsub(max(bb, 0), qeS);
+            X2[k] = wsub(max(a2, 0), qe2S);
+            Y2[k] = wsub(max(b2, 0), qe2S);
+          }
+          U[k] = un;
+          V[k] = vn;
+          if (CIG) dw[k >> 2] |= (unsigned)d << (8 * (k & 3));
+          if (!APPROX) {
+            // the H row over [st0, en0] (spec/common.py:exact_max_scan):
+            // unsigned deltas less q + e one-piece, signed two-piece; the
+            // en0 cell reads the older H(en0 - 1); diagonal 0 reads the
+            // seed at t = 0
+            const int vv = TWO ? vn >> 24 : (int)((unsigned)vn >> 24);
+            const int uu = TWO ? un >> 24 : (int)((unsigned)un >> 24);
+            const int h = k == ke ? Hp + uu - sub : H[k] + vv - sub;
+            if (hmask >> k & 1) {
+              H[k] = h;
+              bh = max(bh, h);
+            }
+          }
+        }
+      }
+      BATCH_STAMP(1);
+      if (!APPROX) {
+        // the diagonal's best cell: the largest H, then the SSE tie order.
+        // A lane takes its best rank among its cells that hold the
+        // largest H from bit masks: the en0 cell first, then by lane
+        // class (rel & 3, which is (k - st0) & 3 for every lane: p0 is a
+        // multiple of 4) and position over [st0, en1), then the tail
+        const int hm = __reduce_max_sync(FULL, bh);
+        unsigned em = 0;
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) em |= (H[k] == hm ? 1u : 0u) << k;
+        em &= hmask;
+        int rk = INT_MAX;
+        {
+          constexpr unsigned PAT = 0x11u;        // cells k and k + 4
+          const int d0 = p0 - st0;                 // rel of cell 0
+          const int en1 = st0 + ((en0 - st0) & ~3);
+          const unsigned R = cell_mask<CPL>(-d0, en1 - 1 - p0);
+          const unsigned cm = em & R;
+          unsigned cb = 0;
+          int cls = 0;
+#pragma unroll
+          for (int c = 3; c >= 0; --c) {
+            const unsigned mc = cm & (PAT << ((c + st0) & 3));
+            if (mc) {
+              cb = mc;
+              cls = c;
+            }
+          }
+          const int ke0 = en0 - p0;
+          const unsigned eb = (unsigned)ke0 < CPL ? 1u << ke0 : 0u;
+          const unsigned tm = em & ~R & ~eb;
+          if (cb)
+            rk = cls * KT + d0 + __ffs(cb);        // rel + 1
+          else if (tm)
+            rk = 4 * KT + d0 + __ffs(tm);
+          if (em & eb) rk = 0;
+        }
+        const int tw = rank_pos(__reduce_min_sync(FULL, rk), st0, en0);
+        if (lane == rr) {
+          gH = hm;
+          gT = tw;
+        }
+        // H(st0) where mqe may change, H(en0) where mte or the score may
+        if (r - st0 == qlen - 1) {
+          const int hs = pick<CPL>(H, (st0 - base) % CPL, (st0 - base) / CPL);
+          if (lane == rr) gS = hs;
+        }
+        if (en0 == tlen - 1) {
+          const int he = pick<CPL>(H, (en0 - base) % CPL, (en0 - base) / CPL);
+          if (lane == rr) gE = he;
+        }
+      } else {
+        // the H0 walk (ksw2_extz2_sse.c:262-279) on unsigned deltas less
+        // q + e one-piece, on signed deltas two-piece
+        if (r == 0) {                    // base 0: position 0 is lane 0's
+          const int v0 = __shfl_sync(FULL, V[0], 0);
+          H0 = TWO ? (v0 >> 24) - A.qe_pre
+                   : (int)((unsigned)v0 >> 24) - 2 * qe;
+          lt0 = 0;
+        } else {
+          const bool c1 = st0 <= lt0 && lt0 <= en0;
+          const bool c2 = st0 <= lt0 + 1 && lt0 + 1 <= en0;
+          int d0 = c1 ? pick<CPL>(V, (lt0 - base) % CPL, (lt0 - base) / CPL)
+                      : 0;
+          int d1 = c2 ? pick<CPL>(U, (lt0 + 1 - base) % CPL,
+                                  (lt0 + 1 - base) / CPL)
+                      : 0;
+          if (TWO) {
+            d0 >>= 24;
+            d1 >>= 24;
+          } else {
+            d0 = (int)((unsigned)d0 >> 24) - qe;
+            d1 = (int)((unsigned)d1 >> 24) - qe;
+          }
+          if (c1 && c2) {
+            if (d0 > d1) {
+              H0 += d0;
+            } else {
+              H0 += d1;
+              ++lt0;
+            }
+          } else if (c1) {
+            H0 += d0;
+          } else {
+            H0 += d1;
+            ++lt0;
+          }
+        }
+        if (lane == rr) {
+          gH = H0;
+          gT = lt0;
+        }
+      }
+      BATCH_STAMP(2);
+      if (CIG && inb) {
+        // 8-byte aligned: p0 - st is a multiple of CPL, rows of
+        // n_col % 16 == 0 bytes
+        uint8_t* dst = prow + (size_t)r * A.ncol + (p0 - st);
+        *reinterpret_cast<uint2*>(dst) = make_uint2(dw[0], dw[1]);
+      }
+      last_st = st;
+      last_en = en;
+      BATCH_STAMP(3);
+    }
+
+    // the group's replay: lane j holds diagonal rj = r_lo + j.
+    // ksw_apply_zdrop (ksw2.h:191-207) with the form's gap slope, in
+    // order: the running maximum before rj is the carried one combined
+    // with an exclusive scan of the group's (first strictly greater wins)
+    const int rj = r_lo + lane;
+    const bool valid = lane < n;
+    const BandRow bj = band_row(rj, qlen, tlen, w);
+    const bool contrib =
+        valid && (!APPROX || (A.adrop && (TWO || rj > 0)));
+    const int v = contrib ? gH : INT_MIN;
+    int iv = v, it = gT, ir = rj;          // inclusive scan
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int ov = __shfl_up_sync(FULL, iv, o);
+      const int ot = __shfl_up_sync(FULL, it, o);
+      const int orr = __shfl_up_sync(FULL, ir, o);
+      if (lane >= o && !(iv > ov)) {
+        iv = ov;
+        it = ot;
+        ir = orr;
+      }
+    }
+    int pv = __shfl_up_sync(FULL, iv, 1), pt = __shfl_up_sync(FULL, it, 1),
+        pr = __shfl_up_sync(FULL, ir, 1);
+    if (lane == 0 || !(pv > mx)) {
+      pv = mx;
+      pt = mt;
+      pr = mt + mq;
+    }
+    bool drop = false;
+    if (contrib && A.zdrop >= 0 && !(v > pv) && gT >= pt &&
+        rj - gT >= pr - pt) {
+      const int tl_ = gT - pt, ql_ = (rj - gT) - (pr - pt);
+      const int l = tl_ > ql_ ? tl_ - ql_ : ql_ - tl_;
+      drop = pv - v > A.zdrop + l * ez;
+    }
+    const unsigned DM = __ballot_sync(FULL, drop);
+    const int jd = DM ? __ffs(DM) - 1 : KD;
+    {
+      const int jl = min(jd, n - 1);
+      const int lv = __shfl_sync(FULL, iv, jl), lt_ = __shfl_sync(FULL, it, jl),
+                lr = __shfl_sync(FULL, ir, jl);
+      if (lv > mx) {
+        mx = lv;
+        mt = lt_;
+        mq = lr - lt_;
+      }
+    }
+    if (!APPROX) {
+      // mte (mte_q keeps the reference's r - en rounding) and mqe, strict
+      // > in order, the drop diagonal included
+      const bool em = valid && lane <= jd && bj.en0 == tlen - 1;
+      const int te = __reduce_max_sync(FULL, em ? gE : INT_MIN);
+      if (te > mte) {
+        const int L = __ffs(__ballot_sync(FULL, em && gE == te)) - 1;
+        mte = te;
+        mteq = __shfl_sync(FULL, rj - bj.en, L);
+      }
+      const bool qm = valid && lane <= jd && rj - bj.st0 == qlen - 1;
+      const int ts = __reduce_max_sync(FULL, qm ? gS : INT_MIN);
+      if (ts > mqe) {
+        const int L = __ffs(__ballot_sync(FULL, qm && gS == ts)) - 1;
+        mqe = ts;
+        mqet = __shfl_sync(FULL, bj.st0, L);
+      }
+    }
+    // the score: the last diagonal reaching the target's end, not dropped
+    const unsigned SM = __ballot_sync(
+        FULL, valid && lane < jd && rj == ndb - 1 && bj.en0 == tlen - 1);
+    if (SM) score = __shfl_sync(FULL, APPROX ? gH : gE, __ffs(SM) - 1);
+    done_diags += min(jd + 1, n);
+    BATCH_STAMP(4);
+    if (jd < n) {
+      zd = 1;
+      if (CIG) {
+        // the rows computed past the stop are 0, as the reference leaves
+        // them
+        const int rows = n - 1 - jd;
+        uint4* z = reinterpret_cast<uint4*>(
+            prow + (size_t)(r_lo + jd + 1) * A.ncol);
+        const int n16 = rows * (A.ncol / 16);
+        for (int i = lane; i < n16; i += 32) z[i] = make_uint4(0, 0, 0, 0);
+      }
+      break;
+    }
+  }
+  BATCH_STAMP_FLUSH(done_diags);
+  if (rlim < ndb) zd = 1;
+  if (lane == 0) {
+    int* out = A.rec + (size_t)b * 9;
+    out[0] = mx;
+    out[1] = mt;
+    out[2] = mq;
+    out[3] = mqe;
+    out[4] = mqet;
+    out[5] = mte;
+    out[6] = mteq;
+    out[7] = score;
+    out[8] = zd;
+  }
+}
+
+// The wide form: see the head of the file.
 template <bool TWO, bool CIG, bool APPROX>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-batch_fwd_kernel(const BatchArgs A) {
+batch_wide_kernel(const BatchArgs A) {
   constexpr int PL = TWO ? 6 : 4;    // u, v, x, y (, x2, y2)
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -364,48 +1007,72 @@ batch_fwd_kernel(const BatchArgs A) {
 }
 
 template <bool TWO, bool CIG, bool APPROX>
-cudaError_t launch(const BatchArgs& a, int warps, size_t smem,
-                   cudaStream_t stream) {
+cudaError_t launch_wide(const BatchArgs& a, int warps, size_t smem,
+                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      batch_fwd_kernel<TWO, CIG, APPROX>,
+      batch_wide_kernel<TWO, CIG, APPROX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (a.B + warps - 1) / warps;
-  batch_fwd_kernel<TWO, CIG, APPROX><<<blocks, warps * 32, smem, stream>>>(a);
+  batch_wide_kernel<TWO, CIG, APPROX><<<blocks, warps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool TWO, bool CIG, bool APPROX, bool RIGHT>
+cudaError_t launch_reg(const BatchArgs& a, int warps, cudaStream_t stream) {
+  const int blocks = (a.B + warps - 1) / warps;
+  batch_reg_kernel<TWO, CIG, APPROX, RIGHT>
+      <<<blocks, warps * 32, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// RIGHT changes only the direction bytes: the score forms take one
+template <bool TWO, bool APPROX>
+cudaError_t launch_reg_forms(const BatchArgs& a, int cig, int warps,
+                             cudaStream_t stream) {
+  if (!cig) return launch_reg<TWO, false, APPROX, false>(a, warps, stream);
+  return a.right ? launch_reg<TWO, true, APPROX, true>(a, warps, stream)
+                 : launch_reg<TWO, true, APPROX, false>(a, warps, stream);
+}
+
 template <bool TWO>
-cudaError_t launch_two(const BatchArgs& a, int cig, int approx, int warps,
-                       size_t smem, cudaStream_t stream) {
+cudaError_t launch_two(const BatchArgs& a, int cig, int approx, int cpl,
+                       int warps, size_t smem, cudaStream_t stream) {
+  if (cpl)
+    return approx ? launch_reg_forms<TWO, true>(a, cig, warps, stream)
+                  : launch_reg_forms<TWO, false>(a, cig, warps, stream);
   if (cig)
-    return approx ? launch<TWO, true, true>(a, warps, smem, stream)
-                  : launch<TWO, true, false>(a, warps, smem, stream);
-  return approx ? launch<TWO, false, true>(a, warps, smem, stream)
-                : launch<TWO, false, false>(a, warps, smem, stream);
+    return approx ? launch_wide<TWO, true, true>(a, warps, smem, stream)
+                  : launch_wide<TWO, true, false>(a, warps, smem, stream);
+  return approx ? launch_wide<TWO, false, true>(a, warps, smem, stream)
+                : launch_wide<TWO, false, false>(a, warps, smem, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Returns cudaGetLastError() after the launch (0 on success).  cpl: the
+// register form's positions a lane (CPL), or 0 for the wide form, as
+// ops/batch.py:batch_form picks it from ncol and m; TP: the wide form's
+// strip (ops/batch.py:strip_len).
 extern "C" int ksw2t_batch_fwd(
     const void* qs, const void* ts, const void* qlen, const void* tlen,
     const void* w, const void* table, int B, int Lq, int Lt, int m, int q,
     int e, int q2, int e2, int qe_pre, int lt, int ld, int sc_mch,
     int sc_mis, int sc_N, int zdrop, int right, int generic, int approx,
-    int adrop, int cig, int two, int nd, int ncol, int TP, int warps,
-    void* rec, void* p, void* stream) {
+    int adrop, int cig, int two, int nd, int ncol, int TP, int cpl,
+    int warps, void* rec, void* p, void* stream) {
   if (B <= 0 || warps <= 0 || warps > MAX_WARPS || TP % 32 ||
-      TP < Lt + 16 || ncol % 16 || (cig && p == nullptr))
+      TP < Lt + 16 || ncol % 16 || Lt % 16 || (cig && p == nullptr) ||
+      (cpl != 0 && cpl != CPL) || (cpl && (m > 8 || ncol + 48 > 32 * CPL)))
     return (int)cudaErrorInvalidValue;
   BatchArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
               (const int*)tlen, (const int*)w, (const int*)table, B, Lq, Lt,
               m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
               right, generic, adrop, nd, ncol, TP, (int*)rec, (uint8_t*)p};
-  // a warp's strip (ops/batch.py:warp_smem_bytes mirrors it): H int32,
-  // the delta planes, the score bytes and the target
-  const size_t smem = (size_t)warps * TP * ((two ? 6 : 4) + 6);
+  // the wide form's warp strip (ops/batch.py:warp_smem_bytes mirrors it):
+  // H int32, the delta planes, the score bytes and the target
+  const size_t smem = cpl ? 0 : (size_t)warps * TP * ((two ? 6 : 4) + 6);
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(two ? launch_two<true>(a, cig, approx, warps, smem, st)
-                   : launch_two<false>(a, cig, approx, warps, smem, st));
+  return (int)(two ? launch_two<true>(a, cig, approx, cpl, warps, smem, st)
+                   : launch_two<false>(a, cig, approx, cpl, warps, smem, st));
 }

@@ -31,8 +31,14 @@ this route through it with :func:`batch_forward_cuda` as the forward:
 
 The degenerate-scoring guard (``batch_pallas.py:79-93, 551-552,
 612-615``) is the scheduler's reset.  The forward kernel is
-``csrc/batch_fwd.cu`` (one warp per pair); the first empty-band diagonal
-``rlim`` it stops at is ``bands.first_empty_diag``'s closed form.  The
+``csrc/batch_fwd.cu``, one warp a pair, in two forms that
+:func:`batch_form` picks from a launch's ``ncol`` and ``m``: the register
+form (a window of ``32 * CPL`` target positions in the warp's registers)
+and the wide form (a shared-memory strip of
+``strip_len(Lt)`` positions); the scheduler merges a batch's
+register-form buckets into one launch (``scheduler._merged_batch``).  The
+first empty-band diagonal ``rlim`` it stops at is
+``bands.first_empty_diag``'s closed form.  The
 TPU layout (P sublane rows per pair, the query injection plane, the
 packed 13-bit argmax key, ``chunk_early_exit``, the ``RMAX`` launch caps
 and the jit caches) is not ported.
@@ -104,6 +110,33 @@ def batch_ineligible_reason(Lt: int, qlen, tlen, mat, flag, zdrop: int,
 # The forward: kernel E / E2
 
 
+CPL = 8                    # target positions a lane holds, register form
+WINDOW_SLACK = 48          # window positions past ncol the form needs
+REG_M = 8                  # the register form's symbols: 3 bits each
+
+
+def batch_form(ncol: int, m: int) -> int:
+    """Kernel E / E2's form for a launch of ``ncol`` bytes a stored
+    diagonal and an alphabet of ``m``: the positions a lane holds in the
+    register form (``CPL``), or 0 for the wide form.
+
+    The register form keeps a pair's state in a window of ``32 * CPL``
+    target positions based at ``(st - 1) & ~31`` (``window_base``).  It
+    holds every position a diagonal reads or fills while ``en0 + 15 -
+    base + 1 <= 32 * CPL``: ``base >= st0 - 47`` and ``en0 - st0 <= M -
+    1`` with ``M = min(qlen, tlen, w + 1) <= ncol - 16``, so ``ncol +
+    48 <= 32 * CPL`` is enough for every pair of the launch.  It keeps a
+    symbol in 3 bits, so ``m <= 8``."""
+    return CPL if m <= REG_M and ncol + WINDOW_SLACK <= 32 * CPL else 0
+
+
+def window_base(st: int) -> int:
+    """The first target position of the register form's window on a
+    diagonal whose 16-rounded band starts at ``st``: the window holds
+    ``st - 1`` and slides up 32 positions at a time."""
+    return (st - 1) & ~31 if st > 0 else 0
+
+
 def strip_len(Lt: int) -> int:
     """Positions of a warp's state strip: the 16-rounded band and the
     score fill's overshoot of at most 15 past the last target position,
@@ -112,9 +145,9 @@ def strip_len(Lt: int) -> int:
 
 
 def warp_smem_bytes(Lt: int, prm: BandParams) -> int:
-    """Shared memory of one warp (one pair) of ``csrc/batch_fwd.cu``: the
-    int32 H row, the int8 delta planes (6 two-piece), the score bytes and
-    the target, each ``strip_len(Lt)`` long."""
+    """Shared memory of one warp (one pair) of ``csrc/batch_fwd.cu``'s
+    wide form: the int32 H row, the int8 delta planes (6 two-piece), the
+    score bytes and the target, each ``strip_len(Lt)`` long."""
     return strip_len(Lt) * ((6 if prm.two else 4) + 6)
 
 
@@ -122,7 +155,8 @@ def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
                        nd: int, ncol: int):
     """Launch ``csrc/batch_fwd.cu`` on the current stream; the contract of
     its plain version ``band.band_forward_plain`` (``rec`` (B, 9) int32
-    and, with ``cig``, ``p`` (B, nd, ncol) uint8).  Nothing here reads the
+    and, with ``cig``, ``p`` (B, nd, ncol) uint8).  The form comes from
+    ``ncol`` and ``m`` (:func:`batch_form`), so nothing here reads the
     device; a pair whose rounded band outgrows ``ncol`` traps in the
     kernel."""
     B, Lq = qs.shape
@@ -136,10 +170,11 @@ def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
     if Lt > LT_SCORES:
         raise ValueError(f"targets of {Lt}: the batched kernel takes "
                          f"{LT_SCORES} or less")
-    if ncol % 16:
-        raise ValueError(f"ncol {ncol} is not a multiple of 16")
-    per_warp = warp_smem_bytes(Lt, prm)
-    warps = min(MAX_WARPS, SMEM_MAX // per_warp)
+    if ncol % 16 or Lt % 16:
+        raise ValueError(f"ncol {ncol} and Lt {Lt} must be multiples of 16")
+    cpl = batch_form(ncol, prm.m)
+    warps = MAX_WARPS if cpl else min(MAX_WARPS,
+                                      SMEM_MAX // warp_smem_bytes(Lt, prm))
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
     p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
          if prm.cig else None)
@@ -156,7 +191,7 @@ def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
             int(bool(f & int(Flag.GENERIC_SC))),
             int(bool(f & int(Flag.APPROX_MAX))),
             int(bool(f & int(Flag.APPROX_DROP))), prm.cig, prm.two, nd,
-            ncol, strip_len(Lt), warps, rec.data_ptr(),
+            ncol, strip_len(Lt), cpl, warps, rec.data_ptr(),
             p.data_ptr() if p is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "batch_fwd")
@@ -165,4 +200,5 @@ def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
 
 
 __all__ = ["LT_SCORES", "LT_CIGARS", "zdrop_ok", "batch_ineligible_reason",
-           "strip_len", "warp_smem_bytes", "batch_forward_cuda"]
+           "batch_form", "window_base", "strip_len", "warp_smem_bytes",
+           "batch_forward_cuda"]

@@ -4,8 +4,8 @@ The scheduler merges every bucket of a batch that its route table sends
 to the band route into one, its pairs longest first, and plans it with
 one ``band_prep`` call: score launches never split, CIGAR launches split
 only by ``ops.strips.LAUNCH_BYTES`` (the rotated store, ``B * nd *
-ncol`` bytes a launch).  The batched route's buckets keep their own
-launches: that route runs other kernels under other EQX rules.  For each
+ncol`` bytes a launch).  The batched route's buckets launch apart from
+the band route's: that route runs other kernels under other EQX rules.  For each
 band path (one- and two-piece scores and CIGARs, APPROX scores, and a
 batch where strips and band share the work) a batch whose band jobs fall
 into several JAX buckets is held to (a) one band launch under the
@@ -193,10 +193,15 @@ def test_merged_batch_matches_jax_spec(name):
 
 def test_batched_route_buckets_launch_apart():
     """Clipped buckets of targets of 512 or less take the batched route,
-    which keeps one launch a bucket: its kernels and EQX rule are not the
-    band route's, so its buckets are not merged with the band's."""
+    whose launches stay apart from the band route's: its kernels and EQX
+    rule are not the band route's.  Its buckets whose pairs take kernel
+    E's register form go out as one launch; a bucket of the wide form (a
+    band of 201 cells) keeps its own."""
     pairs = _pairs(47, (100, 200, 300, 620))
-    w = [30, 30, 30, 50]
+    wide_q, wide_t = _pairs(48, (450,))[0]
+    tail = _pairs(49, (150,))[0][0]
+    pairs.append((np.concatenate([wide_q, tail]), wide_t))
+    w = [30, 30, 30, 50, 200]
     seen = []
     patches = _recording(seen)
     for p in patches:
@@ -207,8 +212,11 @@ def test_batched_route_buckets_launch_apart():
         for p in patches:
             p.stop()
     names = [nm for nm, _ in seen]
-    assert names.count("batch_cigar_launch") == 3
+    assert names.count("batch_cigar_launch") == 2
     assert names.count("band_cigar_launch") == 1
+    sizes = sorted(len(ln.qlen) for nm, ln in seen
+                   if nm == "batch_cigar_launch")
+    assert sizes == [1, 3]
     spec = _spec(False, Flag.NONE)
     assert [_row(g) for g in got] == [_row(spec(q, t, wi))
                                       for (q, t), wi in zip(pairs, w)]

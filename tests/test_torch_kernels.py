@@ -389,6 +389,114 @@ def test_batch_forward_kernel_matches_plain(cuda_device, costs, flag, zdrop):
             assert torch.equal(kruns[b, :n], pruns[b, :n])
 
 
+def _batch_check(ln, device):
+    """Kernel E / E2 against the plain forward on one launch: records,
+    bytes and the band walker on the kernel's bytes."""
+    qs, ts, ql, tl, w, tab = BD.band_upload(ln, device)
+    krec, kp = BT.batch_forward_cuda(qs, ts, ql, tl, w, tab, ln.prm, ln.nd,
+                                     ln.ncol)
+    prec, pp = BD.band_forward_plain(qs, ts, ql, tl, w, tab, ln.prm, ln.nd,
+                                     ln.ncol)
+    assert torch.equal(krec, prec)
+    if ln.prm.cig:
+        assert torch.equal(kp, pp)
+        starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)
+        kres, kruns = BW.band_walk_cuda(kp, starts, ql, tl, w)
+        pres, pruns = BW.band_walk_plain(kp, starts, ql, tl, w)
+        assert torch.equal(kres, pres)
+
+
+def _reg_launch(pairs, w, flag, zdrop, costs=None, mat=MAT):
+    q, e, q2, e2 = (4, 2, 0, 0) if costs is None else costs
+    (ln,) = BD.band_prep([a for a, _ in pairs], [b for _, b in pairs],
+                         [len(a) for a, _ in pairs],
+                         [len(b) for _, b in pairs],
+                         np.full(len(pairs), w, np.int32), 5, mat, q, e,
+                         zdrop, flag, cig=not flag & Flag.SCORE_ONLY,
+                         two=costs is not None, q2=q2, e2=e2)
+    return ln
+
+
+def _reg_pairs(seed, lens=(60, 150, 300, 500, 240)):
+    rng = np.random.default_rng(seed)
+    out = []
+    for L in lens:
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08, with_n=True)
+        out.append((encode_dna(q), encode_dna(t)))
+    out[2] = (out[2][0][:120], out[2][1])
+    return out + [(out[0][0][:1], out[0][1][:1])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [None] + TWO_PIECE)
+@pytest.mark.parametrize("flag,zdrop", BAND_FORMS)
+@pytest.mark.parametrize("w", [16, 100])
+def test_batch_register_form_matches_plain(cuda_device, w, costs, flag,
+                                           zdrop):
+    """Kernels E / E2's register form (``ops.batch.batch_form``) at a
+    narrow band and at w 100 against the plain forward."""
+    mat = GEN if flag & Flag.GENERIC_SC else MAT
+    ln = _reg_launch(_reg_pairs(63), w, flag, zdrop, costs, mat)
+    assert BT.batch_form(ln.ncol, 5) == BT.CPL
+    _batch_check(ln, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [None, TWO_PIECE[1]])
+@pytest.mark.parametrize("w,cpl", [(63, 8), (191, 8), (192, 0)])
+def test_batch_register_form_edges(cuda_device, w, cpl, costs):
+    """Both sides of the register form's edge: the widest band its
+    window takes (w 191, ncol 208) and the narrowest of the wide form
+    (w 192, ncol 224), beside a band in between."""
+    ln = _reg_launch(_reg_pairs(64, (420, 380, 260)), w, Flag.RIGHT, 100,
+                     costs)
+    assert BT.batch_form(ln.ncol, 5) == cpl
+    _batch_check(ln, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,zdrop", [
+    (Flag.NONE, -1), (Flag.SCORE_ONLY, 100),
+    (Flag.SCORE_ONLY | Flag.APPROX_MAX | Flag.APPROX_DROP, 100)])
+def test_batch_register_window_slides(cuda_device, flag, zdrop):
+    """Long pairs at w 30, whose window slides dozens of times, clipped
+    on the query and on the target, one- and two-piece."""
+    rng = np.random.default_rng(65)
+    pairs = []
+    for L in (1400, 900, 1500):
+        t, q = random_pair(rng, L, divergence=0.12, indel=0.05)
+        pairs.append((encode_dna(q), encode_dna(t)))
+    pairs[1] = (pairs[1][0][:100], pairs[1][1])
+    pairs.append((pairs[0][0], pairs[0][1][:200]))
+    for costs in (None, TWO_PIECE[0]):
+        _batch_check(_reg_launch(pairs, 30, flag, zdrop, costs), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [Flag.SCORE_ONLY, Flag.NONE])
+def test_batch_merged_launch_matches_plain(cuda_device, flag):
+    """The one launch the scheduler makes of a batch whose clipped short
+    pairs fall into several buckets (their register-form buckets merged),
+    against the plain forward."""
+    from ksw2_tpu_torch.batch import scheduler as sched
+
+    rng = np.random.default_rng(66)
+    jobs = []
+    for _ in range(96):
+        t, q = random_pair(rng, int(rng.integers(60, 512)), divergence=0.15,
+                           indel=0.06)
+        jobs.append(sched.AlignJob(encode_dna(q), encode_dna(t), 100))
+    bks = sched._merged_batch(sched._route(jobs, MAT, 6, [None] * len(jobs),
+                                           lambda *_: "batch"), 5)
+    assert len(bks) == 1
+    (bk,) = bks
+    for ln in BD.band_prep([jobs[i].query for i in bk.idxs],
+                           [jobs[i].target for i in bk.idxs], bk.qlen,
+                           bk.tlen, bk.w, 5, MAT, 4, 2, 100, flag,
+                           cig=not flag & Flag.SCORE_ONLY):
+        _batch_check(ln, cuda_device)
+
+
 SPL_MAT = simple_mat(5, 1, 2)
 SPLICE_FORMS = [(Flag.SPLICE_FOR | Flag.SCORE_ONLY, 200),
                 (Flag.SPLICE_FOR, 200), (Flag.SPLICE_FOR | Flag.RIGHT, -1),
