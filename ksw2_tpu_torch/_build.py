@@ -42,8 +42,8 @@ _SIGNATURES = {
     # qs, ts, qlen, tlen, table, B, Lq, tv, m, q, e, mat0, kb, D, Dq, hl,
     # stream
     "ksw2t_rows_fwd": [_P] * 5 + [_I] * 8 + [_P] * 4,
-    # d8, starts, B, tv, Lq, wr, min_intron, res, runs, stream
-    "ksw2t_strips_walk": [_P, _P] + [_I] * 5 + [_P] * 3,
+    # d8, starts, B, tv, Lq, wr, min_intron, res, runs, ops, stream
+    "ksw2t_strips_walk": [_P, _P] + [_I] * 5 + [_P] * 4,
     # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
     # two, nd, ncol, TP, NW, RING, rec, p, stream
@@ -53,8 +53,8 @@ _SIGNATURES = {
     "ksw2t_band_walk": [_P] * 5 + [_I] * 5 + [_P] * 4,
     # qs, ts, qlen, tlen, w, table, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
-    # two, nd, ncol, TP, cpl, warps, rec, p, stream
-    "ksw2t_batch_fwd": [_P] * 6 + [_I] * 26 + [_P] * 3,
+    # two, nd, ncol, warps, rec, p, stream
+    "ksw2t_batch_fwd": [_P] * 6 + [_I] * 24 + [_P] * 3,
     # qs, ts, qlen, tlen, table, don, acc, B, Lq, Lt, m, q, e, q2, lt, ld,
     # sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig, nd,
     # ncol, TP, warps, rec, p, stream

@@ -179,8 +179,8 @@ def _route(jobs, mat, qe: int, results, choose, key=_bucket_key,
     back as one, and so do the band route's (:func:`_merged`).  With
     ``strips_costs``, the (post-swap) ``(q, e)`` of a score path, the
     strips route's buckets come back as one too (:func:`_merged_strips`).
-    The score and CIGAR paths merge the batched route's register-form
-    buckets afterwards (:func:`_merged_batch`)."""
+    The score and CIGAR paths merge the batched route's buckets by form
+    afterwards (:func:`_merged_batch`)."""
     min_sc = int(np.asarray(mat).reshape(-1)[1:].min())
     buckets: Dict[Tuple[int, int], List[int]] = {}
     for i, job in enumerate(jobs):
@@ -262,13 +262,16 @@ def _merged_strips(buckets: List[_Bucket], mat, q: int,
 
 
 def _merged_batch(buckets: List[_Bucket], m: int) -> List[_Bucket]:
-    """``buckets`` with the batched route's buckets whose pairs all take
-    kernel E's register form (``ops.batch.batch_form`` of their widest
-    ``n_col_bytes``) merged into one (:func:`_merged`): that form keeps a
-    pair's state in registers whatever the launch's target length, so a
-    batch's short-banded jobs go out as one launch, split only by
-    ``ops.strips.LAUNCH_BYTES``.  The wide form's buckets stay apart: its
-    shared-memory strip is sized by the launch's longest target."""
+    """``buckets`` with the batched route's buckets merged by kernel E's
+    form (``ops.batch.batch_form`` of their widest ``n_col_bytes``, so a
+    bucket's pairs all take one form): those of the register form into
+    one and those of the wide form into another (:func:`_merged`), each
+    split only by ``ops.strips.LAUNCH_BYTES``.  Both forms keep a pair's
+    state whatever the launch's target length (the register form in a
+    warp's registers, the wide form in a block a pair), so a batch's
+    short-banded jobs go out as one launch and its wide jobs as another,
+    longest first.  The two stay apart: a merged launch takes the form of
+    its widest pair."""
     def narrow(bk):
         # n_col_bytes grows with min(qlen, tlen, w + 1): its widest pair's
         widest = np.minimum(np.minimum(bk.qlen, bk.tlen),
@@ -276,7 +279,8 @@ def _merged_batch(buckets: List[_Bucket], m: int) -> List[_Bucket]:
         return batch_form(n_col_bytes(int(bk.qlen[widest]),
                                       int(bk.tlen[widest]),
                                       int(bk.w[widest])), m) > 0
-    return _merged(buckets, ("batch",), narrow)
+    out = _merged(buckets, ("batch",), narrow)
+    return _merged(out, ("batch",), lambda bk: not narrow(bk))
 
 
 def _to_host(tensors: List[torch.Tensor], dev: torch.device):

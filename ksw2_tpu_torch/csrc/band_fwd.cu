@@ -14,36 +14,38 @@
 // record of ops/records.py; with CIG the reference's direction byte of
 // every cell of [st, en] into its rotated store p[b][r][t - st(r)] with
 // n_col bytes a diagonal.  The plain version is ops/band.py:
-// band_forward_plain.
+// band_forward_plain.  The batched forward's wide form (kernels E / E2 on
+// bands wider than their register window, or m > 8) launches this kernel
+// too, through ops/batch.py (counted as batch_fwd / batch_extd_fwd).
 //
-// Layout: one block a pair, NW compute warps and one replay warp.  The
-// pair's target axis is cut into tiles of TP = 32 NC positions (NC = 1
-// or 2; ops/band.py:band_layout picks TP and NW from the launch's n_col).
-// Tile k belongs to warp k % NW, which walks the diagonals on which the
-// tile meets the band, then takes tile k + NW: NW is chosen so that a
-// tile's first diagonal comes after the last of the tile NW before it,
-// so the warps run the band's tiles in turn and no warp holds two tiles
-// at once.  As in kernel 12 (extz_fwd.cu), lane l keeps the positions
-// t0 + 32 c + l of its tile in registers, so the reference's stale bytes
-// persist as they do in its SSE rows: the edge byte at st - 1, the score
-// bytes in [st, st0) and past the 16-byte fill, H at st0 - 1 and the
-// older H(en0 - 1) that the en0 cell reads.  The int8 planes u, v, x, y
-// (x2, y2) sit in the top byte of an int32 (v << 24): int32 adds wrap as
-// the reference's epi8 adds do and compare as its signed and unsigned
-// byte compares do, so no cell spends instructions on sign extension.  A
-// lane's score against each query symbol is a table of bytes in two
-// registers, and one prmt picks a cell's score.  Neighbour t - 1 is one
-// shuffle a plane.  A tile that lies inside [st0, en0] past the first
-// column (most tile-diagonals of a long band) takes a form of the step
-// with no band-edge selects.  Diagonals go in groups of KD = 32, aligned
-// on multiples of KD for every tile; per group a lane a diagonal prepares
-// the diagonal's band row and the tile before's edge state, and the warp
-// stages the query window its cells read (TP + KD bases).  The tile
-// before hands on its last position's (x, v, x2, H) through a ring of
-// ERING entries in shared memory: one release a group by the writer, one
-// acquire a group by the reader, which then marks how far it has read,
-// so the writer never overwrites an entry still to be read.  No
-// block-wide barrier runs inside the loop.
+// Layout: one block a pair, NW compute warps and one replay warp.  The pair's
+// target axis is cut into tiles of TP = 32 NC positions (NC = 1 or 2 for the
+// band route; 2 or 4, scores only, for the batched wide form;
+// ops/band.py:band_layout picks TP and NW from the launch's n_col). Tile k
+// belongs to warp k % NW, which walks the diagonals on which the tile meets the
+// band, then takes tile k + NW: NW is chosen so that a tile's first diagonal
+// comes after the last of the tile NW before it, so the warps run the band's
+// tiles in turn and no warp holds two tiles at once.  As in kernel 12
+// (extz_fwd.cu), lane l keeps the positions t0 + 32 c + l of its tile in
+// registers, so the reference's stale bytes persist as they do in its SSE rows:
+// the edge byte at st - 1, the score bytes in [st, st0) and past the 16-byte
+// fill, H at st0 - 1 and the older H(en0 - 1) that the en0 cell reads.  The
+// int8 planes u, v, x, y (x2, y2) sit in the top byte of an int32 (v << 24):
+// int32 adds wrap as the reference's epi8 adds do and compare as its signed and
+// unsigned byte compares do, so no cell spends instructions on sign
+// extension.  A lane's score against each query symbol is a table of bytes in
+// two registers, and one prmt picks a cell's score (m <= 8; for a larger
+// alphabet, SCMAT, the m x m matrix in shared memory, one shared load a
+// cell).  Neighbour t - 1 is one shuffle a plane.  A tile that lies inside
+// [st0, en0] past the first column (most tile-diagonals of a long band) takes a
+// form of the step with no band-edge selects.  Diagonals go in groups of KD =
+// 32, aligned on multiples of KD for every tile; per group a lane a diagonal
+// prepares the diagonal's band row and the tile before's edge state, and the
+// warp stages the query window its cells read (TP + KD bases).  The tile before
+// hands on its last position's (x, v, x2, H) through a ring of ERING entries in
+// shared memory: one release a group by the writer, one acquire a group by the
+// reader, which then marks how far it has read, so the writer never overwrites
+// an entry still to be read.  No block-wide barrier runs inside the loop.
 //
 // The diagonal's maximum: each warp takes its tile's largest H with one
 // __reduce_max_sync and the lanes that hold it with a ballot; only a tie
@@ -88,7 +90,9 @@ constexpr int KT = 4096;            // tie-rank class stride (ops/band.py)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int KD = 32;              // diagonals a group (a lane each)
 constexpr int ERING = 4 * KD;       // entries of a tile edge's ring
-constexpr int MAX_NW = 25;          // compute warps (ops/band.py:NW_MAX)
+// compute warps a block: the bound the compiler sizes registers for (at
+// 27 warps or 26, 72 a thread); ops/band.py:NW_MAX and batch.WIDE_NW_MAX
+constexpr int MAX_NW = 26;
 constexpr int MAX_THREADS = 32 * (MAX_NW + 1);
 // a wait may last SPIN_BASE + SPIN_DIAG cycles for each of the pair's
 // diagonals (~10 s + ~100 us a diagonal of SM clock) before it counts as
@@ -150,6 +154,13 @@ __device__ __forceinline__ long long pack_walk(int H0, int t) {
                      (unsigned long long)(unsigned)t);
 }
 
+// How a lane scores its cells (the kernel's SC): SC8, a table of its score
+// against each of m <= 8 query symbols, a byte each in two registers, one
+// prmt a cell (the query window holds prmt selectors); SCMAT, any m, the
+// m x m matrix of bytes in shared memory, one load a cell (the window holds
+// the symbols).
+constexpr int SC8 = 8, SCMAT = 0;
+
 struct BandArgs {
   const uint8_t* qs;
   const uint8_t* ts;
@@ -184,13 +195,15 @@ struct WarpSmem {
 // diagonal its edge entries are published to (pub), the lowest entry of
 // the tile before it may still read (low), the diagonal up to which it
 // adds no more keys (settled) and the last diagonal it computed (hiw);
-// then the replay's progress and the pair's stop, and the score table.
+// then the replay's progress and the pair's stop, and the score table;
+// with SCMAT the m x m score matrix after the warps'.
 constexpr int CTL_INTS = 4 * 32 + 4 + 64;
 
-template <int TP>
-constexpr size_t band_smem_bytes(int NW, int RING) {
+template <int TP, int SC>
+constexpr size_t band_smem_bytes(int NW, int RING, int m) {
   return (size_t)RING * (8 + 8) + 4 * CTL_INTS +
-         (size_t)NW * sizeof(WarpSmem<TP>);
+         (size_t)NW * sizeof(WarpSmem<TP>) +
+         (SC == SCMAT ? (size_t)(m * m + 15) / 16 * 16 : 0);
 }
 
 // The first diagonal a tile starting at t0 can touch (the score fill runs
@@ -241,7 +254,7 @@ __device__ __forceinline__ bool wait_until(const int* p, int need,
   return __shfl_sync(FULL, ok, 0);
 }
 
-template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT>
+template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT, int SC>
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fwd_kernel(const BandArgs A) {
   constexpr int TP = 32 * NC;
@@ -257,6 +270,7 @@ band_fwd_kernel(const BandArgs A) {
   int* stopp = replayed + 1;
   int* stab = replayed + 4;
   WarpSmem<TP>* wsm = reinterpret_cast<WarpSmem<TP>*>(stab + 64);
+  signed char* smat = reinterpret_cast<signed char*>(wsm + NW);   // SCMAT
 
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -278,9 +292,17 @@ band_fwd_kernel(const BandArgs A) {
     *replayed = -1;
     *stopp = INT_MAX;
   }
-  if (A.generic)
+  if (SC == SC8 && A.generic)
     for (int i = threadIdx.x; i < A.m * A.m; i += blockDim.x)
       stab[i] = A.table[i];
+  if (SC == SCMAT)
+    for (int i = threadIdx.x; i < A.m * A.m; i += blockDim.x) {
+      const int T = i / A.m, Q = i % A.m;
+      const int sv = T == Q ? A.sc_mch : A.sc_mis;
+      smat[i] = (signed char)(A.generic                       ? A.table[i]
+                              : T == A.m - 1 || Q == A.m - 1 ? A.sc_N
+                                                              : sv);
+    }
   __syncthreads();
 
   if (warp < NW) {
@@ -329,7 +351,8 @@ band_fwd_kernel(const BandArgs A) {
       // The int8 planes are kept in the top byte (v << 24), so int32 adds
       // wrap as the reference's epi8 adds do and compare as they do, with
       // no sign extension; the score byte Sc as a plain int.  SL / SH:
-      // the lane's score against each query symbol, a byte each.
+      // the lane's score against each query symbol, a byte each (SCMAT:
+      // SL its target symbol's row of the matrix).
       int U[NC], V[NC], Xp[NC], Y[NC], X2[NC], Y2[NC], H[NC], Sc[NC],
           SL[NC], SH[NC];
 #pragma unroll
@@ -340,6 +363,11 @@ band_fwd_kernel(const BandArgs A) {
         X2[c] = Y2[c] = init2S;
         H[c] = NEG;
         Sc[c] = 0;
+        if (SC == SCMAT) {
+          SL[c] = T * A.m;
+          SH[c] = 0;
+          continue;
+        }
         unsigned lo = 0, hi = 0;
         for (int Qs = 0; Qs < 8; ++Qs) {
           int sv;
@@ -414,11 +442,13 @@ band_fwd_kernel(const BandArgs A) {
         }
         // the query bases the group's cells read (r - t for r in the
         // group) as the prmt selector of their score byte, sign-extended
+        // (SCMAT: the symbol)
         const int qb = r_lo - X;
         for (int i = lane; i < TP + KD - 1; i += 32) {
           const int qi = qb + i;
           const int Q = qi >= 0 && qi < qlen ? qy[qi] : 0;
-          S.qsel[i] = (unsigned short)(Q * 0x1111 + 0x8880);
+          S.qsel[i] =
+              (unsigned short)(SC == SCMAT ? Q : Q * 0x1111 + 0x8880);
         }
         // what each diagonal of the group needs besides its cells, a lane
         // a diagonal, off the chain of chunk steps
@@ -502,7 +532,9 @@ band_fwd_kernel(const BandArgs A) {
               // the score fill over [st0, hi_s]; the other lanes keep stale
               // bytes
               const int rel = t - st0;
-              const int sv = prmt(SL[c], SH[c], S.qsel[rr + TP - 1 - l]);
+              const int qs = S.qsel[rr + TP - 1 - l];
+              const int sv = SC == SCMAT ? smat[SL[c] + qs]
+                                         : prmt(SL[c], SH[c], qs);
               const int Sv = IN || (unsigned)rel <= (unsigned)hs ? sv : Sc[c];
               Sc[c] = Sv;
 
@@ -862,44 +894,63 @@ band_fwd_kernel(const BandArgs A) {
   }
 }
 
-template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT>
+template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT, int SC>
 cudaError_t launch(const BandArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = band_smem_bytes<32 * NC>(a.NW, a.RING);
+  const size_t smem = band_smem_bytes<32 * NC, SC>(a.NW, a.RING, a.m);
   cudaError_t err = cudaFuncSetAttribute(
-      band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT>,
+      band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT, SC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT>
+  band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT, SC>
       <<<B, 32 * (a.NW + 1), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool TWO, int NC, bool RIGHT>
-cudaError_t launch_forms(const BandArgs& a, int cig, int approx, int B,
-                         cudaStream_t stream) {
-  if (cig)
-    return approx ? launch<TWO, true, true, NC, RIGHT>(a, B, stream)
-                  : launch<TWO, true, false, NC, RIGHT>(a, B, stream);
-  return approx ? launch<TWO, false, true, NC, RIGHT>(a, B, stream)
-                : launch<TWO, false, false, NC, RIGHT>(a, B, stream);
+// RIGHT changes only the direction bytes: score launches take one form;
+// tiles of 128 (NC 4) take score launches only
+template <bool TWO, int NC, int SC>
+cudaError_t launch_forms(const BandArgs& a, int cig, int approx, int right,
+                         int B, cudaStream_t stream) {
+  if constexpr (NC < 4) {
+    if (cig && right)
+      return approx ? launch<TWO, true, true, NC, true, SC>(a, B, stream)
+                    : launch<TWO, true, false, NC, true, SC>(a, B, stream);
+    if (cig)
+      return approx ? launch<TWO, true, true, NC, false, SC>(a, B, stream)
+                    : launch<TWO, true, false, NC, false, SC>(a, B, stream);
+  }
+  return approx ? launch<TWO, false, true, NC, false, SC>(a, B, stream)
+                : launch<TWO, false, false, NC, false, SC>(a, B, stream);
+}
+
+// tiles of 32 (m <= 8 only), 64 or 128
+template <bool TWO, int SC>
+cudaError_t launch_tiles(const BandArgs& a, int cig, int approx, int right,
+                         int TP, int B, cudaStream_t stream) {
+  if (TP == 128)
+    return launch_forms<TWO, 4, SC>(a, cig, approx, right, B, stream);
+  if constexpr (SC == SC8) {
+    if (TP == 32)
+      return launch_forms<TWO, 1, SC>(a, cig, approx, right, B, stream);
+  }
+  return launch_forms<TWO, 2, SC>(a, cig, approx, right, B, stream);
 }
 
 template <bool TWO>
 cudaError_t launch_two(const BandArgs& a, int cig, int approx, int right,
                        int TP, int B, cudaStream_t stream) {
-  if (TP == 64)
-    return right ? launch_forms<TWO, 2, true>(a, cig, approx, B, stream)
-                 : launch_forms<TWO, 2, false>(a, cig, approx, B, stream);
-  return right ? launch_forms<TWO, 1, true>(a, cig, approx, B, stream)
-               : launch_forms<TWO, 1, false>(a, cig, approx, B, stream);
+  return a.m <= 8
+             ? launch_tiles<TWO, SC8>(a, cig, approx, right, TP, B, stream)
+             : launch_tiles<TWO, SCMAT>(a, cig, approx, right, TP, B, stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).  TP: the
-// tile (32 or 64 positions), NW: the compute warps a block (at most
-// MAX_NW), RING: the per-diagonal ring (a power of two of at least
-// (NW + 2) KD); ops/band.py:band_layout picks them.
+// tile (32 or 64 positions; 128 for score launches; not 32 for m > 8),
+// NW: the compute warps a block (at most MAX_NW), RING: the per-diagonal
+// ring (a power of two of at least (NW + 2) KD); ops/band.py:band_layout
+// picks them.
 extern "C" int ksw2t_band_fwd(
     const void* qs, const void* ts, const void* qlen, const void* tlen,
     const void* w, const void* table, int B, int Lq, int Lt, int m, int q,
@@ -907,12 +958,17 @@ extern "C" int ksw2t_band_fwd(
     int sc_mis, int sc_N, int zdrop, int right, int generic, int approx,
     int adrop, int cig, int two, int nd, int ncol, int TP, int NW, int RING,
     void* rec, void* p, void* stream) {
-  if (B <= 0 || (TP != 32 && TP != 64) || NW < 2 || NW > MAX_NW ||
-      RING < (NW + 2) * KD || (RING & (RING - 1)) || m > 8 || ncol % 16 ||
+  if (B <= 0 || (TP != 32 && TP != 64 && TP != 128) || (TP == 128 && cig) ||
+      (TP == 32 && m > 8) || m < 1 || NW < 2 || NW > MAX_NW ||
+      RING < (NW + 2) * KD || (RING & (RING - 1)) || ncol % 16 ||
       (cig && p == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = TP == 64 ? band_smem_bytes<64>(NW, RING)
-                               : band_smem_bytes<32>(NW, RING);
+  const size_t smem =
+      m <= 8 ? (TP == 128  ? band_smem_bytes<128, SC8>(NW, RING, m)
+                : TP == 64 ? band_smem_bytes<64, SC8>(NW, RING, m)
+                           : band_smem_bytes<32, SC8>(NW, RING, m))
+             : (TP == 128 ? band_smem_bytes<128, SCMAT>(NW, RING, m)
+                          : band_smem_bytes<64, SCMAT>(NW, RING, m));
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   BandArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
              (const int*)tlen, (const int*)w, (const int*)table, Lq, Lt, m,

@@ -1,6 +1,7 @@
 // Batched forward (kernels E and E2): the anti-diagonal difference DP of
-// many pairs at once, one warp a pair (extz and extd, exact or
-// approximate max, score and direction bytes).
+// many pairs at once (extz and extd, exact or approximate max, score and
+// direction bytes): one warp a pair in the register form, this file's
+// kernel; the wide form is band_fwd.cu's block a pair.
 //
 // Replaces ksw2_tpu/ops/wavefront_batch.py:_batch_kernel_body (one-piece,
 // counted as batch_fwd) and ksw2_tpu/ops/wavefront_batch_extd.py:
@@ -59,12 +60,14 @@
 // drop; it zeroes the store rows it wrote past the stop.  With CIG a lane
 // writes its CPL direction bytes with one 8-byte store.
 //
-// The wide form (batch_wide_kernel) takes launches whose band is wider
-// than the window (unbanded pairs up to 1536 / 3072) or m > 8: a
-// pair's state in its warp's shared-memory strip in the t coordinate,
-// each lane owning t = 32 c + l; a diagonal walks its 32-lane chunks in
-// order with the t - 1 neighbour from lane l - 1 (or lane 31 of the chunk
-// before) and reduces a 64-bit (H, tie rank) key in 5 shuffle rounds.
+// The wide form takes launches whose band is wider than the window
+// (unbanded pairs up to 1536 bp CIGARs, 3072 scores) or m > 8: the band
+// forward's block a pair, launched from band_fwd.cu by ops/batch.py in
+// the layout of ops/batch.py:wide_layout (tiles of 64 positions, 128 for
+// scores past n_col 1602; the score matrix in shared memory for m > 8).
+// An unbanded pair meets every tile for ~qlen diagonals, so its tiles
+// are all live at once and nw is about its tile count; the launch's
+// pairs go longest first, so its tail is not a long pair started last.
 //
 // What bounds them on an H100.  The register form: each warp's chain of
 // a diagonal's steps (about 2,500 cycles a warp-diagonal with clock
@@ -74,11 +77,9 @@
 // 3-4 warps a sub-partition that 128 registers leave, so a launch of
 // many pairs runs at 3.2-3.8x the integer-pipe bound of its band cells
 // (chip_smoke.py: OPS); half the window's cells are idle at w = 100. The
-// wide form: one warp's chain of chunk steps through shared memory, all
-// of its band's chunks a diagonal, a few thousand cycles a diagonal on a
-// long unbanded pair, so a launch waits ~20 us a diagonal on its longest
-// pair (150x its bound on the mixed pairs of up to 1536 bp).  With CIG
-// the n_col bytes a diagonal are the only large memory traffic.
+// wide form: the band kernel's, the SM's integer pipe over a pair's tile
+// steps, a pair to an SM.  With CIG the n_col bytes a diagonal are the
+// only large memory traffic.
 #include <climits>
 
 #include "common.cuh"
@@ -101,8 +102,6 @@ constexpr int MAX_WARPS = 8;
 constexpr int KD = 32;              // diagonals a group (a lane each)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int CPL = 8;              // register form: positions a lane
-
-__device__ __forceinline__ int w8(int v) { return (int)(signed char)v; }
 
 // An int8 value in the top byte of an int32 (v << 24); sums and
 // differences in that form wrap as the reference's epi8 ones do (taken in
@@ -165,7 +164,7 @@ struct BatchArgs {
   const int* ws;
   const int* table;
   int B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N;
-  int zdrop, right, generic, adrop, nd, ncol, TP;
+  int zdrop, right, generic, adrop, nd, ncol;
   int* rec;
   uint8_t* p;
 };
@@ -722,302 +721,6 @@ batch_reg_kernel(const BatchArgs A) {
   }
 }
 
-// The wide form: see the head of the file.
-template <bool TWO, bool CIG, bool APPROX>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-batch_wide_kernel(const BatchArgs A) {
-  constexpr int PL = TWO ? 6 : 4;    // u, v, x, y (, x2, y2)
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= A.B) return;              // a whole warp; no block barrier
-  const int TP = A.TP;
-  unsigned char* base = smem + (size_t)warp * TP * (PL + 6);
-  int* Hr = reinterpret_cast<int*>(base);                    // [TP]
-  signed char* pl = reinterpret_cast<signed char*>(Hr + TP);  // [PL][TP]
-  signed char* sr = pl + PL * TP;                            // [TP]
-  uint8_t* tgs = reinterpret_cast<uint8_t*>(sr + TP);        // [TP]
-
-  const int qlen = A.qlens[b], tlen = A.tlens[b], w = A.ws[b];
-  const int q = A.q, e = A.e, q2 = A.q2, e2 = A.e2;
-  const int qe = q + e, qe2 = q2 + e2;
-  const int ez = TWO ? e2 : e;       // Z-drop gap slope
-  const int init = TWO ? w8(-qe) : 0;
-  const int init2 = w8(-qe2);
-  const uint8_t* tg = A.ts + (size_t)b * A.Lt;
-  const uint8_t* qy = A.qs + (size_t)b * A.Lq;
-  uint8_t* prow = CIG ? A.p + (size_t)b * A.nd * A.ncol : nullptr;
-
-  // the reference's init bytes; lane l touches only t = l mod 32
-  for (int t = lane; t < TP; t += 32) {
-    for (int k = 0; k < 4; ++k) pl[k * TP + t] = (signed char)init;
-    if (TWO) {
-      pl[4 * TP + t] = (signed char)init2;
-      pl[5 * TP + t] = (signed char)init2;
-    }
-    sr[t] = 0;
-    Hr[t] = NEG;
-    tgs[t] = t < tlen ? tg[t] : 0;
-  }
-
-  int last_st = -1, last_en = -1, H0 = 0, lt0 = 0;
-  int mx = 0, mt = -1, mq = -1, mqe = NEG, mqet = -1, mte = NEG, mteq = -1;
-  int score = NEG, zd = 0;
-  const int ndb = qlen + tlen - 1;
-  // the first diagonal whose band is empty (batch_pallas.py:42-48)
-  const int rlim = min(min(ndb, 2 * qlen + w - 1),
-                       min(2 * tlen + w - 1, w == 0 ? 1 : ndb));
-  // ksw_apply_zdrop (ksw2.h:191-207): true when the pair drops
-  auto zdrop_apply = [&](int r, int Hm, int t) {
-    if (Hm > mx) {
-      mx = Hm;
-      mt = t;
-      mq = r - t;
-      return false;
-    }
-    if (t >= mt && r - t >= mq) {
-      const int tl_ = t - mt, ql_ = (r - t) - mq;
-      const int l = tl_ > ql_ ? tl_ - ql_ : ql_ - tl_;
-      return A.zdrop >= 0 && mx - Hm > A.zdrop + l * ez;
-    }
-    return false;
-  };
-
-  for (int r = 0; r < rlim; ++r) {
-    const int st0 = max(max(0, r - qlen + 1), (r - w + 1) >> 1);
-    const int en0 = min(min(tlen - 1, r), (r + w) >> 1);
-    const int st = st0 & ~15, en = en0 | 15;
-    if (CIG && en - st + 1 > A.ncol) __trap();   // the store's row width
-    // the boundary entering lane st (ksw2_extz2_sse.c:152-158) and the
-    // first-column values (the j == 0 cell at t == r)
-    const bool prevok = st > 0 && last_st <= st - 1 && st - 1 <= last_en;
-    const int colv =
-        TWO ? (r == 0 ? -qe : (r < A.lt ? -e : (r == A.lt ? A.ld : -e2)))
-            : (r ? q : 0);
-    // the score fill: [st0, hi]; the other positions keep stale bytes
-    const int hi = A.generic ? en0 : st0 + ((en0 - st0) & ~15) + 15;
-    const int c_lo = max(st - 1, 0) >> 5, c_hi = max(en, hi) >> 5;
-
-    long long best = LLONG_MIN;
-    int hst = 0, hen = 0, d0 = 0, d1 = 0;
-    int cX = 0, cV = 0, cX2 = 0, cH = 0;   // lane 31's old state, t - 1
-    for (int c = c_lo; c <= c_hi; ++c) {
-      const int t = (c << 5) + lane;
-      if (t >= st0 && t <= hi) {
-        const int T = tgs[t];
-        const int Q = r - t >= 0 ? qy[r - t] : 0;
-        int sv;
-        if (A.generic) {
-          sv = A.table[T * A.m + Q];
-        } else {
-          sv = T == Q ? A.sc_mch : A.sc_mis;
-          if (T == A.m - 1 || Q == A.m - 1) sv = A.sc_N;
-        }
-        sr[t] = (signed char)w8(sv);
-      }
-      // this cell's state before the diagonal, and that of t - 1
-      const int Uo = pl[t], Vo = pl[TP + t], Xo = pl[2 * TP + t],
-                Yo = pl[3 * TP + t];
-      const int X2o = TWO ? pl[4 * TP + t] : 0;
-      const int Y2o = TWO ? pl[5 * TP + t] : 0;
-      const int Ho = APPROX ? 0 : Hr[t];
-      int Xm = __shfl_up_sync(FULL, Xo, 1);
-      int Vm = __shfl_up_sync(FULL, Vo, 1);
-      int X2m = TWO ? __shfl_up_sync(FULL, X2o, 1) : 0;
-      int Hm = APPROX ? 0 : __shfl_up_sync(FULL, Ho, 1);
-      if (lane == 0) {
-        Xm = cX;
-        Vm = cV;
-        X2m = cX2;
-        Hm = cH;
-      }
-      cX = __shfl_sync(FULL, Xo, 31);
-      cV = __shfl_sync(FULL, Vo, 31);
-      if (TWO) cX2 = __shfl_sync(FULL, X2o, 31);
-      if (!APPROX) cH = __shfl_sync(FULL, Ho, 31);
-
-      int un = 0, vn = 0, h = 0;
-      if (t >= st && t <= en) {
-        const int S = sr[t];
-        int X1 = Xm, V1 = Vm, X21 = X2m;
-        if (t == st) {
-          X1 = prevok ? Xm : init;
-          V1 = prevok ? Vm : (st == 0 ? w8(colv) : init);
-          X21 = prevok ? X2m : init2;
-        }
-        const int U = t == r ? w8(colv) : Uo;
-        const int Y = t == r ? init : Yo;
-        int a = w8(X1 + V1), bb = w8(Y + U);
-        int d = 0, z, xn, yn;
-        if (!TWO) {
-          const int zz = w8(S + 2 * qe);
-          d = A.right ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
-          z = max(zz, a);
-          d = A.right ? (z > bb ? d : DIR_F) : (bb > z ? DIR_F : d);
-          z = w8(max(z & 255, bb & 255));                 // max_epu8
-          z = w8(min(z & 255, (A.sc_mch + 2 * qe) & 255));  // min_epu8
-          un = w8(z - V1);
-          vn = w8(z - U);
-          const int z2 = w8(z - q);
-          a = w8(a - z2);
-          bb = w8(bb - z2);
-          const bool ta = A.right ? a >= 0 : a > 0;
-          const bool tb = A.right ? bb >= 0 : bb > 0;
-          d |= (ta ? DIR_E_CONT : 0) | (tb ? DIR_F_CONT : 0);
-          xn = a > 0 ? a : 0;
-          yn = bb > 0 ? bb : 0;
-        } else {
-          const int Y2 = t == r ? init2 : Y2o;
-          int a2 = w8(X21 + V1), b2 = w8(Y2 + U);
-          z = S;
-          const int cand[4] = {a, bb, a2, b2};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            d = A.right ? (z > cand[k] ? d : k + 1)
-                        : (cand[k] > z ? k + 1 : d);
-            z = max(z, cand[k]);
-          }
-          z = min(z, w8(A.sc_mch));
-          un = w8(z - V1);
-          vn = w8(z - U);
-          const int t1 = w8(z - q), t2 = w8(z - q2);
-          a = w8(a - t1);
-          bb = w8(bb - t1);
-          a2 = w8(a2 - t2);
-          b2 = w8(b2 - t2);
-          const bool ca = A.right ? a >= 0 : a > 0;
-          const bool cb = A.right ? bb >= 0 : bb > 0;
-          const bool ca2 = A.right ? a2 >= 0 : a2 > 0;
-          const bool cb2 = A.right ? b2 >= 0 : b2 > 0;
-          d |= (ca ? DIR_E_CONT : 0) | (cb ? DIR_F_CONT : 0) |
-               (ca2 ? DIR_E2_CONT : 0) | (cb2 ? DIR_F2_CONT : 0);
-          xn = w8(max(a, 0) - qe);
-          yn = w8(max(bb, 0) - qe);
-          pl[4 * TP + t] = (signed char)w8(max(a2, 0) - qe2);
-          pl[5 * TP + t] = (signed char)w8(max(b2, 0) - qe2);
-        }
-        pl[t] = (signed char)un;
-        pl[TP + t] = (signed char)vn;
-        pl[2 * TP + t] = (signed char)xn;
-        pl[3 * TP + t] = (signed char)yn;
-        if (CIG) prow[(size_t)r * A.ncol + (t - st)] = (uint8_t)d;
-
-        if (!APPROX && t >= st0 && t <= en0) {
-          // the H row (spec/common.py:exact_max_scan)
-          const int vv = TWO ? vn : (vn & 255), uu = TWO ? un : (un & 255);
-          const int sub = TWO ? 0 : qe;
-          if (r == 0)
-            h = vv - (TWO ? A.qe_pre : 2 * qe);
-          else if (t < en0 || en0 == 0)
-            h = Ho + vv - sub;
-          else
-            h = Hm + uu - sub;
-          Hr[t] = h;
-          // the SSE scan's tie rank: the en0 cell, then 4 lane classes
-          // over [st0, en1), then the scalar tail; smaller ranks win
-          const int rel = t - st0;
-          const int en1 = st0 + ((en0 - st0) & ~3);
-          const int rank = t == en0 ? 0
-                           : t < en1 ? (rel & 3) * KT + rel + 1
-                                     : 4 * KT + rel + 1;
-          best = max(best, (long long)h * 4294967296LL +
-                               (long long)(0x7fffffff - rank));
-        }
-      }
-      // the diagonal's boundary cells, from the lanes that own them
-      if (!APPROX) {
-        if (c == st0 >> 5) hst = __shfl_sync(FULL, h, st0 & 31);
-        if (c == en0 >> 5) hen = __shfl_sync(FULL, h, en0 & 31);
-      } else {
-        if (c == lt0 >> 5) d0 = __shfl_sync(FULL, vn, lt0 & 31);
-        if (c == (lt0 + 1) >> 5) d1 = __shfl_sync(FULL, un, (lt0 + 1) & 31);
-      }
-    }
-
-    // every lane updates its own copy of the per-pair scalars
-    bool drop = false;
-    int fin;
-    if (!APPROX) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        best = max(best, __shfl_xor_sync(FULL, best, o));
-      const int maxH = (int)(best >> 32);
-      const int rank = 0x7fffffff - (int)(best & 0xffffffffLL);
-      const int maxt = rank == 0       ? en0
-                       : rank <= 4 * KT ? st0 + (rank - 1) % KT
-                                        : st0 + rank - 1 - 4 * KT;
-      if (en0 == tlen - 1 && hen > mte) {
-        mte = hen;
-        mteq = r - en;
-      }
-      if (r - st0 == qlen - 1 && hst > mqe) {
-        mqe = hst;
-        mqet = st0;
-      }
-      drop = zdrop_apply(r, maxH, maxt);
-      fin = hen;
-    } else {
-      if (r == 0) {                  // lt0 == 0: d0 is vn at t == 0
-        H0 = TWO ? d0 - A.qe_pre : (d0 & 255) - 2 * qe;
-      } else {
-        const bool c1 = st0 <= lt0 && lt0 <= en0;
-        const bool c2 = st0 <= lt0 + 1 && lt0 + 1 <= en0;
-        if (!TWO) {
-          d0 = (d0 & 255) - qe;
-          d1 = (d1 & 255) - qe;
-        }
-        if (c1 && c2) {
-          if (d0 > d1) {
-            H0 += d0;
-          } else {
-            H0 += d1;
-            ++lt0;
-          }
-        } else if (c1) {
-          H0 += d0;
-        } else {
-          H0 += d1;
-          ++lt0;
-        }
-      }
-      if (A.adrop && (TWO || r > 0)) drop = zdrop_apply(r, H0, lt0);
-      fin = H0;
-    }
-    if (drop) {
-      zd = 1;
-      break;
-    }
-    if (r == ndb - 1 && en0 == tlen - 1) score = fin;
-    last_st = st;
-    last_en = en;
-  }
-  if (rlim < ndb) zd = 1;
-  if (lane == 0) {
-    int* out = A.rec + (size_t)b * 9;
-    out[0] = mx;
-    out[1] = mt;
-    out[2] = mq;
-    out[3] = mqe;
-    out[4] = mqet;
-    out[5] = mte;
-    out[6] = mteq;
-    out[7] = score;
-    out[8] = zd;
-  }
-}
-
-template <bool TWO, bool CIG, bool APPROX>
-cudaError_t launch_wide(const BatchArgs& a, int warps, size_t smem,
-                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      batch_wide_kernel<TWO, CIG, APPROX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (a.B + warps - 1) / warps;
-  batch_wide_kernel<TWO, CIG, APPROX><<<blocks, warps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <bool TWO, bool CIG, bool APPROX, bool RIGHT>
 cudaError_t launch_reg(const BatchArgs& a, int warps, cudaStream_t stream) {
   const int blocks = (a.B + warps - 1) / warps;
@@ -1036,43 +739,32 @@ cudaError_t launch_reg_forms(const BatchArgs& a, int cig, int warps,
 }
 
 template <bool TWO>
-cudaError_t launch_two(const BatchArgs& a, int cig, int approx, int cpl,
-                       int warps, size_t smem, cudaStream_t stream) {
-  if (cpl)
-    return approx ? launch_reg_forms<TWO, true>(a, cig, warps, stream)
-                  : launch_reg_forms<TWO, false>(a, cig, warps, stream);
-  if (cig)
-    return approx ? launch_wide<TWO, true, true>(a, warps, smem, stream)
-                  : launch_wide<TWO, true, false>(a, warps, smem, stream);
-  return approx ? launch_wide<TWO, false, true>(a, warps, smem, stream)
-                : launch_wide<TWO, false, false>(a, warps, smem, stream);
+cudaError_t launch_two(const BatchArgs& a, int cig, int approx, int warps,
+                       cudaStream_t stream) {
+  return approx ? launch_reg_forms<TWO, true>(a, cig, warps, stream)
+                : launch_reg_forms<TWO, false>(a, cig, warps, stream);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success).  cpl: the
-// register form's positions a lane (CPL), or 0 for the wide form, as
-// ops/batch.py:batch_form picks it from ncol and m; TP: the wide form's
-// strip (ops/batch.py:strip_len).
+// Returns cudaGetLastError() after the launch (0 on success): the
+// register form, `warps` pairs a block, on a launch that
+// ops/batch.py:batch_form gives it (ncol + 48 <= 32 CPL, m <= 8).
 extern "C" int ksw2t_batch_fwd(
     const void* qs, const void* ts, const void* qlen, const void* tlen,
     const void* w, const void* table, int B, int Lq, int Lt, int m, int q,
     int e, int q2, int e2, int qe_pre, int lt, int ld, int sc_mch,
     int sc_mis, int sc_N, int zdrop, int right, int generic, int approx,
-    int adrop, int cig, int two, int nd, int ncol, int TP, int cpl,
-    int warps, void* rec, void* p, void* stream) {
-  if (B <= 0 || warps <= 0 || warps > MAX_WARPS || TP % 32 ||
-      TP < Lt + 16 || ncol % 16 || Lt % 16 || (cig && p == nullptr) ||
-      (cpl != 0 && cpl != CPL) || (cpl && (m > 8 || ncol + 48 > 32 * CPL)))
+    int adrop, int cig, int two, int nd, int ncol, int warps, void* rec,
+    void* p, void* stream) {
+  if (B <= 0 || warps <= 0 || warps > MAX_WARPS || ncol % 16 || Lt % 16 ||
+      (cig && p == nullptr) || m > 8 || ncol + 48 > 32 * CPL)
     return (int)cudaErrorInvalidValue;
   BatchArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
               (const int*)tlen, (const int*)w, (const int*)table, B, Lq, Lt,
               m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
-              right, generic, adrop, nd, ncol, TP, (int*)rec, (uint8_t*)p};
-  // the wide form's warp strip (ops/batch.py:warp_smem_bytes mirrors it):
-  // H int32, the delta planes, the score bytes and the target
-  const size_t smem = cpl ? 0 : (size_t)warps * TP * ((two ? 6 : 4) + 6);
+              right, generic, adrop, nd, ncol, (int*)rec, (uint8_t*)p};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(two ? launch_two<true>(a, cig, approx, cpl, warps, smem, st)
-                   : launch_two<false>(a, cig, approx, cpl, warps, smem, st));
+  return (int)(two ? launch_two<true>(a, cig, approx, warps, st)
+                   : launch_two<false>(a, cig, approx, warps, st));
 }

@@ -73,28 +73,6 @@ __device__ __forceinline__ void step_back(int op, int& i, int& j) {
   if (op == OP_M || op == OP_I) --j;
 }
 
-// Run-length writer of a walk: extends the open (op, len) run while the
-// op repeats and stores `len << 4 | op` when it changes, so a walk of n
-// steps stores at most n entries.
-struct RunWriter {
-  int* out;
-  int k = 0, op = -1, len = 0;
-  __device__ explicit RunWriter(int* o) : out(o) {}
-  __device__ void push(int o) {
-    if (o == op) {
-      ++len;
-    } else {
-      if (len > 0) out[k++] = (len << 4) | op;
-      op = o;
-      len = 1;
-    }
-  }
-  __device__ void flush() {
-    if (len > 0) out[k++] = (len << 4) | op;
-    len = 0;
-  }
-};
-
 // H(i, -1): the reference's virtual-column boundary -(q + e + e*i).
 __device__ __forceinline__ int col_h(int i, int gapoe, int e) {
   return -(gapoe + e * i);

@@ -1,6 +1,7 @@
 // The windowed walk shared by the single-pair walker (kernel 17,
-// extz_walk.cu) and the band walker (kernel D, band_walk.cu, rotated and
-// flat forms): ksw_backtrack (ksw2.h:129-161; common.cuh's
+// extz_walk.cu), the band walker (kernel D, band_walk.cu, rotated and
+// flat forms) and the strips walker (kernel B, strips_walk.cu, the
+// row-major form): ksw_backtrack (ksw2.h:129-161; common.cuh's
 // backtrack_step and state_op are its rules) with its bytes read from
 // windows of the store staged in shared memory.
 //
@@ -12,16 +13,22 @@
 // chunks of that range that lie in the row's stored bytes: a triangle,
 // row d in a slot of ceil(d / 16) + 1 chunks (slot_base), so every
 // in-band read the walk makes before it leaves those rows is in the
-// window.  Each stored row starts on a 16-byte boundary (compact rows are
-// multiples of 16 wide, rotated and flat rows ncol % 16 == 0 wide, st(r)
-// a multiple of 16, and pair bases multiples of 16: a misaligned base
-// traps), so the stager copies whole chunks with cp.async, all in flight
-// at once: one memory latency a window.  Once the walk is R / 2 rows into
-// its window (and the window does not reach row 0) the walker asks for
-// the window anchored at its current cell, into the other buffer; every
-// cell it reaches from there lies in that window, so it switches to it
-// when its reads would leave the first, by then long landed.  Compact
-// rows' offsets come from off(r0) by a warp prefix sum of the row widths
+// window.  The row-major store (d8[i][j], strips_fwd.cu) holds the same
+// triangle transposed: the cells within d < R of the anchor lie in store
+// rows i0 - k (k < R), at j in [j0 - (R - 1 - k), j0], one contiguous
+// run of bytes each, so store row i0 - k takes the slot of anti-diagonal
+// row R - 1 - k (slot_row) and d = r0 - (i + j) still measures the walk's
+// way into its window.  Each stored row starts on a 16-byte boundary
+// (compact rows are multiples of 16 wide, rotated and flat rows ncol %
+// 16 == 0 wide, st(r) a multiple of 16, row-major rows Lq % 16 == 0
+// wide, and pair bases multiples of 16: a misaligned base traps), so the
+// stager copies whole chunks with cp.async, all in flight at once: one
+// memory latency a window.  Once the walk is R / 2 rows into its window
+// (and the window does not reach row 0) the walker asks for the window
+// anchored at its current cell, into the other buffer; every cell it
+// reaches from there lies in that window, so it switches to it when its
+// reads would leave the first, by then long landed.  Compact rows'
+// offsets come from off(r0) by a warp prefix sum of the row widths
 // (store_row_width), kept per window in shared memory, never from
 // store_row_off's loop per row; off of a pair's first cell takes that
 // loop once, its iterations spread over the lanes.
@@ -41,9 +48,12 @@
 // of their own: the flat form's reads past a row's n_col bytes into the
 // next rows (gg2's NULL off_end), and, should a walk read a row the store
 // does not hold (a compact row at or past the first empty diagonal, a
-// rotated cell past n_col), that byte.  Compact and rotated stores make
-// no such read on a walk from a cell the forward computed
+// rotated cell past n_col, a row-major cell R or more anti-diagonals from
+// the anchor), that byte.  Compact, rotated and row-major stores make no
+// such read on a walk from a cell the forward computed
 // (tests/test_torch_walk_launch.py models the window and counts them).
+// The row-major store is unbanded (is_rot = 0): its rows' table, computed
+// and not staged, has no band edge, so no force state applies.
 //
 // What bounds it on an H100: a pair's walk is one chain of blocks, each
 // ~250 instructions of one warp issued in order, most waiting on the one
@@ -78,9 +88,16 @@ __host__ __device__ constexpr int slot_base(int d) {
 constexpr int WIN = slot_base(R);   // 3,520 bytes
 static_assert(WIN % 16 == 0, "window slots are whole chunks");
 
+// ROWMAJOR: the first byte of store row i0 - k's slot, the slot of
+// anti-diagonal row R - 1 - k (rows k < R; slot sizes fall with k)
+__host__ __device__ constexpr int slot_row(int k) {
+  return WIN - slot_base(R - k);
+}
+
 // the store a walk reads: the single-pair forward's compact rows, the band
-// and batched forwards' rotated (B, nd, ncol) bytes, gg2's flat rows
-enum Form { COMPACT = 0, ROTATED = 1, FLAT = 2 };
+// and batched forwards' rotated (B, nd, ncol) bytes, gg2's flat rows, the
+// strips forward's row-major (B, tv, Lq) bytes (nd = tv, ncol = Lq)
+enum Form { COMPACT = 0, ROTATED = 1, FLAT = 2, ROWMAJOR = 3 };
 
 // what a step does at a cell: take a band-edge force state (DIR_E = 1,
 // DIR_F = 2), read its byte from the window, read it from the store, or
@@ -102,7 +119,7 @@ struct Args {
 };
 
 // a pair's store: its bytes from base, the rows it holds and (ROTATED,
-// FLAT) their width; FLAT's store size (reads past it give 0)
+// FLAT, ROWMAJOR) their width; FLAT's store size (reads past it give 0)
 struct Pair {
   const uint8_t* base;
   int qlen, tlen, w, rows, ncol;
@@ -204,8 +221,8 @@ __device__ __forceinline__ long long store_row_off_warp(int r, int qlen,
 // warp at the walk's end, 32 ops at a time: a ballot marks where the op
 // changes, each lane at such a start that is not the chunk's last writes
 // the run it starts, and the run open at the chunk's end carries over.
-// They are ksw_backtrack's runs `len << 4 | op` in walk order (common.cuh's
-// RunWriter pushes them one op at a time); returns their count.
+// They are ksw_backtrack's runs `len << 4 | op` in walk order, an op's
+// run extended while it repeats; returns their count.
 __device__ __forceinline__ int write_runs(const uint8_t* ops, int t,
                                           int* out, int lane) {
   int k = 0, cop = -1, clen = 0;
@@ -265,6 +282,23 @@ template <int FORM>
 __device__ __forceinline__ void stage(const Pair& P, const Win& W,
                                       uint8_t* buf, int4* row, int* rel,
                                       int lane) {
+  if (FORM == ROWMAJOR) {
+    // store row i0 - k: the chunks of [max(j0 - (R - 1 - k), 0), j0], in
+    // its row (j0 < qlen <= Lq, Lq % 16 == 0) and in its slot; none above
+    // row 0.  No rows' table: row_entry computes it.
+    const int j0 = W.r0 - W.i0;
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      const int k = K * lane + kk, i = W.i0 - k, jlo = j0 - (R - 1 - k);
+      if (i < 0) continue;
+      const int rb = slot_row(k) - (jlo & ~15);
+      const uint8_t* g = P.base + (size_t)i * P.ncol;
+      for (int c = max(jlo, 0) >> 4; c <= j0 >> 4; ++c)
+        cp16(buf + rb + 16 * c, g + 16 * c);
+    }
+    cp_commit();
+    return;
+  }
   int x[K], sum = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -310,8 +344,34 @@ __device__ __forceinline__ void stage(const Pair& P, const Win& W,
   cp_commit();
 }
 
+// The byte of cell (i, j), d = r0 - (i + j) rows into window W, in the
+// window's buffer: anti-diagonal row d's slot, or (ROWMAJOR) store row
+// i0 - i's, whose first chunk holds j0 - (R - 1 - k).  Past the window
+// (d >= R) the caller reads no byte of it.
+template <int FORM>
+__device__ __forceinline__ int win_byte(const Win& W, int d, int i, int j) {
+  if (FORM == ROWMAJOR) {
+    const int k = W.i0 - i;
+    return slot_row(k) - ((W.r0 - W.i0 - (R - 1 - k)) & ~15) + j;
+  }
+  return slot_base(d) - ((W.i0 - d) & ~15) + i;
+}
+
+// Row d's entry of a window's rows' table (PairSmem::row), loaded; the
+// row-major store's, unbanded, computed: st 0, no upper edge, every cell
+// held fewer than R anti-diagonals from the anchor, the store read past
+// them (cells a walk reaches only past i = -1 or j = -1, where it ends)
+template <int FORM>
+__device__ __forceinline__ int4 row_entry(const int4* row, int d) {
+  if constexpr (FORM == ROWMAJOR)
+    return make_int4(0, 0x7fffffff, d < R ? 0x7fffffff : -1, 0);
+  else
+    return lds128(row + d);
+}
+
 // A byte the window does not hold, read from the store itself: cell i of
-// row r at roff + i - st (FLAT: 0 at and past size).  A call, so that the
+// row r at roff + i - st (FLAT: 0 at and past size; ROWMAJOR: cell j of
+// store row i, roff = i Lq and st = 0).  A call, so that the
 // steps that read the window do not spend instructions on it.
 template <int FORM>
 __device__ __noinline__ int direct_byte(const uint8_t* base, long long roff,
@@ -343,9 +403,11 @@ __device__ __forceinline__ int mv_dd(int m) { return m == 0 ? 2 : 1; }
 template <int FORM>
 __device__ __forceinline__ Pair pair_of(const Args& A, int b) {
   Pair P;
-  P.qlen = A.qlens[b];
-  P.tlen = A.tlens[b];
-  P.w = A.ws[b];
+  // ROWMAJOR: no lengths or band (the walk starts from a cell of the
+  // store and ends where i or j does)
+  P.qlen = FORM == ROWMAJOR ? 0 : A.qlens[b];
+  P.tlen = FORM == ROWMAJOR ? 0 : A.tlens[b];
+  P.w = FORM == ROWMAJOR ? 0 : A.ws[b];
   P.size = 0;
   if (FORM == ROTATED) {
     P.base = A.p + (size_t)b * A.nd * A.ncol;
@@ -355,6 +417,10 @@ __device__ __forceinline__ Pair pair_of(const Args& A, int b) {
     P.base = A.p + A.pbase[b];
     P.rows = first_empty_diag(P.qlen, P.tlen, P.w);
     P.ncol = 0;
+  } else if (FORM == ROWMAJOR) {
+    P.base = A.p + (size_t)b * A.nd * A.ncol;
+    P.rows = A.nd;
+    P.ncol = A.ncol;
   } else {
     P.base = A.p + A.pbase[b];
     P.ncol = ((min(P.w + 1, P.tlen) + 15) / 16 + 1) * 16;
@@ -460,12 +526,12 @@ __device__ __forceinline__ void walker(const Args& A, PairSmem& S, int b,
       // with a rare code and at the walk's end.
       const int d1 = d + dd1, d2 = d + dd2, d3 = d + dd3;
       const int i1 = i + di1, i2 = i + di2, i3 = i + di3;
-      const int4 e0 = lds128(row + d), e1 = lds128(row + d1),
-                 e2 = lds128(row + d2), e3 = lds128(row + d3);
-      const int a1 = slot_base(d1) - ((W.i0 - d1) & ~15) + i1;
-      const int a2 = slot_base(d2) - ((W.i0 - d2) & ~15) + i2;
-      const int a3 = slot_base(d3) - ((W.i0 - d3) & ~15) + i3;
-      const int b0 = lds8(buf + slot_base(d) - ((W.i0 - d) & ~15) + i);
+      const int4 e0 = row_entry<FORM>(row, d), e1 = row_entry<FORM>(row, d1),
+                 e2 = row_entry<FORM>(row, d2), e3 = row_entry<FORM>(row, d3);
+      const int a1 = win_byte<FORM>(W, d1, i1, j + dj1);
+      const int a2 = win_byte<FORM>(W, d2, i2, j + dj2);
+      const int a3 = win_byte<FORM>(W, d3, i3, j + dj3);
+      const int b0 = lds8(buf + win_byte<FORM>(W, d, i, j));
       const int b1 = lds8(buf + (d1 < R ? a1 : 0));
       const int b2 = lds8(buf + (d2 < R ? a2 : 0));
       const int b3 = lds8(buf + (d3 < R ? a3 : 0));
@@ -475,10 +541,13 @@ __device__ __forceinline__ void walker(const Args& A, PairSmem& S, int b,
           esc = 1;
           break;
         }
+        // (ROWMAJOR: cell j of store row i)
         const int nb = direct_byte<FORM>(
             P.base,
-            FORM == COMPACT ? W.off0 - rel[d] : (long long)(i + j) * P.ncol,
-            i, e0.x, P.size);
+            FORM == COMPACT ? W.off0 - rel[d]
+                            : (long long)(FORM == ROWMAJOR ? i : i + j) *
+                                  P.ncol,
+            FORM == ROWMAJOR ? j : i, e0.x, P.size);
         state = backtrack_step(state, nb, -1);
         const int o = state_op(state, FORM == FLAT ? 0 : A.min_intron);
         if (lane == 0) opb[t] = o;

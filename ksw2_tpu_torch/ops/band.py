@@ -495,12 +495,13 @@ def band_forward_plain(qs, ts, qlen, tlen, w, table, prm: BandParams,
     return rec, p
 
 
-TILES = (32, 64)           # the kernel's tile widths (target positions)
-NW_MAX = 25                # compute warps a block (csrc/band_fwd.cu MAX_NW)
+TILES = (32, 64)           # the band route's tile widths (target positions)
+NW_MAX = 25                # ... and compute warps a block (the kernel's
+                           # bound, csrc/band_fwd.cu MAX_NW, is 26)
 KD = 32                    # diagonals a hand-off group
 
 
-def band_layout(ncol: int):
+def band_layout(ncol: int, tiles=TILES, nw_max: int = NW_MAX):
     """A launch's ``(tp, nw, ring)`` for ``csrc/band_fwd.cu``: the tile
     ``tp``, the compute warps ``nw`` a block and the per-diagonal ring,
     from the launch's ``ncol`` (so planning needs nothing from the
@@ -509,26 +510,31 @@ def band_layout(ncol: int):
     ``nw`` before it: ``nw * tp > tp + min(w + 14, qlen + 13)``, or ``nw``
     at least the pair's tiles, ``ceil((tlen + 15) / tp)``; ``nw = 2 +
     (M + 13) // tp`` with ``M = min(qlen, tlen, w + 1)`` does both, and
-    ``M <= ncol - 16`` for every pair of the launch.  Tiles of 32
-    positions while that takes at most ``NW_MAX`` warps, else 64.  The
-    ring holds the diagonals between the replay and the leading tile
-    (about a group a warp) and a margin, a power of two."""
-    for tp in TILES:
+    ``M <= ncol - 16`` for every pair of the launch.  The first of
+    ``tiles`` (the band route's: 32 positions, then 64) on which that
+    takes at most ``nw_max`` warps.  The ring holds the diagonals between
+    the replay and the leading tile (about a group a warp) and a margin,
+    a power of two.  Raises ``ValueError`` for an ``ncol`` no tile
+    takes."""
+    for tp in tiles:
         nw = 2 + (ncol - 3) // tp
-        if nw <= NW_MAX:
+        if nw <= nw_max:
             break
     else:
-        raise ValueError(f"ncol {ncol}: the band kernel takes w <= {W_MAX}")
+        raise ValueError(f"ncol {ncol}: tiles of up to {tiles[-1]} positions "
+                         f"and {nw_max} warps take ncol <= "
+                         f"{2 + (nw_max - 1) * tiles[-1]}")
     ring = 1 << max(8, ((nw + 8) * KD - 1).bit_length())
     return tp, nw, ring
 
 
-def fwd_smem_bytes(tp: int, nw: int, ring: int) -> int:
+def fwd_smem_bytes(tp: int, nw: int, ring: int, m: int = 8) -> int:
     """Dynamic shared memory of one block (the layout at the head of
     ``csrc/band_fwd.cu``): the per-diagonal rings of keys and of H at
-    st0 / en0, the control words and the score table, and each compute
-    warp's ``WarpSmem``."""
-    return 16 * ring + 4 * (4 * 32 + 4 + 64) + nw * (3024 + 4 * tp)
+    st0 / en0, the control words and the score table, each compute
+    warp's ``WarpSmem`` and, for ``m > 8``, the m x m score bytes."""
+    return 16 * ring + 4 * (4 * 32 + 4 + 64) + nw * (3024 + 4 * tp) + \
+        (round_up(m * m, 16) if m > 8 else 0)
 
 
 def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
@@ -549,8 +555,24 @@ def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
         raise ValueError("the band kernel takes m <= 8")
     if ncol % 16 or ncol > n_col_bytes(2 * W_MAX, 2 * W_MAX, W_MAX):
         raise ValueError(f"ncol {ncol}: a band is at most {W_MAX} wide")
-    tp, nw, ring = band_layout(ncol)
-    smem = fwd_smem_bytes(tp, nw, ring)
+    return band_launch_cuda(qs, ts, qlen, tlen, w, table, prm, nd, ncol,
+                            band_layout(ncol), "band_extd_fwd" if prm.two
+                            else "band_fwd")
+
+
+def band_launch_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
+                     nd: int, ncol: int, lay, name: str):
+    """Launch ``csrc/band_fwd.cu`` at the layout ``lay = (tp, nw, ring)``
+    (:func:`band_layout`), counted as ``LAUNCHES[name]``: kernels 9 / 10
+    (:func:`band_forward_cuda`) and the batched route's wide form
+    (``batch.batch_forward_cuda``).  The tensors are checked by the
+    caller; raises ``ValueError`` before the launch when the block's
+    shared memory does not fit."""
+    B, Lq = qs.shape
+    Lt = ts.shape[1]
+    dev = qs.device
+    tp, nw, ring = lay
+    smem = fwd_smem_bytes(tp, nw, ring, prm.m)
     if smem > SMEM_MAX:
         raise ValueError(f"launch needs {smem} B of shared memory")
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
@@ -572,8 +594,8 @@ def band_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
             ncol, tp, nw, ring, rec.data_ptr(),
             p.data_ptr() if p is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "band_fwd")
-    LAUNCHES["band_extd_fwd" if prm.two else "band_fwd"] += 1
+    check(err, name)
+    LAUNCHES[name] += 1
     return rec, p
 
 
@@ -626,5 +648,6 @@ __all__ = ["W_MAX", "BandParams", "BandLaunch", "beyond",
            "band_ineligible_reason",
            "make_band_params", "band_prep", "split_launches", "band_forward",
            "band_forward_plain", "band_layout", "band_forward_cuda",
+           "band_launch_cuda",
            "fwd_smem_bytes",
            "band_upload", "band_records"]

@@ -31,14 +31,14 @@ this route through it with :func:`batch_forward_cuda` as the forward:
 
 The degenerate-scoring guard (``batch_pallas.py:79-93, 551-552,
 612-615``) is the scheduler's reset.  The forward kernel is
-``csrc/batch_fwd.cu``, one warp a pair, in two forms that
-:func:`batch_form` picks from a launch's ``ncol`` and ``m``: the register
-form (a window of ``32 * CPL`` target positions in the warp's registers)
-and the wide form (a shared-memory strip of
-``strip_len(Lt)`` positions); the scheduler merges a batch's
-register-form buckets into one launch (``scheduler._merged_batch``).  The
-first empty-band diagonal ``rlim`` it stops at is
-``bands.first_empty_diag``'s closed form.  The
+``csrc/batch_fwd.cu`` in two forms that :func:`batch_form` picks from a
+launch's ``ncol`` and ``m``: the register form (one warp a pair, a window
+of ``32 * CPL`` target positions in its registers) and the wide form (the
+band forward's block a pair, ``csrc/band_fwd.cu``, in the layout of
+:func:`wide_layout`); the scheduler merges a batch's register-form
+buckets into one launch and its wide-form buckets into another
+(``scheduler._merged_batch``).  The first empty-band diagonal ``rlim``
+it stops at is ``bands.first_empty_diag``'s closed form.  The
 TPU layout (P sublane rows per pair, the query injection plane, the
 packed 13-bit argmax key, ``chunk_early_exit``, the ``RMAX`` launch caps
 and the jit caches) is not ported.
@@ -52,8 +52,8 @@ import torch
 
 from .._build import LAUNCHES, check, library
 from ..core.flags import Flag
-from .band import BandParams, beyond
-from .strips import SMEM_MAX, _check_cuda, round_up
+from .band import BandParams, band_launch_cuda, band_layout, beyond
+from .strips import _check_cuda, round_up
 
 LT_SCORES = 3072           # the batched engines' score targets
 LT_CIGARS = 1536           # ... and CIGAR targets
@@ -138,27 +138,40 @@ def window_base(st: int) -> int:
 
 
 def strip_len(Lt: int) -> int:
-    """Positions of a warp's state strip: the 16-rounded band and the
-    score fill's overshoot of at most 15 past the last target position,
-    rounded to the 32 lanes."""
+    """Positions of a warp's state strip of the batched kernels 6, 7 and
+    8: the 16-rounded band and the score fill's overshoot of at most 15
+    past the last target position, rounded to the 32 lanes."""
     return round_up(Lt + 16, 32)
 
 
-def warp_smem_bytes(Lt: int, prm: BandParams) -> int:
-    """Shared memory of one warp (one pair) of ``csrc/batch_fwd.cu``'s
-    wide form: the int32 H row, the int8 delta planes (6 two-piece), the
-    score bytes and the target, each ``strip_len(Lt)`` long."""
-    return strip_len(Lt) * ((6 if prm.two else 4) + 6)
+WIDE_TILES = (64, 128)     # the wide form's tiles (128: scores only)
+WIDE_NW_MAX = 26           # its compute warps a block (band_fwd.cu MAX_NW)
+
+
+def wide_layout(ncol: int, cig: bool):
+    """The wide form's ``(tp, nw, ring)`` for a launch of ``ncol`` bytes a
+    stored diagonal: ``band.band_layout``'s rule (a tile's first diagonal
+    comes after the last of the tile ``nw`` before it, unbanded pairs
+    included) on tiles of 64 positions, or 128 where 64 would need more
+    than ``WIDE_NW_MAX`` warps; CIG launches take 64 only (``ncol`` <=
+    1602: the route's widest is 1552).  A block is ``nw + 1`` warps, at
+    most 27 (864 threads, the replay warp included).  Raises
+    ``ValueError`` for an ``ncol`` it cannot take."""
+    return band_layout(ncol, WIDE_TILES[:1] if cig else WIDE_TILES,
+                       WIDE_NW_MAX)
 
 
 def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
                        nd: int, ncol: int):
     """Launch ``csrc/batch_fwd.cu`` on the current stream; the contract of
     its plain version ``band.band_forward_plain`` (``rec`` (B, 9) int32
-    and, with ``cig``, ``p`` (B, nd, ncol) uint8).  The form comes from
-    ``ncol`` and ``m`` (:func:`batch_form`), so nothing here reads the
-    device; a pair whose rounded band outgrows ``ncol`` traps in the
-    kernel."""
+    and, with ``cig``, ``p`` (B, nd, ncol) uint8).  The form and the wide
+    form's layout come from ``ncol`` and ``m`` (:func:`batch_form`,
+    :func:`wide_layout`), so nothing here reads the device.  The wide
+    form launches ``csrc/band_fwd.cu`` (``band.band_launch_cuda``),
+    counted here as kernel E / E2; an ``ncol`` it cannot take raises
+    ``ValueError`` before the launch, and a pair whose rounded band
+    outgrows ``ncol`` traps in the kernel."""
     B, Lq = qs.shape
     Lt = ts.shape[1]
     _check_cuda(qs, torch.uint8, (B, Lq), "query")
@@ -172,9 +185,10 @@ def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
                          f"{LT_SCORES} or less")
     if ncol % 16 or Lt % 16:
         raise ValueError(f"ncol {ncol} and Lt {Lt} must be multiples of 16")
-    cpl = batch_form(ncol, prm.m)
-    warps = MAX_WARPS if cpl else min(MAX_WARPS,
-                                      SMEM_MAX // warp_smem_bytes(Lt, prm))
+    name = "batch_extd_fwd" if prm.two else "batch_fwd"
+    if not batch_form(ncol, prm.m):
+        return band_launch_cuda(qs, ts, qlen, tlen, w, table, prm, nd, ncol,
+                                wide_layout(ncol, bool(prm.cig)), name)
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
     p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
          if prm.cig else None)
@@ -191,14 +205,14 @@ def batch_forward_cuda(qs, ts, qlen, tlen, w, table, prm: BandParams,
             int(bool(f & int(Flag.GENERIC_SC))),
             int(bool(f & int(Flag.APPROX_MAX))),
             int(bool(f & int(Flag.APPROX_DROP))), prm.cig, prm.two, nd,
-            ncol, strip_len(Lt), cpl, warps, rec.data_ptr(),
+            ncol, MAX_WARPS, rec.data_ptr(),
             p.data_ptr() if p is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "batch_fwd")
-    LAUNCHES["batch_extd_fwd" if prm.two else "batch_fwd"] += 1
+    check(err, name)
+    LAUNCHES[name] += 1
     return rec, p
 
 
 __all__ = ["LT_SCORES", "LT_CIGARS", "zdrop_ok", "batch_ineligible_reason",
-           "batch_form", "window_base", "strip_len", "warp_smem_bytes",
+           "batch_form", "window_base", "strip_len", "wide_layout",
            "batch_forward_cuda"]

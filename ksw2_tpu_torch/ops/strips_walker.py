@@ -16,9 +16,12 @@ N.  The JAX walker's 5-state I-run suffix scan, which only cuts the
 cells a serial TPU core visits, is not ported.
 
 The walker has two implementations: ``csrc/strips_walk.cu`` for CUDA
-tensors and :func:`strips_walk_plain` for CPU tensors.  Its runs buffer
-holds ``Lq + tv + 2`` entries per pair, more than a walk can emit, so the
-JAX route's capped fetch and overflow re-walk are gone.
+tensors (``csrc/walk.cuh``'s row-major form: a block of two warps a
+pair, one staging windows of the store in shared memory, the other
+stepping over them four steps a block) and :func:`strips_walk_plain` for
+CPU tensors.  Its runs buffer holds ``Lq + tv + 2`` entries per pair,
+more than a walk can emit, so the JAX route's capped fetch and overflow
+re-walk are gone.
 """
 from __future__ import annotations
 
@@ -159,16 +162,21 @@ def strips_walk_cuda(d8, starts, min_intron: int = 0):
     if starts.dtype != torch.int32 or tuple(starts.shape) != (B, 2) or \
             not starts.is_contiguous():
         raise ValueError("starts must be a contiguous (B, 2) int32 tensor")
+    # the stager copies 16-byte chunks of whole rows
+    if Lq % 16 or d8.data_ptr() % 16:
+        raise ValueError("d8's rows must be 16-byte multiples on a 16-byte "
+                         "boundary")
     wr = Lq + tv + 2
     res = torch.empty((B, 3), dtype=torch.int32, device=d8.device)
     runs = torch.empty((B, wr), dtype=torch.int32, device=d8.device)
+    ops = torch.empty((B, wr), dtype=torch.uint8, device=d8.device)
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(d8.device):
         err = lib.ksw2t_strips_walk(
             d8.data_ptr(), starts.data_ptr(), B, tv, Lq, wr,
             int(min_intron), res.data_ptr(), runs.data_ptr(),
-            torch.cuda.current_stream(d8.device).cuda_stream)
+            ops.data_ptr(), torch.cuda.current_stream(d8.device).cuda_stream)
     check(err, "strips_walk")
     LAUNCHES["strips_walk"] += 1
     return res, runs

@@ -198,5 +198,15 @@ def test_batch_forward_refuses_what_the_kernel_does_not_take():
                              cuda=BT.batch_forward_cuda)
     assert rec.dtype == torch.int32 and rec.shape == (2, 9) and p is None
     assert BT.strip_len(3072) == 3104 and BT.strip_len(100) == 128
-    # a warp's strip: int32 H and 4 (6) int8 planes, s and the target
-    assert BT.warp_smem_bytes(512, ln.prm) == 544 * 10
+    # the wide form: the band kernel's block, with the byte matrix past
+    # m = 8; an ncol it cannot take raises before the launch
+    tp, nw, ring = BT.wide_layout(1552, True)
+    assert (tp, nw, ring) == (64, 26, 2048)
+    assert BD.fwd_smem_bytes(tp, nw, ring, 5) == \
+        BD.fwd_smem_bytes(tp, nw, ring)
+    assert BD.fwd_smem_bytes(tp, nw, ring, 12) == \
+        BD.fwd_smem_bytes(tp, nw, ring) + 144
+    assert BD.fwd_smem_bytes(tp, nw, ring, 20) == \
+        BD.fwd_smem_bytes(tp, nw, ring) + 400
+    with pytest.raises(ValueError, match="ncol 1616"):
+        BT.wide_layout(1616, True)

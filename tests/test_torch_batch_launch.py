@@ -1,7 +1,8 @@
 """Kernels E / E2's register form and one batched launch a batch, modelled.
 
-``csrc/batch_fwd.cu`` has two forms.  The wide form keeps a pair's state
-in its warp's shared-memory strip.  The register form keeps it in a
+Kernel E / E2 has two forms.  The wide form runs the band forward's
+block a pair (``csrc/band_fwd.cu``) in the layout of
+``ops.batch.wide_layout``; the register form is ``csrc/batch_fwd.cu``.  The register form keeps a pair's state in a
 window of ``32 * cpl`` target positions (``ops.batch.batch_form``: cpl
 ``ops.batch.CPL`` = 8 when the launch's ``ncol`` fits), lane l holding
 positions base + cpl l .. base + cpl l + cpl - 1 in registers, base =
@@ -24,16 +25,21 @@ that a fresh position's score selector is never used, that a group slides
 at most once and that its staged query covers each diagonal, and it
 holds the records and every byte to the plain twin
 (``ops.band.band_forward_plain``) exactly.  The host's rules are tested
-here too: the form, and the scheduler's merge of the batched
-route's register-form buckets into one launch a batch (score and CIGAR
-paths; the splice path's kernel-6 buckets and the wide form's buckets
-stay apart), with results unchanged against per-bucket launches.
+here too: the form; the wide layout's limits for every ``ncol`` the
+route can send; and the scheduler's merge of the batched route's
+buckets into one launch a form a batch (score and CIGAR paths; the
+splice path's kernel-6 buckets stay apart), with results unchanged
+against per-bucket launches and, for the merged wide launch, equal to
+the JAX package's batched route.
 """
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 import refcmp
+from ksw2_tpu.batch.scheduler import AlignJob as JAlignJob
+from ksw2_tpu.batch.scheduler import align_batch as j_align_batch
 from ksw2_tpu.core.matrix import encode_dna, simple_mat
 
 from ksw2_tpu_torch import Aligner
@@ -637,8 +643,8 @@ def test_merged_cigars_split_by_budget(monkeypatch):
 
 def test_wide_buckets_stay_apart(monkeypatch):
     """Buckets with a band wider than the register window (the wide
-    form) keep a launch each; the register-form buckets merge beside
-    them."""
+    form) stay apart from the register-form buckets: each form's buckets
+    merge into a launch of their own."""
     pairs = _pairs(63, (480, 250, 100, 120))
     # a query of 700 bp: bucket (1024, 128) beside (512, 128)
     pairs[3] = (np.concatenate([pairs[3][0], _pairs(65, (580,))[0][0]]),
@@ -648,7 +654,7 @@ def test_wide_buckets_stay_apart(monkeypatch):
     got, seen = _recorded(monkeypatch, lambda: aln.extend_batch(pairs, w=w))
     forms = sorted((BT.batch_form(ln.ncol, 5), len(ln.qlen))
                    for _, ln in seen)
-    assert forms == [(0, 1), (0, 1), (BT.CPL, 2)]
+    assert forms == [(0, 2), (BT.CPL, 2)]
     apart, _ = _recorded(monkeypatch, lambda: aln.extend_batch(pairs, w=w),
                          merge=False)
     assert [_row(g) for g in got] == [_row(g) for g in apart]
@@ -757,3 +763,137 @@ def test_score_codes_are_the_simple_scores(m):
             want = scn if T == m - 1 or Q == m - 1 else want
             for k in range(8):
                 assert w8(tab[(code >> (4 * k)) & 15]) == want
+
+
+# ------------------------------------------------------------ wide form
+
+
+def _tile_first(t0, w):
+    """band_fwd.cu's ``tile_first``."""
+    if t0 == 0:
+        return 0
+    x = t0 - 15
+    return max(x, 2 * x - w)
+
+
+def _tile_last(t0, tp, qlen, w, rlim):
+    """band_fwd.cu's ``tile_last``."""
+    X = t0 + tp - 1
+    return min(rlim - 1, X + qlen - 1, 2 * X + w)
+
+
+def _tile_rule_holds(qlen, tlen, w, tp, nw):
+    """A warp's next tile (nw on) starts after its tile's last diagonal,
+    for every tile of the pair."""
+    rlim = int(first_empty_diag(qlen, tlen, w))
+    ntiles = -(-(tlen + 15) // tp)
+    for k in range(ntiles - nw):
+        nxt = (k + nw) * tp
+        first = _tile_first(nxt, w)
+        if first <= _tile_last(nxt, tp, qlen, w, rlim) and \
+                first <= _tile_last(k * tp, tp, qlen, w, rlim):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("cig", [False, True], ids=["scores", "cigars"])
+def test_wide_layout_limits_every_ncol(cig):
+    """For every ``ncol`` the route can send the wide form (16 ... 3088
+    for scores, ... 1552 for CIGARs): at most 1024 threads a block, at
+    most 227 KB of shared memory with either score table (the registers'
+    at m 5, the shared byte matrix at m 16 and 255), a ring of at least (nw + 2) groups, and the tile
+    rule for the widest pairs of that ``ncol`` (unbanded, square and
+    lopsided, and banded): a warp's next tile starts after its last
+    ends, so no warp holds two tiles."""
+    top = 1552 if cig else 3088
+    for ncol in range(16, top + 1, 16):
+        tp, nw, ring = BT.wide_layout(ncol, cig)
+        assert tp in BT.WIDE_TILES and (tp == 64 or not cig)
+        assert 2 <= nw <= BT.WIDE_NW_MAX and 32 * (nw + 1) <= 1024
+        assert ring >= (nw + 2) * BD.KD and ring & (ring - 1) == 0
+        for m in (5, 16, 255):
+            assert BD.fwd_smem_bytes(tp, nw, ring, m) <= strips.SMEM_MAX
+        M = ncol - 16                   # the widest min(qlen, tlen, w + 1)
+        if M < 1:
+            continue
+        assert n_col_bytes(M, M, M) == ncol
+        L = 1536 if cig else 3072
+        for qlen, tlen, w in ((M, M, M), (M, L, L), (L, M, L),
+                              (L, L, M - 1), (M, M + 7, M - 1)):
+            assert n_col_bytes(qlen, tlen, w) <= ncol
+            assert _tile_rule_holds(qlen, tlen, w, tp, nw), (ncol, qlen,
+                                                             tlen, w)
+    with pytest.raises(ValueError, match="ncol"):
+        BT.wide_layout(1618 if cig else 3218, cig)
+
+
+@pytest.mark.parametrize("kind", ["approx_scores", "eqx_cigars",
+                                  "extd_end_bonus"])
+def test_route_never_sends_an_ncol_the_wide_form_refuses(kind):
+    """The batched route's widest pairs (targets of 3072 for scores, 1536
+    for CIGARs and two-piece end_bonus scores; queries as long or longer;
+    unbanded) reach the wide form's largest ``ncol`` (3088, 1552), which
+    ``wide_layout`` takes; a target one longer leaves the route."""
+    rng = np.random.default_rng(70)
+    cig = kind == "eqx_cigars"
+    L = 3072 if kind == "approx_scores" else 1536
+    aln = Aligner(device="cpu", **{
+        "approx_scores": dict(flag=Flag.SCORE_ONLY | APPROX, zdrop=100),
+        "eqx_cigars": dict(flag=Flag.EQX, zdrop=100),
+        "extd_end_bonus": dict(q=4, e=2, q2=13, e2=1, zdrop=100,
+                               end_bonus=10, flag=Flag.SCORE_ONLY)}[kind])
+    t = rng.integers(0, 4, L + 1).astype(np.uint8)
+    pairs = [(t[:L], t[:L]), (t[:L // 2], t[:L]), (np.tile(t, 2)[:2 * L],
+                                                   t[:L])]
+    lns = CS.batch_route_launches(aln, pairs)
+    assert sum(len(ln.qlen) for ln in lns) == len(pairs)
+    assert max(ln.ncol for ln in lns) == (1552 if L == 1536 else 3088)
+    for ln in lns:
+        assert BT.batch_form(ln.ncol, 5) == 0
+        BT.wide_layout(ln.ncol, cig)
+    assert CS.batch_route_launches(aln, [(t, t)]) == []
+
+
+def _wide_pairs(seed):
+    """Mixed unbanded pairs of 200-300 bp over two JAX buckets (targets
+    up to 256 and past it): every one in the wide form (ncol > 208)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for L in (300, 210, 280, 230, 260, 205):
+        t, q = refcmp.random_pair(rng, L, divergence=0.15, indel=0.06,
+                                  with_n=True)
+        out.append((encode_dna(q), encode_dna(t)))
+    return out
+
+
+WIDE_CASES = {
+    "extz_eqx_cigar": dict(zdrop=100, flag=Flag.EQX),
+    "extd_end_bonus_score": dict(q2=13, e2=1, zdrop=100, end_bonus=10,
+                                 flag=Flag.SCORE_ONLY),
+    "extd_eqx_right_cigar": dict(q2=13, e2=1, zdrop=40,
+                                 flag=Flag.EQX | Flag.RIGHT),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_merged_wide_plan_matches_jax_batched_route(monkeypatch, name):
+    """A batch whose unbanded pairs fall into two JAX buckets, all of the
+    wide form, makes one batched launch holding all of them, longest
+    first, on the CPU twins; every field and CIGAR equals the JAX
+    package's ``align_batch`` (its batched route), exactly."""
+    kw = WIDE_CASES[name]
+    pairs = _wide_pairs(90 + len(name))
+    assert len({sched._bucket_key(len(q), len(t)) for q, t in pairs}) == 2
+    jobs = [sched.AlignJob(q, t, -1) for q, t in pairs]
+    got, seen = _recorded(monkeypatch, lambda: sched.align_batch(
+        jobs, 5, MAT, 4, 2, device="cpu", **kw))
+    kind = "batch_records" if kw["flag"] & Flag.SCORE_ONLY else \
+        "batch_cigar_launch"
+    assert [nm for nm, _ in seen] == [kind]
+    ln = seen[0][1]
+    assert len(ln.qlen) == len(pairs) and BT.batch_form(ln.ncol, 5) == 0
+    n = ln.qlen.astype(np.int64) + ln.tlen
+    assert list(n) == sorted(n, reverse=True)
+    want = j_align_batch([JAlignJob(q, t, -1) for q, t in pairs], 5, MAT,
+                         4, 2, **kw)
+    assert [_row(g) for g in got] == [_row(w) for w in want]

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from chip_smoke import (band_edge_pairs, random_pair, spliced_pair,
-                        walk_random_cases)
+                        walk_random_cases, wide_edge_cases)
 from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.core.matrix import encode_dna, simple_mat
@@ -470,6 +470,18 @@ def test_batch_register_window_slides(cuda_device, flag, zdrop):
     pairs.append((pairs[0][0], pairs[0][1][:200]))
     for costs in (None, TWO_PIECE[0]):
         _batch_check(_reg_launch(pairs, 30, flag, zdrop, costs), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, _ in wide_edge_cases()])
+def test_batch_wide_form_edges(cuda_device, name):
+    """Kernels E / E2's wide form (the band kernel's block a pair) at its
+    layout's edges against the plain forward: ncol 1552 CIGARs (26
+    warps), both sides of the tile switch, 3072-bp score targets (tiles
+    of 128), m 12 and m 20 (the score matrix in shared memory)."""
+    (ln,) = [ln for n, ln in wide_edge_cases() if n == name]
+    assert BT.batch_form(ln.ncol, ln.prm.m) == 0
+    _batch_check(ln, cuda_device)
 
 
 @pytest.mark.cuda
@@ -1047,12 +1059,13 @@ def test_local_kernel_matches_plain(cuda_device, mat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["compact", "rotated", "flat"])
+@pytest.mark.parametrize("form", ["compact", "rotated", "flat", "rowmajor"])
 def test_walk_kernels_on_random_stores(cuda_device, form):
-    """Kernels 17 (compact) and D (rotated, flat) against their plain
-    walkers on random bytes: walks across hundreds of windows, starts at
-    the window's edges, min_intron, upper_force 0, flat overruns into the
-    next rows, one-base pairs, launches of 1 to 4096 pairs."""
+    """Kernels 17 (compact), D (rotated, flat) and B (row-major) against
+    their plain walkers on random bytes: walks across hundreds of windows,
+    starts at the window's edges, min_intron, upper_force 0, flat
+    overruns into the next rows, one-base pairs, launches of 1 to 4096
+    pairs."""
     n = 0
     for name, fn, plain, args in walk_random_cases():
         if not name.startswith(form):
@@ -1082,3 +1095,5 @@ def test_walk_kernels_reject_a_misaligned_store(cuda_device):
                           one, one, 4)
     with pytest.raises(ValueError, match="16-byte"):
         BW.band_walk_cuda(p.view(1, 4, 16), starts, one, one, one)
+    with pytest.raises(ValueError, match="16-byte"):
+        W.strips_walk_cuda(p.view(1, 4, 16), starts)

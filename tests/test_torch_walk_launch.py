@@ -1,6 +1,6 @@
-"""The windowed walk of kernels 17 and D (``csrc/walk.cuh``), modelled.
+"""The windowed walk of kernels 17, D and B (``csrc/walk.cuh``), modelled.
 
-Both walkers give one warp a pair and read each step's byte from a window
+The walkers give one warp a pair and read each step's byte from a window
 of ``R`` rows of the store staged in shared memory: anchored at a cell
 (i0, r0), row r0 - d holds the 16-byte chunks of [i0 - d, i0] that lie in
 the row's stored bytes, in a slot of ceil(d / 16) + 1 chunks; once the walk
@@ -8,15 +8,21 @@ is ``HALF`` rows into its window (and the window does not reach row 0) the
 window anchored at the current cell is staged into the other buffer, and
 the walk switches to it when it leaves the first.  Reads the window cannot
 hold go to the store directly (the flat form's overruns past a row and
-past the store).  The NumPy model below has the kernel's staging geometry,
+past the store).  Kernel B's row-major store (``d8[i][j]``, the strips
+forward's) holds the same triangle transposed: store row i0 - k at j in
+[j0 - (R - 1 - k), j0], in the slot of anti-diagonal row R - 1 - k.  The
+NumPy model below has the kernel's staging geometry,
 restage rule and direct reads; it asserts that every read from a window
 finds a staged byte and lies in the triangle, and it walks the stores of
 the port's plain forwards (compact one-piece, two-piece and splice stores,
 rotated band and batched bytes, splice bytes with ``min_intron``, gg2's
-flat store with overruns) and random stores deep enough to cross hundreds
-of windows, exactly as the plain walkers (``extz_walk_plain``,
-``band_walk_plain``, ``flat_walk_plain``) walk them.  Compact and rotated
-stores make no direct read; the overrunning flat walks do.
+flat store with overruns, the strips forward's one-piece, two-piece and
+splice bytes) and random stores deep enough to cross hundreds of
+windows, exactly as the plain walkers (``extz_walk_plain``,
+``band_walk_plain``, ``flat_walk_plain``, ``strips_walk_plain``) walk
+them, and on a few small pairs as the JAX strips walker does.  Compact,
+rotated and row-major stores make no direct read; the overrunning flat
+walks do.
 """
 import re
 from pathlib import Path
@@ -26,6 +32,7 @@ import pytest
 import torch
 
 import chip_smoke as CS
+from ksw2_tpu.ops import strips_walker as jsw
 from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.core.matrix import encode_dna, simple_mat
 from ksw2_tpu_torch.ops import band as BD
@@ -35,6 +42,7 @@ from ksw2_tpu_torch.ops import batch_gg2 as BG
 from ksw2_tpu_torch.ops import extd as ED
 from ksw2_tpu_torch.ops import exts as ES
 from ksw2_tpu_torch.ops import extz_fwd as F
+from ksw2_tpu_torch.ops import strips as S
 from ksw2_tpu_torch.ops import strips_walker as W
 from ksw2_tpu_torch.ops import traceback_device as TB
 from ksw2_tpu_torch.ops.bands import first_empty_diag
@@ -70,6 +78,12 @@ def slot_base(d):
 WIN = slot_base(R)
 
 
+def slot_row(k):
+    """walk.cuh's ``slot_row``: the row-major store row i0 - k's slot, the
+    slot of anti-diagonal row R - 1 - k."""
+    return WIN - slot_base(R - k)
+
+
 def band_st_en(r, qlen, tlen, w):
     st0 = max(0, r - qlen + 1, (r - w + 1) >> 1)
     en0 = min(tlen - 1, r, (r + w) >> 1)
@@ -78,14 +92,19 @@ def band_st_en(r, qlen, tlen, w):
 
 class Store:
     """One pair's store as a walker sees it: ``form`` compact (kernel 17),
-    rotated or flat (kernel D), its bytes ``p`` from ``base``, the rows it
-    holds and (rotated, flat) their width."""
+    rotated or flat (kernel D) or row-major (kernel B: ``nd`` = tv rows
+    of ``ncol`` = Lq bytes, no band), its bytes ``p`` from ``base``, the
+    rows it holds and (rotated, flat, row-major) their width."""
 
     def __init__(self, form, p, base, qlen, tlen, w, ncol=0, nd=0):
         self.form, self.p, self.base = form, p, int(base)
         self.qlen, self.tlen, self.w = int(qlen), int(tlen), int(w)
         assert self.base % 16 == 0
-        if form == "compact":
+        if form == "rowmajor":
+            self.rows, self.ncol = int(nd), int(ncol)
+            assert self.ncol % 16 == 0
+            self.end = self.base + nd * ncol
+        elif form == "compact":
             self.rows = int(first_empty_diag(qlen, tlen, w))
             self.ncol = 0
             self.end = self.base + int(F.row_off(self.rows, qlen, tlen, w)[0])
@@ -129,6 +148,9 @@ class Window:
         self.buf = np.full(WIN, -1, np.int16)
         self.rel = np.zeros(R, np.int64)
         stats["windows"] += 1
+        if s.form == "rowmajor":
+            self._stage_rows(s, stats)
+            return
         carry = 0
         for d in range(R):
             r = r0 - d
@@ -158,12 +180,35 @@ class Window:
                 stats["chunks"] += 1
         assert carry < 2 ** 31       # the kernel keeps rel in an int
 
+    def _stage_rows(self, s: Store, stats):
+        """The row-major window: store row i0 - k's chunks of [max(j0 -
+        (R - 1 - k), 0), j0] into the slot at ``slot_row(k)``."""
+        j0 = self.r0 - self.i0
+        assert 0 <= j0 < s.ncol and 0 <= self.i0 < s.rows
+        for k in range(R):
+            i, jlo = self.i0 - k, j0 - (R - 1 - k)
+            if i < 0:
+                continue
+            sb = slot_row(k) - (jlo & ~15)
+            for c in range(max(jlo, 0) >> 4, (j0 >> 4) + 1):
+                src = s.base + i * s.ncol + 16 * c
+                dst = sb + 16 * c
+                # a whole aligned chunk of this store row, into its slot
+                assert src % 16 == 0 and 16 * c + 16 <= s.ncol
+                assert src + 16 <= s.end
+                assert slot_row(k) <= dst and dst + 16 <= slot_row(k + 1)
+                self.buf[dst:dst + 16] = s.p[src:src + 16]
+                stats["chunks"] += 1
+
 
 def cell_code(s: Store, win, i, r, upper_force):
     """What a step does at cell (i, r) of window ``win`` (walk.cuh's
     ``cell_code``): "E" or "F" (a force), "esc" (compact with upper_force
     0 above the band), "direct" (a byte the window does not hold) or
-    "read"."""
+    "read"; the row-major store holds every cell fewer than R
+    anti-diagonals from the window's anchor."""
+    if s.form == "rowmajor":
+        return "direct" if win.r0 - r >= R else "read"
     st, en = s.band(r)
     if s.form != "flat" and i > en:
         return "esc" if s.form == "compact" and not upper_force else "E"
@@ -187,6 +232,8 @@ def model_walk(s: Store, i, j, min_intron=0, upper_force=1):
 
     def read(win, i, r, code):
         d = win.r0 - r
+        if s.form == "rowmajor":
+            return read_rows(win, i, r - i, d, code)
         assert 0 <= d < R and win.i0 - d <= i <= win.i0
         st = s.band(r)[0]
         stats["reads"] += 1
@@ -202,6 +249,19 @@ def model_walk(s: Store, i, j, min_intron=0, upper_force=1):
             return int(s.p[s.base + k]) if k < s.size else 0
         v = int(win.buf[slot_base(d) + i - ((win.i0 - d) & ~15)])
         assert v >= 0, f"unstaged byte at r={r} i={i}"
+        return v
+
+    def read_rows(win, i, j, d, code):
+        stats["reads"] += 1
+        if code == "direct":
+            stats["direct"] += 1
+            return int(s.p[s.base + i * s.ncol + j])
+        k, j0 = win.i0 - i, win.r0 - win.i0
+        # the transposed triangle: row k of the window at j in [j0 - d +
+        # k, j0], inside the row's slot
+        assert 0 <= d < R and 0 <= k <= d and j0 - d + k <= j <= j0
+        v = int(win.buf[slot_row(k) + j - ((j0 - (R - 1 - k)) & ~15)])
+        assert v >= 0, f"unstaged byte at i={i} j={j}"
         return v
 
     if i >= 0 and j >= 0:
@@ -413,6 +473,40 @@ def _random_flat(rng, dims):
                   runs.numpy())
 
 
+def _rowmajor(ln, eb=0):
+    """Kernel A's plain forward on strips launch ``ln``, then the model
+    against ``strips_walk_plain`` on its row-major bytes; returns the
+    stats, the records and the walker's (res, runs)."""
+    args = S.upload(ln, "cpu")
+    _, Dq, hl, d8 = D4 = S.strips_forward(*args, ln.prm,
+                                          S.site_rows(ln, "cpu"))
+    _, _, ql, tl, _ = args
+    rec = S.replay_records(ln.prm, D4[0], Dq, hl, ql, tl)
+    starts = W.start_cells(rec, ql, tl, ln.prm.flag, eb)
+    mi = W.walk_min_intron(ln.prm.lt, ln.prm.spl)
+    res, runs = W.strips_walk_plain(d8, starts, mi)
+    B, tv, Lq = d8.shape
+    pn = d8.numpy().reshape(-1)
+    stores = [Store("rowmajor", pn, b * tv * Lq, 0, 0, 0, Lq, tv)
+              for b in range(B)]
+    st = _check(stores, starts.numpy(), res.numpy(), runs.numpy(), mi)
+    return st, rec.numpy(), res.numpy(), runs.numpy()
+
+
+def _random_rowmajor(rng, tv, Lq, starts, min_intron=0, states=3):
+    """Random row-major bytes (one (tv, Lq) store a start), walked by the
+    model and by ``strips_walk_plain``."""
+    B = len(starts)
+    d8 = torch.from_numpy(_random_bytes(rng, B * tv * Lq, states)
+                          .reshape(B, tv, Lq))
+    sts = torch.tensor(starts, dtype=torch.int32)
+    res, runs = W.strips_walk_plain(d8, sts, min_intron)
+    pn = d8.numpy().reshape(-1)
+    stores = [Store("rowmajor", pn, b * tv * Lq, 0, 0, 0, Lq, tv)
+              for b in range(B)]
+    return _check(stores, starts, res.numpy(), runs.numpy(), min_intron)
+
+
 # ----------------------------------------------------------------- tests
 
 
@@ -441,6 +535,14 @@ def test_window_constants_and_slots():
     smem = -(-(2 * WIN + 2 * 16 * (R + 8) + 2 * 4 * R + 16 + 4 + 4 * 32)
              // 16) * 16
     assert smem <= 48 * 1024 and 8 * (smem + 1024) <= 228 * 1024
+    # the row-major store's slots: row k's is anti-diagonal row R - 1 -
+    # k's, and holds the chunks of [j0 - (R - 1 - k), j0] at any j0
+    assert slot_row(0) == 0 and slot_row(R) == WIN
+    for k in range(R):
+        size = slot_row(k + 1) - slot_row(k)
+        assert size == slot_base(R - k) - slot_base(R - 1 - k)
+        for j0 in range(R, R + 64):
+            assert 16 * ((j0 >> 4) - ((j0 - (R - 1 - k)) >> 4) + 1) <= size
     src = " ".join(WALK_CUH.read_text().replace("//", " ").split())
     assert f"slot_base(R); {WIN:,} bytes" in src
     assert f"two warps in {smem:,} bytes" in src
@@ -644,3 +746,102 @@ def test_flat_deep_random():
     # j + 15, while the store holds (qlen + tlen - r) n_col >= (qlen - j +
     # 1) 32 bytes from the row's start
     assert st["past"] == 0
+
+
+STRIPS_FORMS = {
+    # name: (flag, zdrop, two-piece costs, splice)
+    "extz_z100": (Flag.NONE, 100, None, False),
+    "extz_right_zm1": (Flag.RIGHT, -1, None, False),
+    "extd_z100": (Flag.NONE, 100, CS.EXTD, False),
+    "extd_right_swapped": (Flag.RIGHT, 40, CS.SWAPPED, False),
+    "spl_z200": (Flag.SPLICE_FOR, 200, None, True),
+    "spl_right_z30": (Flag.SPLICE_FOR | Flag.RIGHT, 30, None, True),
+}
+
+
+def _strips_launch(name, pairs):
+    flag, zdrop, costs, spl = STRIPS_FORMS[name]
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    tl = np.array([len(b) for _, b in pairs], np.int32)
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    if spl:
+        q, e, q2, noncan = CS.SPLICE
+        (ln,) = S.strips_exts_prep(qs, ts, ql, tl, 5, simple_mat(5, 1, 2), q,
+                                   e, q2, noncan, zdrop, flag, cig=True)
+    else:
+        q, e, q2, e2 = CS.EXTD if costs is None else costs
+        (ln,) = S.strips_prep(qs, ts, ql, tl, 5, simple_mat(5, 2, -4),
+                              *((4, 2) if costs is None else (q, e)),
+                              zdrop, flag, cig=True, two=costs is not None,
+                              q2=q2, e2=e2)
+    return ln
+
+
+@pytest.mark.parametrize("form", sorted(STRIPS_FORMS))
+def test_rowmajor_strips_bytes(form):
+    """Kernel B on the strips forward's row-major bytes (one-piece,
+    two-piece and splice bytes with min_intron > 0, RIGHT, Z-drops): every
+    read in the window it holds, no direct read, exactly the plain
+    walker's runs; pairs long enough to cross dozens of windows."""
+    rng = np.random.default_rng(300 + len(form))
+    if STRIPS_FORMS[form][3]:
+        pairs = [CS.spliced_pair(rng, L) for L in (900, 600, 1300)]
+    else:
+        pairs = _pairs(71 + len(form), (700, 1200, 90, 400), with_n=True)
+    st, _, _, _ = _rowmajor(_strips_launch(form, pairs))
+    assert st["direct"] == 0 and st["windows"] > 10 * len(pairs)
+
+
+@pytest.mark.parametrize("form", ["extz_z100", "extz_right_zm1",
+                                  "extd_z100", "spl_z200"])
+def test_rowmajor_matches_jax_walker(form):
+    """The walk of kernel B's model (equal to the plain walker's, as the
+    test above asserts) turned into CIGARs equals the JAX strips walker's
+    route on a few small pairs, run under the Pallas interpreter."""
+    flag, zdrop, costs, spl = STRIPS_FORMS[form]
+    rng = np.random.default_rng(400 + len(form))
+    if spl:
+        pairs = [CS.spliced_pair(rng, L) for L in (160, 230)]
+    else:
+        pairs = _pairs(81 + len(form), (150, 260, 40))
+    ln = _strips_launch(form, pairs)
+    st, rec, res, runs = _rowmajor(ln)
+    assert st["direct"] == 0
+    prm = ln.prm
+    mat = simple_mat(5, 1, 2) if spl else simple_mat(5, 2, -4)
+    got = W.unpack_cigars(rec, res, runs, mat, prm.q, prm.e, 0, flag,
+                          prm.lt if spl else 0)
+    B = len(pairs)
+    Q = np.zeros((B, max(len(a) for a, _ in pairs)), np.int32)
+    T = np.zeros((B, max(len(b) for _, b in pairs)), np.int32)
+    for k, (a, b) in enumerate(pairs):
+        Q[k, :len(a)], T[k, :len(b)] = a, b
+    ql = np.array([len(a) for a, _ in pairs], np.int32)
+    tl = np.array([len(b) for _, b in pairs], np.int32)
+    if spl:
+        want = jsw.strips_exts_cigar_batch(Q, T, ql, tl, 5, mat, *CS.SPLICE,
+                                           zdrop=zdrop, flag=flag,
+                                           interpret=True)
+    else:
+        q, e, q2, e2 = costs or (4, 2, 0, 0)
+        want = jsw.strips_cigar_align(Q, T, ql, tl, 5, mat, q, e,
+                                      zdrop=zdrop, flag=flag, interpret=True,
+                                      two=costs is not None, q2=q2, e2=e2)
+    for g, w in zip(got, want):
+        assert (g.max, g.score, g.zdropped) == (w.max, w.score, w.zdropped)
+        assert list(g.cigar) == list(w.cigar)
+
+
+@pytest.mark.parametrize("states,mi", [(3, 0), (5, 4)])
+def test_rowmajor_deep_random(states, mi):
+    """Random row-major bytes: walks across dozens of windows from the
+    corner and from inner cells at the window's edges (i + j = R - 2 ..
+    R + 1, 2R - 1), three- and five-state bytes with min_intron; rows of
+    Lq % 32 == 0 bytes longer than the query."""
+    rng = np.random.default_rng(500 + states)
+    tv, Lq = 1500, 1216
+    starts = [(tv - 1, 1200), (tv - 1, Lq - 1)]
+    starts += [(min(r0, tv - 1) - 3, r0 - min(r0, tv - 1) + 3)
+               for r0 in (R - 2, R - 1, R, R + 1, 2 * R - 1)]
+    st = _random_rowmajor(rng, tv, Lq, starts, mi, states)
+    assert st["direct"] == 0 and st["windows"] >= 40
