@@ -60,7 +60,12 @@ phase's seconds go to stderr as it ends.
    min_intron, against their plain versions exactly, on seeded spliced
    pairs of 30-900 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
    tracks), on queries at strip edges and on the one launch of each form
-   the scheduler makes of the splice workload (below);
+   the scheduler makes of the splice workload (below); kernel 6 in both
+   its forms on every one of its launches (the register form where the
+   launch takes it, the strip form always), at ncol 208 / 224 and at
+   its window's edge (shorter sides of 192, 193, 448 and 449 bp), on a
+   pair whose window slides ~40 times and on pairs that Z-drop on and
+   between group edges;
 5e. single: kernel 12 (single-pair forward, tiles of 32 positions:
    pairs of 30-1500 bp over 1-48 tiles; score, CIG and APPROX forms,
    w -1, 0, 1, 16, 751 and 2000, zdrop -1/100, RIGHT, GENERIC_SC,
@@ -88,7 +93,8 @@ phase's seconds go to stderr as it ends.
    its plain version, (score, te, qe) exactly, on the JAX bench's local
    set, local-mixed and edge pairs (empty, all-N, all-mismatch, tied
    maxima, targets of 128, queries of 129-512 bp), at A2 B4 q4 e2 and
-   on a generic matrix;
+   on a generic matrix, and on the edge pairs with the first 256 of
+   local-mixed at gap opens q in {-2, 0, 4, 11} and e in {0, 1, 2};
 5i. walk: kernels 17, D and B (the walkers, a block of two warps a pair
    over windows of the store staged in shared memory) against their
    plain versions, exactly, at the main path's launch shapes that
@@ -166,11 +172,15 @@ phase's seconds go to stderr as it ends.
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 
-    python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk|batch]
+    python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk|batch|exts|
+                                       local]
     python3 chip_smoke.py --lg-times
     python3 chip_smoke.py --strips-times
     python3 chip_smoke.py --walk-times
     python3 chip_smoke.py --batch-times
+    python3 chip_smoke.py --exts-times
+    python3 chip_smoke.py --local-times
+    python3 chip_smoke.py --sass-diff PARENT
 
 print clock64 breakdowns of a tile-diagonal of kernels 12-14, 9-10 and
 15-16, of a strip-row of kernel A, of a step of kernels 17, D and B
@@ -187,7 +197,16 @@ at every launch shape of the main path (``WALK_CASES``; they also run
 on the tree before the windowed walkers), and the times of kernels E /
 E2 alone at the main path's launch shapes (``BATCH_TIME_CASES``) with
 kernels 9 / 10 on the long-banded score launch (they also run on the
-tree before the register form or the wide form's redesign).
+tree before the register form or the wide form's redesign), kernel 6
+alone on the annotated splice launches in both its forms with the band
+walker on its bytes (and E / E2's register form), kernel 18 alone on
+each local set (both also run on the parent's tree), cycles a diagonal
+of kernel 6's two forms and a query row of kernel 18 by part, and E /
+E2's register-form SASS against a parent tree's library.  ``--sass-diff``
+is a developer's check of a change to ``csrc/batch_fwd.cu``: PARENT is
+a checkout of the parent commit (an unpacked ``git archive`` inside
+this one, in a folder ``.gitignore`` lists) whose own run built its
+library first.
 """
 from __future__ import annotations
 
@@ -409,7 +428,9 @@ BAND_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_band_extd.py:60"
 BAND_WALK_REPLACES = "ksw2_tpu/ops/traceback_band.py:56"
 BATCH_REPLACES = "ksw2_tpu/ops/wavefront_batch.py:108"
 BATCH_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_batch_extd.py:56"
-BATCH_EXTS_SRC = "ksw2_tpu_torch/csrc/batch_exts_fwd.cu"
+# kernel 6 runs the main path in its register form (batch_fwd.cu, SPL);
+# its strip form, batch_exts_fwd.cu, takes launches past ncol 464
+BATCH_EXTS_SRC = "ksw2_tpu_torch/csrc/batch_fwd.cu"
 BATCH_EXTS_REPLACES = "ksw2_tpu/ops/wavefront_batch_exts.py:55"
 EXTZ_SRC = "ksw2_tpu_torch/csrc/extz_fwd.cu"
 EXTZ_WALK_SRC = "ksw2_tpu_torch/csrc/extz_walk.cu"
@@ -1862,6 +1883,13 @@ def splice_cases(spl):
         for k, (route, ln) in enumerate(splice_launches(edge, flag, None, 0,
                                                         zdrop)):
             cases.append((f"small_{name}_{k}", route, ln))
+    # kernel 6 at its windows' edges, on a pair whose window slides many
+    # times and on pairs that Z-drop on and between group edges
+    for name, pairs, flag, zdrop in exts_edge_sets(rng):
+        for k, (route, ln) in enumerate(splice_launches(
+                pairs, flag, [np.zeros(len(t), np.uint8) for _, t in pairs],
+                0, zdrop)):
+            cases.append((f"exts_{name}_{k}", route, ln))
     spl4 = spl * SPLICE_TILES
     junc = [splice_junc()] * len(spl4)
     for name, flag, tr in (("main_cig", SPL, None), ("main_score", SPL | SO,
@@ -1873,6 +1901,41 @@ def splice_cases(spl):
         assert len(lns) == 1, name
         cases.append((name, *lns[0]))
     return cases
+
+
+def exts_edge_sets(rng):
+    """(name, pairs, flag, zdrop) of kernel 6's edge launches: shorter
+    sides of 192, 193, 448 and 449 bp (ncol 208 and 224: the register
+    form's window three parts idle; 464: its window less 48; 480: the
+    strip form past it), each with the query and
+    then the target the shorter; a 150 bp query on a 1400 bp target (its
+    window slides ~40 times); 80 pairs aligned for 10-89 bp and then
+    unrelated, which Z-drop at -z20 on and between group edges."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import encode_dna
+
+    SPL = Flag.SPLICE_FOR
+    out = []
+    for M in (192, 193, 448, 449):
+        (ta, qa), (tb, qb) = (random_pair(rng, M + 160, 0.1, 0.03)
+                              for _ in range(2))
+        out.append((f"edge{M}", [(encode_dna(qa)[:M], encode_dna(ta)),
+                                 (encode_dna(qb), encode_dna(tb)[:M])],
+                    SPL | Flag.RIGHT, 200))
+    t, q = random_pair(rng, 1400, 0.08, 0.02)
+    slide = [(encode_dna(q[600:750]), encode_dna(t))]
+    out.append(("slide_cig", slide, SPL, 200))
+    out.append(("slide_approx_score", slide, SPL | Flag.SCORE_ONLY |
+                Flag.APPROX_MAX | Flag.APPROX_DROP, 100))
+    sweep = []
+    for A in range(10, 90):
+        t, q = random_pair(rng, A, 0.04, 0.01)
+        tail_t, tail_q = ("".join(rng.choice(list("ACGT"), size=140))
+                          for _ in range(2))
+        sweep.append((encode_dna(q + tail_q), encode_dna(t + tail_t)))
+    out.append(("drops_cig", sweep, SPL, 20))
+    out.append(("drops_score", sweep, SPL | Flag.SCORE_ONLY, 20))
+    return out
 
 
 def phase_splice(cases):
@@ -1938,9 +2001,13 @@ def phase_splice(cases):
             prec, pp = plain_run((name, "fwd"), BE.batch_exts_forward_plain,
                                  *args, ln.prm, ln.nd, ln.ncol)
             errs["records"] = _max_err(krec, prec)
+            # the strip form on the same launch, whichever form it takes
+            srec, sp = BE.batch_exts_wide_cuda(*args, ln.prm, ln.nd, ln.ncol)
+            errs["strip_records"] = _max_err(srec, prec)
             if ln.prm.cig:
                 errs["bytes"] = _max_err(kp, pp)
-                del pp
+                errs["strip_bytes"] = _max_err(sp, pp)
+                del pp, sp
                 n = min(256, len(ln.qlen))
                 starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)[:n]
                 sub = (kp[:n].contiguous(), starts, ql[:n], tl[:n], w[:n],
@@ -1955,11 +2022,13 @@ def phase_splice(cases):
                 errs["walk"] = werr
                 worst["band_walk"] = max(worst["band_walk"], werr)
                 del kp
-            worst["batch_exts_fwd"] = max(worst["batch_exts_fwd"],
-                                          errs["records"],
-                                          errs.get("bytes", 0))
+            worst["batch_exts_fwd"] = max(
+                worst["batch_exts_fwd"], errs["records"],
+                errs["strip_records"], errs.get("bytes", 0),
+                errs.get("strip_bytes", 0))
             out[name] = {"route": route, "pairs": len(ln.qlen),
                          "nd": ln.nd, "ncol": ln.ncol,
+                         "cpl": BE.exts_form(ln.ncol, ln.prm.m),
                          "Lt": int(ln.target.shape[1]), "lt": ln.prm.lt,
                          "max_abs_err": errs}
         torch.cuda.empty_cache()
@@ -2618,12 +2687,20 @@ def local_upload(Q, T, ql, tl):
                           (tl, np.int32))]
 
 
+# kernel 18's cost sweep (phase 5h): gap opens of both signs, so that
+# its row scan's decay max(-q, 0) - e is negative, zero and positive
+LOCAL_SWEEP = tuple((q, e) for q in (-2, 0, 4, 11) for e in (0, 1, 2))
+LOCAL_SWEEP_PAIRS = 256
+
+
 def phase_local():
     """Kernel 18 (batch_local_fwd) against its plain version, exactly:
     (score, te, qe) on the JAX bench's local set, on local-mixed and on
     the edge pairs, with A2 B4 q4 e2 and, on local-mixed and the edge
     pairs, with a generic matrix (the kernel reads its match, mismatch
-    and N entries, as the JAX kernel does)."""
+    and N entries, as the JAX kernel does); and on the edge pairs with
+    the first LOCAL_SWEEP_PAIRS of local-mixed at each (q, e) of
+    LOCAL_SWEEP."""
     import torch
     from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops import batch_local as BL
@@ -2638,6 +2715,11 @@ def phase_local():
              ("local_edge", edge, prm),
              ("local_mixed_generic", sets["local_mixed"], gen),
              ("local_edge_generic", edge, gen)]
+    sweep = tuple(np.concatenate([x[:LOCAL_SWEEP_PAIRS], y]) for x, y in
+                  zip(sets["local_mixed"], edge))
+    cases += [(f"local_sweep_q{sq}_e{se}", sweep,
+               BL.local_params(5, simple_mat(5, a, -b), sq, se))
+              for sq, se in LOCAL_SWEEP]
     worst = 0
     out = {}
     for name, arrays, p in cases:
@@ -2658,11 +2740,13 @@ def phase_local():
     return worst
 
 
-def local_times(int_rate):
+def local_times(int_rate, plain=True):
     """Kernel 18 on each local set beside its bound and its plain
     version's time there (phase 5h's; on local-64k the plain version runs
-    here, once, and the kernel is held to it exactly).  The cells are the matrix's, qlen x tlen; the bytes are
-    the sequences, the lengths and the results, each once."""
+    here, once, and the kernel is held to it exactly; ``plain=False``
+    leaves the plain version out and gives each set's pin instead).  The
+    cells are the matrix's, qlen x tlen; the bytes are the sequences, the
+    lengths and the results, each once."""
     from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops import batch_local as BL
 
@@ -2673,9 +2757,13 @@ def local_times(int_rate):
         args = local_upload(Q, T, ql, tl)
         row = {"kernel": "batch_local_fwd", "pairs": len(ql),
                "Lq": int(Q.shape[1]), "Lt": int(T.shape[1])}
-        row["fwd_ms"] = cuda_ms(lambda: BL.local_forward_cuda(*args, prm),
-                                20)
-        if (name, "fwd") not in PLAIN_MS:
+        row["fwd_ms"] = cuda_ms(
+            lambda: BL.local_forward_cuda(*args, prm), 20)
+        if not plain:
+            res = BL.local_forward_cuda(*args, prm).cpu().numpy()
+            row["pin"] = local_pin({"score": res[:, 0], "te": res[:, 1],
+                                    "qe": res[:, 2]})
+        elif (name, "fwd") not in PLAIN_MS:
             # phase 5h held the other sets: this one is held here, exactly
             want = plain_run((name, "fwd"), BL.local_forward_plain, *args,
                              prm)
@@ -2684,7 +2772,8 @@ def local_times(int_rate):
             if err:
                 emit({"phase": "times", "case": name, "FAIL": err})
                 raise AssertionError(f"the local kernel differs on {name}")
-        row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+        if plain:
+            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
         cells = int((ql.astype(np.int64) * tl).sum())
         nbytes = int(ql.sum() + tl.sum()) + len(ql) * (8 + 12)
         row["cells"] = cells
@@ -5706,36 +5795,52 @@ def breakdown_batch_wide():
         BD.library = saved
 
 
+def batch_stamped_library():
+    """``csrc/batch_fwd.cu`` built with the BATCH_STAMPS prelude (its
+    register kernel's hooks defined), loaded, with the argument types of
+    its entry points (E / E2's and kernel 6's register form) set.  The
+    stamped source and its library are named by the source's hash, so a
+    library is reused only for the text it was built from."""
+    import ctypes
+    import hashlib
+
+    from ksw2_tpu_torch import _build
+
+    text = (BATCH_STAMPS + (_build.CSRC / "batch_fwd.cu").read_text() +
+            BREAKDOWN_READ)
+    key = hashlib.sha256(text.encode()).hexdigest()[:16]
+    out = _build.BUILD_DIR.parent / "diag_breakdown"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / f"batch_fwd_stamped_{key}.cu"
+    lib_path = out / f"libbatch_fwd_stamped_{key}.so"
+    if not lib_path.exists():
+        cu.write_text(text)
+        nvcc = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+             str(_build.CSRC), str(cu), "-o", str(lib_path)],
+            capture_output=True, text=True)
+        if nvcc.returncode:
+            raise RuntimeError(f"breakdown: nvcc failed on {cu.name}:\n"
+                               f"{nvcc.stdout[-4000:]}{nvcc.stderr[-4000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in ("ksw2t_batch_fwd", "ksw2t_batch_exts_reg_fwd"):
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
+    lib.ksw2t_error_string.argtypes = [ctypes.c_int]
+    lib.ksw2t_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def breakdown_batch():
     """Cycles a diagonal of kernels E / E2's register form by part (CUDA
     clock sums over each warp's lane 0, over the diagonals its pair
     computed) on the short-banded workload's score launches, and the
     stamped run's milliseconds (the stamps cost cycles themselves); then
     the wide form's (:func:`breakdown_batch_wide`)."""
-    import ctypes
-
-    from ksw2_tpu_torch import _build
     from ksw2_tpu_torch.ops import batch as BT
 
-    src = (_build.CSRC / "batch_fwd.cu").read_text()
-    out = _build.BUILD_DIR.parent / "diag_breakdown"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "batch_fwd_stamped.cu").write_text(BATCH_STAMPS + src +
-                                              BREAKDOWN_READ)
-    lib_path = out / "libbatch_fwd_stamped.so"
-    nvcc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-         str(_build.CSRC), str(out / "batch_fwd_stamped.cu"), "-o",
-         str(lib_path)], capture_output=True, text=True)
-    if nvcc.returncode:
-        raise RuntimeError("breakdown: nvcc failed on batch_fwd_stamped.cu:"
-                           f"\n{nvcc.stdout[-4000:]}{nvcc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(lib_path))
-    lib.ksw2t_batch_fwd.argtypes = _build._SIGNATURES["ksw2t_batch_fwd"]
-    lib.ksw2t_batch_fwd.restype = ctypes.c_int
-    lib.ksw2t_prof_read.argtypes = [ctypes.c_void_p]
-    lib.ksw2t_error_string.argtypes = [ctypes.c_int]
-    lib.ksw2t_error_string.restype = ctypes.c_char_p
+    lib = batch_stamped_library()
     saved = BT.library
     BT.library = lambda: lib
     try:
@@ -5763,10 +5868,201 @@ def breakdown_batch():
     breakdown_batch_wide()
 
 
+# kernel 6's strip form (csrc/batch_exts_fwd.cu, the wide form) stamped
+# at anchors with 32-bit clock() sums a warp's lane 0 keeps: 0 a
+# diagonal's head (band row, switches, the chunk range), 1 its chunk
+# steps (32 positions each: loads, shuffles, the cells, stores), 2 the
+# argmax's 5 shuffle rounds and the Z-drop test; 8 diagonals, 9 chunk
+# steps, 10 pairs
+STAMP_NOW = ("{ const unsigned pn_ = (unsigned)clock(); "
+             "pf_[%d] += pn_ - pt_; pt_ = pn_; }")
+G_PROF = (
+    "constexpr unsigned FULL = 0xffffffffu;\n",
+    "constexpr unsigned FULL = 0xffffffffu;\n"
+    "__device__ unsigned long long g_prof[16];\n")
+EXTS_WIDE_STAMPS = (
+    G_PROF,
+    ("  int score = NEG, zd = 0;\n",
+     "  int score = NEG, zd = 0;\n  unsigned pf_[4] = {0, 0, 0, 0}, nc_ = 0, "
+     "nd_ = 0;\n  unsigned pt_ = (unsigned)clock();\n"),
+    ("    for (int c = c_lo; c <= c_hi; ++c) {\n",
+     "    " + STAMP_NOW % 0 + "\n    for (int c = c_lo; c <= c_hi; ++c) {\n"
+     "      ++nc_;\n"),
+    ("    // every lane updates its own copy of the per-pair scalars\n",
+     "    " + STAMP_NOW % 1 + "\n"),
+    ("    if (drop) {\n      zd = 1;\n      break;\n    }\n",
+     "    " + STAMP_NOW % 2 + "\n    ++nd_;\n"
+     "    if (drop) {\n      zd = 1;\n      break;\n    }\n"),
+    ("  if (lane == 0) {\n    int* out = A.rec + (size_t)b * 9;",
+     "  if (lane == 0) {\n    for (int i_ = 0; i_ < 3; ++i_)\n"
+     "      atomicAdd(&g_prof[i_], (unsigned long long)pf_[i_]);\n"
+     "    atomicAdd(&g_prof[8], (unsigned long long)nd_);\n"
+     "    atomicAdd(&g_prof[9], (unsigned long long)nc_);\n"
+     "    atomicAdd(&g_prof[10], 1ull);\n  }\n"
+     "  if (lane == 0) {\n    int* out = A.rec + (size_t)b * 9;"),
+)
+EXTS_WIDE_PARTS = ("head", "chunks", "argmax")
+EXTS_BREAKDOWN_CASES = ("main_junc_score", "main_junc_cig")
+
+
+def splice_main_launch(name):
+    """The scheduler's one launch of the annotated 1024-pair splice
+    workload (kernel 6): ``main_junc_score`` or ``main_junc_cig``."""
+    from ksw2_tpu_torch.core.flags import Flag
+
+    spl4 = splice_jobs() * SPLICE_TILES
+    flag = Flag.SPLICE_FOR | (Flag.SCORE_ONLY if name.endswith("score")
+                              else Flag.NONE)
+    (route, ln), = splice_launches(spl4, flag, [splice_junc()] * len(spl4),
+                                   SPLICE_JUNC_BONUS)
+    assert route == "batch", route
+    return ln
+
+
+def breakdown_exts():
+    """Cycles a diagonal of kernel 6 by part on the annotated splice
+    launches (score, CIG): its strip form (``batch_exts_fwd.cu`` stamped
+    at anchors, launched on the main launch whatever its form) and, on a
+    tree with the register form, that form (``batch_fwd.cu`` with its
+    ``BATCH_STAMP`` hooks, as ``--breakdown batch`` stamps it)."""
+    from ksw2_tpu_torch.ops import batch_exts as BE
+
+    lib = breakdown_library("batch_exts_fwd", EXTS_WIDE_STAMPS,
+                            "ksw2t_batch_exts_fwd")
+    saved = BE.library
+    BE.library = lambda: lib
+    try:
+        for name in EXTS_BREAKDOWN_CASES:
+            ln = splice_main_launch(name)
+            ms, prof = _stamped_run(lib, [ln], lambda a, ln: BE.
+                                    batch_exts_wide_cuda(*a, ln.prm, ln.nd,
+                                                         ln.ncol))
+            nd = max(float(prof[8]), 1.0)
+            parts = {k: float(prof[i]) / nd
+                     for i, k in enumerate(EXTS_WIDE_PARTS)}
+            emit({"phase": "breakdown", "case": name,
+                  "kernel": "batch_exts_fwd", "form": "strip",
+                  "ms_stamped": ms, "pairs": int(prof[10]),
+                  "diagonals": int(prof[8]),
+                  "chunk_steps_per_diagonal": float(prof[9]) / nd,
+                  "cycles_per_diagonal": parts,
+                  "cycles_per_diagonal_total": sum(parts.values())})
+    finally:
+        BE.library = saved
+    breakdown_exts_register()
+
+
+def breakdown_exts_register():
+    """Cycles a diagonal of kernel 6's register form by part (the parts of
+    ``--breakdown batch``) on the annotated splice launches, with the
+    stamped run's milliseconds."""
+    from ksw2_tpu_torch.ops import batch_exts as BE
+
+    lib = batch_stamped_library()
+    saved = BE.library
+    BE.library = lambda: lib
+    try:
+        for name in EXTS_BREAKDOWN_CASES:
+            ln = splice_main_launch(name)
+            ms, prof = _stamped_run(lib, [ln], lambda a, ln: BE.
+                                    batch_exts_forward_cuda(*a, ln.prm,
+                                                            ln.nd, ln.ncol))
+            diags = max(float(prof[8]), 1.0)
+            emit({"phase": "breakdown", "case": name,
+                  "kernel": "batch_exts_fwd", "form": "register",
+                  "cpl": BE.exts_form(ln.ncol, ln.prm.m),
+                  "ms_stamped": ms, "pairs": int(prof[9]),
+                  "diagonals": int(prof[8]),
+                  "cycles_per_diagonal": {
+                      k: float(prof[i]) / diags
+                      for i, k in enumerate(BATCH_BREAKDOWN_PARTS)},
+                  "cycles_per_diagonal_total": float(
+                      sum(int(prof[i]) for i in range(6))) / diags})
+    finally:
+        BE.library = saved
+
+
+# kernel 18 (csrc/batch_local.cu) stamped at anchors the same way, a
+# query row at a time: 0 its head (the query symbol's broadcast, the
+# diagonal neighbour's shuffle, the scores), 1 F and H', 2 E's lane pass
+# and the lanes' 5-round scan, 3 its tail (the carry in, E, H, the best,
+# the next query chunk); 4 the end (the argmax butterfly, once a pair);
+# 8 rows, 10 pairs
+LOCAL_STAMPS = (
+    G_PROF,
+    ("  int qcur = qload(0), qnxt = qload(1);\n",
+     "  int qcur = qload(0), qnxt = qload(1);\n  unsigned pf_[5] = {0, 0, 0, "
+     "0, 0}, nd_ = 0;\n  unsigned pt_ = (unsigned)clock();\n"),
+    ("    int Hq[CELLS];                   // H' = max(0, diagonal + s, F)\n",
+     "    " + STAMP_NOW % 0 + "\n"
+     "    int Hq[CELLS];                   // H' = max(0, diagonal + s, F)\n"),
+    ("    // E: the lane's cells with no carry in, then its carry out\n",
+     "    " + STAMP_NOW % 1 + "\n"
+     "    // E: the lane's cells with no carry in, then its carry out\n"),
+    ("    int Ein = __shfl_up_sync(FULL, X, 1);    // E(t0)\n",
+     "    " + STAMP_NOW % 2 + "\n"
+     "    int Ein = __shfl_up_sync(FULL, X, 1);    // E(t0)\n"),
+    ("      qnxt = qload((i >> 5) + 2);\n    }\n  }\n",
+     "      qnxt = qload((i >> 5) + 2);\n    }\n"
+     "    " + STAMP_NOW % 3 + "\n    ++nd_;\n  }\n"),
+    ("  if (lane == 0) {\n    int* out = A.res + (size_t)b * 3;",
+     "  " + STAMP_NOW % 4 + "\n  if (lane == 0) {\n"
+     "    for (int i_ = 0; i_ < 5; ++i_)\n"
+     "      atomicAdd(&g_prof[i_], (unsigned long long)pf_[i_]);\n"
+     "    atomicAdd(&g_prof[8], (unsigned long long)nd_);\n"
+     "    atomicAdd(&g_prof[10], 1ull);\n  }\n"
+     "  if (lane == 0) {\n    int* out = A.res + (size_t)b * 3;"),
+)
+LOCAL_PARTS = ("head", "cells", "scan", "tail", "end")
+
+
+def breakdown_local():
+    """Cycles a query row of kernel 18 by part (and its end, a pair) on
+    each local set at A2 B4 q4 e2, with the stamped run's
+    milliseconds."""
+    import torch
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import batch_local as BL
+
+    lib = breakdown_library("batch_local", LOCAL_STAMPS,
+                            "ksw2t_batch_local_fwd")
+    a, b, q, e = LOCAL_COSTS
+    prm = BL.local_params(5, simple_mat(5, a, -b), q, e)
+    saved = BL.library
+    BL.library = lambda: lib
+    try:
+        for name, arrays in local_sets().items():
+            args = local_upload(*arrays)
+            prof = np.zeros(16, np.uint64)
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            BL.local_forward_cuda(*args, prm)
+            t1.record()
+            t1.synchronize()
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            steps = max(float(prof[8]), 1.0)
+            pairs = max(float(prof[10]), 1.0)
+            parts = {k: float(prof[i]) / steps
+                     for i, k in enumerate(LOCAL_PARTS[:4])}
+            emit({"phase": "breakdown", "case": name,
+                  "kernel": "batch_local_fwd",
+                  "ms_stamped": t0.elapsed_time(t1),
+                  "pairs": int(prof[10]), "rows": int(prof[8]),
+                  "rows_per_pair": steps / pairs,
+                  "cycles_per_row": parts,
+                  "cycles_per_row_total": sum(parts.values()),
+                  "end_cycles_per_pair": float(prof[4]) / pairs})
+            del args
+    finally:
+        BL.library = saved
+
+
 def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
-                           "batch")) -> int:
-    """``--breakdown [extz|band|lg|strips|walk|batch]``: the clock64
-    breakdowns."""
+                           "batch", "exts", "local")) -> int:
+    """``--breakdown [extz|band|lg|strips|walk|batch|exts|local]``: the
+    clock64 breakdowns."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5787,6 +6083,10 @@ def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
         breakdown_walk()
     if "batch" in which:
         breakdown_batch()
+    if "exts" in which:
+        breakdown_exts()
+    if "local" in which:
+        breakdown_local()
     return 0
 
 
@@ -5831,6 +6131,172 @@ def phase_strips_times() -> int:
         if route == "strips" and re.fullmatch(ALONE["splice"], name):
             times[name] = kernel_a_row(name, ln, int_rate, plain=False)
     emit({"phase": "strips_times", "cases": times})
+    return 0
+
+
+def _digest(*tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of tensors' bytes: equal
+    outputs of two trees in one call show as equal digests."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def exts_times(int_rate, exts_form, wide):
+    """Kernel 6 alone (CUDA events) on the annotated splice workload's
+    launches (score, CIG) in the form the route takes (``exts_form`` of
+    the launch) and in the strip (wide) form (launched by ``wide``),
+    beside its bound, with digests of its records and bytes; the band
+    walker on all of the CIG launch's bytes, its time, steps and the
+    digest of its output."""
+    import torch
+    from ksw2_tpu_torch.ops import band as BD
+    from ksw2_tpu_torch.ops import band_walker as BW
+    from ksw2_tpu_torch.ops import batch_exts as BE
+    from ksw2_tpu_torch.ops import strips_walker as W
+
+    out = {}
+    for name in EXTS_BREAKDOWN_CASES:
+        ln = splice_main_launch(name)
+        args = BD.band_upload(ln, "cuda")
+        _, _, ql, tl, w = args[:5]
+        form = exts_form(ln.ncol, ln.prm.m)
+        row = {"kernel": "batch_exts_fwd", "pairs": len(ln.qlen),
+               "nd": ln.nd, "ncol": ln.ncol, "Lt": int(ln.target.shape[1]),
+               "cpl": form}
+        for key, fn in (("fwd", BE.batch_exts_forward_cuda),
+                        ("strip", wide)):
+            row[f"{key}_ms"] = cuda_ms(
+                lambda fn=fn: fn(*args, ln.prm, ln.nd, ln.ncol), 10)
+        rec, p = BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
+        row["digest"] = _digest(rec) if p is None else _digest(rec, p)
+        cells, nbytes = exts_work(ln, rec)
+        row["computed_cells"] = cells
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+            "batch_exts_fwd", cells, nbytes, int_rate, ln.prm.cig)
+        row["fwd_gcells_per_s"] = cells / row["fwd_ms"] / 1e6
+        if p is not None:
+            walk = (p, W.start_cells(rec, ql, tl, ln.prm.flag, 0), ql, tl, w,
+                    W.walk_min_intron(ln.prm.lt, True))
+            row["walk_ms"] = cuda_ms(lambda: BW.band_walk_cuda(*walk), 10)
+            res, runs = BW.band_walk_cuda(*walk)
+            row["walk_digest"] = _digest(res, runs)
+            steps, nbytes = walk_work(res, runs, 20)
+            row["walk_steps"] = steps
+            row["walk_bound_ms"], row["walk_bound_by"] = bound(
+                "band_walk", steps, nbytes, int_rate)
+            del walk
+        del args, rec, p
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_exts_times() -> int:
+    """``--exts-times``: kernel 6 alone at the main path's launches
+    (:func:`exts_times`) and kernels E / E2's register form at theirs
+    (the short-banded launches of :func:`batch_times`), with no plain
+    version; it also runs on the parent's tree, to compare two trees in
+    one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    from ksw2_tpu_torch.ops import batch_exts as BE
+
+    int_rate = phase_device()
+    phase_build()
+    # the parent's tree has the strip form alone, as its forward
+    emit({"phase": "exts_times", "cases": exts_times(
+        int_rate, getattr(BE, "exts_form", lambda ncol, m: 0),
+        getattr(BE, "batch_exts_wide_cuda", BE.batch_exts_forward_cuda))})
+    emit({"phase": "batch_times", "cases": batch_times(
+        int_rate, [n for n in BATCH_TIME_CASES if n.startswith("sb_")])})
+    return 0
+
+
+def phase_local_times() -> int:
+    """``--local-times``: kernel 18 alone on each local set
+    (:func:`local_times` with no plain version) and each set's pin; it
+    also runs on the parent's tree."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    int_rate = phase_device()
+    phase_build()
+    emit({"phase": "local_times", "cases": local_times(int_rate,
+                                                       plain=False)})
+    return 0
+
+
+def sass_functions(lib):
+    """{name: its SASS instructions with addresses and encodings
+    stripped} of every kernel in the shared library ``lib``
+    (``cuobjdump -sass``)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if m and name:
+            out[name].append(m.group(1))
+    return out
+
+
+def batch_reg_forms(funcs):
+    """{(TWO, CIG, APPROX, RIGHT): SASS} of kernels E / E2's register
+    form among ``funcs``, on a tree with or without the kernel's CPL and
+    SPL parameters (E / E2 are CPL 8, SPL false)."""
+    import re
+
+    out = {}
+    for name, code in funcs.items():
+        m = re.search(r"batch_reg_kernelI((?:L[bi]\d+E)+)E", name)
+        if not m:
+            continue
+        args = [int(a) for a in re.findall(r"L[bi](\d+)E", m.group(1))]
+        if len(args) == 6:
+            cpl, two, spl, cig, approx, right = args
+            if cpl != 8 or spl:
+                continue
+            args = [two, cig, approx, right]
+        out[tuple(args)] = code
+    return out
+
+
+def phase_sass_diff(parent_root) -> int:
+    """``--sass-diff PARENT``: kernels E / E2's register-form SASS in this
+    tree's library against the library a run of the tree at ``PARENT``
+    built (its ``build/ksw2_tpu_torch/``), instantiation by
+    instantiation: the instructions and whether they are the same."""
+    from pathlib import Path
+
+    from ksw2_tpu_torch import _build
+
+    mine = batch_reg_forms(sass_functions(_build.build()))
+    theirs_lib = max((Path(parent_root) / "build" / "ksw2_tpu_torch").glob(
+        "libksw2t_*.so"), key=lambda p: p.stat().st_mtime)
+    theirs = batch_reg_forms(sass_functions(theirs_lib))
+    rows = {"-".join(map(str, k)): {
+        "instructions": len(mine.get(k, [])),
+        "parent_instructions": len(theirs.get(k, [])),
+        "same": mine.get(k) == theirs.get(k)}
+        for k in sorted(set(mine) | set(theirs))}
+    emit({"phase": "sass_diff", "key": "TWO-CIG-APPROX-RIGHT",
+          "forms": rows, "all_same": all(r["same"] for r in rows.values())})
     return 0
 
 
@@ -6126,8 +6592,14 @@ if __name__ == "__main__":
         sys.exit(phase_walk_times())
     if sys.argv[1:2] == ["--batch-times"]:
         sys.exit(phase_batch_times())
+    if sys.argv[1:2] == ["--exts-times"]:
+        sys.exit(phase_exts_times())
+    if sys.argv[1:2] == ["--local-times"]:
+        sys.exit(phase_local_times())
+    if sys.argv[1:2] == ["--sass-diff"]:
+        sys.exit(phase_sass_diff(sys.argv[2]))
     if sys.argv[1:2] == ["--breakdown"]:
         sys.exit(phase_breakdown(tuple(sys.argv[2:])
                                  or ("extz", "band", "lg", "strips", "walk",
-                                     "batch")))
+                                     "batch", "exts", "local")))
     sys.exit(main())

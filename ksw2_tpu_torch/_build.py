@@ -59,6 +59,10 @@ _SIGNATURES = {
     # sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig, nd,
     # ncol, TP, warps, rec, p, stream
     "ksw2t_batch_exts_fwd": [_P] * 7 + [_I] * 22 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, table, don, acc, B, Lq, Lt, m, q, e, q2, lt,
+    # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
+    # nd, ncol, warps, rec, p, stream
+    "ksw2t_batch_exts_reg_fwd": [_P] * 8 + [_I] * 21 + [_P] * 3,
     # mode, qs, ts, qlen, tlen, w, table, don, acc, tbase, dbase, bbase,
     # pbase, B, Lq, Lt, m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis,
     # sc_N, zdrop, right, generic, approx, adrop, cig, TP, n_tiles, ticket,

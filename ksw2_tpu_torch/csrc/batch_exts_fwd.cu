@@ -1,5 +1,9 @@
 // Batched splice forward: the anti-diagonal exts DP of many pairs at once,
-// one warp a pair (exact or approximate max, score and direction bytes).
+// one warp a pair (exact or approximate max, score and direction bytes):
+// kernel 6's strip form, which ops/batch_exts.py:exts_form gives the
+// launches whose n_col its register form's window (batch_fwd.cu, SPL)
+// cannot hold (n_col > 464, pairs whose shorter side passes ~448 bp) and
+// alphabets of more than 8 symbols.
 //
 // Replaces ksw2_tpu/ops/wavefront_batch_exts.py:_batch_exts_kernel.  It
 // computes what spec/diagdiff.py:exts2 specifies (ksw2_exts2_sse.c) on

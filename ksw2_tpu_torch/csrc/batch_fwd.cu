@@ -1,7 +1,8 @@
 // Batched forward (kernels E and E2): the anti-diagonal difference DP of
 // many pairs at once (extz and extd, exact or approximate max, score and
 // direction bytes): one warp a pair in the register form, this file's
-// kernel; the wide form is band_fwd.cu's block a pair.
+// kernel; the wide form is band_fwd.cu's block a pair.  The same register
+// kernel in its SPL mode is kernel 6's register form (below).
 //
 // Replaces ksw2_tpu/ops/wavefront_batch.py:_batch_kernel_body (one-piece,
 // counted as batch_fwd) and ksw2_tpu/ops/wavefront_batch_extd.py:
@@ -60,6 +61,27 @@
 // drop; it zeroes the store rows it wrote past the stop.  With CIG a lane
 // writes its CPL direction bytes with one 8-byte store.
 //
+// Kernel 6's register form (SPL, counted as batch_exts_fwd) replaces
+// ksw2_tpu/ops/wavefront_batch_exts.py:_batch_exts_kernel on the launches
+// whose window holds them: the exts recurrence of spec/diagdiff.py:exts2
+// (ksw2_exts2_sse.c) over [st, en] with w = qlen + tlen (exts has no
+// band): u, v, x, y initialised to -(q + e) and the intron plane x2 to
+// -q2, shifted at a slide as the other planes are; a position's donor and
+// acceptor bytes four to a register beside its score bytes, the entering
+// positions' prefetched a group ahead with their target; the intron
+// candidate a2 + acceptor beside a and b with no clamp of z, x2' =
+// max(a2', donor) - q2; the first-column switch ucol(r) is TWO's column
+// value with e2 = 0, H signed and seeded -(q + e) (qe_pre), and Z-drop has
+// no gap slope (e2 = 0).  With CIG a cell's direction code rides in the
+// low bits of its candidates (a priority each, the reference's tie rule
+// by their order), one max picks value and code.  The replay reads a
+// diagonal's best position only where its maximum beats the running one
+// or falls more than zdrop below it, so the warp skips the lane rank on
+// the other diagonals.  CPL is 16 (W = 512: the splice launches' n_col
+// of 320 needs more than E's 256); ops/batch_exts.py:exts_form gives
+// launches the window cannot hold (n_col > 464) kernel 6's strip form,
+// batch_exts_fwd.cu.
+//
 // The wide form takes launches whose band is wider than the window
 // (unbanded pairs up to 1536 bp CIGARs, 3072 scores) or m > 8: the band
 // forward's block a pair, launched from band_fwd.cu by ops/batch.py in
@@ -81,6 +103,7 @@
 // steps, a pair to an SM.  With CIG the n_col bytes a diagonal are the
 // only large memory traffic.
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -101,7 +124,8 @@ constexpr int KT = 4096;            // tie-rank class stride (ops/band.py)
 constexpr int MAX_WARPS = 8;
 constexpr int KD = 32;              // diagonals a group (a lane each)
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CPL = 8;              // register form: positions a lane
+constexpr int CPL_E = 8;            // E / E2's register form: positions a lane
+constexpr int CPL_S = 16;           // kernel 6's (SPL): W = 512
 
 // An int8 value in the top byte of an int32 (v << 24); sums and
 // differences in that form wrap as the reference's epi8 ones do (taken in
@@ -137,6 +161,10 @@ __device__ __forceinline__ int window_base(int st) {
   return st > 0 ? (st - 1) & ~31 : 0;
 }
 
+// A lane's CPL symbols a nibble each: 32 bits at CPL 8, 64 at CPL 16
+template <int CPL>
+using Nibs = std::conditional_t<(CPL > 8), unsigned long long, unsigned>;
+
 // The bits [lo, hi] of a lane's N cells (lo, hi relative to its first)
 template <int N>
 __device__ __forceinline__ unsigned cell_mask(int lo, int hi) {
@@ -167,6 +195,8 @@ struct BatchArgs {
   int zdrop, right, generic, adrop, nd, ncol;
   int* rec;
   uint8_t* p;
+  const uint8_t* don;                // SPL: the donor and acceptor rows
+  const uint8_t* acc;
 };
 
 // A symbol as the register form keeps it, a nibble: bits 0-2 the symbol
@@ -176,12 +206,13 @@ __device__ __forceinline__ unsigned nib(int c, int m) {
 }
 
 // The CPL target bytes tw as nibbles, position k at bits 4k
-__device__ __forceinline__ unsigned target_nibbles(
+template <int CPL>
+__device__ __forceinline__ Nibs<CPL> target_nibbles(
     const unsigned (&tw)[CPL / 4], int m) {
-  unsigned tn = 0;
+  Nibs<CPL> tn = 0;
 #pragma unroll
   for (int k = 0; k < CPL; ++k)
-    tn |= nib((tw[k >> 2] >> (8 * (k & 3))) & 255, m) << (4 * k);
+    tn |= (Nibs<CPL>)nib((tw[k >> 2] >> (8 * (k & 3))) & 255, m) << (4 * k);
   return tn;
 }
 
@@ -196,16 +227,27 @@ __device__ __forceinline__ unsigned byte_mask(unsigned bits4) {
   return ((bits4 & 15u) * 0x00204081u & 0x01010101u) * 0xffu;
 }
 
-// The target's CPL bytes at position p (a multiple of CPL; the launch's
-// rows are zero past each target and Lt is a multiple of 16)
+// A row's CPL bytes at position p (a multiple of CPL; the launch's
+// target rows are zero past each target, and Lt is a multiple of 16):
+// the target, or a splice launch's donor or acceptor row
+template <int CPL>
 __device__ __forceinline__ void load_target(const uint8_t* tg, int Lt, int p,
                                             unsigned (&tw)[CPL / 4]) {
   if (p >= 0 && p < Lt) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(tg + p));
-    tw[0] = v.x;
-    tw[1] = v.y;
+    if constexpr (CPL == 8) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(tg + p));
+      tw[0] = v.x;
+      tw[1] = v.y;
+    } else {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(tg + p));
+      tw[0] = v.x;
+      tw[1] = v.y;
+      tw[2] = v.z;
+      tw[3] = v.w;
+    }
   } else {
-    tw[0] = tw[1] = 0;
+#pragma unroll
+    for (int i = 0; i < CPL / 4; ++i) tw[i] = 0;
   }
 }
 
@@ -216,10 +258,13 @@ __device__ __forceinline__ int load_q(const uint8_t* qy, int qlen, int m,
 }
 
 // The register form: see the head of the file.  RIGHT only where it
-// matters (the direction bytes).
-template <bool TWO, bool CIG, bool APPROX, bool RIGHT>
+// matters (the direction bytes).  SPL: kernel 6's exts recurrence (its
+// launches set e2 = 0 and qe_pre = q + e; signed deltas as TWO's)
+template <int CPL, bool TWO, bool SPL, bool CIG, bool APPROX, bool RIGHT>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 batch_reg_kernel(const BatchArgs A) {
+  static_assert(!(TWO && SPL) && (CPL == 8 || CPL == 16));
+  constexpr bool SGN = TWO || SPL;   // signed deltas, the H row unbiased
   constexpr int W = 32 * CPL, SLANES = 32 / CPL;
   __shared__ int stab[64];
   if (A.generic)
@@ -234,14 +279,16 @@ batch_reg_kernel(const BatchArgs A) {
   if (min(min(w + 1, qlen), tlen) + 16 > A.ncol || A.ncol + 48 > W) __trap();
   const int q = A.q, e = A.e;
   const int qe = q + e, qe2 = A.q2 + A.e2;
-  const int ez = TWO ? A.e2 : e;     // Z-drop gap slope
-  const int initS = top(TWO ? -qe : 0), init2S = top(-qe2);
+  const int ez = SGN ? A.e2 : e;     // Z-drop gap slope
+  const int initS = top(SGN ? -qe : 0), init2S = top(-qe2);
   const int qS = top(q), q2S = top(A.q2), qeS = top(qe), qe2S = top(qe2),
             mchS = top(A.sc_mch), twoqeS = top(2 * qe);
   const unsigned capS = (unsigned)top(A.sc_mch + 2 * qe);
   const uint8_t* tg = A.ts + (size_t)b * A.Lt;
   const uint8_t* qy = A.qs + (size_t)b * A.Lq;
   uint8_t* prow = CIG ? A.p + (size_t)b * A.nd * A.ncol : nullptr;
+  const uint8_t* dg = SPL ? A.don + (size_t)b * A.Lt : nullptr;
+  const uint8_t* ag = SPL ? A.acc + (size_t)b * A.Lt : nullptr;
   const int ndb = qlen + tlen - 1;
   const int rlim = first_empty_diag(qlen, tlen, w);
 
@@ -250,7 +297,10 @@ batch_reg_kernel(const BatchArgs A) {
   // 4]); their target and their query symbols on the last diagonal, a
   // nibble each (Tn, Qn: cell k at bits 4k)
   int U[CPL], V[CPL], X[CPL], Y[CPL], X2[CPL], Y2[CPL], H[CPL];
-  unsigned S4[CPL / 4], Tn, Qn = 0;  // Qn: diagonal -1's, query -1 - t
+  unsigned S4[CPL / 4];
+  Nibs<CPL> Tn, Qn = 0;              // Qn: diagonal -1's, query -1 - t
+  // SPL: the positions' donor and acceptor bytes, four to a register
+  unsigned DN4[SPL ? CPL / 4 : 1], AC4[SPL ? CPL / 4 : 1];
   // the simple scores by a cell's code: 0 match, 1 mismatch, 2-3 N
   const int TAB = (int)((unsigned)(A.sc_mch & 255) |
                         (unsigned)(A.sc_mis & 255) << 8 |
@@ -258,8 +308,12 @@ batch_reg_kernel(const BatchArgs A) {
   int base = 0;
   {
     unsigned tw[CPL / 4];
-    load_target(tg, A.Lt, CPL * lane, tw);
-    Tn = target_nibbles(tw, A.m);
+    load_target<CPL>(tg, A.Lt, CPL * lane, tw);
+    Tn = target_nibbles<CPL>(tw, A.m);
+    if constexpr (SPL) {
+      load_target<CPL>(dg, A.Lt, CPL * lane, DN4);
+      load_target<CPL>(ag, A.Lt, CPL * lane, AC4);
+    }
 #pragma unroll
     for (int i = 0; i < CPL / 4; ++i) S4[i] = 0;
 #pragma unroll
@@ -269,7 +323,7 @@ batch_reg_kernel(const BatchArgs A) {
       H[k] = NEG;
     }
     // the seed diagonal 0's generic H step reads (t = 0)
-    if (lane == 0) H[0] = TWO ? -A.qe_pre : -qe;
+    if (lane == 0) H[0] = SGN ? -A.qe_pre : -qe;
   }
 
   int last_st = -1, last_en = -1, H0 = 0, lt0 = 0;
@@ -282,10 +336,15 @@ batch_reg_kernel(const BatchArgs A) {
     return window_base(band_row(r, qlen, tlen, w).st);
   };
   unsigned tnext[CPL / 4];
+  unsigned dnext[SPL ? CPL / 4 : 1], anext[SPL ? CPL / 4 : 1];
   int qAn, qBn;
   {
     const int r_hi = min(KD - 1, rlim - 1);
-    load_target(tg, A.Lt, group_base(r_hi) + CPL * lane, tnext);
+    load_target<CPL>(tg, A.Lt, group_base(r_hi) + CPL * lane, tnext);
+    if constexpr (SPL) {
+      load_target<CPL>(dg, A.Lt, group_base(r_hi) + CPL * lane, dnext);
+      load_target<CPL>(ag, A.Lt, group_base(r_hi) + CPL * lane, anext);
+    }
     const int q0 = 0 - group_base(0);
     qAn = load_q(qy, qlen, A.m, q0 - 32 + lane);
     qBn = load_q(qy, qlen, A.m, q0 + lane);
@@ -298,11 +357,23 @@ batch_reg_kernel(const BatchArgs A) {
     const int qA = qAn, qB = qBn;
     const int q0 = r_lo - group_base(r_lo);
     unsigned tcur[CPL / 4];
+    unsigned dcur[SPL ? CPL / 4 : 1], acur[SPL ? CPL / 4 : 1];
 #pragma unroll
     for (int i = 0; i < CPL / 4; ++i) tcur[i] = tnext[i];
+    if constexpr (SPL) {
+#pragma unroll
+      for (int i = 0; i < CPL / 4; ++i) {
+        dcur[i] = dnext[i];
+        acur[i] = anext[i];
+      }
+    }
     if (r_hi + 1 < rlim) {
       const int n_lo = r_hi + 1, n_hi = min(n_lo + KD - 1, rlim - 1);
-      load_target(tg, A.Lt, group_base(n_hi) + CPL * lane, tnext);
+      load_target<CPL>(tg, A.Lt, group_base(n_hi) + CPL * lane, tnext);
+      if constexpr (SPL) {
+        load_target<CPL>(dg, A.Lt, group_base(n_hi) + CPL * lane, dnext);
+        load_target<CPL>(ag, A.Lt, group_base(n_hi) + CPL * lane, anext);
+      }
       const int nq0 = n_lo - group_base(n_lo);
       qAn = load_q(qy, qlen, A.m, nq0 - 32 + lane);
       qBn = load_q(qy, qlen, A.m, nq0 + lane);
@@ -310,6 +381,7 @@ batch_reg_kernel(const BatchArgs A) {
     // lane j's diagonal r_lo + j: its maximum and position (or the H0
     // walk's H0 and lt0), H(st0) and H(en0)
     int gH = INT_MIN, gT = 0, gS = 0, gE = 0;
+    [[maybe_unused]] int run = mx;     // SPL: the running maximum
     BATCH_STAMP(5);
 
     for (int rr = 0; rr < n; ++rr) {
@@ -337,19 +409,28 @@ batch_reg_kernel(const BatchArgs A) {
             const int y2 = __shfl_down_sync(FULL, Y2[k], SLANES);
             X2[k] = fresh ? init2S : x2;
             Y2[k] = fresh ? init2S : y2;
+          } else if (SPL) {
+            const int x2 = __shfl_down_sync(FULL, X2[k], SLANES);
+            X2[k] = fresh ? init2S : x2;
           }
         }
 #pragma unroll
         for (int i = 0; i < CPL / 4; ++i) {
           const unsigned s4 = __shfl_down_sync(FULL, S4[i], SLANES);
           S4[i] = fresh ? 0u : s4;
+          if constexpr (SPL) {
+            const unsigned d4 = __shfl_down_sync(FULL, DN4[i], SLANES);
+            const unsigned a4 = __shfl_down_sync(FULL, AC4[i], SLANES);
+            DN4[i] = fresh ? dcur[i] : d4;
+            AC4[i] = fresh ? acur[i] : a4;
+          }
         }
-        const unsigned tn = __shfl_down_sync(FULL, Tn, SLANES);
-        Tn = fresh ? target_nibbles(tcur, A.m) : tn;
+        const Nibs<CPL> tn = __shfl_down_sync(FULL, Tn, SLANES);
+        Tn = fresh ? target_nibbles<CPL>(tcur, A.m) : tn;
         // a fresh position's query symbol is never filled before the
         // symbols from below have replaced it
-        const unsigned qd = __shfl_down_sync(FULL, Qn, SLANES);
-        Qn = fresh ? 0u : qd;
+        const Nibs<CPL> qd = __shfl_down_sync(FULL, Qn, SLANES);
+        Qn = fresh ? (Nibs<CPL>)0 : qd;
         base = nb;
       }
       const int p0 = base + CPL * lane;
@@ -358,8 +439,11 @@ batch_reg_kernel(const BatchArgs A) {
       {
         const int idx = r - base - (q0 - 32);
         const int ins = __shfl_sync(FULL, idx < 32 ? qA : qB, idx & 31);
-        const unsigned up =
-            (__shfl_up_sync(FULL, Qn, 1) >> (4 * (CPL - 1))) & 15u;
+        unsigned up;
+        if constexpr (CPL == 8)
+          up = (__shfl_up_sync(FULL, Qn, 1) >> (4 * (CPL - 1))) & 15u;
+        else
+          up = __shfl_up_sync(FULL, (unsigned)(Qn >> (4 * (CPL - 1))), 1);
         Qn = (Qn << 4) | (lane == 0 ? (unsigned)ins : up);
       }
       if (CIG && en - st + 1 > A.ncol) __trap();   // the store's row width
@@ -367,7 +451,7 @@ batch_reg_kernel(const BatchArgs A) {
       // first-column value (the j == 0 cell at t == r)
       const bool prevok = st > 0 && last_st <= st - 1 && st - 1 <= last_en;
       const int colv =
-          TWO ? (r == 0 ? -qe : (r < A.lt ? -e : (r == A.lt ? A.ld : -A.e2)))
+          SGN ? (r == 0 ? -qe : (r < A.lt ? -e : (r == A.lt ? A.ld : -A.e2)))
               : (r ? q : 0);
       const int colvS = top(colv);
       // the score fill: [st0, hi]; the other positions keep stale bytes
@@ -379,12 +463,13 @@ batch_reg_kernel(const BatchArgs A) {
         // generic ones from the matrix
         unsigned sn[CPL / 4];
         if (!A.generic) {
-          const unsigned d = (Tn ^ Qn) & 0x77777777u;
-          const unsigned code = ((d | d >> 1 | d >> 2) & 0x11111111u) |
-                                ((Tn | Qn) & 0x88888888u) >> 2;
+          using N = Nibs<CPL>;
+          const N d = (Tn ^ Qn) & (N)0x7777777777777777ull;
+          const N code = ((d | d >> 1 | d >> 2) & (N)0x1111111111111111ull) |
+                         ((Tn | Qn) & (N)0x8888888888888888ull) >> 2;
 #pragma unroll
           for (int i = 0; i < CPL / 4; ++i)
-            sn[i] = (unsigned)prmt(TAB, TAB, code >> (16 * i));
+            sn[i] = (unsigned)prmt(TAB, TAB, (unsigned)(code >> (16 * i)));
         } else {
 #pragma unroll
           for (int i = 0; i < CPL / 4; ++i) sn[i] = 0;
@@ -408,14 +493,14 @@ batch_reg_kernel(const BatchArgs A) {
           if (k == kc) {
             U[k] = colvS;
             Y[k] = initS;
-            Y2[k] = init2S;
+            if (TWO) Y2[k] = init2S;
           }
       }
       // t - 1's old state for the first cell (lane 0's first position is
       // below st, never in the band)
       int Xm0 = __shfl_up_sync(FULL, X[CPL - 1], 1);
       int Vm0 = __shfl_up_sync(FULL, V[CPL - 1], 1);
-      int X2m0 = TWO ? __shfl_up_sync(FULL, X2[CPL - 1], 1) : 0;
+      int X2m0 = SGN ? __shfl_up_sync(FULL, X2[CPL - 1], 1) : 0;
       const int Hm0 = APPROX ? 0 : __shfl_up_sync(FULL, H[CPL - 1], 1);
       if (p0 == st && !prevok) {
         Xm0 = initS;
@@ -425,7 +510,7 @@ batch_reg_kernel(const BatchArgs A) {
       const bool inb = p0 >= st && p0 + CPL - 1 <= en;
       const unsigned hmask = cell_mask<CPL>(st0 - p0, en0 - p0);
       const int ke = en0 > 0 ? en0 - p0 : -1;   // the en0 cell's H form
-      const int sub = TWO ? 0 : qe;
+      const int sub = SGN ? 0 : qe;
       int bh = INT_MIN;
       unsigned dw[CPL / 4];
 #pragma unroll
@@ -436,12 +521,52 @@ batch_reg_kernel(const BatchArgs A) {
 #pragma unroll
         for (int k = CPL - 1; k >= 0; --k) {
           const int X1 = k ? X[k - 1] : Xm0, V1 = k ? V[k - 1] : Vm0;
-          const int X21 = TWO ? (k ? X2[k - 1] : X2m0) : 0;
+          const int X21 = SGN ? (k ? X2[k - 1] : X2m0) : 0;
           const int Hp = APPROX ? 0 : (k ? H[k - 1] : Hm0);
           const int Uc = U[k];
           int a = wadd(X1, V1), bb = wadd(Y[k], Uc);
           int d = 0, un, vn;
-          if (!TWO) {
+          if constexpr (SPL) {
+            // exts (ksw2_exts2_sse.c): the intron candidate a2 +
+            // acceptor beside a and b, no clamp of z; x2' = max(a2',
+            // donor) - q2
+            int a2 = wadd(X21, V1);
+            const int c3 = wadd(a2, score_top(AC4, k));
+            int z = score_top(S4, k);
+            // CIG: the winner's code rides in the low bits the top-byte
+            // form leaves 0, a priority a candidate (S 0, a 1, b 2, the
+            // intron 3): the largest wins, a tie to the first (the
+            // reference's strict >) or with RIGHT to the last (>=)
+            constexpr int P0 = RIGHT ? 0 : 3, P1 = RIGHT ? 1 : 2,
+                          P2 = RIGHT ? 2 : 1, P3 = 3 - P0;
+            if (CIG) {
+              a = wadd(a, P1);
+              bb = wadd(bb, P2);
+              const int zp =
+                  max(__vimax3_s32(wadd(z, P0), a, bb), wadd(c3, P3));
+              d = RIGHT ? (zp & 3) : ((zp & 3) ^ 3);
+              z = zp & (int)0xff000000u;
+            } else {
+              z = max(__vimax3_s32(z, a, bb), c3);
+            }
+            un = wsub(z, V1);
+            vn = wsub(z, Uc);
+            const int t1 = wsub(z, qS);
+            a = wsub(a, CIG ? wadd(t1, P1) : t1);
+            bb = wsub(bb, CIG ? wadd(t1, P2) : t1);
+            a2 = wsub(a2, wsub(z, q2S));
+            const int Dn = score_top(DN4, k);
+            if (CIG) {
+              const bool ca = RIGHT ? a >= 0 : a > 0;
+              const bool cb = RIGHT ? bb >= 0 : bb > 0;
+              const bool cd = RIGHT ? a2 >= Dn : a2 > Dn;
+              d |= (ca ? DIR_E_CONT : 0) | (cb ? DIR_F_CONT : 0) |
+                   (cd ? DIR_N_CONT : 0);
+            }
+            X[k] = wsub(max(a, 0), qeS);
+            Y[k] = wsub(max(bb, 0), qeS);
+            X2[k] = wsub(max(a2, Dn), q2S);
+          } else if (!TWO) {
             const int zz = wadd(score_top(S4, k), twoqeS);
             if (CIG) d = RIGHT ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
             int z = max(zz, a);
@@ -503,8 +628,8 @@ batch_reg_kernel(const BatchArgs A) {
             // unsigned deltas less q + e one-piece, signed two-piece; the
             // en0 cell reads the older H(en0 - 1); diagonal 0 reads the
             // seed at t = 0
-            const int vv = TWO ? vn >> 24 : (int)((unsigned)vn >> 24);
-            const int uu = TWO ? un >> 24 : (int)((unsigned)un >> 24);
+            const int vv = SGN ? vn >> 24 : (int)((unsigned)vn >> 24);
+            const int uu = SGN ? un >> 24 : (int)((unsigned)un >> 24);
             const int h = k == ke ? Hp + uu - sub : H[k] + vv - sub;
             if (hmask >> k & 1) {
               H[k] = h;
@@ -521,37 +646,53 @@ batch_reg_kernel(const BatchArgs A) {
         // class (rel & 3, which is (k - st0) & 3 for every lane: p0 is a
         // multiple of 4) and position over [st0, en1), then the tail
         const int hm = __reduce_max_sync(FULL, bh);
-        unsigned em = 0;
+        auto best_t = [&]() {
+          unsigned em = 0;
 #pragma unroll
-        for (int k = 0; k < CPL; ++k) em |= (H[k] == hm ? 1u : 0u) << k;
-        em &= hmask;
-        int rk = INT_MAX;
-        {
-          constexpr unsigned PAT = 0x11u;        // cells k and k + 4
-          const int d0 = p0 - st0;                 // rel of cell 0
-          const int en1 = st0 + ((en0 - st0) & ~3);
-          const unsigned R = cell_mask<CPL>(-d0, en1 - 1 - p0);
-          const unsigned cm = em & R;
-          unsigned cb = 0;
-          int cls = 0;
+          for (int k = 0; k < CPL; ++k) em |= (H[k] == hm ? 1u : 0u) << k;
+          em &= hmask;
+          int rk = INT_MAX;
+          {
+            // cells k, k + 4, ..: one lane class
+            constexpr unsigned PAT = CPL == 8 ? 0x11u : 0x1111u;
+            const int d0 = p0 - st0;                 // rel of cell 0
+            const int en1 = st0 + ((en0 - st0) & ~3);
+            const unsigned R = cell_mask<CPL>(-d0, en1 - 1 - p0);
+            const unsigned cm = em & R;
+            unsigned cb = 0;
+            int cls = 0;
 #pragma unroll
-          for (int c = 3; c >= 0; --c) {
-            const unsigned mc = cm & (PAT << ((c + st0) & 3));
-            if (mc) {
-              cb = mc;
-              cls = c;
+            for (int c = 3; c >= 0; --c) {
+              const unsigned mc = cm & (PAT << ((c + st0) & 3));
+              if (mc) {
+                cb = mc;
+                cls = c;
+              }
             }
+            const int ke0 = en0 - p0;
+            const unsigned eb = (unsigned)ke0 < CPL ? 1u << ke0 : 0u;
+            const unsigned tm = em & ~R & ~eb;
+            if (cb)
+              rk = cls * KT + d0 + __ffs(cb);        // rel + 1
+            else if (tm)
+              rk = 4 * KT + d0 + __ffs(tm);
+            if (em & eb) rk = 0;
           }
-          const int ke0 = en0 - p0;
-          const unsigned eb = (unsigned)ke0 < CPL ? 1u << ke0 : 0u;
-          const unsigned tm = em & ~R & ~eb;
-          if (cb)
-            rk = cls * KT + d0 + __ffs(cb);        // rel + 1
-          else if (tm)
-            rk = 4 * KT + d0 + __ffs(tm);
-          if (em & eb) rk = 0;
+          return rank_pos(__reduce_min_sync(FULL, rk), st0, en0);
+        };
+        int tw;
+        if constexpr (SPL) {
+          // the replay reads a diagonal's position only where its maximum
+          // beats the running one or falls more than zdrop below it (no
+          // gap slope): the warp skips the rank elsewhere
+          if (hm > run || (A.zdrop >= 0 && run - hm > A.zdrop))
+            tw = best_t();
+          else
+            tw = 0;
+          run = max(run, hm);
+        } else {
+          tw = best_t();
         }
-        const int tw = rank_pos(__reduce_min_sync(FULL, rk), st0, en0);
         if (lane == rr) {
           gH = hm;
           gT = tw;
@@ -570,7 +711,7 @@ batch_reg_kernel(const BatchArgs A) {
         // q + e one-piece, on signed deltas two-piece
         if (r == 0) {                    // base 0: position 0 is lane 0's
           const int v0 = __shfl_sync(FULL, V[0], 0);
-          H0 = TWO ? (v0 >> 24) - A.qe_pre
+          H0 = SGN ? (v0 >> 24) - A.qe_pre
                    : (int)((unsigned)v0 >> 24) - 2 * qe;
           lt0 = 0;
         } else {
@@ -581,7 +722,7 @@ batch_reg_kernel(const BatchArgs A) {
           int d1 = c2 ? pick<CPL>(U, (lt0 + 1 - base) % CPL,
                                   (lt0 + 1 - base) / CPL)
                       : 0;
-          if (TWO) {
+          if (SGN) {
             d0 >>= 24;
             d1 >>= 24;
           } else {
@@ -609,10 +750,14 @@ batch_reg_kernel(const BatchArgs A) {
       }
       BATCH_STAMP(2);
       if (CIG && inb) {
-        // 8-byte aligned: p0 - st is a multiple of CPL, rows of
+        // CPL-byte aligned: p0 - st is a multiple of CPL, rows of
         // n_col % 16 == 0 bytes
         uint8_t* dst = prow + (size_t)r * A.ncol + (p0 - st);
-        *reinterpret_cast<uint2*>(dst) = make_uint2(dw[0], dw[1]);
+        if constexpr (CPL == 8)
+          *reinterpret_cast<uint2*>(dst) = make_uint2(dw[0], dw[1]);
+        else
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(dw[0], dw[1], dw[2], dw[3]);
       }
       last_st = st;
       last_en = en;
@@ -627,7 +772,7 @@ batch_reg_kernel(const BatchArgs A) {
     const bool valid = lane < n;
     const BandRow bj = band_row(rj, qlen, tlen, w);
     const bool contrib =
-        valid && (!APPROX || (A.adrop && (TWO || rj > 0)));
+        valid && (!APPROX || (A.adrop && (SGN || rj > 0)));
     const int v = contrib ? gH : INT_MIN;
     int iv = v, it = gT, ir = rj;          // inclusive scan
 #pragma unroll
@@ -721,28 +866,32 @@ batch_reg_kernel(const BatchArgs A) {
   }
 }
 
-template <bool TWO, bool CIG, bool APPROX, bool RIGHT>
+template <int CPL, bool TWO, bool SPL, bool CIG, bool APPROX, bool RIGHT>
 cudaError_t launch_reg(const BatchArgs& a, int warps, cudaStream_t stream) {
   const int blocks = (a.B + warps - 1) / warps;
-  batch_reg_kernel<TWO, CIG, APPROX, RIGHT>
+  batch_reg_kernel<CPL, TWO, SPL, CIG, APPROX, RIGHT>
       <<<blocks, warps * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // RIGHT changes only the direction bytes: the score forms take one
-template <bool TWO, bool APPROX>
+template <int CPL, bool TWO, bool SPL, bool APPROX>
 cudaError_t launch_reg_forms(const BatchArgs& a, int cig, int warps,
                              cudaStream_t stream) {
-  if (!cig) return launch_reg<TWO, false, APPROX, false>(a, warps, stream);
-  return a.right ? launch_reg<TWO, true, APPROX, true>(a, warps, stream)
-                 : launch_reg<TWO, true, APPROX, false>(a, warps, stream);
+  if (!cig)
+    return launch_reg<CPL, TWO, SPL, false, APPROX, false>(a, warps, stream);
+  return a.right
+             ? launch_reg<CPL, TWO, SPL, true, APPROX, true>(a, warps, stream)
+             : launch_reg<CPL, TWO, SPL, true, APPROX, false>(a, warps,
+                                                               stream);
 }
 
-template <bool TWO>
+template <int CPL, bool TWO, bool SPL>
 cudaError_t launch_two(const BatchArgs& a, int cig, int approx, int warps,
                        cudaStream_t stream) {
-  return approx ? launch_reg_forms<TWO, true>(a, cig, warps, stream)
-                : launch_reg_forms<TWO, false>(a, cig, warps, stream);
+  return approx ? launch_reg_forms<CPL, TWO, SPL, true>(a, cig, warps, stream)
+                : launch_reg_forms<CPL, TWO, SPL, false>(a, cig, warps,
+                                                         stream);
 }
 
 }  // namespace
@@ -758,13 +907,38 @@ extern "C" int ksw2t_batch_fwd(
     int adrop, int cig, int two, int nd, int ncol, int warps, void* rec,
     void* p, void* stream) {
   if (B <= 0 || warps <= 0 || warps > MAX_WARPS || ncol % 16 || Lt % 16 ||
-      (cig && p == nullptr) || m > 8 || ncol + 48 > 32 * CPL)
+      (cig && p == nullptr) || m > 8 || ncol + 48 > 32 * CPL_E)
     return (int)cudaErrorInvalidValue;
   BatchArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
               (const int*)tlen, (const int*)w, (const int*)table, B, Lq, Lt,
               m, q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
-              right, generic, adrop, nd, ncol, (int*)rec, (uint8_t*)p};
+              right, generic, adrop, nd, ncol, (int*)rec, (uint8_t*)p,
+              nullptr, nullptr};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(two ? launch_two<true>(a, cig, approx, warps, st)
-                   : launch_two<false>(a, cig, approx, warps, st));
+  return (int)(two ? launch_two<CPL_E, true, false>(a, cig, approx, warps, st)
+                   : launch_two<CPL_E, false, false>(a, cig, approx, warps,
+                                                     st));
+}
+
+// Kernel 6's register form (counted as batch_exts_fwd): the same kernel
+// with SPL, CPL_S positions a lane, on a launch that
+// ops/batch_exts.py:exts_form gives it (ncol + 48 <= 32 CPL_S, m <= 8).
+// Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int ksw2t_batch_exts_reg_fwd(
+    const void* qs, const void* ts, const void* qlen, const void* tlen,
+    const void* w, const void* table, const void* don, const void* acc,
+    int B, int Lq, int Lt, int m, int q, int e, int q2, int lt, int ld,
+    int sc_mch, int sc_mis, int sc_N, int zdrop, int right, int generic,
+    int approx, int adrop, int cig, int nd, int ncol, int warps, void* rec,
+    void* p, void* stream) {
+  if (B <= 0 || warps <= 0 || warps > MAX_WARPS || ncol % 16 || Lt % 16 ||
+      (cig && p == nullptr) || m > 8 || ncol + 48 > 32 * CPL_S)
+    return (int)cudaErrorInvalidValue;
+  BatchArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
+              (const int*)tlen, (const int*)w, (const int*)table, B, Lq, Lt,
+              m, q, e, q2, 0, q + e, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
+              right, generic, adrop, nd, ncol, (int*)rec, (uint8_t*)p,
+              (const uint8_t*)don, (const uint8_t*)acc};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)launch_two<CPL_S, false, true>(a, cig, approx, warps, st);
 }

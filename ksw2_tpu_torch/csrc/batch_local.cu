@@ -2,44 +2,66 @@
 // (kernel 18).
 //
 // Replaces ksw2_tpu/ops/batch_local.py:_local_kernel (counted as
-// batch_local_fwd).  It computes what that kernel computes, in absolute
-// int32 over anti-diagonals r = i + j, t the target position:
+// batch_local_fwd).  It computes what that kernel computes, the
+// recurrence in absolute int32 (i the query position, t the target
+// position):
 //
-//   H(r)[t] = max(0, H(r-2)[t-1] + s, E(r)[t], F(r)[t])
-//   E(r)[t] = max(H(r-1)[t-1] - q, E(r-1)[t-1]) - e     (consumes target)
-//   F(r)[t] = max(H(r-1)[t]   - q, F(r-1)[t])   - e     (consumes query)
+//   H(i, t) = max(0, H(i-1, t-1) + s, E(i, t), F(i, t))
+//   E(i, t) = max(H(i, t-1) - q, E(i, t-1)) - e         (consumes target)
+//   F(i, t) = max(H(i-1, t) - q, F(i-1, t)) - e         (consumes query)
 //
-// with H = 0 and E = F = NEG outside the pair's band [max(0, r - qlen +
-// 1), min(tlen - 1, r)] and at t = -1.  The score s reads three entries of
-// the matrix, as the JAX kernel does (batch_local.py:88-91): sc_mch when
-// the raw symbols are equal, sc_mis otherwise, sc_N when either is m - 1.
-// Each target position keeps its first strict best (BH, and the diagonal
-// BR where it was reached); the result is V = max BH, te = the smallest t
-// with BH = V and qe = BR[te] - te, which is the oracle's row-major first
-// best (spec/local.py), or (0, -1, -1) when no cell scores above 0.  The
-// plain version is ops/batch_local.py:local_forward_plain.
+// with H = 0 and E = F = NEG outside the pair (i < 0, i >= qlen, t < 0,
+// t >= tlen).  The score s reads three entries of the matrix, as the JAX
+// kernel does (batch_local.py:88-91): sc_mch when the raw symbols are
+// equal, sc_mis otherwise, sc_N when either is m - 1.  Each target
+// position keeps its first strict best in the order of the anti-diagonals
+// r = i + t (BH, and the row BI where it was reached); the result is V =
+// max BH, te = the smallest t with BH = V and qe = BI[te], which is the
+// oracle's row-major first best (spec/local.py), or (0, -1, -1) when no
+// cell scores above 0.  The plain version is ops/batch_local.py:
+// local_forward_plain.
 //
 // Layout: one warp a pair, targets of up to 128 positions (the JAX
-// contract, batch_local.py:200); lane l owns t = 4l .. 4l + 3 in
-// registers (H of the last two diagonals, E, F, the query symbol, BH,
-// BR), so a diagonal needs no memory traffic and no barrier.  The t - 1
-// neighbours of a lane's first cell come from lane l - 1's last cell by
-// __shfl_up_sync (H(r-1), H(r-2), E(r-1) and the query symbol, which
-// moves one position a diagonal, as the JAX kernel's roll does); lane 0
-// takes the boundary (0, 0, NEG) and the query symbol q[r].  The query
-// is read 32 symbols a chunk, one a lane, with the next chunk's load in
-// flight while the current one is used (__shfl_sync picks q[r]).  H is
-// one DPX instruction (__vimax3_s32_relu = max(a, b, c, 0)).  The end is
-// a 5-round butterfly over the 64-bit key (BH << 8 | 255 - t): the
-// largest H, then the smallest t.  A pair runs exactly qlen + tlen - 1
-// diagonals; the TPU layout (pairs padded to 8 rows and diagonals to
-// chunks of 128, RMAX splits, the injection plane) is not ported.
+// contract, batch_local.py:200); lane l holds t = 4l .. 4l + 3 in
+// registers (H and F of the previous query row, the target symbols, BH,
+// BI) and the warp sweeps the query rows i = 0 .. qlen - 1, so every
+// lane-cell inside the target is live on every step (an anti-diagonal
+// sweep runs qlen + tlen - 1 steps, half of them masked on a square
+// pair).  For a fixed t the rows come in the order of the diagonals (i
+// increasing), so each position's first strict best is the one the
+// anti-diagonal order gives.  One row:
 //
-// What bounds it on an H100: integer issue.  The recurrence needs ~13
-// operations a cell (chip_smoke.py: OPS) and the kernel issues ~30 with
-// the three-entry score, the band mask and the argmax; a diagonal's four shuffles are a chain
-// the other warps of the SM hide.  Memory traffic is the sequences and
-// 12 bytes of result a pair.
+// * H(i-1, t-1) from the lane's own previous-row registers, for its first
+//   cell from lane l - 1 by one __shfl_up_sync (lane 0 takes 0);
+// * F = max(H(i-1, t) + a, F(i-1, t) - e) with a = -(q + e): one
+//   __viaddmax_s32;
+// * the partial H' = max(0, H(i-1, t-1) + s, F): one __vimax_s32_relu;
+// * E runs along the row, a prefix max-plus scan over H':
+//   E(t) = max(H'(t-1) + a, E(t-1) + c) with c = max(-q, 0) - e (H(t-1)
+//   = max(H'(t-1), E(t-1)), so E(t-1) - q only wins when q < 0), E(0) =
+//   a from the boundary H(i, -1) = 0.  A lane runs its 4 cells with no
+//   carry in, the warp scans the lanes' carries out in 5 __shfl_up_sync
+//   rounds with the decay 4 c a lane, and each cell takes the carry into
+//   its lane decayed by its distance: exact for any q and e;
+// * H = max(H', E); BH and BI by __vibmax_s32 (max and its predicate).
+//
+// Cells at t >= tlen compute values nothing reads (E and H' flow to
+// larger t, F stays in its column) and are left out of the argmax.  The
+// row's query symbol is one broadcast, loaded 32 rows a chunk with the
+// next chunk's load in flight.  The end is a 5-round butterfly over the
+// 64-bit key (BH << 8 | 255 - t): the largest H, then the smallest t.
+// Warp w takes pair w.  The TPU layout (pairs padded to 8 rows and
+// diagonals to chunks of 128, RMAX splits, the injection plane) is not
+// ported.
+//
+// What bounds it on an H100: integer issue on many pairs, a row's chain on
+// few.  The recurrence needs ~13 operations a cell (chip_smoke.py: OPS);
+// a row here is ~16 a cell on the integer pipe (the score's compare and
+// select, F's decay, E's lane pass and fix-up, the best's max and select)
+// and ~1 a cell for the scan and broadcasts, on all 128 lane-cells
+// whatever tlen.  A row's chain (7 shuffles and ~15 dependent operations)
+// bounds a launch where a scheduler holds one or two warps.  Memory
+// traffic is the sequences and 12 bytes of result a pair.
 #include "common.cuh"
 
 using namespace ksw2t;
@@ -70,70 +92,79 @@ local_fwd_kernel(const LocalArgs A) {
   const uint8_t* qy = A.qs + (size_t)b * A.Lq;
   const uint8_t* tg = A.ts + (size_t)b * A.Lt;
   const int t0 = lane * CELLS;
-  int T[CELLS], H1[CELLS], H2[CELLS], E[CELLS], F[CELLS], Q[CELLS];
-  int BH[CELLS], BR[CELLS];
-  bool tN[CELLS];
+  // the gap costs: a opens (H - q - e), c extends E along the row, ne
+  // extends F down the column
+  const int a = -(A.q + A.e), c = max(-A.q, 0) - A.e, ne = -A.e;
+  // a cell's target symbol (-1 for N: never a query symbol) and its score
+  // when the symbols differ (sc_N for an N target)
+  int T[CELLS], MS[CELLS];
+  // H of the previous row, F, the best and its row
+  int Hp[CELLS], F[CELLS], BH[CELLS], BI[CELLS];
 #pragma unroll
   for (int k = 0; k < CELLS; ++k) {
-    T[k] = t0 + k < tlen ? (int)tg[t0 + k] : 0;
-    tN[k] = T[k] == A.m - 1;
-    H1[k] = H2[k] = 0;
-    E[k] = F[k] = NEG;
-    Q[k] = 0;
+    const int s = t0 + k < tlen ? (int)tg[t0 + k] : 0;
+    T[k] = s == A.m - 1 ? -1 : s;
+    MS[k] = s == A.m - 1 ? A.scN : A.mis;
+    Hp[k] = 0;
+    F[k] = NEG;
     BH[k] = 0;
-    BR[k] = -1;
+    BI[k] = -1;
   }
-  auto qload = [&](int c) {
-    const int j = 32 * c + lane;
+  // the lanes' scan: the decay of a carry over 4, 8, .. 64 positions
+  int dec[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) dec[j] = (CELLS << j) * c;
+  auto qload = [&](int ch) {
+    const int j = 32 * ch + lane;
     return j < qlen ? (int)qy[j] : 0;
   };
   int qcur = qload(0), qnxt = qload(1);
-  const int nd = qlen + tlen - 1;
-  for (int r = 0; r < nd; ++r) {
-    const int st0 = max(0, r - qlen + 1), en0 = min(tlen - 1, r);
-    int hl1 = __shfl_up_sync(FULL, H1[CELLS - 1], 1);
-    int hl2 = __shfl_up_sync(FULL, H2[CELLS - 1], 1);
-    int el = __shfl_up_sync(FULL, E[CELLS - 1], 1);
-    int ql = __shfl_up_sync(FULL, Q[CELLS - 1], 1);
-    const int qr = __shfl_sync(FULL, qcur, r & 31);
-    if (lane == 0) {
-      hl1 = 0;
-      hl2 = 0;
-      el = NEG;
-      ql = qr;
+  for (int i = 0; i < qlen; ++i) {
+    const int Q = __shfl_sync(FULL, qcur, i & 31);
+    int dl = __shfl_up_sync(FULL, Hp[CELLS - 1], 1);   // H(i-1, t0 - 1)
+    if (lane == 0) dl = 0;
+    int S[CELLS];
+#pragma unroll
+    for (int k = 0; k < CELLS; ++k) S[k] = T[k] == Q ? A.mch : MS[k];
+    if (Q == A.m - 1) {              // a query N: the whole row (uniform)
+#pragma unroll
+      for (int k = 0; k < CELLS; ++k) S[k] = A.scN;
     }
-    int Hn[CELLS], En[CELLS], Fn[CELLS], Qn[CELLS];
+    int Hq[CELLS];                   // H' = max(0, diagonal + s, F)
 #pragma unroll
     for (int k = 0; k < CELLS; ++k) {
-      const int h1s = k ? H1[k - 1] : hl1;
-      const int h2s = k ? H2[k - 1] : hl2;
-      const int es = k ? E[k - 1] : el;
-      Qn[k] = k ? Q[k - 1] : ql;
-      int s = Qn[k] == T[k] ? A.mch : A.mis;
-      if (tN[k] || Qn[k] == A.m - 1) s = A.scN;
-      const int en = max(h1s - A.q, es) - A.e;
-      const int fn = max(H1[k] - A.q, F[k]) - A.e;
-      const int hn = __vimax3_s32_relu(h2s + s, en, fn);
-      const bool band = t0 + k >= st0 && t0 + k <= en0;
-      Hn[k] = band ? hn : 0;
-      En[k] = band ? en : NEG;
-      Fn[k] = band ? fn : NEG;
-      if (Hn[k] > BH[k]) {           // outside the band Hn = 0 <= BH
-        BH[k] = Hn[k];
-        BR[k] = r;
-      }
+      const int dg = k ? Hp[k - 1] : dl;
+      F[k] = __viaddmax_s32(Hp[k], a, F[k] + ne);
+      Hq[k] = __vimax_s32_relu(dg + S[k], F[k]);
     }
+    // E: the lane's cells with no carry in, then its carry out
+    int eL[CELLS];
+    eL[0] = 0;                       // unused: cell 0 takes the carry alone
+    eL[1] = Hq[0] + a;
+#pragma unroll
+    for (int k = 2; k < CELLS; ++k)
+      eL[k] = __viaddmax_s32(Hq[k - 1], a, eL[k - 1] + c);
+    int X = __viaddmax_s32(Hq[CELLS - 1], a, eL[CELLS - 1] + c);
+    if (lane == 0) X = max(X, a + dec[0]);   // E(0) = a from t = -1
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const int y = __shfl_up_sync(FULL, X, 1 << j);
+      if (lane >= (1 << j)) X = __viaddmax_s32(y, dec[j], X);
+    }
+    int Ein = __shfl_up_sync(FULL, X, 1);    // E(t0)
+    if (lane == 0) Ein = a;
 #pragma unroll
     for (int k = 0; k < CELLS; ++k) {
-      H2[k] = H1[k];
-      H1[k] = Hn[k];
-      E[k] = En[k];
-      F[k] = Fn[k];
-      Q[k] = Qn[k];
+      const int E = k ? __viaddmax_s32(Ein, k * c, eL[k]) : Ein;
+      const int H = max(Hq[k], E);
+      bool keep;
+      BH[k] = __vibmax_s32(BH[k], H, &keep);   // keep: BH >= H
+      BI[k] = keep ? BI[k] : i;
+      Hp[k] = H;
     }
-    if ((r & 31) == 31) {            // the next diagonal opens a chunk
+    if ((i & 31) == 31) {            // the next row opens a chunk
       qcur = qnxt;
-      qnxt = qload((r >> 5) + 2);
+      qnxt = qload((i >> 5) + 2);
     }
   }
   // the largest H, then the smallest t: key = BH << 8 | (255 - t)
@@ -141,7 +172,7 @@ local_fwd_kernel(const LocalArgs A) {
 #pragma unroll
   for (int k = 0; k < CELLS; ++k) {
     const long long kk = ((long long)BH[k] << 8) | (255 - (t0 + k));
-    if (BH[k] > 0 && kk > key) key = kk;
+    if (BH[k] > 0 && t0 + k < tlen && kk > key) key = kk;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -152,11 +183,11 @@ local_fwd_kernel(const LocalArgs A) {
   if (key > 0) {                     // uniform across the warp
     V = (int)(key >> 8);
     te = 255 - (int)(key & 255);
-    int br = BR[0];
+    int bi = BI[0];
 #pragma unroll
     for (int k = 1; k < CELLS; ++k)
-      if ((te & (CELLS - 1)) == k) br = BR[k];
-    qe = __shfl_sync(FULL, br, te / CELLS) - te;
+      if ((te & (CELLS - 1)) == k) bi = BI[k];
+    qe = __shfl_sync(FULL, bi, te / CELLS);
   }
   if (lane == 0) {
     int* out = A.res + (size_t)b * 3;

@@ -21,9 +21,15 @@ from r = 0); no ``end_bonus``.  With ``cig`` the direction bytes (codes
 There is no EQX pass: the reference's exts2 has none (``ops/exts.py:
 221``), so EQX splice CIGARs keep M ops.
 
-The forward has two implementations: ``csrc/batch_exts_fwd.cu`` (one warp
-a pair, kernel E's design) for CUDA tensors and
-:func:`batch_exts_forward_plain` for CPU tensors.  Everything around them
+The forward has two implementations: kernel 6 for CUDA tensors and
+:func:`batch_exts_forward_plain` for CPU tensors.  Kernel 6 has two forms
+that :func:`exts_form` picks on the host from a launch's ``ncol`` and
+``m``: the register form (kernel E's register kernel in ``csrc/
+batch_fwd.cu`` in its ``SPL`` mode: one warp a pair, a window of 512
+target positions in its registers, 16 a lane) and the strip form
+(``csrc/batch_exts_fwd.cu``: one warp a pair, its state in a
+shared-memory strip as long as the target) for launches whose ``ncol``
+the window cannot hold.  Everything around them
 is the band route's: a launch is a ``band.BandLaunch`` that carries its
 donor and acceptor rows (``sites``), and ``band.band_records`` /
 ``band_walker.band_cigar_launch`` run it with this pair as the forward
@@ -45,7 +51,7 @@ from ..core.flags import NEG_INF, Flag
 from ..core.result import ExtzResult
 from .band import BandLaunch, KT, _w8, band_records, beyond, split_launches
 from .band_walker import band_cigar_launch
-from .batch import LT_CIGARS, MAX_WARPS, strip_len
+from .batch import LT_CIGARS, MAX_WARPS, REG_M, WINDOW_SLACK, strip_len
 from .splice import pad_juncs, splice_profiles
 from .strips import SMEM_MAX, _check_cuda, long_params
 from .strips_walker import unpack_cigars
@@ -351,6 +357,24 @@ def batch_exts_forward_plain(qs, ts, qlen, tlen, w, table, don, acc,
     return rec, p
 
 
+EXTS_CPL = 16              # the register form's positions a lane (W 512)
+
+
+def exts_form(ncol: int, m: int) -> int:
+    """Kernel 6's form for a launch of ``ncol`` bytes a stored diagonal
+    and an alphabet of ``m``: the positions a lane holds in the register
+    form (``EXTS_CPL``), or 0 for the strip form.  The window holds every
+    position a diagonal reads or fills while ``ncol + 48 <= 512``,
+    as ``ops.batch.batch_form`` shows for kernel E (exts has no band:
+    ``ncol`` is ``n_col_bytes`` of min(qlen, tlen)).  The splice route's
+    launches take the register form up to ncol 464 (pairs whose shorter
+    side is under about 448 bp; the annotated splice workload's ncol is
+    320), then the strip form."""
+    if m > REG_M or ncol + WINDOW_SLACK > 32 * EXTS_CPL:
+        return 0
+    return EXTS_CPL
+
+
 def warp_smem_bytes(Lt: int) -> int:
     """Shared memory of one warp (one pair) of ``csrc/batch_exts_fwd.cu``:
     the int32 H row, the int8 u, v, x, y, x2, the score bytes, the target
@@ -358,18 +382,14 @@ def warp_smem_bytes(Lt: int) -> int:
     return strip_len(Lt) * 13
 
 
-def batch_exts_forward_cuda(qs, ts, qlen, tlen, w, table, don, acc,
-                            prm: ExtsParams, nd: int, ncol: int):
-    """Launch ``csrc/batch_exts_fwd.cu`` on the current stream; the
-    contract of :func:`batch_exts_forward_plain`.  Nothing here reads the
-    device; a pair whose rounded diagonal outgrows ``ncol`` traps in the
-    kernel."""
+def _exts_check(qs, ts, qlen, tlen, w, table, don, acc, prm: ExtsParams,
+                ncol: int):
     B, Lq = qs.shape
     Lt = ts.shape[1]
     _check_cuda(qs, torch.uint8, (B, Lq), "query")
     dev = qs.device
     _check_cuda(ts, torch.uint8, (B, Lt), "target", dev)
-    for t, name in ((qlen, "qlen"), (tlen, "tlen")):
+    for t, name in ((qlen, "qlen"), (tlen, "tlen"), (w, "w")):
         _check_cuda(t, torch.int32, (B,), name, dev)
     for t, name in ((don, "donor rows"), (acc, "acceptor rows")):
         _check_cuda(t, torch.int8, (B, Lt), name, dev)
@@ -377,13 +397,64 @@ def batch_exts_forward_cuda(qs, ts, qlen, tlen, w, table, don, acc,
     if Lt > LT_CIGARS:
         raise ValueError(f"targets of {Lt}: the batched exts kernel takes "
                          f"{LT_CIGARS} or less")
-    if ncol % 16:
-        raise ValueError(f"ncol {ncol} is not a multiple of 16")
+    if ncol % 16 or Lt % 16:
+        raise ValueError(f"ncol {ncol} and Lt {Lt} must be multiples of 16")
+
+
+def _flags(prm: ExtsParams):
+    f = prm.flag
+    return [int(bool(f & int(v))) for v in (Flag.RIGHT, Flag.GENERIC_SC,
+                                            Flag.APPROX_MAX,
+                                            Flag.APPROX_DROP)]
+
+
+def batch_exts_forward_cuda(qs, ts, qlen, tlen, w, table, don, acc,
+                            prm: ExtsParams, nd: int, ncol: int):
+    """Launch kernel 6 on the current stream in the form :func:`exts_form`
+    gives the launch (the register form in ``csrc/batch_fwd.cu``, else
+    the strip form, :func:`batch_exts_wide_cuda`); the contract of
+    :func:`batch_exts_forward_plain`.  Nothing here reads the device; a
+    pair whose rounded diagonal outgrows ``ncol`` traps in the kernel."""
+    if not exts_form(ncol, prm.m):
+        return batch_exts_wide_cuda(qs, ts, qlen, tlen, w, table, don, acc,
+                                    prm, nd, ncol)
+    _exts_check(qs, ts, qlen, tlen, w, table, don, acc, prm, ncol)
+    B, Lq = qs.shape
+    Lt = ts.shape[1]
+    dev = qs.device
+    rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
+    p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
+         if prm.cig else None)
+    lib = library()
+    # the C entry launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = lib.ksw2t_batch_exts_reg_fwd(
+            qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+            w.data_ptr(), table.data_ptr(), don.data_ptr(), acc.data_ptr(),
+            B, Lq, Lt, prm.m, prm.q, prm.e, prm.q2, prm.lt, prm.ld,
+            prm.sc_mch, prm.sc_mis, prm.sc_N, prm.zdrop, *_flags(prm),
+            prm.cig, nd, ncol, MAX_WARPS, rec.data_ptr(),
+            p.data_ptr() if p is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "batch_exts_fwd")
+    LAUNCHES["batch_exts_fwd"] += 1
+    return rec, p
+
+
+def batch_exts_wide_cuda(qs, ts, qlen, tlen, w, table, don, acc,
+                         prm: ExtsParams, nd: int, ncol: int):
+    """Launch kernel 6's strip form (``csrc/batch_exts_fwd.cu``) on the
+    current stream: the form of launches whose ``ncol`` the register
+    window cannot hold (:func:`exts_form` 0), any ``ncol`` up to the
+    route's targets of 1536."""
+    _exts_check(qs, ts, qlen, tlen, w, table, don, acc, prm, ncol)
+    B, Lq = qs.shape
+    Lt = ts.shape[1]
+    dev = qs.device
     warps = min(MAX_WARPS, SMEM_MAX // warp_smem_bytes(Lt))
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
     p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
          if prm.cig else None)
-    f = prm.flag
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
@@ -391,12 +462,8 @@ def batch_exts_forward_cuda(qs, ts, qlen, tlen, w, table, don, acc,
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             table.data_ptr(), don.data_ptr(), acc.data_ptr(), B, Lq, Lt,
             prm.m, prm.q, prm.e, prm.q2, prm.lt, prm.ld, prm.sc_mch,
-            prm.sc_mis, prm.sc_N, prm.zdrop,
-            int(bool(f & int(Flag.RIGHT))),
-            int(bool(f & int(Flag.GENERIC_SC))),
-            int(bool(f & int(Flag.APPROX_MAX))),
-            int(bool(f & int(Flag.APPROX_DROP))), prm.cig, nd, ncol,
-            strip_len(Lt), warps, rec.data_ptr(),
+            prm.sc_mis, prm.sc_N, prm.zdrop, *_flags(prm), prm.cig, nd,
+            ncol, strip_len(Lt), warps, rec.data_ptr(),
             p.data_ptr() if p is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "batch_exts_fwd")
@@ -428,6 +495,6 @@ def unpack_exts_cigars(launch: BandLaunch, rec: np.ndarray, res: np.ndarray,
 
 __all__ = ["ExtsParams", "batch_exts_ineligible_reason",
            "batch_exts_resets", "make_exts_params", "batch_exts_prep",
-           "batch_exts_forward_plain", "batch_exts_forward_cuda",
-           "warp_smem_bytes", "batch_exts_records", "batch_exts_cigar_launch",
-           "unpack_exts_cigars"]
+           "batch_exts_forward_plain", "exts_form", "batch_exts_forward_cuda",
+           "batch_exts_wide_cuda", "warp_smem_bytes", "batch_exts_records",
+           "batch_exts_cigar_launch", "unpack_exts_cigars"]

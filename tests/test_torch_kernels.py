@@ -619,6 +619,87 @@ def test_batch_exts_forward_kernel_matches_plain(cuda_device, flag, zdrop,
         assert torch.equal(kruns[b, :n], pruns[b, :n])
 
 
+def _exts_check_forms(ln, dev, walk=True):
+    """Kernel 6 in the form its launch takes and in the strip form against
+    the plain version (records, bytes), and the band walker with
+    min_intron on the kernel's bytes."""
+    args = BD.band_upload(ln, dev)
+    prec, pp = BE.batch_exts_forward_plain(*args, ln.prm, ln.nd, ln.ncol)
+    for fn in (BE.batch_exts_forward_cuda, BE.batch_exts_wide_cuda):
+        krec, kp = fn(*args, ln.prm, ln.nd, ln.ncol)
+        assert torch.equal(krec, prec), fn.__name__
+        if ln.prm.cig:
+            assert torch.equal(kp, pp), fn.__name__
+    if not (ln.prm.cig and walk):
+        return
+    _, _, ql, tl, w = args[:5]
+    krec, kp = BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
+    starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)
+    kres, kruns = BW.band_walk_cuda(kp, starts, ql, tl, w, ln.prm.lt)
+    pres, pruns = BW.band_walk_plain(kp, starts, ql, tl, w, ln.prm.lt)
+    assert torch.equal(kres, pres)
+    for b in range(len(ql)):
+        n = int(kres[b, 2])
+        assert torch.equal(kruns[b, :n], pruns[b, :n])
+
+
+def _exts_prep(pairs, flag, zdrop, junc_bonus=0):
+    """Kernel 6's launches of ``pairs`` at -x splice costs; with
+    ``junc_bonus`` every pair carries a junction track at its third."""
+    juncs = None
+    if junc_bonus:
+        juncs = []
+        for _, t in pairs:
+            j = np.zeros(len(t), np.uint8)
+            j[len(t) // 3] = 1
+            j[2 * len(t) // 3] = 2
+            juncs.append(j)
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    return BE.batch_exts_prep(qs, ts, [len(a) for a in qs],
+                              [len(b) for b in ts], 5,
+                              GEN if flag & Flag.GENERIC_SC else SPL_MAT, 2,
+                              1, 32, 9, zdrop, flag, juncs, junc_bonus,
+                              cig=not flag & Flag.SCORE_ONLY)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [120, 400])
+@pytest.mark.parametrize("junc_bonus", [0, 9])
+@pytest.mark.parametrize("flag,zdrop", EXTS_FORMS)
+def test_batch_exts_register_form_matches_plain(cuda_device, flag, zdrop,
+                                                junc_bonus, L):
+    """Kernel 6's register form (its window three parts idle on targets
+    of 120, a third on 400) against its plain version, and its strip form
+    on the same launch."""
+    rng = np.random.default_rng(66 + L)
+    pairs = [spliced_pair(rng, L, with_n=True) for _ in range(24)]
+    (ln,) = _exts_prep(pairs, flag, zdrop, junc_bonus)
+    assert BE.exts_form(ln.ncol, 5) == 16
+    _exts_check_forms(ln, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,cpl", [(192, 16), (193, 16), (448, 16), (449, 0)])
+@pytest.mark.parametrize("flag", [Flag.SPLICE_FOR,
+                                  Flag.SPLICE_FOR | Flag.RIGHT,
+                                  Flag.SPLICE_FOR | Flag.SCORE_ONLY |
+                                  Flag.APPROX_MAX | Flag.APPROX_DROP])
+def test_batch_exts_forms_at_window_edges(cuda_device, M, cpl, flag):
+    """Launches whose shorter side puts ncol at 208 and 224 (a window
+    three parts idle) and at the window's edge (464, 480): the form the
+    host picks, both forms exact, on pairs
+    whose window slides (query shorter) and does not (target shorter)."""
+    rng = np.random.default_rng(M)
+    pairs = []
+    for k in range(6):
+        t, q = random_pair(rng, M + 200, divergence=0.1, indel=0.03)
+        q, t = encode_dna(q), encode_dna(t)
+        pairs.append((q[:M], t) if k % 2 else (q, t[:M]))
+    for ln in _exts_prep(pairs, flag, 200):
+        assert BE.exts_form(ln.ncol, 5) == cpl
+        _exts_check_forms(ln, cuda_device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flag", [Flag.SPLICE_FOR,
                                   Flag.SPLICE_FOR | Flag.SCORE_ONLY])
@@ -1049,6 +1130,25 @@ def test_local_kernel_matches_plain(cuda_device, mat):
     prm = BL.local_params(5, MAT if mat == "simple" else GEN, 4, 2)
     for Q, T, ql, tl in (local_512_jobs(), local_mixed_jobs(n=1024),
                          local_edge_jobs()):
+        args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(cuda_device)
+                for a, dt in ((Q, np.uint8), (T, np.uint8), (ql, np.int32),
+                              (tl, np.int32))]
+        got = BL.local_forward_cuda(*args, prm)
+        want = BL.local_forward_plain(*args, prm)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [0, 1, 2])
+@pytest.mark.parametrize("q", [-2, 0, 4, 11])
+def test_local_kernel_cost_sweep(cuda_device, q, e):
+    """Kernel 18 on both signs of its row scan's decay (q < 0 grows E
+    along a row): the first 512 local-mixed pairs and the edge pairs."""
+    from chip_smoke import local_edge_jobs, local_mixed_jobs
+    from ksw2_tpu_torch.ops import batch_local as BL
+    prm = BL.local_params(5, MAT, q, e)
+    for Q, T, ql, tl in (local_mixed_jobs(n=512), local_edge_jobs()):
         args = [torch.from_numpy(np.ascontiguousarray(a, dt)).to(cuda_device)
                 for a, dt in ((Q, np.uint8), (T, np.uint8), (ql, np.int32),
                               (tl, np.int32))]
