@@ -173,7 +173,7 @@ It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 
     python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk|batch|exts|
-                                       local]
+                                       local|gg2|extf]
     python3 chip_smoke.py --lg-times
     python3 chip_smoke.py --strips-times
     python3 chip_smoke.py --walk-times
@@ -201,9 +201,12 @@ tree before the register form or the wide form's redesign), kernel 6
 alone on the annotated splice launches in both its forms with the band
 walker on its bytes (and E / E2's register form), kernel 18 alone on
 each local set (both also run on the parent's tree), cycles a diagonal
-of kernel 6's two forms and a query row of kernel 18 by part, and E /
-E2's register-form SASS against a parent tree's library.  ``--sass-diff``
-is a developer's check of a change to ``csrc/batch_fwd.cu``: PARENT is
+of kernel 6's two forms, a query row of kernel 18 and a diagonal of
+kernels 8 and 7's two forms (strip: head, chunk steps, walk; register:
+head, score fill, cells, walk, staging, replay) on the CLI run's batched
+launches by part, and the register-form SASS of E / E2 and kernel 6
+against a parent tree's library.  ``--sass-diff`` is a developer's check
+of a change to ``csrc/batch_fwd.cu`` or ``csrc/reg_window.cuh``: PARENT is
 a checkout of the parent commit (an unpacked ``git archive`` inside
 this one, in a folder ``.gitignore`` lists) whose own run built its
 library first.
@@ -2547,6 +2550,34 @@ def lg_edge_cases():
             ("gg2_run_off", "gg2", ov, w_ov, None)]
 
 
+def lg_window_cases():
+    """Kernels 7 and 8's register-form edges, (name, kind, pairs, resolved
+    bands, xdrop) a launch each: the widest row at W - 48 and W - 32 of
+    each window (kernel 7: n_col 976 register, 992 strip, and bands that
+    end at a slot's edge, n_col 208 / 224 / 464 / 480; kernel 8: 208
+    register, 224 strip), the band min(qlen, tlen, w + 1) = n_col - 31
+    and no X-drop; and gg2 pairs whose bands round to empty (a target
+    longer than query plus band) beside one at qlen = tlen + w."""
+    rng = np.random.default_rng(18)
+
+    def seq(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    out = []
+    for kind, cols in (("extf", (208, 224, 464, 480, 976, 992)),
+                       ("gg2", (208, 224))):
+        for ncol in cols:
+            m = ncol - 31
+            t = seq(m + 20)
+            pairs = [(np.concatenate([t[:m] if kind == "gg2" else t,
+                                      seq(20)]), t)]
+            out.append((f"{kind}_window_{ncol}", kind, pairs, [m - 1],
+                        -1 if kind == "extf" else None))
+    t = seq(600)
+    eb = [(t[:40], t), (np.concatenate([t[:150], seq(50)]), t[:150])]
+    return out + [("gg2_empty_bands", "gg2", eb, [12, 50], None)]
+
+
 def lg_cases(jobs):
     """(name, kind, pairs, resolved bands, xdrop, forms) cases for kernels
     7 and 15 (kind "extf") and 8 and 16 (kind "gg2"): seeded pairs of
@@ -2554,8 +2585,9 @@ def lg_cases(jobs):
     40; two pairs with qlen > tlen + w for kernel 16's block overrun;
     the first 64 pairs of each launch the CLI run makes of the
     mixed-512 workload (-t extf2_sse -z 40, -t gg2_sse -w 100: the
-    batched launch and the single-pair one); and the tiled kernels' edge
-    cases (:func:`lg_edge_cases`).  ``forms`` names the kernels a case
+    batched launch and the single-pair one); the tiled kernels' edge
+    cases (:func:`lg_edge_cases`); and the batched register forms' window
+    edges (:func:`lg_window_cases`).  ``forms`` names the kernels a case
     holds: "batch" (7 / 8), "single" (15 / 16, at tiles of 32 and 64
     positions)."""
     from ksw2_tpu_torch.core.matrix import encode_dna
@@ -2591,7 +2623,43 @@ def lg_cases(jobs):
         ("cli64_gg2_single", "gg2", gs, [100] * len(gs), None,
          ("single",)),
     ] + [(name, kind, pairs, w, xdrop, both if kind == "extf" else
-          ("single",)) for name, kind, pairs, w, xdrop in lg_edge_cases()]
+          ("single",)) for name, kind, pairs, w, xdrop in lg_edge_cases()
+         ] + [(name, kind, pairs, w, xdrop, ("batch",))
+              for name, kind, pairs, w, xdrop in lg_window_cases()]
+
+
+def lg_ncol(kind, pairs, w):
+    """The widest row of a launch of kernel 7 (``kind`` "extf" or
+    "batch_extf_fwd") or 8 on ``pairs`` at bands ``w``, as its main path
+    computes it on the host."""
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+
+    tl = [len(b) for _, b in pairs]
+    if "extf" in kind:
+        return int(BF.extf_ncol([len(a) for a, _ in pairs], tl, w).max())
+    return int(BG.gg2_ncol(tl, w).max())
+
+
+def lg_batch_forms(kind, qlen, tlen, w):
+    """Kernel 7's (``kind`` "extf") or 8's ("gg2") launchers of the forms
+    that hold a launch of these pairs, (form, launcher) with the strip
+    launcher's arguments: the strip form, which holds every launch the
+    routes send, then the register form where the host's rule gives it
+    the launch (the wrapper at the launch's widest row)."""
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+
+    if kind == "extf":
+        ncol = int(BF.extf_ncol(qlen, tlen, w).max())
+        reg = BF.extf_form(ncol)
+        strip, pick = BF.batch_extf_strip_cuda, BF.batch_extf_forward_cuda
+    else:
+        ncol = int(BG.gg2_ncol(tlen, w).max())
+        reg = BG.gg2_form(ncol, 5)
+        strip, pick = BG.batch_gg2_strip_cuda, BG.batch_gg2_forward_cuda
+    return [("strip", strip)] + (
+        [("register", functools.partial(pick, ncol=ncol))] if reg else [])
 
 
 def phase_linear_global(cases):
@@ -2625,8 +2693,11 @@ def phase_linear_global(cases):
             want = plain_run((name, "fwd"), BF.extf_forward_plain, *args,
                              2, -4, 2, xdrop)
             if "batch" in forms:
-                errs["batch_extf_fwd"] = _max_err(
-                    BF.batch_extf_forward_cuda(*args, 2, -4, 2, xdrop), want)
+                bforms = lg_batch_forms(kind, ql_np, tl_np, w)
+                row["batch_forms"] = [f for f, _ in bforms]
+                errs["batch_extf_fwd"] = max(
+                    _max_err(fn(*args, 2, -4, 2, xdrop), want)
+                    for _, fn in bforms)
             errs["extf_fwd"] = max(_max_err(XF.extf_single_forward_cuda(
                 *args, 2, -4, 2, xdrop,
                 lay=LT.lg_layout("extf_fwd", ql_np, tl_np, w, tp)), want)
@@ -2648,9 +2719,15 @@ def phase_linear_global(cases):
                     errs[kname] = max(errs[kname], _max_err(ks, ws),
                                       _max_err(kp, wp))
             else:
-                ks, kp = BG.batch_gg2_forward_cuda(*args, table, 5, 4, 2, pb,
-                                                   total)
-                errs[kname] = max(_max_err(ks, ws), _max_err(kp, wp))
+                # every form that holds the launch; the walk below reads
+                # the bytes of the form the rule picks, which comes last
+                bforms = lg_batch_forms(kind, ql_np, tl_np, w)
+                row["batch_forms"] = [f for f, _ in bforms]
+                errs[kname] = 0
+                for _, fn in bforms:
+                    ks, kp = fn(*args, table, 5, 4, 2, pb, total)
+                    errs[kname] = max(errs[kname], _max_err(ks, ws),
+                                      _max_err(kp, wp))
             del wp
             _, _, ql, tl, wt = args
             kres, kruns = BW.flat_walk_cuda(kp, pb, ql, tl, wt)
@@ -2882,6 +2959,8 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
         ("cli64_gg2_batch", "batch_gg2_fwd", None, 5),
         ("cli64_gg2_single", "gg2_fwd", None, 5),
         ("cli_extf_batch", "batch_extf_fwd", (eb, _resolve(eb, -1), 40), 3),
+        ("cli_extf_batch_xm1", "batch_extf_fwd", (eb, _resolve(eb, -1), -1),
+         3),
         ("cli_extf_single", "extf_fwd", (es, _resolve(es, -1), 40), 3),
         ("cli_gg2_batch", "batch_gg2_fwd", (gb, [100] * len(gb), None), 3),
         ("cli_gg2_single", "gg2_fwd", (gs, [100] * len(gs), None), 3),
@@ -2902,8 +2981,11 @@ def linear_global_times(lcases, single, mt, jobs, int_rate):
         fn = fwds[kname]
         row = {"kernel": kname, "pairs": len(pairs),
                "Lt": int(args[1].shape[1])}
-        # kernels 15 and 16 on the layout their main path makes on the host
+        # kernels 15 and 16 on the layout their main path makes on the
+        # host, kernels 7 and 8 on its widest row (no read-back)
         kw = {}
+        if "ncol" in inspect.signature(fn).parameters:
+            kw["ncol"] = lg_ncol(kname, pairs, w)
         if LT is not None and kname in LT.KINDS:
             kw["lay"] = LT.lg_layout(kname, [len(a) for a, _ in pairs],
                                      [len(b) for _, b in pairs], w)
@@ -4621,6 +4703,8 @@ def walk_launches(name):
                                  [len(b) for _, b in pairs], w)
     fn = G1.gg2_single_forward_cuda if kname == "gg2_fwd" else \
         BG.batch_gg2_forward_cuda
+    if "ncol" in inspect.signature(fn).parameters:
+        kw["ncol"] = lg_ncol(kname, pairs, w)
     pb_np, total = BG.flat_layout([len(a) for a, _ in pairs],
                                   [len(b) for _, b in pairs], w)
     pb = torch.from_numpy(pb_np).cuda()
@@ -6059,10 +6143,165 @@ def breakdown_local():
         BL.library = saved
 
 
+# kernels 8 and 7's register form (gg2_fwd.cu, batch_extf_fwd.cu) through
+# its REG_STAMP hooks, which this prelude defines: 0 a diagonal's head
+# (band row, slide, query), 1 the score fill, first column and boundary,
+# 2 the cells (kernel 8: and the store), 3 the walk, 4 a group's staging,
+# 5 kernel 7's group replay; 8 diagonals, 9 pairs
+REG_STAMPS = """#define REG_STAMPS 1
+__device__ unsigned long long g_prof[16];
+#define REG_STAMP_INIT() unsigned rf_[6] = {0, 0, 0, 0, 0, 0}; \\
+  unsigned rt_ = (unsigned)clock();
+#define REG_STAMP(part) { const unsigned rn_ = (unsigned)clock(); \\
+  rf_[part] += rn_ - rt_; rt_ = rn_; }
+#define REG_STAMP_FLUSH(diags) if (lane == 0) { \\
+  for (int i_ = 0; i_ < 6; ++i_) \\
+    atomicAdd(&g_prof[i_], (unsigned long long)rf_[i_]); \\
+  atomicAdd(&g_prof[8], (unsigned long long)(diags)); \\
+  atomicAdd(&g_prof[9], 1ull); }
+"""
+REG_PARTS = ("head", "fill", "cells", "walk", "staging", "replay")
+# and their strip form (a warp's u, v, x, y, s strips in shared memory),
+# stamped at anchors the same way,
+# a diagonal at a time: 0 its head (band row, the boundary read, the
+# first barrier), 1 its chunk steps (32 positions each: the score, the
+# strips' loads, shuffles, the cells, stores), 2 the walk (the second
+# barrier, the H0 walk; extf its X-drop test); 8 diagonals, 9 chunk
+# steps, 10 pairs
+def _indent(line):
+    return line[:len(line) - len(line.lstrip())]
+
+
+def _strip_stamps(init, chunk_loop, after_chunks, loop_end, flush_at):
+    return (
+        ("#include <climits>\n", REG_STAMPS + "#include <climits>\n"),
+        (init, init + "  unsigned pf_[3] = {0, 0, 0}, nc_ = 0, nd_ = 0;\n"
+         "  unsigned pt_ = (unsigned)clock();\n"),
+        (chunk_loop, _indent(chunk_loop) + STAMP_NOW % 0 + "\n" +
+         chunk_loop + _indent(chunk_loop) + "  ++nc_;\n"),
+        (after_chunks, "    " + STAMP_NOW % 1 + "\n" + after_chunks),
+        (loop_end, loop_end.replace(
+            "  }\n", "    " + STAMP_NOW % 2 + "\n    ++nd_;\n  }\n", 1)),
+        (flush_at, "  if (lane == 0) {\n    for (int i_ = 0; i_ < 3; ++i_)\n"
+         "      atomicAdd(&g_prof[i_], (unsigned long long)pf_[i_]);\n"
+         "    atomicAdd(&g_prof[8], (unsigned long long)nd_);\n"
+         "    atomicAdd(&g_prof[9], (unsigned long long)nc_);\n"
+         "    atomicAdd(&g_prof[10], 1ull);\n  }\n" + flush_at))
+
+
+GG2_STRIP_STAMPS = _strip_stamps(
+    "  int last_st = -1, last_en = -1, H0 = 0, lt = 0;\n",
+    "      for (int c0 = st; c0 <= en; c0 += 32) {\n",
+    "    // the O(1) H0 walk along the band (ksw2_gg2_sse.c:102-106); the "
+    "next\n",
+    "    last_st = st;\n    last_en = en;\n  }\n  if (lane == 0) A.score[b]",
+    "  if (lane == 0) A.score[b] = H0;\n")
+EXTF_STRIP_STAMPS = _strip_stamps(
+    "  int mx = 0, mt = -1, mq = -1, zd = rlim < ndb ? 1 : 0;\n",
+    "    for (int c0 = st; c0 <= top; c0 += 32) {\n",
+    "    // the O(1) H0 walk and the X-drop (ksw2_extf2_sse.c:80-91)\n",
+    "    last_st = st;\n    last_en = en;\n  }\n  if (lane == 0) {\n"
+    "    out[0] = mx;",
+    "  if (lane == 0) {\n    out[0] = mx; out[1] = mt;")
+STRIP_PARTS = ("head", "chunks", "walk")
+
+
+def lg_breakdown_launches(kind):
+    """(name, pairs, bands, xdrop) of the CLI run's batched launches of
+    ``kind`` ("gg2" at -w 100, "extf" unbanded at -z 40 and without an
+    X-drop): its first 64 pairs and all of them."""
+    jobs = _workload("jobs")
+    if kind == "gg2":
+        gb, _ = cli_split(jobs, "gg2_sse")
+        return [("cli64_gg2_batch", gb[:64], [100] * len(gb[:64]), None),
+                ("cli_gg2_batch", gb, [100] * len(gb), None)]
+    eb, _ = cli_split(jobs, "extf2_sse")
+    return [("cli64_extf_batch", eb[:64], _resolve(eb[:64], -1), 40),
+            ("cli_extf_batch", eb, _resolve(eb, -1), 40),
+            ("cli_extf_batch_xm1", eb, _resolve(eb, -1), -1)]
+
+
+def _lg_stamped(lib, call, launches, parts, nparts):
+    """One breakdown line a launch of ``launches``: ``call(args, w, xdrop,
+    pairs)`` under the stamped library ``lib``."""
+    import torch
+    from ksw2_tpu_torch.ops import batch_extf as BF
+
+    for name, pairs, w, xdrop in launches:
+        args = BF.pack_pairs(pairs, w, "cuda")
+        call(args, w, xdrop, pairs)
+        torch.cuda.synchronize()
+        prof = np.zeros(16, np.uint64)
+        lib.ksw2t_prof_read(prof.ctypes.data)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        call(args, w, xdrop, pairs)
+        t1.record()
+        t1.synchronize()
+        lib.ksw2t_prof_read(prof.ctypes.data)
+        nd = max(float(prof[8]), 1.0)
+        cyc = {k: float(prof[i]) / nd for i, k in enumerate(parts[:nparts])}
+        yield name, {"ms_stamped": t0.elapsed_time(t1),
+                     "pairs": len(pairs), "diagonals": int(prof[8]),
+                     "cycles_per_diagonal": cyc,
+                     "cycles_per_diagonal_total": sum(cyc.values()),
+                     "prof": [int(x) for x in prof]}
+        del args
+
+
+def breakdown_linear_global(kind):
+    """``--breakdown gg2`` / ``--breakdown extf``: cycles a diagonal of
+    kernel 8 / 7 by part on the CLI run's batched launches (CUDA clock
+    sums of each warp's lane 0 over the diagonals its pair computed),
+    with the stamped run's milliseconds: the strip form (the source
+    stamped at anchors) and the register form (its REG_STAMP hooks) on
+    every launch."""
+    import torch
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+
+    mod, src, stamps = (
+        (BG, "gg2_fwd", GG2_STRIP_STAMPS) if kind == "gg2" else
+        (BF, "batch_extf_fwd", EXTF_STRIP_STAMPS))
+    lib = breakdown_library(src, stamps, (f"ksw2t_batch_{kind}_fwd",
+                                          f"ksw2t_batch_{kind}_reg_fwd"))
+    table = torch.from_numpy(simple_mat(5, 2, -4).astype(np.int32)).cuda()
+    saved = mod.library
+    mod.library = lambda: lib
+    try:
+        for form in ("strip", "register"):
+            def call(args, w, xdrop, pairs, form=form):
+                fn = dict(lg_batch_forms(kind, [len(a) for a, _ in pairs],
+                                         [len(b) for _, b in pairs], w)
+                          )[form]
+                if kind == "extf":
+                    return fn(*args, 2, -4, 2, xdrop)
+                pb_np, total = BG.flat_layout([len(a) for a, _ in pairs],
+                                              [len(b) for _, b in pairs], w)
+                return fn(*args, table, 5, 4, 2,
+                          torch.from_numpy(pb_np).cuda(), total)
+            parts = STRIP_PARTS if form == "strip" else REG_PARTS
+            for name, row in _lg_stamped(lib, call,
+                                         lg_breakdown_launches(kind), parts,
+                                         len(parts)):
+                prof = row.pop("prof")
+                if form == "strip":
+                    row["chunk_steps_per_diagonal"] = prof[9] / max(prof[8],
+                                                                    1)
+                emit({"phase": "breakdown", "case": name,
+                      "kernel": f"batch_{kind}_fwd",
+                      "form": form, **row})
+    finally:
+        mod.library = saved
+
+
 def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
-                           "batch", "exts", "local")) -> int:
-    """``--breakdown [extz|band|lg|strips|walk|batch|exts|local]``: the
-    clock64 breakdowns."""
+                           "batch", "exts", "local", "gg2",
+                           "extf")) -> int:
+    """``--breakdown [extz|band|lg|strips|walk|batch|exts|local|gg2|
+    extf]``: the clock64 breakdowns."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6087,6 +6326,9 @@ def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
         breakdown_exts()
     if "local" in which:
         breakdown_local()
+    for kind in ("gg2", "extf"):
+        if kind in which:
+            breakdown_linear_global(kind)
     return 0
 
 
@@ -6257,9 +6499,10 @@ def sass_functions(lib):
 
 
 def batch_reg_forms(funcs):
-    """{(TWO, CIG, APPROX, RIGHT): SASS} of kernels E / E2's register
-    form among ``funcs``, on a tree with or without the kernel's CPL and
-    SPL parameters (E / E2 are CPL 8, SPL false)."""
+    """{(CPL, TWO, SPL, CIG, APPROX, RIGHT): SASS} of the register kernel
+    of ``csrc/batch_fwd.cu`` among ``funcs``: kernels E / E2 (CPL 8) and
+    kernel 6's register form (SPL, CPL 16); a tree whose kernel had only
+    (TWO, CIG, APPROX, RIGHT) gives E / E2's as CPL 8, SPL false."""
     import re
 
     out = {}
@@ -6268,20 +6511,19 @@ def batch_reg_forms(funcs):
         if not m:
             continue
         args = [int(a) for a in re.findall(r"L[bi](\d+)E", m.group(1))]
-        if len(args) == 6:
-            cpl, two, spl, cig, approx, right = args
-            if cpl != 8 or spl:
-                continue
-            args = [two, cig, approx, right]
+        if len(args) == 4:
+            two, cig, approx, right = args
+            args = [8, two, 0, cig, approx, right]
         out[tuple(args)] = code
     return out
 
 
 def phase_sass_diff(parent_root) -> int:
-    """``--sass-diff PARENT``: kernels E / E2's register-form SASS in this
-    tree's library against the library a run of the tree at ``PARENT``
-    built (its ``build/ksw2_tpu_torch/``), instantiation by
-    instantiation: the instructions and whether they are the same."""
+    """``--sass-diff PARENT``: the SASS of kernels E / E2's and kernel 6's
+    register form in this tree's library against the library a run of the
+    tree at ``PARENT`` built (its ``build/ksw2_tpu_torch/``),
+    instantiation by instantiation: the instructions and whether they are
+    the same."""
     from pathlib import Path
 
     from ksw2_tpu_torch import _build
@@ -6295,7 +6537,7 @@ def phase_sass_diff(parent_root) -> int:
         "parent_instructions": len(theirs.get(k, [])),
         "same": mine.get(k) == theirs.get(k)}
         for k in sorted(set(mine) | set(theirs))}
-    emit({"phase": "sass_diff", "key": "TWO-CIG-APPROX-RIGHT",
+    emit({"phase": "sass_diff", "key": "CPL-TWO-SPL-CIG-APPROX-RIGHT",
           "forms": rows, "all_same": all(r["same"] for r in rows.values())})
     return 0
 
@@ -6601,5 +6843,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--breakdown"]:
         sys.exit(phase_breakdown(tuple(sys.argv[2:])
                                  or ("extz", "band", "lg", "strips", "walk",
-                                     "batch", "exts", "local")))
+                                     "batch", "exts", "local", "gg2",
+                                     "extf")))
     sys.exit(main())

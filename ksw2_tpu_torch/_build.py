@@ -76,12 +76,18 @@ _SIGNATURES = {
     # qs, ts, qlen, tlen, w, B, Lq, Lt, mch, mis, e, xdrop, TP, warps, rec,
     # stream
     "ksw2t_batch_extf_fwd": [_P] * 5 + [_I] * 9 + [_P] * 2,
+    # qs, ts, qlen, tlen, w, B, Lq, Lt, mch, mis, e, xdrop, ncol, rec,
+    # stream
+    "ksw2t_batch_extf_reg_fwd": [_P] * 5 + [_I] * 8 + [_P] * 2,
     # qs, ts, qlen, tlen, w, tbase, dbase, bbase, B, Lq, Lt, mch, mis, e,
     # xdrop, TP, n_tiles, ticket, progress, bnd, wlt, wst, stop, rec, stream
     "ksw2t_extf_fwd": [_P] * 8 + [_I] * 9 + [_P] * 8,
     # qs, ts, qlen, tlen, w, table, pbase, B, Lq, Lt, m, q, e, TP, warps,
     # score, p, stream
     "ksw2t_batch_gg2_fwd": [_P] * 7 + [_I] * 8 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, table, pbase, B, Lq, Lt, m, q, e, ncol, score,
+    # p, stream
+    "ksw2t_batch_gg2_reg_fwd": [_P] * 7 + [_I] * 7 + [_P] * 3,
     # qs, ts, qlen, tlen, w, table, tbase, bbase, pbase, B, Lq, Lt, m, q, e,
     # TP, n_tiles, ticket, progress, bnd, score, p, stream
     "ksw2t_gg2_fwd": [_P] * 9 + [_I] * 8 + [_P] * 6,

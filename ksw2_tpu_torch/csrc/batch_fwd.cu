@@ -103,9 +103,8 @@
 // steps, a pair to an SM.  With CIG the n_col bytes a diagonal are the
 // only large memory traffic.
 #include <climits>
-#include <type_traits>
 
-#include "common.cuh"
+#include "reg_window.cuh"
 
 using namespace ksw2t;
 
@@ -127,26 +126,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int CPL_E = 8;            // E / E2's register form: positions a lane
 constexpr int CPL_S = 16;           // kernel 6's (SPL): W = 512
 
-// An int8 value in the top byte of an int32 (v << 24); sums and
-// differences in that form wrap as the reference's epi8 ones do (taken in
-// unsigned arithmetic, where wrapping is defined).
-__device__ __forceinline__ int top(int v) { return (int)((unsigned)v << 24); }
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-
-// The byte of (hi:lo) that sel's low nibble picks in the low byte (a
-// nibble below 8 selects without sign replication; the other bytes are
-// the other nibbles' picks).
-__device__ __forceinline__ int prmt(int lo, int hi, unsigned sel) {
-  int d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(lo), "r"(hi), "r"(sel));
-  return d;
-}
-
 // The position of the SSE scan's tie rank on a diagonal with band [st0,
 // en0]: rank 0 the en0 cell, then 4 lane classes over [st0, en1) (rank
 // class * KT + rel + 1), then the scalar tail (4 KT + rel + 1).
@@ -154,34 +133,6 @@ __device__ __forceinline__ int rank_pos(int rank, int st0, int en0) {
   return rank == 0 ? en0
          : rank <= 4 * KT ? st0 + (rank - 1) % KT
                           : st0 + rank - 1 - 4 * KT;
-}
-
-// ops/batch.py:window_base: the register window's first position
-__device__ __forceinline__ int window_base(int st) {
-  return st > 0 ? (st - 1) & ~31 : 0;
-}
-
-// A lane's CPL symbols a nibble each: 32 bits at CPL 8, 64 at CPL 16
-template <int CPL>
-using Nibs = std::conditional_t<(CPL > 8), unsigned long long, unsigned>;
-
-// The bits [lo, hi] of a lane's N cells (lo, hi relative to its first)
-template <int N>
-__device__ __forceinline__ unsigned cell_mask(int lo, int hi) {
-  lo = max(lo, 0);
-  hi = min(hi, N - 1);
-  return hi >= lo ? (2u << hi) - (1u << lo) : 0u;
-}
-
-// a[k] at a warp-uniform position k of a lane's register array, from the
-// lane that owns it
-template <int N>
-__device__ __forceinline__ int pick(const int (&a)[N], int slot, int owner) {
-  int v = a[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k)
-    if (k == slot) v = a[k];
-  return __shfl_sync(FULL, v, owner);
 }
 
 struct BatchArgs {
@@ -198,64 +149,6 @@ struct BatchArgs {
   const uint8_t* don;                // SPL: the donor and acceptor rows
   const uint8_t* acc;
 };
-
-// A symbol as the register form keeps it, a nibble: bits 0-2 the symbol
-// (m <= 8), bit 3 set for N (m - 1), the wildcard of the simple scores
-__device__ __forceinline__ unsigned nib(int c, int m) {
-  return (unsigned)c | (c == m - 1 ? 8u : 0u);
-}
-
-// The CPL target bytes tw as nibbles, position k at bits 4k
-template <int CPL>
-__device__ __forceinline__ Nibs<CPL> target_nibbles(
-    const unsigned (&tw)[CPL / 4], int m) {
-  Nibs<CPL> tn = 0;
-#pragma unroll
-  for (int k = 0; k < CPL; ++k)
-    tn |= (Nibs<CPL>)nib((tw[k >> 2] >> (8 * (k & 3))) & 255, m) << (4 * k);
-  return tn;
-}
-
-// Cell k's score byte in the top-byte form (zero below)
-template <int N>
-__device__ __forceinline__ int score_top(const unsigned (&s4)[N], int k) {
-  return prmt((int)s4[k >> 2], 0, 0x444u | (unsigned)(k & 3) << 12);
-}
-
-// Four cells' bits of a cell mask as byte masks (bit i -> byte i)
-__device__ __forceinline__ unsigned byte_mask(unsigned bits4) {
-  return ((bits4 & 15u) * 0x00204081u & 0x01010101u) * 0xffu;
-}
-
-// A row's CPL bytes at position p (a multiple of CPL; the launch's
-// target rows are zero past each target, and Lt is a multiple of 16):
-// the target, or a splice launch's donor or acceptor row
-template <int CPL>
-__device__ __forceinline__ void load_target(const uint8_t* tg, int Lt, int p,
-                                            unsigned (&tw)[CPL / 4]) {
-  if (p >= 0 && p < Lt) {
-    if constexpr (CPL == 8) {
-      const uint2 v = __ldg(reinterpret_cast<const uint2*>(tg + p));
-      tw[0] = v.x;
-      tw[1] = v.y;
-    } else {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(tg + p));
-      tw[0] = v.x;
-      tw[1] = v.y;
-      tw[2] = v.z;
-      tw[3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < CPL / 4; ++i) tw[i] = 0;
-  }
-}
-
-// Query symbol i as a nibble (0 outside the query)
-__device__ __forceinline__ int load_q(const uint8_t* qy, int qlen, int m,
-                                      int i) {
-  return (int)nib(i >= 0 && i < qlen ? (int)__ldg(qy + i) : 0, m);
-}
 
 // The register form: see the head of the file.  RIGHT only where it
 // matters (the direction bytes).  SPL: kernel 6's exts recurrence (its

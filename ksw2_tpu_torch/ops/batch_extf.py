@@ -4,8 +4,10 @@ the batched form's CUDA wrapper and the batched entry point.
 Port of ``ksw2_tpu/ops/batch_pallas.py:extf_batch_device`` with the
 kernel ``wavefront_batch_extf.py:_batch_extf_kernel`` (kernel 7,
 ``csrc/batch_extf_fwd.cu`` in its batched form, one warp a pair, counted
-as ``batch_extf_fwd``).  The single-pair kernel 15 (``csrc/lg_fwd.cu``,
-tiles over many blocks) and ``extf2_device`` are in :mod:`ops.extf`.
+as ``batch_extf_fwd``: a register form while :func:`extf_form` holds the
+launch, a strip form, :func:`batch_extf_strip_cuda`, past it).  The
+single-pair kernel 15 (``csrc/lg_fwd.cu``, tiles over many blocks) and
+``extf2_device`` are in :mod:`ops.extf`.
 
 Both kernels compute ``spec/diagdiff.py:extf2`` (``ksw2_extf2_sse.c``),
 and :func:`extf_forward_plain`, vectorised over pairs, is the plain
@@ -23,6 +25,7 @@ launch caps) is not ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -31,11 +34,12 @@ import torch
 from .._build import LAUNCHES, check, library
 from ..core.flags import NEG_INF
 from .bands import first_empty_diag
-from .batch import strip_len
+from .batch import WINDOW_SLACK, strip_len
 from .strips import SMEM_MAX, _check_cuda
 
 LT_EXTF = 1536            # the batched engines' targets (batch_pallas.py)
 MAX_WARPS = 8             # pairs (warps) a block of kernel 7
+REG_W = 1024              # the register form's window, target positions
 
 
 def w8(x: torch.Tensor) -> torch.Tensor:
@@ -153,6 +157,25 @@ def extf_forward_plain(qs, ts, qlen, tlen, w, mch: int, mis: int, e: int,
     return rec.to(torch.int32)
 
 
+def extf_ncol(qlen, tlen, w):
+    """The 16-rounded band a pair's diagonals can hold, plus 16 (ints or
+    arrays): ``((min(qlen, tlen, w + 1) + 15) // 16 + 1) * 16``, the
+    ``n_col`` of kernels E / E2's launches for the same pairs."""
+    m = np.minimum(np.minimum(np.asarray(qlen, np.int64),
+                              np.asarray(tlen, np.int64)),
+                   np.asarray(w, np.int64) + 1)
+    return ((np.maximum(m, 0) + 15) // 16 + 1) * 16
+
+
+def extf_form(ncol: int) -> bool:
+    """Whether kernel 7's register form holds a launch whose widest pair
+    has ``extf_ncol`` ``ncol``: its window of ``REG_W`` positions (4
+    slots of 256, of which a diagonal computes the ones its band meets)
+    holds ``ncol + 48`` (``ops/batch.py:batch_form``'s rule).  Past it the
+    launch takes the strip form."""
+    return ncol + WINDOW_SLACK <= REG_W
+
+
 def _check_args(qs, ts, qlen, tlen, w):
     B, Lq = qs.shape
     Lt = ts.shape[1]
@@ -165,33 +188,62 @@ def _check_args(qs, ts, qlen, tlen, w):
 
 
 def batch_extf_forward_cuda(qs, ts, qlen, tlen, w, mch: int, mis: int,
-                            e: int, xdrop: int):
-    """Launch kernel 7 (``csrc/batch_extf_fwd.cu``, one warp a pair) on
-    the current stream; the contract of :func:`extf_forward_plain` for
-    targets of up to 1536."""
+                            e: int, xdrop: int, ncol: int):
+    """Launch kernel 7 on the current stream in the form :func:`extf_form`
+    gives the launch (the register form, else the strip form,
+    :func:`batch_extf_strip_cuda`); the contract of
+    :func:`extf_forward_plain` for targets of up to 1536.  ``ncol`` is the
+    launch's widest :func:`extf_ncol`.  Nothing here reads the device; a
+    pair whose band outgrows ``ncol`` traps in the kernel."""
+    if not extf_form(ncol):
+        return batch_extf_strip_cuda(qs, ts, qlen, tlen, w, mch, mis, e,
+                                     xdrop)
     B, Lq, Lt, dev = _check_args(qs, ts, qlen, tlen, w)
     if Lt > LT_EXTF:
         raise ValueError(f"targets of {Lt}: the batched extf kernel takes "
                          f"{LT_EXTF} or less")
-    TP = strip_len(Lt)
-    warps = min(MAX_WARPS, SMEM_MAX // (3 * TP))
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
-        err = lib.ksw2t_batch_extf_fwd(
+        err = lib.ksw2t_batch_extf_reg_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-            w.data_ptr(), B, Lq, Lt, int(mch), int(mis), int(e), int(xdrop),
-            TP, warps, rec.data_ptr(),
+            w.data_ptr(), B, Lq, Lt, int(mch), int(mis), int(e),
+            int(xdrop), int(ncol), rec.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "batch_extf_fwd")
     LAUNCHES["batch_extf_fwd"] += 1
     return rec
 
 
-def extf_forward(qs, ts, qlen, tlen, w, mch, mis, e, xdrop,
-                 cuda=batch_extf_forward_cuda):
-    """The forward on the tensors' device: ``cuda`` (kernel 7 by default,
+def batch_extf_strip_cuda(qs, ts, qlen, tlen, w, mch: int, mis: int,
+                          e: int, xdrop: int):
+    """Launch kernel 7's strip form (one warp a pair, its strips in shared
+    memory) on the current stream: the form of launches whose n_col the
+    register window cannot hold (:func:`extf_form` False), any n_col up
+    to the route's targets of 1536."""
+    B, Lq, Lt, dev = _check_args(qs, ts, qlen, tlen, w)
+    if Lt > LT_EXTF:
+        raise ValueError(f"targets of {Lt}: the batched extf kernel takes "
+                         f"{LT_EXTF} or less")
+    TP = strip_len(Lt)
+    rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
+    lib = library()
+    # the C entry launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = lib.ksw2t_batch_extf_fwd(
+            qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+            w.data_ptr(), B, Lq, Lt, int(mch), int(mis), int(e),
+            int(xdrop), TP, min(MAX_WARPS, SMEM_MAX // (3 * TP)),
+            rec.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "batch_extf_fwd")
+    LAUNCHES["batch_extf_fwd"] += 1
+    return rec
+
+
+def extf_forward(qs, ts, qlen, tlen, w, mch, mis, e, xdrop, cuda):
+    """The forward on the tensors' device: ``cuda`` (kernel 7's
+    :func:`batch_extf_forward_cuda` at the launch's n_col, or
     ``ops.extf.extf_single_forward_cuda`` for kernel 15) for CUDA
     tensors, the plain version for CPU tensors."""
     if qs.is_cuda:
@@ -223,13 +275,17 @@ def extf_batch_device(query: np.ndarray, target: np.ndarray, qlen, tlen,
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
             (query.astype(np.uint8), target.astype(np.uint8), qlen, tlen,
              w.astype(np.int32))]
+    ncol = int(extf_ncol(qlen, tlen, w).max()) if B else 16
     rec = extf_forward(*args, int(mch), canonical_mis(mis), int(e),
-                       int(xdrop)).cpu().numpy()
+                       int(xdrop), cuda=functools.partial(
+                           batch_extf_forward_cuda, ncol=ncol)
+                       ).cpu().numpy()
     return {k: rec[:, i].copy() for k, i in
             (("max", 0), ("max_t", 1), ("max_q", 2), ("score", 7),
              ("zdropped", 8))}
 
 
-__all__ = ["LT_EXTF", "w8", "canonical_mis", "pack_pairs",
-           "extf_forward_plain", "batch_extf_forward_cuda", "extf_forward",
-           "extf_batch_device"]
+__all__ = ["LT_EXTF", "REG_W", "w8", "canonical_mis", "pack_pairs",
+           "extf_forward_plain", "extf_ncol", "extf_form",
+           "batch_extf_forward_cuda", "batch_extf_strip_cuda",
+           "extf_forward", "extf_batch_device"]

@@ -5,8 +5,10 @@ entry point.
 Port of ``ksw2_tpu/ops/batch_pallas.py:gg2_batch_align`` with the kernel
 ``wavefront_batch_gg2.py:_batch_gg2_kernel`` (kernel 8,
 ``csrc/gg2_fwd.cu`` in its batched form, one warp a pair, counted as
-``batch_gg2_fwd``).  The single-pair kernel 16 (``csrc/lg_fwd.cu``,
-tiles over many blocks) and ``gg2_device`` are in :mod:`ops.gg2`.
+``batch_gg2_fwd``: a register form while :func:`gg2_form` holds the
+launch, a strip form, :func:`batch_gg2_strip_cuda`, past it).  The
+single-pair kernel 16 (``csrc/lg_fwd.cu``, tiles over many blocks) and
+``gg2_device`` are in :mod:`ops.gg2`.
 
 Both kernels compute ``spec/diagdiff.py:gg2_sse`` (``ksw2_gg2_sse.c``),
 and :func:`gg2_forward_plain`, vectorised over pairs, is the plain
@@ -37,7 +39,7 @@ import torch
 
 from .._build import LAUNCHES, check, library
 from .band_walker import flat_walk, flat_walk_cigars
-from .batch import strip_len
+from .batch import REG_M, WINDOW_SLACK, strip_len
 from .batch_extf import _check_args, w8
 from .lg_tiles import byte_groups, launch_bytes, lg_layout
 from . import strips
@@ -45,6 +47,7 @@ from .strips import SMEM_MAX, _check_cuda
 
 LT_GG2 = 1536             # the batched engines' targets (batch_pallas.py)
 MAX_WARPS = 8             # pairs (warps) a block of kernel 8
+REG_W = 256               # the register form's window, target positions
 
 
 def gg2_ncol(tlen, w):
@@ -177,17 +180,56 @@ def _gg2_check(qs, ts, qlen, tlen, w, table, m, pbase):
     return B, Lq, Lt, dev
 
 
+def gg2_form(ncol: int, m: int) -> bool:
+    """Whether kernel 8's register form holds a launch whose widest row
+    (:func:`gg2_ncol`) is ``ncol`` bytes and whose alphabet is ``m``: its
+    window of ``REG_W`` positions holds ``ncol + 48``
+    (``ops/batch.py:batch_form``'s rule) and its table of 64 entries the
+    matrix (``m <= 8``).  Otherwise the launch takes the strip form."""
+    return m <= REG_M and ncol + WINDOW_SLACK <= REG_W
+
+
 def batch_gg2_forward_cuda(qs, ts, qlen, tlen, w, table, m: int, q: int,
-                           e: int, pbase, total: int):
-    """Launch kernel 8 (``csrc/gg2_fwd.cu``, one warp a pair) on the
-    current stream; the contract of :func:`gg2_forward_plain` with
-    ``overrun`` False, for targets of up to 1536."""
+                           e: int, pbase, total: int, ncol: int):
+    """Launch kernel 8 on the current stream in the form :func:`gg2_form`
+    gives the launch (the register form, else the strip form,
+    :func:`batch_gg2_strip_cuda`); the contract of
+    :func:`gg2_forward_plain` with ``overrun`` False, for targets of up
+    to 1536.  ``ncol`` is the launch's widest :func:`gg2_ncol`.  Nothing
+    here reads the device; in the register form a pair with ``qlen >
+    tlen + w`` or a row wider than ``ncol`` traps."""
+    if not gg2_form(ncol, m):
+        return batch_gg2_strip_cuda(qs, ts, qlen, tlen, w, table, m, q, e,
+                                    pbase, total)
+    B, Lq, Lt, dev = _gg2_check(qs, ts, qlen, tlen, w, table, m, pbase)
+    if Lt > LT_GG2:
+        raise ValueError(f"targets of {Lt}: the batched gg2 kernel takes "
+                         f"{LT_GG2} or less")
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    p = torch.zeros(max(total, 1), dtype=torch.uint8, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.ksw2t_batch_gg2_reg_fwd(
+            qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+            w.data_ptr(), table.data_ptr(), pbase.data_ptr(), B, Lq, Lt,
+            int(m), int(q), int(e), int(ncol), score.data_ptr(),
+            p.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check(err, "batch_gg2_fwd")
+    LAUNCHES["batch_gg2_fwd"] += 1
+    return score, p[:total]
+
+
+def batch_gg2_strip_cuda(qs, ts, qlen, tlen, w, table, m: int, q: int,
+                         e: int, pbase, total: int):
+    """Launch kernel 8's strip form (one warp a pair, its strips in shared
+    memory) on the current stream: the form of launches that the register
+    form cannot hold (:func:`gg2_form` False), any n_col up to the
+    route's targets of 1536 and any ``m``."""
     B, Lq, Lt, dev = _gg2_check(qs, ts, qlen, tlen, w, table, m, pbase)
     if Lt > LT_GG2:
         raise ValueError(f"targets of {Lt}: the batched gg2 kernel takes "
                          f"{LT_GG2} or less")
     TP = strip_len(Lt)
-    warps = min(MAX_WARPS, SMEM_MAX // (5 * TP))
     score = torch.empty(B, dtype=torch.int32, device=dev)
     p = torch.zeros(max(total, 1), dtype=torch.uint8, device=dev)
     lib = library()
@@ -195,25 +237,27 @@ def batch_gg2_forward_cuda(qs, ts, qlen, tlen, w, table, m: int, q: int,
         err = lib.ksw2t_batch_gg2_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
             w.data_ptr(), table.data_ptr(), pbase.data_ptr(), B, Lq, Lt,
-            int(m), int(q), int(e), TP, warps, score.data_ptr(),
-            p.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            int(m), int(q), int(e), TP, min(MAX_WARPS, SMEM_MAX // (5 * TP)),
+            score.data_ptr(), p.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     check(err, "batch_gg2_fwd")
     LAUNCHES["batch_gg2_fwd"] += 1
     return score, p[:total]
 
 
 def gg2_forward(qs, ts, qlen, tlen, w, table, m, q, e, pbase, total,
-                single: bool, lay=None):
+                single: bool, lay, ncol: int):
     """The forward on the tensors' device: kernel 16 (``single``, on the
-    ``lg_tiles`` layout ``lay``) or 8 for CUDA tensors, the plain version
-    (``overrun = single``) for CPU tensors."""
+    ``lg_tiles`` layout ``lay``) or 8 (at the launch's widest row
+    ``ncol``) for CUDA tensors, the plain version (``overrun = single``)
+    for CPU tensors."""
     if qs.is_cuda:
         if single:
             from .gg2 import gg2_single_forward_cuda
             return gg2_single_forward_cuda(qs, ts, qlen, tlen, w, table, m,
                                            q, e, pbase, total, lay)
         return batch_gg2_forward_cuda(qs, ts, qlen, tlen, w, table, m, q,
-                                      e, pbase, total)
+                                      e, pbase, total, ncol)
     if qs.device.type != "cpu":
         raise ValueError(f"unsupported device {qs.device}")
     return gg2_forward_plain(qs, ts, qlen, tlen, w, table, m, q, e, pbase,
@@ -254,7 +298,7 @@ def gg2_run(pairs, m: int, mat, q: int, e: int, w, single: bool,
         lay = lg_layout("gg2_fwd", ql[lo:hi], tl[lo:hi], wv[lo:hi]) \
             if single else None
         score, p = gg2_forward(*args, table, m, q, e, pbase, total, single,
-                               lay)
+                               lay, int(gg2_ncol(tl[lo:hi], wv[lo:hi]).max()))
         _, _, qlt, tlt, wt = args
         cigs = flat_walk_cigars(*flat_walk(p, pbase, qlt, tlt, wt))
         out.extend(zip([int(x) for x in score.cpu().numpy()], cigs))
@@ -285,6 +329,7 @@ def gg2_batch_align(query: np.ndarray, target: np.ndarray, qlen, tlen,
     return gg2_run(pairs, m, mat, q, e, w, False, device)
 
 
-__all__ = ["LT_GG2", "gg2_ncol", "flat_layout", "gg2_forward_plain",
-           "batch_gg2_forward_cuda", "gg2_forward", "launch_groups",
+__all__ = ["LT_GG2", "REG_W", "gg2_ncol", "flat_layout",
+           "gg2_forward_plain", "gg2_form", "batch_gg2_forward_cuda",
+           "batch_gg2_strip_cuda", "gg2_forward", "launch_groups",
            "gg2_run", "gg2_batch_align"]

@@ -142,7 +142,7 @@ def test_routes_refuse_what_they_do_not_take():
         with pytest.raises(ValueError, match="CUDA"):
             BF.batch_extf_forward_cuda(*BF.pack_pairs(
                 [(np.zeros(3, np.uint8), np.zeros(3, np.uint8))], [3],
-                "cpu"), 2, -4, 2, -1)
+                "cpu"), 2, -4, 2, -1, 32)
 
 
 def test_convert_carries_extf_params():

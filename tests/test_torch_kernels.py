@@ -1002,7 +1002,9 @@ def test_extf_kernels_match_plain(cuda_device, xdrop):
     pairs, ws = _lg_pairs(71 + xdrop)
     args = BF.pack_pairs(pairs, ws, cuda_device)
     want = BF.extf_forward_plain(*args, 2, -4, 2, xdrop)
-    k7 = BF.batch_extf_forward_cuda(*args, 2, -4, 2, xdrop)
+    ncol = int(BF.extf_ncol([len(q) for q, _ in pairs],
+                            [len(t) for _, t in pairs], ws).max())
+    k7 = BF.batch_extf_forward_cuda(*args, 2, -4, 2, xdrop, ncol)
     k15 = XF.extf_single_forward_cuda(*args, 2, -4, 2, xdrop)
     torch.cuda.synchronize()
     assert torch.equal(k7, want)
@@ -1031,9 +1033,13 @@ def test_gg2_kernels_match_plain(cuda_device):
         pb = torch.from_numpy(pb_np).to(cuda_device)
         ws_, wp = BG.gg2_forward_plain(*args, table, 5, 4, 2, pb, total,
                                        single)
-        fwd = (G1.gg2_single_forward_cuda if single
-               else BG.batch_gg2_forward_cuda)
-        ks, kp = fwd(*args, table, 5, 4, 2, pb, total)
+        if single:
+            ks, kp = G1.gg2_single_forward_cuda(*args, table, 5, 4, 2, pb,
+                                                total)
+        else:
+            ks, kp = BG.batch_gg2_forward_cuda(
+                *args, table, 5, 4, 2, pb, total,
+                int(BG.gg2_ncol([len(t) for _, t in sub], wv).max()))
         torch.cuda.synchronize()
         assert torch.equal(ks, ws_)
         assert torch.equal(kp, wp)
@@ -1044,6 +1050,136 @@ def test_gg2_kernels_match_plain(cuda_device):
         assert torch.equal(kres, pres)
         assert BW.flat_walk_cigars(kres, kruns) == \
             BW.flat_walk_cigars(pres, pruns)
+
+
+def _lg_forms_check(kind, pairs, ws, xdrop, device, costs=None, mat=MAT):
+    """Kernel 7 or 8 in every form that holds the launch
+    (``chip_smoke.lg_batch_forms``) against the plain version: records,
+    or scores and every store byte, exactly.  Returns the forms' names."""
+    from chip_smoke import lg_batch_forms
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    args = BF.pack_pairs(pairs, ws, device)
+    ql = [len(q) for q, _ in pairs]
+    tl = [len(t) for _, t in pairs]
+    forms = lg_batch_forms(kind, ql, tl, ws)
+    if kind == "extf":
+        mch, mis, e = costs or (2, -4, 2)
+        want = BF.extf_forward_plain(*args, mch, mis, e, xdrop)
+        for f, fn in forms:
+            got = fn(*args, mch, mis, e, xdrop)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f
+        return [f for f, _ in forms]
+    q, e = costs or (4, 2)
+    table = torch.from_numpy(np.asarray(mat, np.int32).reshape(-1)).to(
+        device)
+    pb_np, total = BG.flat_layout(ql, tl, ws)
+    pb = torch.from_numpy(pb_np).to(device)
+    ws_, wp = BG.gg2_forward_plain(*args, table, 5, q, e, pb, total, False)
+    for f, fn in forms:
+        ks, kp = fn(*args, table, 5, q, e, pb, total)
+        torch.cuda.synchronize()
+        assert torch.equal(ks, ws_), f
+        assert torch.equal(kp, wp), f
+    return [f for f, _ in forms]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdrop", [-1, 5, 40])
+@pytest.mark.parametrize("span", [150, 400, 900])
+def test_extf_register_forms_match_plain(cuda_device, span, xdrop):
+    """Kernel 7's register form (bands that meet one, two and four of its
+    window's slots; N bases) and its strip form on the same launch give
+    the plain version's records exactly, also at costs whose deltas wrap
+    int8."""
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    pairs, ws = _lg_pairs(90 + span, n=8, lo=30, hi=min(2 * span, 1500))
+    ws = [min(w, span) for w in ws]
+    ncol = int(BF.extf_ncol([len(q) for q, _ in pairs],
+                            [len(t) for _, t in pairs], ws).max())
+    assert BF.extf_form(ncol)
+    for costs in ((2, -4, 2), (50, -60, 60)):
+        _lg_forms_check("extf", pairs, ws, xdrop, cuda_device, costs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("costs", [(4, 2), (30, 20)])
+def test_gg2_register_form_matches_plain(cuda_device, costs):
+    """Kernel 8's register form and its strip form on pairs with qlen <=
+    tlen + w (bands 0-190, qlen = tlen + w, bands that round to empty, N
+    bases; costs whose deltas wrap int8) give the plain version's scores
+    and every byte of the flat store exactly, and the flat walk of the
+    register form's bytes its plain version's."""
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    from ksw2_tpu_torch.ops.batch_extf import pack_pairs
+    rng = np.random.default_rng(88)
+    pairs, ws = [], []
+    for k, (L, w) in enumerate(((300, 0), (500, 16), (700, 100), (400, 190),
+                                (200, 60), (600, 12), (160, 30))):
+        t, q = random_pair(rng, L, divergence=0.2, indel=0.08,
+                           with_n=k % 2 == 0)
+        q, t = encode_dna(q), encode_dna(t)
+        if k == 4:                       # qlen = tlen + w
+            q = np.concatenate([t, rng.integers(0, 4, w).astype(np.uint8)])
+        if k == 5:                       # bands that round to empty
+            q = q[:40]
+        q = q[:len(t) + w]
+        pairs.append((q, t))
+        ws.append(w)
+    mat = MAT if costs == (4, 2) else simple_mat(5, 90, -100)
+    forms = _lg_forms_check("gg2", pairs, ws, None, cuda_device, costs, mat)
+    assert forms == ["strip", "register"]
+    args = pack_pairs(pairs, ws, cuda_device)
+    table = torch.from_numpy(np.asarray(mat, np.int32).reshape(-1)).to(
+        cuda_device)
+    pb_np, total = BG.flat_layout([len(q) for q, _ in pairs],
+                                  [len(t) for _, t in pairs], ws)
+    pb = torch.from_numpy(pb_np).to(cuda_device)
+    _, kp = BG.batch_gg2_forward_cuda(
+        *args, table, 5, *costs, pb, total,
+        int(BG.gg2_ncol([len(t) for _, t in pairs], ws).max()))
+    _, _, ql, tl, w = args
+    kres, kruns = BW.flat_walk_cuda(kp, pb, ql, tl, w)
+    pres, pruns = BW.flat_walk_plain(kp, pb, ql, tl, w)
+    torch.cuda.synchronize()
+    assert torch.equal(kres, pres)
+    assert BW.flat_walk_cigars(kres, kruns) == \
+        BW.flat_walk_cigars(pres, pruns)
+
+
+@pytest.mark.cuda
+def test_lg_window_cases_every_form(cuda_device):
+    """chip_smoke's window-edge launches of kernels 7 and 8 (the widest
+    row at W - 48 and W - 32 of each window, bands that round to empty)
+    in every form that holds each."""
+    from chip_smoke import lg_window_cases
+    for name, kind, pairs, w, xdrop in lg_window_cases():
+        forms = _lg_forms_check(kind, pairs, w, xdrop, cuda_device)
+        assert forms, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["extf2_sse", "gg2_sse"])
+def test_cli_batched_launch_every_form(cuda_device, algo):
+    """The CLI run's batched launch of chip_smoke's mixed-512 workload
+    (-t extf2_sse -z 40 unbanded, -t gg2_sse -w 100; the first 64 pairs)
+    in every form that holds it: the register form by the host's rule
+    and the strip form."""
+    from chip_smoke import _resolve, cli_split, mixed_jobs
+    from ksw2_tpu_torch.ops import batch_extf as BF
+    from ksw2_tpu_torch.ops import batch_gg2 as BG
+    b, _ = cli_split(mixed_jobs(), algo)
+    b = b[:64]
+    if algo == "gg2_sse":
+        ws = [100] * len(b)
+        forms = _lg_forms_check("gg2", b, ws, None, cuda_device)
+        ncol = int(BG.gg2_ncol([len(t) for _, t in b], ws).max())
+        assert BG.gg2_form(ncol, 5) and forms == ["strip", "register"]
+    else:
+        ws = [int(x) for x in _resolve(b, -1)]
+        forms = _lg_forms_check("extf", b, ws, 40, cuda_device)
+        assert forms == ["strip", "register"]
 
 
 def _lg_tiled(pairs, w, kind, xdrop, tp, device):
