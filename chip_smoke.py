@@ -29,8 +29,9 @@ phase's seconds go to stderr as it ends.
    batch, one- and two-piece;
 4. kernel B (strips walker, walk.cuh's row-major form) against its
    plain version on 3-state and 7-bit bytes: end cells and runs;
-5. the rows kernel against its plain version and against kernel A's
-   streams on the same short-pair launches;
+5. the rows kernel (kernel 3, the lane-pipelined row sweep) against its
+   plain version and against kernel A's streams on the same short-pair
+   launches;
 5b. band: kernels C / C2 (band forward, one- and two-piece) against
    their plain version, records and direction bytes exactly, in score,
    CIG and APPROX forms with bands from 1 to 1472 on pairs of up to 900
@@ -60,12 +61,14 @@ phase's seconds go to stderr as it ends.
    min_intron, against their plain versions exactly, on seeded spliced
    pairs of 30-900 bp (RIGHT, SPLICE_REV, FLANK, GENERIC_SC, junction
    tracks), on queries at strip edges and on the one launch of each form
-   the scheduler makes of the splice workload (below); kernel 6 in both
-   its forms on every one of its launches (the register form where the
-   launch takes it, the strip form always), at ncol 208 / 224 and at
-   its window's edge (shorter sides of 192, 193, 448 and 449 bp), on a
-   pair whose window slides ~40 times and on pairs that Z-drop on and
-   between group edges;
+   the scheduler makes of the splice workload and of splice-wide
+   (below: the kernel on the whole launch, the plain versions on
+   ``SPLICE_WIDE_PLAIN_PAIRS`` of its pairs); kernel 6 in both its forms
+   on every one of its launches (the register form where the launch
+   takes it, the wide form, band_fwd.cu's block a pair, always), at
+   ncol 208 / 224 and at its window's edge (shorter sides of 192, 193,
+   448 and 449 bp), on a pair whose window slides ~40 times and on pairs
+   that Z-drop on and between group edges;
 5e. single: kernel 12 (single-pair forward, tiles of 32 positions:
    pairs of 30-1500 bp over 1-48 tiles; score, CIG and APPROX forms,
    w -1, 0, 1, 16, 751 and 2000, zdrop -1/100, RIGHT, GENERIC_SC,
@@ -130,7 +133,12 @@ phase's seconds go to stderr as it ends.
    costs A1 B2 -O2,32 -E1,0 -C9 -z200): CIGARs, scores and 4 async
    handles on the strips route (only kernels A and B may launch), and
    the same pairs annotated (a junction track at the intron, junc_bonus
-   9) on the batched exts route (only kernels 6 and D); the single-pair
+   9) on the batched exts route (only kernels 6 and D); splice-wide
+   (seed 788, 256 annotated reads of 871 bp, exons t[120:600] and
+   t[1049:1440] of 1536 bp windows, GT..AG at 600 / 1047, the junction
+   track at 600 / 1048, junc_bonus 9: CIGARs and scores, every bucket
+   asserted to take kernel 6's wide form at ncol 896; only kernels 6 and
+   D, pins ``SPLICE_WIDE_PINS``); the single-pair
    engine (only kernels 12 and 17): a seeded 50 kb pair (seed 781)
    through ``Aligner.extend`` (exact score, ``-sg``, CIGAR) and
    ``extend_batch`` (scores, the any-device route), a seeded pair of the
@@ -173,11 +181,12 @@ It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
 
     python3 chip_smoke.py --breakdown [extz|band|lg|strips|walk|batch|exts|
-                                       local|gg2|extf]
+                                       local|gg2|extf|rows]
     python3 chip_smoke.py --lg-times
     python3 chip_smoke.py --strips-times
     python3 chip_smoke.py --walk-times
     python3 chip_smoke.py --batch-times
+    python3 chip_smoke.py --rows-times
     python3 chip_smoke.py --exts-times
     python3 chip_smoke.py --local-times
     python3 chip_smoke.py --sass-diff PARENT
@@ -197,16 +206,21 @@ at every launch shape of the main path (``WALK_CASES``; they also run
 on the tree before the windowed walkers), and the times of kernels E /
 E2 alone at the main path's launch shapes (``BATCH_TIME_CASES``) with
 kernels 9 / 10 on the long-banded score launch (they also run on the
-tree before the register form or the wide form's redesign), kernel 6
-alone on the annotated splice launches in both its forms with the band
-walker on its bytes (and E / E2's register form), kernel 18 alone on
-each local set (both also run on the parent's tree), cycles a diagonal
-of kernel 6's two forms, a query row of kernel 18 and a diagonal of
-kernels 8 and 7's two forms (strip: head, chunk steps, walk; register:
+tree before the register form or the wide form's redesign), the rows
+kernel and kernel A alone on the short pairs' launch, kernel 6 alone on
+the annotated splice launches and splice-wide's in the form each takes
+and in the wide form, with the band walker on its bytes (and E / E2's
+register form), kernel 18 alone on each local set (all three also run
+on the parent's tree), cycles of kernel 6's two forms (a tile-diagonal
+of the wide form, a diagonal of the register form), a query row of
+kernel 18, a step of the rows kernel and a diagonal of kernels 8 and
+7's two forms (strip: head, chunk steps, walk; register:
 head, score fill, cells, walk, staging, replay) on the CLI run's batched
-launches by part, and the register-form SASS of E / E2 and kernel 6
-against a parent tree's library.  ``--sass-diff`` is a developer's check
-of a change to ``csrc/batch_fwd.cu`` or ``csrc/reg_window.cuh``: PARENT is
+launches by part, and the SASS of E / E2's and kernel 6's register form and of the band
+forward's kernel (9 / 10, the wide forms) against a parent tree's
+library.  ``--sass-diff`` is a developer's check of a change to
+``csrc/batch_fwd.cu``, ``csrc/band_fwd.cu`` or ``csrc/reg_window.cuh``:
+PARENT is
 a checkout of the parent commit (an unpacked ``git archive`` inside
 this one, in a folder ``.gitignore`` lists) whose own run built its
 library first.
@@ -290,6 +304,21 @@ SPLICE_PINS = {
     "splice_junc_cigar": ((51667, 1431), (3202, 87)),
     "splice_junc_score": (51667, 3202),
 }
+
+# splice-wide (splice_wide_jobs): 256 annotated reads of 871 bp with
+# exons of several hundred bases against 1536 bp windows, at -x splice
+# costs with junc_bonus 9: every bucket takes kernel 6 at ncol 896
+SPLICE_WIDE_SEED, SPLICE_WIDE_N, SPLICE_WIDE_NCOL = 788, 256, 896
+# its pins, computed with the spec exts2: name -> (the 256 pairs', the
+# first SPLICE_PREFIX pairs'); tests/test_torch_splice_pins.py recomputes
+# the prefixes
+SPLICE_WIDE_PINS = {
+    "splice_wide_junc_cigar": ((178118, 1693), (11111, 107)),
+    "splice_wide_junc_score": (178118, 11111),
+}
+# pairs of a splice-wide launch phase 5d holds to the plain forward and
+# walker, spread over the launch (its pairs share one shape)
+SPLICE_WIDE_PLAIN_PAIRS = 8
 
 # the single-pair engine's workloads (the JAX bench's extz rows,
 # bench/suite.py:130-193, on seeded pairs: its 50 kb and MT files are not
@@ -431,8 +460,9 @@ BAND_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_band_extd.py:60"
 BAND_WALK_REPLACES = "ksw2_tpu/ops/traceback_band.py:56"
 BATCH_REPLACES = "ksw2_tpu/ops/wavefront_batch.py:108"
 BATCH_EXTD_REPLACES = "ksw2_tpu/ops/wavefront_batch_extd.py:56"
-# kernel 6 runs the main path in its register form (batch_fwd.cu, SPL);
-# its strip form, batch_exts_fwd.cu, takes launches past ncol 464
+# kernel 6 runs the 1024 annotated pairs in its register form
+# (batch_fwd.cu, SPL), the line's row; its wide form (band_fwd.cu, SPL)
+# takes splice-wide and every launch past ncol 464
 BATCH_EXTS_SRC = "ksw2_tpu_torch/csrc/batch_fwd.cu"
 BATCH_EXTS_REPLACES = "ksw2_tpu/ops/wavefront_batch_exts.py:55"
 EXTZ_SRC = "ksw2_tpu_torch/csrc/extz_fwd.cu"
@@ -779,6 +809,34 @@ def splice_junc(tlen: int = 512):
     j = np.zeros(tlen, np.uint8)
     j[200] = 1
     j[349] = 2
+    return j
+
+
+def splice_wide_jobs(seed: int = SPLICE_WIDE_SEED, n: int = SPLICE_WIDE_N):
+    """``n`` annotated mRNA reads with exons of several hundred bases
+    (:func:`splice_jobs` at three times its scale): random 1536 bp
+    genomic windows with a GT at 600-601 and an AG at 1047-1048, each
+    query the two exons t[120:600] + t[1049:1440] (871 bp) with 5%
+    substitutions."""
+    rng = np.random.default_rng(seed)
+    jobs = []
+    for _ in range(n):
+        tt = rng.integers(0, 4, 1536).astype(np.int32)
+        tt[600:602] = (2, 3)
+        tt[1047:1049] = (0, 2)
+        qq = np.concatenate([tt[120:600], tt[1049:1440]])
+        mut = rng.random(qq.shape) < 0.05
+        qq = np.where(mut, (qq + rng.integers(1, 4, qq.shape)) % 4, qq)
+        jobs.append((qq.astype(np.uint8), tt.astype(np.uint8)))
+    return jobs
+
+
+def splice_wide_junc():
+    """splice-wide's junction track: the forward donor bit at t = 600 and
+    the acceptor bit at t = 1048."""
+    j = np.zeros(1536, np.uint8)
+    j[600] = 1
+    j[1048] = 2
     return j
 
 
@@ -1903,6 +1961,9 @@ def splice_cases(spl):
                               SPLICE_JUNC_BONUS if tr else 0)
         assert len(lns) == 1, name
         cases.append((name, *lns[0]))
+    # splice-wide's one launch of each form (kernel 6's wide form)
+    for name in ("wide_junc_cig", "wide_junc_score"):
+        cases.append((name, "batch", splice_main_launch(name)))
     return cases
 
 
@@ -1946,7 +2007,9 @@ def phase_splice(cases):
     strips forward's spl form (D, Dq, hl, records, bytes) and the nop
     walker on its bytes; kernel 6 (records, bytes) and the band walker
     with min_intron = long_thres on its bytes (the first 256 pairs of a
-    launch for the walkers' plain versions)."""
+    launch for the walkers' plain versions; on splice-wide's launches,
+    which the kernel runs whole, ``SPLICE_WIDE_PLAIN_PAIRS`` of its
+    pairs, spread over it, for the plain forward and walker)."""
     import torch
     from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import band_walker as BW
@@ -1998,20 +2061,30 @@ def phase_splice(cases):
                          "lt": ln.prm.lt, "max_abs_err": errs}
         else:
             args = BD.band_upload(ln, "cuda")
-            _, _, ql, tl, w = args[:5]
             krec, kp = BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd,
                                                   ln.ncol)
+            # the wide form on the same launch, whichever form it takes
+            srec, sp = BE.batch_exts_wide_cuda(*args, ln.prm, ln.nd, ln.ncol)
+            if name.startswith("wide"):
+                B = len(ln.qlen)
+                pick = torch.from_numpy(np.unique(np.linspace(
+                    0, B - 1, SPLICE_WIDE_PLAIN_PAIRS).round().astype(
+                        np.int64))).cuda()
+                args = ([a[pick] for a in args[:5]] + [args[5]] +
+                        [a[pick] for a in args[6:]])
+                krec, srec = krec[pick], srec[pick]
+                if ln.prm.cig:
+                    kp, sp = kp[pick], sp[pick]
+            _, _, ql, tl, w = args[:5]
             prec, pp = plain_run((name, "fwd"), BE.batch_exts_forward_plain,
                                  *args, ln.prm, ln.nd, ln.ncol)
             errs["records"] = _max_err(krec, prec)
-            # the strip form on the same launch, whichever form it takes
-            srec, sp = BE.batch_exts_wide_cuda(*args, ln.prm, ln.nd, ln.ncol)
-            errs["strip_records"] = _max_err(srec, prec)
+            errs["wide_records"] = _max_err(srec, prec)
             if ln.prm.cig:
                 errs["bytes"] = _max_err(kp, pp)
-                errs["strip_bytes"] = _max_err(sp, pp)
+                errs["wide_bytes"] = _max_err(sp, pp)
                 del pp, sp
-                n = min(256, len(ln.qlen))
+                n = min(256, len(krec))
                 starts = W.start_cells(krec, ql, tl, ln.prm.flag, 0)[:n]
                 sub = (kp[:n].contiguous(), starts, ql[:n], tl[:n], w[:n],
                        W.walk_min_intron(ln.prm.lt, True))
@@ -2027,12 +2100,14 @@ def phase_splice(cases):
                 del kp
             worst["batch_exts_fwd"] = max(
                 worst["batch_exts_fwd"], errs["records"],
-                errs["strip_records"], errs.get("bytes", 0),
-                errs.get("strip_bytes", 0))
+                errs["wide_records"], errs.get("bytes", 0),
+                errs.get("wide_bytes", 0))
             out[name] = {"route": route, "pairs": len(ln.qlen),
-                         "nd": ln.nd, "ncol": ln.ncol,
+                         "plain_pairs": len(krec), "nd": ln.nd,
+                         "ncol": ln.ncol,
                          "cpl": BE.exts_form(ln.ncol, ln.prm.m),
                          "Lt": int(ln.target.shape[1]), "lt": ln.prm.lt,
+                         "fwd_plain_ms": PLAIN_MS[(name, "fwd")],
                          "max_abs_err": errs}
         torch.cuda.empty_cache()
         if any(errs.values()):
@@ -3505,6 +3580,22 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
     def stream4():
         hs = [s_cig.extend_batch_async(spl4) for _ in range(4)]
         return [_got(h.result(), "cigar") for h in hs]
+    # splice-wide (annotated reads of 871 bp with exons of several hundred
+    # bases, at -x splice costs, junc_bonus 9): the route sends every
+    # bucket to kernel 6's wide form at ncol 896, one launch a batch
+    from ksw2_tpu_torch.ops.batch_exts import exts_form
+    swide = splice_wide_jobs()
+    wjunc = [splice_wide_junc()] * len(swide)
+    for flag in (SPL, SPL | SO):
+        got = [(route, ln.ncol, exts_form(ln.ncol, ln.prm.m))
+               for route, ln in splice_launches(swide, flag, wjunc,
+                                                SPLICE_JUNC_BONUS)]
+        if got != [("batch", SPLICE_WIDE_NCOL, 0)]:
+            raise AssertionError(f"splice-wide's launches (route, ncol, "
+                                 f"form): {got}")
+    (wc_full, wc_pre), (ws_full, ws_pre) = (
+        SPLICE_WIDE_PINS["splice_wide_junc_cigar"],
+        SPLICE_WIDE_PINS["splice_wide_junc_score"])
     not_splice = ("rows_fwd", "band_fwd", "band_extd_fwd", "batch_fwd",
                   "batch_extd_fwd")
 
@@ -3610,6 +3701,18 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
                 lambda: j_score.extend_batch(spl4, juncs=junc4), spl4,
                 T * js_full, aln=j_score, prefix=(SPLICE_PREFIX, js_pre),
                 juncs=junc4)],
+         ("batch_exts_fwd", "band_walk"),
+         not_splice + ("strips_fwd", "strips_walk")),
+        ("splice_wide", [
+            run("splice_wide_junc_cigar",
+                lambda: j_cig.extend_batch(swide, juncs=wjunc), swide,
+                list(wc_full), "cigar", j_cig,
+                prefix=(SPLICE_PREFIX, list(wc_pre)), sample=[0, 255],
+                juncs=wjunc),
+            run("splice_wide_junc_score",
+                lambda: j_score.extend_batch(swide, juncs=wjunc), swide,
+                ws_full, aln=j_score, prefix=(SPLICE_PREFIX, ws_pre),
+                sample=[], juncs=wjunc)],
          ("batch_exts_fwd", "band_walk"),
          not_splice + ("strips_fwd", "strips_walk")),
         ("extz", [
@@ -3729,6 +3832,9 @@ def phase_main_path(jobs, short, long, sb, spl, single, mt, slong):
              for path, spec, needs, never in paths]
     paths += local_paths(kernels + lg_kernels)
     plan = single_launch_plan(sb, spl4, slong)
+    # splice-wide: one kernel-6 launch a batch in each run, one walk in
+    # the CIGAR run's
+    plan["splice_wide"] = {"batch_exts_fwd": 2, "band_walk": 1}
     plan.update(band_launch_plan(band, long, jobs))
     plan.update(batch_launch_plan({
         **{name: (aln, sb) for name, aln in sbat.items()},
@@ -4003,9 +4109,12 @@ def splice_times(scases, int_rate):
     """The splice kernels at the main path's shape: the one launch of each
     form the scheduler makes of the 1024-pair workload (strips spl
     forward and nop walker unannotated, kernel 6 and the band walker with
-    min_intron annotated) beside their bounds and the plain versions'
-    times from phase 5d (the walkers' on a launch's first 256 pairs,
-    where the kernel is timed on the same 256)."""
+    min_intron annotated) and of splice-wide (kernel 6's wide form and
+    the band walker) beside their bounds and the plain versions' times
+    from phase 5d (the walkers' on a launch's first 256 pairs, where the
+    kernel is timed on the same 256; splice-wide's ran in the pool, on
+    ``SPLICE_WIDE_PLAIN_PAIRS`` of its pairs, and phase 5d's line has
+    them)."""
     import torch
     from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import band_walker as BW
@@ -4015,7 +4124,7 @@ def splice_times(scases, int_rate):
 
     out = {}
     for name, route, ln in scases:
-        if not name.startswith("main"):
+        if not name.startswith(("main", "wide")):
             continue
         row = {"route": route, "pairs": len(ln.qlen)}
         if route == "strips":
@@ -4046,13 +4155,14 @@ def splice_times(scases, int_rate):
             args = BD.band_upload(ln, "cuda")
             _, _, ql, tl, w = args[:5]
             row.update(kernel="batch_exts_fwd", nd=ln.nd, ncol=ln.ncol,
-                       Lt=int(ln.target.shape[1]))
+                       Lt=int(ln.target.shape[1]),
+                       form=BE.exts_form(ln.ncol, ln.prm.m) or "wide")
 
             def fwd():
                 return BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd,
                                                   ln.ncol)
             row["fwd_ms"] = cuda_ms(fwd, 5)
-            row["fwd_plain_ms"] = PLAIN_MS[(name, "fwd")]
+            row["fwd_plain_ms"] = PLAIN_MS.get((name, "fwd"))
             rec, p = fwd()
             cells, nbytes = exts_work(ln, rec)
             row["computed_cells"] = cells
@@ -4066,7 +4176,7 @@ def splice_times(scases, int_rate):
                        W.walk_min_intron(ln.prm.lt, True))
                 row["walk_pairs"] = n
                 row["walk_ms"] = cuda_ms(lambda: BW.band_walk_cuda(*sub), 5)
-                row["walk_plain_ms"] = PLAIN_MS[(name, "walk")]
+                row["walk_plain_ms"] = PLAIN_MS.get((name, "walk"))
                 steps, nbytes = walk_work(*BW.band_walk_cuda(*sub), 20)
                 row["walk_steps"] = steps
                 row["walk_bound_ms"], row["walk_bound_by"] = bound(
@@ -4304,6 +4414,49 @@ def kernel_a_row(name, ln, int_rate, plain=True):
     return row
 
 
+def rows_times(rcases, int_rate):
+    """The rows kernel (kernel 3) and kernel A alone on the rows route's
+    main-path launch (the sampled cases are left out): their ms, by CUDA
+    events in one process, and kernel 3's bound."""
+    from ksw2_tpu_torch.ops import rows as R
+    from ksw2_tpu_torch.ops import strips as S
+
+    out = {}
+    for name, ln in rcases:
+        if name.startswith("short_sample"):
+            continue
+        qs, ts, ql, tl, tab = S.upload(ln, "cuda")
+        B, Lq = qs.shape
+        row = {"pairs": int(B), "Lq": int(Lq), "tv": ln.prm.tv}
+        row["rows_ms"] = cuda_ms(
+            lambda: R.rows_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20)
+        row["fwd_ms"] = cuda_ms(fwd_call(name, ln, (qs, ts, ql, tl, tab)),
+                                20)
+        row["cells"] = int((ql.long() * tl.long()).sum())
+        row["rows_bound_ms"], row["rows_bound_by"] = bound(
+            "rows_fwd", row["cells"],
+            B * (Lq + ln.prm.tv + 8 + 4 * Lq + 8 * (Lq + ln.prm.tv)),
+            int_rate)
+        row["rows_gcells_per_s"] = row["cells"] / row["rows_ms"] / 1e6
+        out[name] = row
+    return out
+
+
+def phase_rows_times() -> int:
+    """``--rows-times``: the rows kernel and kernel A alone on the short
+    pairs' launch (:func:`rows_times`); it also runs on the parent's
+    tree, to compare two trees in one call."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the times need a CUDA card")
+    int_rate = phase_device()
+    phase_build()
+    emit({"phase": "rows_times",
+          "cases": rows_times(rows_cases(short_jobs()), int_rate)})
+    return 0
+
+
 def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
                 int_rate, lcases, mt, jobs):
     import torch
@@ -4311,7 +4464,6 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
     from ksw2_tpu_torch.core.matrix import simple_mat
     from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import band_walker as BW
-    from ksw2_tpu_torch.ops import rows as R
     from ksw2_tpu_torch.ops import strips as S
     from ksw2_tpu_torch.ops import strips_walker as W
 
@@ -4332,23 +4484,8 @@ def phase_times(cases, rcases, long, sb, scases, single, spl, slong,
             row["walk_bound_ms"], row["walk_bound_by"] = bound(
                 "strips_walk", steps, nbytes, int_rate)
         out[name] = row
-    for name, ln in rcases:
-        if name.startswith("short_sample"):
-            continue
-        qs, ts, ql, tl, tab = S.upload(ln, "cuda")
-        B, Lq = qs.shape
-        row = {"pairs": int(B), "Lq": int(Lq), "tv": ln.prm.tv}
-        row["rows_ms"] = cuda_ms(
-            lambda: R.rows_forward_cuda(qs, ts, ql, tl, tab, ln.prm), 20)
+    for name, row in rows_times(rcases, int_rate).items():
         row["rows_plain_ms"] = PLAIN_MS[(name, "rows")]
-        row["fwd_ms"] = cuda_ms(fwd_call(name, ln, (qs, ts, ql, tl, tab)),
-                                20)
-        row["cells"] = int((ql.long() * tl.long()).sum())
-        row["rows_bound_ms"], row["rows_bound_by"] = bound(
-            "rows_fwd", row["cells"],
-            B * (Lq + ln.prm.tv + 8 + 4 * Lq + 8 * (Lq + ln.prm.tv)),
-            int_rate)
-        row["rows_gcells_per_s"] = row["cells"] / row["rows_ms"] / 1e6
         out[name] = row
 
     # the band kernels at the long-banded shapes: the workload's shortest
@@ -5952,67 +6089,47 @@ def breakdown_batch():
     breakdown_batch_wide()
 
 
-# kernel 6's strip form (csrc/batch_exts_fwd.cu, the wide form) stamped
-# at anchors with 32-bit clock() sums a warp's lane 0 keeps: 0 a
-# diagonal's head (band row, switches, the chunk range), 1 its chunk
-# steps (32 positions each: loads, shuffles, the cells, stores), 2 the
-# argmax's 5 shuffle rounds and the Z-drop test; 8 diagonals, 9 chunk
-# steps, 10 pairs
+# a stamp of the 32-bit clock() sums a warp's lane 0 keeps (pf_[i] the
+# cycles since the last stamp), and the sums' device array
 STAMP_NOW = ("{ const unsigned pn_ = (unsigned)clock(); "
              "pf_[%d] += pn_ - pt_; pt_ = pn_; }")
 G_PROF = (
     "constexpr unsigned FULL = 0xffffffffu;\n",
     "constexpr unsigned FULL = 0xffffffffu;\n"
     "__device__ unsigned long long g_prof[16];\n")
-EXTS_WIDE_STAMPS = (
-    G_PROF,
-    ("  int score = NEG, zd = 0;\n",
-     "  int score = NEG, zd = 0;\n  unsigned pf_[4] = {0, 0, 0, 0}, nc_ = 0, "
-     "nd_ = 0;\n  unsigned pt_ = (unsigned)clock();\n"),
-    ("    for (int c = c_lo; c <= c_hi; ++c) {\n",
-     "    " + STAMP_NOW % 0 + "\n    for (int c = c_lo; c <= c_hi; ++c) {\n"
-     "      ++nc_;\n"),
-    ("    // every lane updates its own copy of the per-pair scalars\n",
-     "    " + STAMP_NOW % 1 + "\n"),
-    ("    if (drop) {\n      zd = 1;\n      break;\n    }\n",
-     "    " + STAMP_NOW % 2 + "\n    ++nd_;\n"
-     "    if (drop) {\n      zd = 1;\n      break;\n    }\n"),
-    ("  if (lane == 0) {\n    int* out = A.rec + (size_t)b * 9;",
-     "  if (lane == 0) {\n    for (int i_ = 0; i_ < 3; ++i_)\n"
-     "      atomicAdd(&g_prof[i_], (unsigned long long)pf_[i_]);\n"
-     "    atomicAdd(&g_prof[8], (unsigned long long)nd_);\n"
-     "    atomicAdd(&g_prof[9], (unsigned long long)nc_);\n"
-     "    atomicAdd(&g_prof[10], 1ull);\n  }\n"
-     "  if (lane == 0) {\n    int* out = A.rec + (size_t)b * 9;"),
-)
-EXTS_WIDE_PARTS = ("head", "chunks", "argmax")
-EXTS_BREAKDOWN_CASES = ("main_junc_score", "main_junc_cig")
+EXTS_BREAKDOWN_CASES = ("main_junc_score", "main_junc_cig",
+                        "wide_junc_score", "wide_junc_cig")
 
 
 def splice_main_launch(name):
-    """The scheduler's one launch of the annotated 1024-pair splice
-    workload (kernel 6): ``main_junc_score`` or ``main_junc_cig``."""
+    """The scheduler's one launch of an annotated splice workload (kernel
+    6): the 1024-pair one's (``main_junc_score``, ``main_junc_cig``) or
+    splice-wide's (``wide_junc_score``, ``wide_junc_cig``)."""
     from ksw2_tpu_torch.core.flags import Flag
 
-    spl4 = splice_jobs() * SPLICE_TILES
+    if name.startswith("wide"):
+        pairs, junc = splice_wide_jobs(), splice_wide_junc()
+    else:
+        pairs, junc = splice_jobs() * SPLICE_TILES, splice_junc()
     flag = Flag.SPLICE_FOR | (Flag.SCORE_ONLY if name.endswith("score")
                               else Flag.NONE)
-    (route, ln), = splice_launches(spl4, flag, [splice_junc()] * len(spl4),
+    (route, ln), = splice_launches(pairs, flag, [junc] * len(pairs),
                                    SPLICE_JUNC_BONUS)
     assert route == "batch", route
     return ln
 
 
 def breakdown_exts():
-    """Cycles a diagonal of kernel 6 by part on the annotated splice
-    launches (score, CIG): its strip form (``batch_exts_fwd.cu`` stamped
-    at anchors, launched on the main launch whatever its form) and, on a
-    tree with the register form, that form (``batch_fwd.cu`` with its
-    ``BATCH_STAMP`` hooks, as ``--breakdown batch`` stamps it)."""
+    """Cycles of kernel 6 by part on the annotated splice launches (score,
+    CIG): its wide form (``band_fwd.cu`` stamped as ``--breakdown band``
+    stamps it, a tile-diagonal's parts and the replay warp's group,
+    launched on every case whatever its form) and its register form
+    (``batch_fwd.cu`` with its ``BATCH_STAMP`` hooks, a diagonal's parts
+    as ``--breakdown batch`` gives them) on the cases that take it."""
     from ksw2_tpu_torch.ops import batch_exts as BE
 
-    lib = breakdown_library("batch_exts_fwd", EXTS_WIDE_STAMPS,
-                            "ksw2t_batch_exts_fwd")
+    lib = breakdown_library("band_fwd", BAND_BREAKDOWN_STAMPS,
+                            "ksw2t_band_exts_fwd")
     saved = BE.library
     BE.library = lambda: lib
     try:
@@ -6021,16 +6138,19 @@ def breakdown_exts():
             ms, prof = _stamped_run(lib, [ln], lambda a, ln: BE.
                                     batch_exts_wide_cuda(*a, ln.prm, ln.nd,
                                                          ln.ncol))
-            nd = max(float(prof[8]), 1.0)
+            nd = max(float(prof[7]), 1.0)
             parts = {k: float(prof[i]) / nd
-                     for i, k in enumerate(EXTS_WIDE_PARTS)}
+                     for i, k in enumerate(BAND_BREAKDOWN_PARTS)}
+            parts["total"] = float(prof[8]) / nd
+            groups = max(float(prof[12]), 1.0)
             emit({"phase": "breakdown", "case": name,
-                  "kernel": "batch_exts_fwd", "form": "strip",
-                  "ms_stamped": ms, "pairs": int(prof[10]),
-                  "diagonals": int(prof[8]),
-                  "chunk_steps_per_diagonal": float(prof[9]) / nd,
-                  "cycles_per_diagonal": parts,
-                  "cycles_per_diagonal_total": sum(parts.values())})
+                  "kernel": "batch_exts_fwd", "form": "wide",
+                  "layout": BE.exts_wide_layout(ln.ncol), "ms_stamped": ms,
+                  "pairs": len(ln.qlen), "tile_diagonals": int(nd),
+                  "cycles_per_tile_diagonal": parts,
+                  "replay_cycles_per_group": {
+                      "wait": float(prof[10]) / groups,
+                      "work": float(prof[11]) / groups}})
     finally:
         BE.library = saved
     breakdown_exts_register()
@@ -6048,6 +6168,8 @@ def breakdown_exts_register():
     try:
         for name in EXTS_BREAKDOWN_CASES:
             ln = splice_main_launch(name)
+            if not BE.exts_form(ln.ncol, ln.prm.m):
+                continue
             ms, prof = _stamped_run(lib, [ln], lambda a, ln: BE.
                                     batch_exts_forward_cuda(*a, ln.prm,
                                                             ln.nd, ln.ncol))
@@ -6141,6 +6263,66 @@ def breakdown_local():
             del args
     finally:
         BL.library = saved
+
+
+# the rows kernel (csrc/rows_fwd.cu) through its ROWS_STAMP hooks, which
+# this prelude defines, summed over each warp's lane 0: 0 a step's head
+# (the three shuffles, lane 0's boundary), 1 the last step's cells into D
+# (the finished diagonal's atomic, the keys, Dq), 2 the step's cells;
+# 8 steps, 9 pairs
+ROWS_BREAKDOWN_STAMPS = (
+    ("#ifndef ROWS_STAMPS\n",
+     """#define ROWS_STAMPS 1
+__device__ unsigned long long g_prof[16];
+#define ROWS_STAMP_INIT() unsigned pf_[3] = {0, 0, 0}; \\
+  unsigned pt_ = (unsigned)clock();
+#define ROWS_STAMP(part) { const unsigned pn_ = (unsigned)clock(); \\
+  pf_[part] += pn_ - pt_; pt_ = pn_; }
+#define ROWS_STAMP_FLUSH(steps) if (lane == 0) { \\
+  for (int i_ = 0; i_ < 3; ++i_) \\
+    atomicAdd(&g_prof[i_], (unsigned long long)pf_[i_]); \\
+  atomicAdd(&g_prof[8], (unsigned long long)(steps)); \\
+  atomicAdd(&g_prof[9], 1ull); }
+#ifndef ROWS_STAMPS\n"""),
+)
+ROWS_BREAKDOWN_PARTS = ("head", "keys", "cells")
+
+
+def breakdown_rows():
+    """Cycles a step of the rows kernel by part (:data:`ROWS_BREAKDOWN_
+    STAMPS`) on the rows cases, with the stamped run's milliseconds."""
+    import torch
+    from ksw2_tpu_torch.ops import rows as R
+    from ksw2_tpu_torch.ops import strips as S
+
+    lib = breakdown_library("rows_fwd", ROWS_BREAKDOWN_STAMPS,
+                            "ksw2t_rows_fwd")
+    saved = R.library
+    R.library = lambda: lib
+    try:
+        for name, ln in rows_cases(short_jobs()):
+            args = S.upload(ln, "cuda")
+            prof = np.zeros(16, np.uint64)
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            R.rows_forward_cuda(*args, ln.prm)
+            t1.record()
+            t1.synchronize()
+            lib.ksw2t_prof_read(prof.ctypes.data)
+            steps = max(float(prof[8]), 1.0)
+            parts = {k: float(prof[i]) / steps
+                     for i, k in enumerate(ROWS_BREAKDOWN_PARTS)}
+            emit({"phase": "breakdown", "case": name, "kernel": "rows_fwd",
+                  "ms_stamped": t0.elapsed_time(t1), "pairs": int(prof[9]),
+                  "steps": int(prof[8]),
+                  "steps_per_pair": steps / max(float(prof[9]), 1.0),
+                  "cycles_per_step": parts,
+                  "cycles_per_step_total": sum(parts.values())})
+            del args
+    finally:
+        R.library = saved
 
 
 # kernels 8 and 7's register form (gg2_fwd.cu, batch_extf_fwd.cu) through
@@ -6298,10 +6480,10 @@ def breakdown_linear_global(kind):
 
 
 def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
-                           "batch", "exts", "local", "gg2",
-                           "extf")) -> int:
+                           "batch", "exts", "local", "gg2", "extf",
+                           "rows")) -> int:
     """``--breakdown [extz|band|lg|strips|walk|batch|exts|local|gg2|
-    extf]``: the clock64 breakdowns."""
+    extf|rows]``: the clock64 breakdowns."""
     import torch
 
     if not torch.cuda.is_available():
@@ -6326,6 +6508,8 @@ def phase_breakdown(which=("extz", "band", "lg", "strips", "walk",
         breakdown_exts()
     if "local" in which:
         breakdown_local()
+    if "rows" in which:
+        breakdown_rows()
     for kind in ("gg2", "extf"):
         if kind in which:
             breakdown_linear_global(kind)
@@ -6388,12 +6572,13 @@ def _digest(*tensors) -> str:
 
 
 def exts_times(int_rate, exts_form, wide):
-    """Kernel 6 alone (CUDA events) on the annotated splice workload's
-    launches (score, CIG) in the form the route takes (``exts_form`` of
-    the launch) and in the strip (wide) form (launched by ``wide``),
-    beside its bound, with digests of its records and bytes; the band
-    walker on all of the CIG launch's bytes, its time, steps and the
-    digest of its output."""
+    """Kernel 6 alone (CUDA events) on the annotated splice workloads'
+    launches (the 1024 pairs' and splice-wide's, score and CIG) in the
+    form the route takes (``exts_form`` of the launch) and in the form
+    past the register window (launched by ``wide``: the wide form, or on
+    a parent tree before it the strip form), beside its bound, with
+    digests of its records and bytes; the band walker on all of the CIG launch's bytes, its time,
+    steps and the digest of its output."""
     import torch
     from ksw2_tpu_torch.ops import band as BD
     from ksw2_tpu_torch.ops import band_walker as BW
@@ -6410,7 +6595,7 @@ def exts_times(int_rate, exts_form, wide):
                "nd": ln.nd, "ncol": ln.ncol, "Lt": int(ln.target.shape[1]),
                "cpl": form}
         for key, fn in (("fwd", BE.batch_exts_forward_cuda),
-                        ("strip", wide)):
+                        ("wide", wide)):
             row[f"{key}_ms"] = cuda_ms(
                 lambda fn=fn: fn(*args, ln.prm, ln.nd, ln.ncol), 10)
         rec, p = BE.batch_exts_forward_cuda(*args, ln.prm, ln.nd, ln.ncol)
@@ -6518,27 +6703,51 @@ def batch_reg_forms(funcs):
     return out
 
 
+def band_forms(funcs):
+    """{(MODE, CIG, APPROX, NC, RIGHT, SC): SASS} of the kernel of
+    ``csrc/band_fwd.cu`` among ``funcs``: kernels 9 / 10 and E / E2's wide
+    form (MODE 0 one-piece, 1 two-piece) and kernel 6's wide form (MODE
+    2); a tree whose kernel took a bool TWO gives MODE 0 or 1."""
+    import re
+
+    out = {}
+    for name, code in funcs.items():
+        m = re.search(r"band_fwd_kernelI((?:L[bi]\d+E)+)E", name)
+        if m:
+            out[tuple(int(a) for a in re.findall(r"L[bi](\d+)E",
+                                                 m.group(1)))] = code
+    return out
+
+
 def phase_sass_diff(parent_root) -> int:
     """``--sass-diff PARENT``: the SASS of kernels E / E2's and kernel 6's
-    register form in this tree's library against the library a run of the
-    tree at ``PARENT`` built (its ``build/ksw2_tpu_torch/``),
+    register form, and of the band forward's kernel (9 / 10, E / E2's
+    and kernel 6's wide form), in this tree's library against the library
+    a run of the tree at ``PARENT`` built (its ``build/ksw2_tpu_torch/``),
     instantiation by instantiation: the instructions and whether they are
-    the same."""
+    the same (an instantiation the parent lacks is new)."""
     from pathlib import Path
 
     from ksw2_tpu_torch import _build
 
-    mine = batch_reg_forms(sass_functions(_build.build()))
+    mine_f = sass_functions(_build.build())
     theirs_lib = max((Path(parent_root) / "build" / "ksw2_tpu_torch").glob(
         "libksw2t_*.so"), key=lambda p: p.stat().st_mtime)
-    theirs = batch_reg_forms(sass_functions(theirs_lib))
-    rows = {"-".join(map(str, k)): {
-        "instructions": len(mine.get(k, [])),
-        "parent_instructions": len(theirs.get(k, [])),
-        "same": mine.get(k) == theirs.get(k)}
-        for k in sorted(set(mine) | set(theirs))}
-    emit({"phase": "sass_diff", "key": "CPL-TWO-SPL-CIG-APPROX-RIGHT",
-          "forms": rows, "all_same": all(r["same"] for r in rows.values())})
+    theirs_f = sass_functions(theirs_lib)
+    for what, key, forms in (("batch_reg", "CPL-TWO-SPL-CIG-APPROX-RIGHT",
+                              batch_reg_forms),
+                             ("band", "MODE-CIG-APPROX-NC-RIGHT-SC",
+                              band_forms)):
+        mine, theirs = forms(mine_f), forms(theirs_f)
+        rows = {"-".join(map(str, k)): {
+            "instructions": len(mine.get(k, [])),
+            "parent_instructions": len(theirs.get(k, [])),
+            "same": mine.get(k) == theirs.get(k)}
+            for k in sorted(set(mine) | set(theirs))}
+        emit({"phase": "sass_diff", "kernel": what, "key": key,
+              "forms": rows, "all_same_in_parent": all(
+                  r["same"] for r in rows.values()
+                  if r["parent_instructions"])})
     return 0
 
 
@@ -6561,7 +6770,7 @@ def progress(msg: str) -> None:
 # first, alone in this process: a plain version that shares the host
 # with the workers takes up to 4x as long.  A phase's two parts print
 # one line, in phase order, once all have ended.
-PHASE_WORKERS = 4
+PHASE_WORKERS = 6
 POOL_TIMEOUT_S = 800          # a stuck worker fails the run, not the limit
 KERNEL_PHASES = ("splice", "kernel_a", "kernel_b", "rows", "band", "batch",
                  "single", "single2", "linear_global", "local", "walk")
@@ -6572,17 +6781,19 @@ ALONE = {"splice": r"main_.*",
          "single": r"sr_launch\d+", "single2": r"(sr_extd|splice_ends)_256",
          "linear_global": r"cli64_.*", "local": r".*", "walk": r"$^"}
 # the pool's part, longest first (seconds in the pool on one H100: batch
-# ~220, band ~140, single2 ~135, splice ~120, single, linear_global and
-# kernel_a ~55, walk ~45), the CPU references after them, then the short
-# ones
+# ~220-340 in two tasks of half its cases, band ~140, single2 ~135-165,
+# splice ~120-180, single, linear_global and kernel_a ~55-75, walk ~45),
+# the CPU references after them, then the short ones
 POOL_FIRST = ("batch", "single2", "splice", "band", "walk", "single",
               "linear_global", "kernel_a")
 POOL_LAST = ("kernel_b", "rows")
+POOL_SPLIT = {"batch": 2}
 
 
-def run_kernel_phase(name, alone):
+def run_kernel_phase(name, alone, part=0, parts=1):
     """Kernel phase ``name`` on its cases in ALONE (``alone``) or on the
-    others, rebuilt from their seeds; None when there are none."""
+    others, rebuilt from their seeds (of those, every ``parts``-th from
+    ``part`` on); None when there are none."""
     import re
 
     if name == "local":
@@ -6602,10 +6813,10 @@ def run_kernel_phase(name, alone):
                                   lg_cases(mixed_jobs())),
         "walk": lambda: (phase_walk, [*WALK_CHECKED, "random"]),
     }[name]()
-    part = [c for c in cases
-            if (re.fullmatch(ALONE[name], c if isinstance(c, str) else c[0])
-                is not None) == alone]
-    return fn(part) if part else None
+    picked = [c for c in cases
+              if (re.fullmatch(ALONE[name], c if isinstance(c, str) else c[0])
+                  is not None) == alone][part::parts]
+    return fn(picked) if picked else None
 
 
 def _captured(fn, *args):
@@ -6631,11 +6842,11 @@ def _pool_init():
 
 
 def _pool_task(task):
-    """One pool task, ("phase", name) or an :func:`oracle_tasks` entry:
-    (kind, name, (result, printed lines, seconds, error)).  Its plain
-    times stay in its phase's line."""
+    """One pool task, ("phase", name[, part, parts]) or an
+    :func:`oracle_tasks` entry: (kind, name, (result, printed lines,
+    seconds, error)).  Its plain times stay in its phase's line."""
     if task[0] == "phase":
-        res = _captured(run_kernel_phase, task[1], False)
+        res = _captured(run_kernel_phase, task[1], False, *task[2:])
     else:
         _, _, kw, _, pairs, juncs = task
         res = _captured(oracle_refs, kw, pairs, juncs)
@@ -6686,7 +6897,8 @@ def run_kernel_phases(oracle):
             _fail(f"phase {name} (alone)", text, err)
         res[name], texts[name], secs[f"alone:{name}"] = out, [text], s
         torch.cuda.empty_cache()
-    tasks = [("phase", n) for n in POOL_FIRST] + list(oracle) + \
+    tasks = [("phase", n, k, POOL_SPLIT.get(n, 1)) for n in POOL_FIRST
+             for k in range(POOL_SPLIT.get(n, 1))] + list(oracle) + \
         [("phase", n) for n in POOL_LAST]
     assert {n for k, n, *_ in tasks if k == "phase"} | {"local"} == \
         set(KERNEL_PHASES)
@@ -6700,7 +6912,7 @@ def run_kernel_phases(oracle):
             progress(f"{kind} {name}: {s:.1f} s")
             if err:
                 _fail(f"{kind} {name}", text, err)
-            secs[f"{kind}:{name}"] = s
+            secs[f"{kind}:{name}"] = secs.get(f"{kind}:{name}", 0) + s
             if kind == "oracle":
                 refs[name] = out
                 continue
@@ -6834,6 +7046,8 @@ if __name__ == "__main__":
         sys.exit(phase_walk_times())
     if sys.argv[1:2] == ["--batch-times"]:
         sys.exit(phase_batch_times())
+    if sys.argv[1:2] == ["--rows-times"]:
+        sys.exit(phase_rows_times())
     if sys.argv[1:2] == ["--exts-times"]:
         sys.exit(phase_exts_times())
     if sys.argv[1:2] == ["--local-times"]:
@@ -6844,5 +7058,5 @@ if __name__ == "__main__":
         sys.exit(phase_breakdown(tuple(sys.argv[2:])
                                  or ("extz", "band", "lg", "strips", "walk",
                                      "batch", "exts", "local", "gg2",
-                                     "extf")))
+                                     "extf", "rows")))
     sys.exit(main())

@@ -55,10 +55,10 @@ _SIGNATURES = {
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
     # two, nd, ncol, warps, rec, p, stream
     "ksw2t_batch_fwd": [_P] * 6 + [_I] * 24 + [_P] * 3,
-    # qs, ts, qlen, tlen, table, don, acc, B, Lq, Lt, m, q, e, q2, lt, ld,
-    # sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig, nd,
-    # ncol, TP, warps, rec, p, stream
-    "ksw2t_batch_exts_fwd": [_P] * 7 + [_I] * 22 + [_P] * 3,
+    # qs, ts, qlen, tlen, w, table, don, acc, B, Lq, Lt, m, q, e, q2, lt,
+    # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
+    # nd, ncol, TP, NW, RING, rec, p, stream
+    "ksw2t_band_exts_fwd": [_P] * 8 + [_I] * 23 + [_P] * 3,
     # qs, ts, qlen, tlen, w, table, don, acc, B, Lq, Lt, m, q, e, q2, lt,
     # ld, sc_mch, sc_mis, sc_N, zdrop, right, generic, approx, adrop, cig,
     # nd, ncol, warps, rec, p, stream

@@ -16,7 +16,24 @@
 // n_col bytes a diagonal.  The plain version is ops/band.py:
 // band_forward_plain.  The batched forward's wide form (kernels E / E2 on
 // bands wider than their register window, or m > 8) launches this kernel
-// too, through ops/batch.py (counted as batch_fwd / batch_extd_fwd).
+// too, through ops/batch.py (counted as batch_fwd / batch_extd_fwd), and so
+// does kernel 6's wide form (SPL, below).
+//
+// Kernel 6's wide form (MODE SPL, counted as batch_exts_fwd) replaces
+// ksw2_tpu/ops/wavefront_batch_exts.py:_batch_exts_kernel on the splice
+// launches whose n_col kernel 6's register form (batch_fwd.cu, SPL) cannot
+// hold (n_col > 464: pairs whose shorter side passes ~448 bp) and on
+// alphabets of more than 8 symbols (ops/batch_exts.py:exts_form): the exts
+// recurrence of spec/diagdiff.py:exts2 (ksw2_exts2_sse.c) with w = qlen +
+// tlen (exts has no band).  It is TWO's form with the intron plane x2 on
+// the deletion side only (initialised to -q2 and handed on at a tile edge
+// as TWO's is) and no y2: a position's donor and acceptor bytes sit in
+// one register a chunk beside its score table; the intron candidate a2 +
+// acceptor joins a and b with no clamp of z; x2' = max(a2', donor) - q2,
+// its continuation bit 0x20 where a2' > donor.  The first-column switch
+// and H's seed are TWO's with e2 = 0 and qe_pre = q + e, and Z-drop has
+// no gap slope (e2 = 0), APPROX_DROP from r = 0.  Its launches take tiles
+// of 64 (ops/batch_exts.py:exts_wide_layout).
 //
 // Layout: one block a pair, NW compute warps and one replay warp.  The pair's
 // target axis is cut into tiles of TP = 32 NC positions (NC = 1 or 2 for the
@@ -161,6 +178,9 @@ __device__ __forceinline__ long long pack_walk(int H0, int t) {
 // the symbols).
 constexpr int SC8 = 8, SCMAT = 0;
 
+// The recurrence (the kernel's MODE): ONE, extz; TWO, extd; SPL, exts.
+constexpr int ONE = 0, TWO_PIECE = 1, SPL_MODE = 2;
+
 struct BandArgs {
   const uint8_t* qs;
   const uint8_t* ts;
@@ -172,6 +192,8 @@ struct BandArgs {
   int generic, adrop, nd, ncol, NW, RING;
   int* rec;
   uint8_t* p;
+  const signed char* don;          // SPL: the donor and acceptor rows
+  const signed char* acc;
 };
 
 // One compute warp's shared memory: its group's band rows and boundary
@@ -254,9 +276,11 @@ __device__ __forceinline__ bool wait_until(const int* p, int need,
   return __shfl_sync(FULL, ok, 0);
 }
 
-template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT, int SC>
+template <int MODE, bool CIG, bool APPROX, int NC, bool RIGHT, int SC>
 __global__ void __launch_bounds__(MAX_THREADS)
 band_fwd_kernel(const BandArgs A) {
+  constexpr bool TWO = MODE == TWO_PIECE, SPL = MODE == SPL_MODE;
+  constexpr bool SGN = TWO || SPL;   // signed deltas, the H row unbiased
   constexpr int TP = 32 * NC;
   extern __shared__ __align__(16) unsigned char smem[];
   const int RING = A.RING, RMASK = RING - 1, NW = A.NW;
@@ -311,14 +335,15 @@ band_fwd_kernel(const BandArgs A) {
     const int q = A.q, e = A.e, qe = q + e, qe2 = A.q2 + A.e2;
     // the reference's init bytes: 0 one-piece; -(q + e) for u, v, x, y
     // and -(q2 + e2) for x2, y2 two-piece
-    const int init = TWO ? -qe : 0, init2 = -qe2;
+    const int init = SGN ? -qe : 0, init2 = -qe2;
     // the same in the planes' top-byte form
     const int initS = top(init), init2S = top(init2), qS = top(q),
               q2S = top(A.q2), qeS = top(qe), qe2S = top(qe2),
               mchS = top(A.sc_mch), twoqeS = top(2 * qe);
     const unsigned capS = (unsigned)top(A.sc_mch + 2 * qe);
     const int ntiles = (tlen + 15 + TP - 1) / TP;
-    const uint8_t* tg = A.ts + (size_t)b * A.Lt;
+    const size_t bL = (size_t)b * A.Lt;
+    const uint8_t* tg = A.ts + bL;
     const uint8_t* qy = A.qs + (size_t)b * A.Lq;
     WarpSmem<TP>& S = wsm[warp];
     const int pw = (warp + NW - 1) % NW, cw = (warp + 1) % NW;
@@ -355,6 +380,9 @@ band_fwd_kernel(const BandArgs A) {
       // SL its target symbol's row of the matrix).
       int U[NC], V[NC], Xp[NC], Y[NC], X2[NC], Y2[NC], H[NC], Sc[NC],
           SL[NC], SH[NC];
+      // SPL: the position's donor byte in the top byte, its acceptor byte
+      // below it
+      int DA[SPL ? NC : 1];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int t = t0 + 32 * c + lane;
@@ -363,6 +391,10 @@ band_fwd_kernel(const BandArgs A) {
         X2[c] = Y2[c] = init2S;
         H[c] = NEG;
         Sc[c] = 0;
+        if (SPL)
+          DA[c] = t < A.Lt ? (int)((unsigned)(uint8_t)A.don[bL + t] << 24 |
+                                   (unsigned)(uint8_t)A.acc[bL + t] << 16)
+                           : 0;
         if (SC == SCMAT) {
           SL[c] = T * A.m;
           SH[c] = 0;
@@ -462,7 +494,7 @@ band_fwd_kernel(const BandArgs A) {
           }
           // the first column (the j == 0 cell at t == r): q one-piece;
           // the two-piece switch at long_thres (ksw2_extd2_sse.c:156-163)
-          const int colv = !TWO ? (r ? q : 0)
+          const int colv = !SGN ? (r ? q : 0)
                                 : r == 0 ? -qe
                                          : r < A.lt ? -e
                                                     : r == A.lt ? A.ld : -A.e2;
@@ -520,7 +552,7 @@ band_fwd_kernel(const BandArgs A) {
               const bool l0 = lane == 0;
               const int sX = __shfl_sync(FULL, Xp[c], src);
               const int sV = __shfl_sync(FULL, V[c], src);
-              const int sX2 = TWO ? __shfl_sync(FULL, X2[c], src) : 0;
+              const int sX2 = SGN ? __shfl_sync(FULL, X2[c], src) : 0;
               const int sH = APPROX ? 0 : __shfl_sync(FULL, H[c], src);
               const int Xm = l0 ? cX : sX, Vm = l0 ? cV : sV;
               const int X2m = l0 ? cX2 : sX2, Hm = l0 ? cH : sH;
@@ -546,7 +578,7 @@ band_fwd_kernel(const BandArgs A) {
               const int Yc = !IN && t == r ? initS : Y[c];
               int a = wadd(X1, V1), bb = wadd(Yc, Uc);
               int d, un, vn;
-              if (!TWO) {
+              if (!SGN) {
                 const int zz = wadd(top(Sv), twoqeS);
                 d = RIGHT ? (zz > a ? 0 : DIR_E) : (a > zz ? DIR_E : 0);
                 int z = max(zz, a);
@@ -563,7 +595,7 @@ band_fwd_kernel(const BandArgs A) {
                 d |= (ta ? DIR_E_CONT : 0) | (tb ? DIR_F_CONT : 0);
                 Xp[c] = inb ? max(a, 0) : Xp[c];
                 Y[c] = inb ? max(bb, 0) : Y[c];
-              } else {
+              } else if (TWO) {
                 const int Y2c = !IN && t == r ? init2S : Y2[c];
                 int a2 = wadd(X21, V1), b2 = wadd(Y2c, Uc);
                 int z = top(Sv);
@@ -593,6 +625,36 @@ band_fwd_kernel(const BandArgs A) {
                 Y[c] = inb ? wsub(max(bb, 0), qeS) : Y[c];
                 X2[c] = inb ? wsub(max(a2, 0), qe2S) : X2[c];
                 Y2[c] = inb ? wsub(max(b2, 0), qe2S) : Y2[c];
+              } else {
+                // exts (ksw2_exts2_sse.c): the intron candidate a2 +
+                // acceptor beside a and b, no clamp of z; x2' = max(a2',
+                // donor) - q2
+                const int dnS = DA[c] & (int)0xff000000;
+                const int acS = DA[c] << 8;
+                int a2 = wadd(X21, V1);
+                int z = top(Sv);
+                d = 0;
+                const int cand[3] = {a, bb, wadd(a2, acS)};
+#pragma unroll
+                for (int i = 0; i < 3; ++i) {
+                  d = RIGHT ? (z > cand[i] ? d : i + 1)
+                            : (cand[i] > z ? i + 1 : d);
+                  z = max(z, cand[i]);
+                }
+                un = wsub(z, V1);
+                vn = wsub(z, Uc);
+                const int t1 = wsub(z, qS);
+                a = wsub(a, t1);
+                bb = wsub(bb, t1);
+                a2 = wsub(a2, wsub(z, q2S));
+                const bool ca = RIGHT ? a >= 0 : a > 0;
+                const bool cb_ = RIGHT ? bb >= 0 : bb > 0;
+                const bool cd = RIGHT ? a2 >= dnS : a2 > dnS;
+                d |= (ca ? DIR_E_CONT : 0) | (cb_ ? DIR_F_CONT : 0) |
+                     (cd ? DIR_N_CONT : 0);
+                Xp[c] = inb ? wsub(max(a, 0), qeS) : Xp[c];
+                Y[c] = inb ? wsub(max(bb, 0), qeS) : Y[c];
+                X2[c] = inb ? wsub(max(a2, dnS), q2S) : X2[c];
               }
               U[c] = inb ? un : U[c];
               V[c] = inb ? vn : V[c];
@@ -603,10 +665,10 @@ band_fwd_kernel(const BandArgs A) {
                 // seeded with 2 (q + e) one-piece, the PRE-swap q + e
                 // two-piece
                 const bool inh = IN || (unsigned)rel <= (unsigned)(en0 - st0);
-                const int vv = TWO ? vn >> 24 : (int)((unsigned)vn >> 24);
-                const int uu = TWO ? un >> 24 : (int)((unsigned)un >> 24);
-                const int sub = TWO ? 0 : qe;
-                const int h = !IN && r == 0 ? vv - (TWO ? A.qe_pre : 2 * qe)
+                const int vv = SGN ? vn >> 24 : (int)((unsigned)vn >> 24);
+                const int uu = SGN ? un >> 24 : (int)((unsigned)un >> 24);
+                const int sub = SGN ? 0 : qe;
+                const int h = !IN && r == 0 ? vv - (SGN ? A.qe_pre : 2 * qe)
                               : IN || t < en0 || en0 == 0 ? H[c] + vv - sub
                                                           : Hm + uu - sub;
                 H[c] = inh ? h : H[c];
@@ -666,7 +728,7 @@ band_fwd_kernel(const BandArgs A) {
             // that holds the walk's next cell takes the step
             if (r == 0) {
               const int v0 = __shfl_sync(FULL, V[0], 0);
-              H0 = TWO ? (v0 >> 24) - A.qe_pre
+              H0 = SGN ? (v0 >> 24) - A.qe_pre
                        : (int)((unsigned)v0 >> 24) - 2 * qe;
               lt = 0;
               known = 0;
@@ -690,7 +752,7 @@ band_fwd_kernel(const BandArgs A) {
                   int d0 = 0, d1 = 0;
                   if (c1) d0 = lt >= t0 ? tile_pick<NC>(V, lt - t0) : bvn;
                   if (c2) d1 = tile_pick<NC>(U, lt + 1 - t0);
-                  if (TWO) {
+                  if (SGN) {
                     d0 >>= 24;
                     d1 >>= 24;
                   } else {
@@ -721,7 +783,7 @@ band_fwd_kernel(const BandArgs A) {
           // x, v (and x2) bytes and H
           if (feeds && lane == 31)
             S.sedge[rr] = make_int2(
-                TWO ? __byte_perm(__byte_perm(Xp[NC - 1], V[NC - 1], 0x0073),
+                SGN ? __byte_perm(__byte_perm(Xp[NC - 1], V[NC - 1], 0x0073),
                                   X2[NC - 1], 0x2710)
                     : __byte_perm(Xp[NC - 1], V[NC - 1], 0x0073),
                 H[NC - 1]);
@@ -783,7 +845,7 @@ band_fwd_kernel(const BandArgs A) {
     // reference's r - en rounding), the score and the stop, in order, a
     // group of KD diagonals a round; APPROX_DROP from diagonal 1
     // one-piece, 0 two-piece
-    const int ez = TWO ? A.e2 : A.e;
+    const int ez = SGN ? A.e2 : A.e;
     const int ndb = qlen + tlen - 1;
     int mx = 0, mt = -1, mq = -1, mqe = NEG, mqet = -1, mte = NEG, mteq = -1;
     int score = NEG, zd = 0, stop = rlim;
@@ -848,7 +910,7 @@ band_fwd_kernel(const BandArgs A) {
         } else {
           const int h0 = (int)(key >> 32);
           const int t = (int)(unsigned)(key & 0xffffffffLL);
-          if (A.adrop && (TWO || r > 0)) drop = zdrop_apply(r, h0, t);
+          if (A.adrop && (SGN || r > 0)) drop = zdrop_apply(r, h0, t);
           fin = h0;
         }
         if (drop) {
@@ -894,54 +956,73 @@ band_fwd_kernel(const BandArgs A) {
   }
 }
 
-template <bool TWO, bool CIG, bool APPROX, int NC, bool RIGHT, int SC>
+template <int MODE, bool CIG, bool APPROX, int NC, bool RIGHT, int SC>
 cudaError_t launch(const BandArgs& a, int B, cudaStream_t stream) {
   const size_t smem = band_smem_bytes<32 * NC, SC>(a.NW, a.RING, a.m);
   cudaError_t err = cudaFuncSetAttribute(
-      band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT, SC>,
+      band_fwd_kernel<MODE, CIG, APPROX, NC, RIGHT, SC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  band_fwd_kernel<TWO, CIG, APPROX, NC, RIGHT, SC>
+  band_fwd_kernel<MODE, CIG, APPROX, NC, RIGHT, SC>
       <<<B, 32 * (a.NW + 1), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // RIGHT changes only the direction bytes: score launches take one form;
 // tiles of 128 (NC 4) take score launches only
-template <bool TWO, int NC, int SC>
+template <int MODE, int NC, int SC>
 cudaError_t launch_forms(const BandArgs& a, int cig, int approx, int right,
                          int B, cudaStream_t stream) {
   if constexpr (NC < 4) {
     if (cig && right)
-      return approx ? launch<TWO, true, true, NC, true, SC>(a, B, stream)
-                    : launch<TWO, true, false, NC, true, SC>(a, B, stream);
+      return approx ? launch<MODE, true, true, NC, true, SC>(a, B, stream)
+                    : launch<MODE, true, false, NC, true, SC>(a, B, stream);
     if (cig)
-      return approx ? launch<TWO, true, true, NC, false, SC>(a, B, stream)
-                    : launch<TWO, true, false, NC, false, SC>(a, B, stream);
+      return approx ? launch<MODE, true, true, NC, false, SC>(a, B, stream)
+                    : launch<MODE, true, false, NC, false, SC>(a, B, stream);
   }
-  return approx ? launch<TWO, false, true, NC, false, SC>(a, B, stream)
-                : launch<TWO, false, false, NC, false, SC>(a, B, stream);
+  return approx ? launch<MODE, false, true, NC, false, SC>(a, B, stream)
+                : launch<MODE, false, false, NC, false, SC>(a, B, stream);
 }
 
 // tiles of 32 (m <= 8 only), 64 or 128
-template <bool TWO, int SC>
+template <int MODE, int SC>
 cudaError_t launch_tiles(const BandArgs& a, int cig, int approx, int right,
                          int TP, int B, cudaStream_t stream) {
   if (TP == 128)
-    return launch_forms<TWO, 4, SC>(a, cig, approx, right, B, stream);
+    return launch_forms<MODE, 4, SC>(a, cig, approx, right, B, stream);
   if constexpr (SC == SC8) {
     if (TP == 32)
-      return launch_forms<TWO, 1, SC>(a, cig, approx, right, B, stream);
+      return launch_forms<MODE, 1, SC>(a, cig, approx, right, B, stream);
   }
-  return launch_forms<TWO, 2, SC>(a, cig, approx, right, B, stream);
+  return launch_forms<MODE, 2, SC>(a, cig, approx, right, B, stream);
 }
 
-template <bool TWO>
+template <int MODE>
 cudaError_t launch_two(const BandArgs& a, int cig, int approx, int right,
                        int TP, int B, cudaStream_t stream) {
   return a.m <= 8
-             ? launch_tiles<TWO, SC8>(a, cig, approx, right, TP, B, stream)
-             : launch_tiles<TWO, SCMAT>(a, cig, approx, right, TP, B, stream);
+             ? launch_tiles<MODE, SC8>(a, cig, approx, right, TP, B, stream)
+             : launch_tiles<MODE, SCMAT>(a, cig, approx, right, TP, B,
+                                         stream);
+}
+
+// 0 when a launch's layout (TP, NW, RING) and its block's shared memory
+// fit the kernel, else the error the C entries return
+int check_layout(int B, int m, int TP, int NW, int RING, int cig, int ncol,
+                 const void* p) {
+  if (B <= 0 || (TP != 32 && TP != 64 && TP != 128) ||
+      (TP == 128 && cig) || (TP == 32 && m > 8) || m < 1 || NW < 2 ||
+      NW > MAX_NW || RING < (NW + 2) * KD || (RING & (RING - 1)) ||
+      ncol % 16 || (cig && p == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      m <= 8 ? (TP == 128  ? band_smem_bytes<128, SC8>(NW, RING, m)
+                : TP == 64 ? band_smem_bytes<64, SC8>(NW, RING, m)
+                           : band_smem_bytes<32, SC8>(NW, RING, m))
+             : (TP == 128 ? band_smem_bytes<128, SCMAT>(NW, RING, m)
+                          : band_smem_bytes<64, SCMAT>(NW, RING, m));
+  return smem > 232448 ? (int)cudaErrorInvalidValue : 0;
 }
 
 }  // namespace
@@ -958,23 +1039,40 @@ extern "C" int ksw2t_band_fwd(
     int sc_mis, int sc_N, int zdrop, int right, int generic, int approx,
     int adrop, int cig, int two, int nd, int ncol, int TP, int NW, int RING,
     void* rec, void* p, void* stream) {
-  if (B <= 0 || (TP != 32 && TP != 64 && TP != 128) || (TP == 128 && cig) ||
-      (TP == 32 && m > 8) || m < 1 || NW < 2 || NW > MAX_NW ||
-      RING < (NW + 2) * KD || (RING & (RING - 1)) || ncol % 16 ||
-      (cig && p == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      m <= 8 ? (TP == 128  ? band_smem_bytes<128, SC8>(NW, RING, m)
-                : TP == 64 ? band_smem_bytes<64, SC8>(NW, RING, m)
-                           : band_smem_bytes<32, SC8>(NW, RING, m))
-             : (TP == 128 ? band_smem_bytes<128, SCMAT>(NW, RING, m)
-                          : band_smem_bytes<64, SCMAT>(NW, RING, m));
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  if (const int err = check_layout(B, m, TP, NW, RING, cig, ncol, p))
+    return err;
   BandArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
              (const int*)tlen, (const int*)w, (const int*)table, Lq, Lt, m,
              q, e, q2, e2, qe_pre, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
-             generic, adrop, nd, ncol, NW, RING, (int*)rec, (uint8_t*)p};
+             generic, adrop, nd, ncol, NW, RING, (int*)rec, (uint8_t*)p,
+             nullptr, nullptr};
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(two ? launch_two<true>(a, cig, approx, right, TP, B, st)
-                   : launch_two<false>(a, cig, approx, right, TP, B, st));
+  return (int)(two ? launch_two<TWO_PIECE>(a, cig, approx, right, TP, B, st)
+                   : launch_two<ONE>(a, cig, approx, right, TP, B, st));
+}
+
+// Kernel 6's wide form (SPL, counted as batch_exts_fwd): the exts
+// recurrence with the donor and acceptor rows (int8, Lt a pair), on tiles
+// of 64 (ops/batch_exts.py:exts_wide_layout).  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int ksw2t_band_exts_fwd(
+    const void* qs, const void* ts, const void* qlen, const void* tlen,
+    const void* w, const void* table, const void* don, const void* acc,
+    int B, int Lq, int Lt, int m, int q, int e, int q2, int lt, int ld,
+    int sc_mch, int sc_mis, int sc_N, int zdrop, int right, int generic,
+    int approx, int adrop, int cig, int nd, int ncol, int TP, int NW,
+    int RING, void* rec, void* p, void* stream) {
+  if (TP != 64) return (int)cudaErrorInvalidValue;
+  if (const int err = check_layout(B, m, TP, NW, RING, cig, ncol, p))
+    return err;
+  BandArgs a{(const uint8_t*)qs, (const uint8_t*)ts, (const int*)qlen,
+             (const int*)tlen, (const int*)w, (const int*)table, Lq, Lt, m,
+             q, e, q2, 0, q + e, lt, ld, sc_mch, sc_mis, sc_N, zdrop,
+             generic, adrop, nd, ncol, NW, RING, (int*)rec, (uint8_t*)p,
+             (const signed char*)don, (const signed char*)acc};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(m <= 8 ? launch_forms<SPL_MODE, 2, SC8>(a, cig, approx, right,
+                                                       B, st)
+                      : launch_forms<SPL_MODE, 2, SCMAT>(a, cig, approx,
+                                                         right, B, st));
 }

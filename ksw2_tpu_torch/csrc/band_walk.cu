@@ -10,9 +10,9 @@
 // i < st(r) and 1 when i > en(r).  st(r) and en(r), the 16-rounded band
 // bounds, are recomputed in closed form from (r, qlen, tlen, w), so no
 // offset arrays are stored.  The per-byte state step is common.cuh's;
-// with min_intron > 0 state 3 emits N (the splice bytes of
-// batch_exts_fwd.cu, min_intron_len = long_thres, traceback_band.py:46,
-// 128).  It emits BAM runs `len << 4 | op` in walk order plus (i_end,
+// with min_intron > 0 state 3 emits N (the splice bytes of kernel 6,
+// batch_fwd.cu's or band_fwd.cu's SPL form, min_intron_len = long_thres,
+// traceback_band.py:46, 128).  It emits BAM runs `len << 4 | op` in walk order plus (i_end,
 // j_end, run count) into qlen + tlen + 2 entries per pair, so it cannot
 // overflow; the host adds the tail runs, merges and reverses
 // (ops/strips_walker.py:finish_runs_batch).

@@ -79,8 +79,9 @@
 // or falls more than zdrop below it, so the warp skips the lane rank on
 // the other diagonals.  CPL is 16 (W = 512: the splice launches' n_col
 // of 320 needs more than E's 256); ops/batch_exts.py:exts_form gives
-// launches the window cannot hold (n_col > 464) kernel 6's strip form,
-// batch_exts_fwd.cu.
+// launches the window cannot hold (n_col > 464), and alphabets of more
+// than 8 symbols, kernel 6's wide form: band_fwd.cu's block a pair in its
+// SPL mode.
 //
 // The wide form takes launches whose band is wider than the window
 // (unbanded pairs up to 1536 bp CIGARs, 3072 scores) or m > 8: the band

@@ -1,6 +1,6 @@
 // Definitions shared by the strips forward (strips_fwd.cu), the rows
-// forward (rows_fwd.cu), the band forward (band_fwd.cu), the batched exts
-// forward (batch_exts_fwd.cu), the single-pair forwards (extz_fwd.cu,
+// forward (rows_fwd.cu), the band forward (band_fwd.cu, which is also
+// kernel 6's wide form), the single-pair forwards (extz_fwd.cu,
 // lg_fwd.cu) and the walkers (strips_walk.cu, band_walk.cu,
 // extz_walk.cu): the record sentinel, the virtual column boundaries, the
 // SSE merge-order tie key, the direction-byte codes, ksw_backtrack's

@@ -27,8 +27,8 @@
 // the donor and acceptor rows each tile reads for its own positions, no
 // per-cell clamp, H without offsets and Z-drop with no gap slope; exts
 // has no band, so the caller passes w = max(qlen, tlen), whose rounded
-// band is the whole matrix.  Their recurrences are band_fwd.cu's TWO form
-// and batch_exts_fwd.cu's; the plain versions are ops/extd.py:
+// band is the whole matrix.  Their recurrences are band_fwd.cu's TWO and
+// SPL forms; the plain versions are ops/extd.py:
 // extd_forward_plain and ops/exts.py:exts_forward_plain.
 //
 // Layout: the target axis of a pair is cut into tiles of TP positions
@@ -401,8 +401,8 @@ __global__ void __launch_bounds__(32) extz_fwd_kernel(const FwdArgs A) {
           X2[c] = inb ? w8(max(a2, 0) - qe2) : X2[c];
           Y2[c] = inb ? w8(max(b2, 0) - qe2) : Y2[c];
         } else {
-          // batch_exts_fwd.cu's recurrence (ksw2_exts2_sse.c): the
-          // intron candidate with the acceptor, no clamp of z
+          // kernel 6's recurrence (ksw2_exts2_sse.c): the intron
+          // candidate with the acceptor, no clamp of z
           const int Dn = DN[c];
           int a2 = w8(X21 + V1);
           const int cand[3] = {a, bb, w8(a2 + AC[c])};

@@ -138,9 +138,9 @@ def window_base(st: int) -> int:
 
 
 def strip_len(Lt: int) -> int:
-    """Positions of a warp's state strip of the batched kernels 6, 7 and
-    8: the 16-rounded band and the score fill's overshoot of at most 15
-    past the last target position, rounded to the 32 lanes."""
+    """Positions of a warp's state strip of the batched kernels 7 and 8's
+    strip forms: the 16-rounded band and the score fill's overshoot of at
+    most 15 past the last target position, rounded to the 32 lanes."""
     return round_up(Lt + 16, 32)
 
 

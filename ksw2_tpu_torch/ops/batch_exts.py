@@ -26,10 +26,10 @@ The forward has two implementations: kernel 6 for CUDA tensors and
 that :func:`exts_form` picks on the host from a launch's ``ncol`` and
 ``m``: the register form (kernel E's register kernel in ``csrc/
 batch_fwd.cu`` in its ``SPL`` mode: one warp a pair, a window of 512
-target positions in its registers, 16 a lane) and the strip form
-(``csrc/batch_exts_fwd.cu``: one warp a pair, its state in a
-shared-memory strip as long as the target) for launches whose ``ncol``
-the window cannot hold.  Everything around them
+target positions in its registers, 16 a lane) and the wide form (the
+band forward's block a pair, ``csrc/band_fwd.cu`` in its ``SPL`` mode, at
+:func:`exts_wide_layout`) for launches whose ``ncol`` the window cannot
+hold and for alphabets of more than 8 symbols.  Everything around them
 is the band route's: a launch is a ``band.BandLaunch`` that carries its
 donor and acceptor rows (``sites``), and ``band.band_records`` /
 ``band_walker.band_cigar_launch`` run it with this pair as the forward
@@ -49,9 +49,11 @@ import torch
 from .._build import LAUNCHES, check, library
 from ..core.flags import NEG_INF, Flag
 from ..core.result import ExtzResult
-from .band import BandLaunch, KT, _w8, band_records, beyond, split_launches
+from .band import (BandLaunch, KT, _w8, band_layout, band_records, beyond,
+                   fwd_smem_bytes, split_launches)
 from .band_walker import band_cigar_launch
-from .batch import LT_CIGARS, MAX_WARPS, REG_M, WINDOW_SLACK, strip_len
+from .batch import (LT_CIGARS, MAX_WARPS, REG_M, WIDE_NW_MAX, WIDE_TILES,
+                    WINDOW_SLACK)
 from .splice import pad_juncs, splice_profiles
 from .strips import SMEM_MAX, _check_cuda, long_params
 from .strips_walker import unpack_cigars
@@ -142,7 +144,7 @@ def batch_exts_prep(query, target, qlen, tlen, m, mat, q, e, q2, noncan,
 def batch_exts_forward_plain(qs, ts, qlen, tlen, w, table, don, acc,
                              prm: ExtsParams, nd: int, ncol: int,
                              with_stop: bool = False):
-    """Plain PyTorch version of ``csrc/batch_exts_fwd.cu``: the exts2
+    """Plain PyTorch version of kernel 6 (both forms): the exts2
     recurrence, one Python step per anti-diagonal, batched over the pairs
     on full-length state rows.  The arguments are ``band.band_upload``'s
     (``w`` is the walker's and unused here), then ``prm, nd, ncol``.
@@ -363,23 +365,30 @@ EXTS_CPL = 16              # the register form's positions a lane (W 512)
 def exts_form(ncol: int, m: int) -> int:
     """Kernel 6's form for a launch of ``ncol`` bytes a stored diagonal
     and an alphabet of ``m``: the positions a lane holds in the register
-    form (``EXTS_CPL``), or 0 for the strip form.  The window holds every
+    form (``EXTS_CPL``), or 0 for the wide form.  The window holds every
     position a diagonal reads or fills while ``ncol + 48 <= 512``,
     as ``ops.batch.batch_form`` shows for kernel E (exts has no band:
     ``ncol`` is ``n_col_bytes`` of min(qlen, tlen)).  The splice route's
     launches take the register form up to ncol 464 (pairs whose shorter
     side is under about 448 bp; the annotated splice workload's ncol is
-    320), then the strip form."""
+    320), then the wide form (splice-wide's 896, up to the route's
+    1552)."""
     if m > REG_M or ncol + WINDOW_SLACK > 32 * EXTS_CPL:
         return 0
     return EXTS_CPL
 
 
-def warp_smem_bytes(Lt: int) -> int:
-    """Shared memory of one warp (one pair) of ``csrc/batch_exts_fwd.cu``:
-    the int32 H row, the int8 u, v, x, y, x2, the score bytes, the target
-    and the donor and acceptor bytes, each ``strip_len(Lt)`` long."""
-    return strip_len(Lt) * 13
+def exts_wide_layout(ncol: int):
+    """The wide form's ``(tp, nw, ring)`` for a launch of ``ncol`` bytes a
+    stored diagonal, score and CIG alike: E's wide form's CIG layout
+    (``ops.batch.wide_layout``), ``band.band_layout``'s rule (a tile's
+    first diagonal comes after the last of the tile ``nw`` before it; an
+    exts pair is unbanded) on tiles of 64 positions with up to
+    ``WIDE_NW_MAX`` (26) compute warps, so ``ncol`` <= 1602 (the route's
+    widest is 1552, 26 warps).  A block is ``nw + 1`` warps, the replay
+    warp included.  Raises ``ValueError`` for an ``ncol`` it cannot
+    take."""
+    return band_layout(ncol, WIDE_TILES[:1], WIDE_NW_MAX)
 
 
 def _exts_check(qs, ts, qlen, tlen, w, table, don, acc, prm: ExtsParams,
@@ -412,7 +421,7 @@ def batch_exts_forward_cuda(qs, ts, qlen, tlen, w, table, don, acc,
                             prm: ExtsParams, nd: int, ncol: int):
     """Launch kernel 6 on the current stream in the form :func:`exts_form`
     gives the launch (the register form in ``csrc/batch_fwd.cu``, else
-    the strip form, :func:`batch_exts_wide_cuda`); the contract of
+    the wide form, :func:`batch_exts_wide_cuda`); the contract of
     :func:`batch_exts_forward_plain`.  Nothing here reads the device; a
     pair whose rounded diagonal outgrows ``ncol`` traps in the kernel."""
     if not exts_form(ncol, prm.m):
@@ -443,27 +452,32 @@ def batch_exts_forward_cuda(qs, ts, qlen, tlen, w, table, don, acc,
 
 def batch_exts_wide_cuda(qs, ts, qlen, tlen, w, table, don, acc,
                          prm: ExtsParams, nd: int, ncol: int):
-    """Launch kernel 6's strip form (``csrc/batch_exts_fwd.cu``) on the
-    current stream: the form of launches whose ``ncol`` the register
-    window cannot hold (:func:`exts_form` 0), any ``ncol`` up to the
-    route's targets of 1536."""
+    """Launch kernel 6's wide form (``csrc/band_fwd.cu``'s block a pair in
+    its ``SPL`` mode, at :func:`exts_wide_layout`) on the current stream:
+    the form of launches whose ``ncol`` the register window cannot hold
+    (:func:`exts_form` 0), any ``ncol`` up to the route's 1552 and any
+    ``m``.  Raises ``ValueError`` before the launch for an ``ncol`` the
+    layout cannot take or a block whose shared memory does not fit."""
     _exts_check(qs, ts, qlen, tlen, w, table, don, acc, prm, ncol)
     B, Lq = qs.shape
     Lt = ts.shape[1]
     dev = qs.device
-    warps = min(MAX_WARPS, SMEM_MAX // warp_smem_bytes(Lt))
+    tp, nw, ring = exts_wide_layout(ncol)
+    smem = fwd_smem_bytes(tp, nw, ring, prm.m)
+    if smem > SMEM_MAX:
+        raise ValueError(f"launch needs {smem} B of shared memory")
     rec = torch.empty((B, 9), dtype=torch.int32, device=dev)
     p = (torch.zeros((B, nd, ncol), dtype=torch.uint8, device=dev)
          if prm.cig else None)
     lib = library()
     # the C entry launches on the current device: make it the tensors'
     with torch.cuda.device(dev):
-        err = lib.ksw2t_batch_exts_fwd(
+        err = lib.ksw2t_band_exts_fwd(
             qs.data_ptr(), ts.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-            table.data_ptr(), don.data_ptr(), acc.data_ptr(), B, Lq, Lt,
-            prm.m, prm.q, prm.e, prm.q2, prm.lt, prm.ld, prm.sc_mch,
-            prm.sc_mis, prm.sc_N, prm.zdrop, *_flags(prm), prm.cig, nd,
-            ncol, strip_len(Lt), warps, rec.data_ptr(),
+            w.data_ptr(), table.data_ptr(), don.data_ptr(), acc.data_ptr(),
+            B, Lq, Lt, prm.m, prm.q, prm.e, prm.q2, prm.lt, prm.ld,
+            prm.sc_mch, prm.sc_mis, prm.sc_N, prm.zdrop, *_flags(prm),
+            prm.cig, nd, ncol, tp, nw, ring, rec.data_ptr(),
             p.data_ptr() if p is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     check(err, "batch_exts_fwd")
@@ -495,6 +509,7 @@ def unpack_exts_cigars(launch: BandLaunch, rec: np.ndarray, res: np.ndarray,
 
 __all__ = ["ExtsParams", "batch_exts_ineligible_reason",
            "batch_exts_resets", "make_exts_params", "batch_exts_prep",
-           "batch_exts_forward_plain", "exts_form", "batch_exts_forward_cuda",
-           "batch_exts_wide_cuda", "warp_smem_bytes", "batch_exts_records",
+           "batch_exts_forward_plain", "exts_form", "exts_wide_layout",
+           "batch_exts_forward_cuda", "batch_exts_wide_cuda",
+           "batch_exts_records",
            "batch_exts_cigar_launch", "unpack_exts_cigars"]

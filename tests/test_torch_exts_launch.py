@@ -1,10 +1,11 @@
-"""Kernel 6's register form, modelled.
+"""Kernel 6's register form, modelled, and its wide form's layout.
 
 Kernel 6 (the batched exts forward of the splice route) has two forms
 that ``ops.batch_exts.exts_form`` picks from a launch's ``ncol``: the
 register form, kernel E's register kernel in ``csrc/batch_fwd.cu`` in
-its ``SPL`` mode, and the strip form ``csrc/batch_exts_fwd.cu`` for
-launches the window cannot hold.  The register form keeps a pair's state
+its ``SPL`` mode, and the wide form, the band forward's block a pair
+(``csrc/band_fwd.cu`` in its ``SPL`` mode) at ``exts_wide_layout``, for
+launches the window cannot hold and alphabets of more than 8 symbols.  The register form keeps a pair's state
 in a window of ``32 * cpl`` target positions (cpl 16: 512 positions),
 lane l holding positions base + cpl l .. base + cpl l + cpl - 1 in
 registers, base = ``window_base(st)``: the planes u, v, x, y and
@@ -38,7 +39,11 @@ launch, on the edge cases of ``chip_smoke.splice_cases`` (RIGHT,
 SPLICE_REV with SPLICE_FLANK, GENERIC_SC, junction tracks with
 junc_bonus 9, APPROX, Z-drop -1 / 30 / 200), on Z-drops at a group's
 edges and on launches at the form's window edges.  The host's form rule
-is tested for every ``ncol`` the splice route can send.
+is tested for every ``ncol`` the splice route can send, and so is the
+wide form's layout: tiles of 64 positions and at most 26 compute warps
+(the band kernel's bound), shared memory within a block's, a warp's next
+tile starting after its last ends on the widest unbanded pairs of each
+``ncol``; an ``ncol`` it cannot take raises before any launch.
 """
 import numpy as np
 import pytest
@@ -52,6 +57,7 @@ from ksw2_tpu_torch.core.flags import Flag
 from ksw2_tpu_torch.ops import band as BD
 from ksw2_tpu_torch.ops import batch as BT
 from ksw2_tpu_torch.ops import batch_exts as BE
+from ksw2_tpu_torch.ops.strips import SMEM_MAX
 from ksw2_tpu_torch.ops.bands import n_col_bytes
 
 torch.set_num_threads(1)
@@ -427,7 +433,7 @@ def _small():
 def test_model_splice_cases(form):
     """The smoke run's small splice cases (phase 5d): every kernel-6
     launch of the register form equals the plain twin; the launches the
-    window cannot hold take the strip form."""
+    window cannot hold take the wide form."""
     _, flag, zdrop, junc, mat = form
     small, tracks = _small()
     mat = CS._generic_mat() if mat else None
@@ -478,7 +484,7 @@ def test_model_drops_at_group_edges(flag):
 
 # shorter sides at the register form's edges and below: ncol 208 and 224
 # (a window three parts idle), 464 (W - 48, the last the form takes), 480
-# (W - 32: the strip form)
+# (W - 32: the wide form)
 EDGES = [(192, 208, 16), (193, 224, 16), (448, 464, 16), (449, 480, 0)]
 
 
@@ -502,9 +508,10 @@ def test_model_at_window_edges(M, ncol, cpl):
 
 def test_form_rule_for_every_ncol():
     """``exts_form`` for every ncol the splice route can send (shorter
-    sides of 1-1536 bp): cpl 16 up to 464, then the strip form; every pair of such a launch keeps en0 + 15 and st - 1 inside
-    the window on every diagonal (pairs at the widest M of their ncol,
-    either side shorter, and a square one); m > 8 takes the strip form."""
+    sides of 1-1536 bp): cpl 16 up to 464, then the wide form; every
+    pair of such a launch keeps en0 + 15 and st - 1 inside the window on
+    every diagonal (pairs at the widest M of their ncol, either side
+    shorter, and a square one); m > 8 takes the wide form."""
     seen = {}
     for M in range(1, 1537):
         ncol = n_col_bytes(M, M, 2 * M)
@@ -539,3 +546,95 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     rec = BE.batch_exts_records(ln, "cpu")
     assert torch.equal(rec, BE.batch_exts_forward_plain(
         *args, ln.prm, ln.nd, ln.ncol)[0])
+
+
+# ------------------------------------------------------------ wide form
+
+
+def _tile_first(t0, w):
+    """band_fwd.cu's ``tile_first``."""
+    if t0 == 0:
+        return 0
+    x = t0 - 15
+    return max(x, 2 * x - w)
+
+
+def _tile_last(t0, tp, qlen, w, rlim):
+    """band_fwd.cu's ``tile_last``."""
+    X = t0 + tp - 1
+    return min(rlim - 1, X + qlen - 1, 2 * X + w)
+
+
+def _tile_rule_holds(qlen, tlen, tp, nw):
+    """A warp's next tile (nw on) starts after its tile's last diagonal,
+    for every tile of an unbanded exts pair (w = qlen + tlen)."""
+    w = qlen + tlen
+    rlim = qlen + tlen - 1
+    ntiles = -(-(tlen + 15) // tp)
+    for k in range(ntiles - nw):
+        nxt = (k + nw) * tp
+        first = _tile_first(nxt, w)
+        if first <= _tile_last(nxt, tp, qlen, w, rlim) and \
+                first <= _tile_last(k * tp, tp, qlen, w, rlim):
+            return False
+    return True
+
+
+def test_wide_layout_every_ncol():
+    """For every ``ncol`` kernel 6's wide form can be given (m > 8 sends
+    any ncol there; the splice route's 480 ... 1552 by its form rule),
+    score and CIG launches alike: tiles of 64 positions, 2-26 compute
+    warps and the replay warp (at most 864 threads, the band kernel's
+    bound), a ring of at least (nw + 2) groups, shared memory within a
+    block's with either score table (m 5: registers; 12 and 255: the
+    shared byte matrix), and the tile rule for the widest pairs of that
+    ``ncol`` (square and lopsided, either side shorter, up to 1536)."""
+    seen = {}
+    for M in range(1, 1537):
+        seen[n_col_bytes(M, M, 2 * M)] = M
+    assert [n for n in seen if n >= 480][:2] == [480, 496]
+    for ncol, M in seen.items():
+        tp, nw, ring = BE.exts_wide_layout(ncol)
+        assert tp == 64 and tp == BT.wide_layout(ncol, True)[0]
+        assert 2 <= nw <= BT.WIDE_NW_MAX == 26 and 32 * (nw + 1) <= 864
+        assert ring >= (nw + 2) * BD.KD and ring & (ring - 1) == 0
+        for m in (5, 12, 255):
+            assert BD.fwd_smem_bytes(tp, nw, ring, m) <= SMEM_MAX
+        for qlen, tlen in ((M, M), (M, 1536), (1536, M), (M, M + 7)):
+            assert n_col_bytes(qlen, tlen, qlen + tlen) <= ncol
+            assert _tile_rule_holds(qlen, tlen, tp, nw), (ncol, qlen, tlen)
+    assert BE.exts_wide_layout(1552)[1] == 26
+    assert BE.exts_wide_layout(896)[:2] == (64, 15)
+    with pytest.raises(ValueError, match="ncol"):
+        BE.exts_wide_layout(1616)
+
+
+def test_route_widest_launch_takes_the_wide_form():
+    """The splice route's widest launches (1536 bp each side, score and
+    CIG) reach ncol 1552, which the wide form lays out; a target of 1537
+    leaves the batched exts route."""
+    rng = np.random.default_rng(72)
+    t = rng.integers(0, 4, 1537).astype(np.uint8)
+    pairs = [(t[:1536], t[:1536]), (t[:700], t[:1536])]
+    for flag in (SPL, SPL | SO):
+        lns = _launches(pairs, flag, _empty_tracks(pairs), 0, 200)
+        assert max(ln.ncol for ln in lns) == 1552
+        for ln in lns:
+            assert BE.exts_form(ln.ncol, 5) == 0
+            BE.exts_wide_layout(ln.ncol)
+    assert BE.batch_exts_ineligible_reason(1537, SPL) is not None
+
+
+def test_wide_wrapper_raises_before_the_launch(monkeypatch):
+    """A launch whose ncol the wide form cannot lay out raises ValueError
+    in the wrapper, before the library is loaded or anything launches."""
+    spl = CS.splice_jobs(n=2)
+    (ln,) = _launches(spl, SPL, _empty_tracks(spl))
+    args = BD.band_upload(ln, "cpu")
+
+    def no_library():
+        raise AssertionError("the wrapper reached the launch")
+    monkeypatch.setattr(BE, "_exts_check", lambda *a: None)
+    monkeypatch.setattr(BE, "library", no_library)
+    with pytest.raises(ValueError, match="ncol 1616"):
+        BE.batch_exts_wide_cuda(*args, ln.prm, ln.nd, 1616)

@@ -204,7 +204,14 @@ def test_walk_kernel_on_7bit_bytes_matches_plain(cuda_device, costs, flag):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [50, 51])
-def test_rows_kernel_matches_plain_and_strips(cuda_device, seed):
+@pytest.mark.parametrize("flag,zdrop", [
+    (Flag.SCORE_ONLY, 100), (Flag.SCORE_ONLY, -1),
+    (Flag.SCORE_ONLY | Flag.GENERIC_SC, 30)])
+def test_rows_kernel_matches_plain_and_strips(cuda_device, seed, flag,
+                                              zdrop):
+    """The rows kernel (kernel 3) against its plain twin and kernel A on
+    pairs of 1-128 bp: queries under 4 bp and of 128, one-base targets,
+    Z-drop off, a generic matrix."""
     rng = np.random.default_rng(seed)
     pairs = []
     for _ in range(40):
@@ -214,8 +221,13 @@ def test_rows_kernel_matches_plain_and_strips(cuda_device, seed):
     pairs += [(rng.integers(0, 5, ql).astype(np.uint8),
                rng.integers(0, 5, tl).astype(np.uint8))
               for ql, tl in [(1, 1), (1, 128), (128, 1), (127, 128),
-                             (128, 128), (128, 127)]]
-    ln = _launch(pairs, Flag.SCORE_ONLY, 100, False)
+                             (128, 128), (128, 127), (2, 9), (3, 64),
+                             (5, 1), (33, 97)]]
+    ql = np.array([len(q) for q, _ in pairs], np.int32)
+    tl = np.array([len(t) for _, t in pairs], np.int32)
+    (ln,) = S.strips_prep([q for q, _ in pairs], [t for _, t in pairs], ql,
+                          tl, 5, GEN if flag & Flag.GENERIC_SC else MAT, 4,
+                          2, zdrop, flag)
     args = S.upload(ln, cuda_device)
     kd = R.rows_forward_cuda(*args, ln.prm)
     pd = R.rows_forward_plain(*args, ln.prm)
@@ -620,7 +632,7 @@ def test_batch_exts_forward_kernel_matches_plain(cuda_device, flag, zdrop,
 
 
 def _exts_check_forms(ln, dev, walk=True):
-    """Kernel 6 in the form its launch takes and in the strip form against
+    """Kernel 6 in the form its launch takes and in the wide form against
     the plain version (records, bytes), and the band walker with
     min_intron on the kernel's bytes."""
     args = BD.band_upload(ln, dev)
@@ -669,7 +681,7 @@ def _exts_prep(pairs, flag, zdrop, junc_bonus=0):
 def test_batch_exts_register_form_matches_plain(cuda_device, flag, zdrop,
                                                 junc_bonus, L):
     """Kernel 6's register form (its window three parts idle on targets
-    of 120, a third on 400) against its plain version, and its strip form
+    of 120, a third on 400) against its plain version, and its wide form
     on the same launch."""
     rng = np.random.default_rng(66 + L)
     pairs = [spliced_pair(rng, L, with_n=True) for _ in range(24)]
@@ -697,6 +709,52 @@ def test_batch_exts_forms_at_window_edges(cuda_device, M, cpl, flag):
         pairs.append((q[:M], t) if k % 2 else (q, t[:M]))
     for ln in _exts_prep(pairs, flag, 200):
         assert BE.exts_form(ln.ncol, 5) == cpl
+        _exts_check_forms(ln, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [Flag.SPLICE_FOR,
+                                  Flag.SPLICE_FOR | Flag.SCORE_ONLY])
+def test_batch_exts_wide_form_on_splice_wide(cuda_device, flag):
+    """Kernel 6's wide form on the first pairs of chip_smoke's splice-wide
+    workload (871 x 1536 bp, ncol 896, the junction track with
+    junc_bonus 9) against its plain version, and the band walker on its
+    bytes."""
+    from chip_smoke import splice_wide_jobs, splice_wide_junc
+
+    pairs = splice_wide_jobs(n=6)
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    (ln,) = BE.batch_exts_prep(qs, ts, [len(a) for a in qs],
+                               [len(b) for b in ts], 5, SPL_MAT, 2, 1, 32, 9,
+                               200, flag, [splice_wide_junc()] * len(pairs), 9,
+                               cig=not flag & Flag.SCORE_ONLY)
+    assert (ln.ncol, BE.exts_form(ln.ncol, 5)) == (896, 0)
+    _exts_check_forms(ln, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,zdrop", [
+    (Flag.SPLICE_FOR | Flag.GENERIC_SC, 200),
+    (Flag.SPLICE_FOR | Flag.GENERIC_SC | Flag.RIGHT, -1),
+    (Flag.SPLICE_FOR | Flag.GENERIC_SC | Flag.SCORE_ONLY | Flag.APPROX_MAX |
+     Flag.APPROX_DROP, 100)])
+def test_batch_exts_wide_form_twelve_symbols(cuda_device, flag, zdrop):
+    """An alphabet of 12 symbols (the wide form's score matrix in shared
+    memory) on every launch shape: short and long pairs, one-base sides,
+    a pair at a tile edge."""
+    rng = np.random.default_rng(71)
+    mat = rng.integers(-3, 4, (12, 12)).astype(np.int8)
+    np.fill_diagonal(mat, 2)
+    pairs = [(rng.integers(0, 12, a).astype(np.uint8),
+              rng.integers(0, 12, b).astype(np.uint8))
+             for a, b in ((60, 200), (300, 250), (1, 40), (40, 1),
+                          (129, 129), (500, 700))]
+    qs, ts = [a for a, _ in pairs], [b for _, b in pairs]
+    for ln in BE.batch_exts_prep(qs, ts, [len(a) for a in qs],
+                                 [len(b) for b in ts], 12, mat.reshape(-1),
+                                 2, 1, 32, 9, zdrop, flag,
+                                 cig=not flag & Flag.SCORE_ONLY):
+        assert BE.exts_form(ln.ncol, 12) == 0
         _exts_check_forms(ln, cuda_device)
 
 
