@@ -107,6 +107,26 @@ phase's seconds go to stderr as it ends.
    and on random bytes (walks across hundreds of windows, starts at the
    windows' edges, min_intron, upper_force 0, flat overruns, row-major
    stores, launches of 1 to 4096 pairs);
+5j. mesh (in the pool): the port's ``parallel/`` on a mesh of 4 logical
+   shards of cuda:0 (every card when there are more), each case twice,
+   the launch counters set to 0 before its first run and read after it
+   (the case's kernels at least once a shard, the halo's exactly once a
+   shard and a round, no other kernel): the mixed-512 scores through
+   ``make_sharded_run_fn`` and
+   ``extend_batch(mesh=)`` (``MIXED_SCORE``), its CIGARs through
+   ``extend_batch(mesh=)`` (targets on both sides of 1536), the whale
+   through ``sharded_strips_cigar`` (``WHALE_CIGAR``), the short-banded
+   4096 through kernels E, E2 and ``sharded_extz_align``
+   (``BATCH_PINS``), the 1024 annotated splice pairs through kernel 6,
+   the CLI's batched extf pairs through kernel 7 and the 50 kb pair
+   through ``halo_extz_score`` (``SINGLE_PINS["single_score"]`` and
+   kernel 12's 9 fields), each run equal to the other and to the port's
+   unsharded route on the same input (``Aligner.extend_batch``,
+   ``extf_batch_device``, kernel 12), whose walls stand beside the
+   mesh's; the halo kernel (``csrc/halo_fwd.cu``) against its
+   plain twin on the 50 kb pair's 2 kb cut, every state plane and package
+   exactly; two processes of ``python -m ksw2_tpu_torch.parallel.dryrun``
+   with gloo on the card, their checksums equal;
 6. the main path through ``Aligner.extend_batch(_async)``, one path at a
    time with the launch counters set to 0 just before it and read just
    after: one-piece (extz) scores and CIGARs on the seeded mixed
@@ -175,7 +195,11 @@ phase's seconds go to stderr as it ends.
    version exactly on local-64k, which phase 5h leaves out), and a
    profile of the long-banded, short-banded, splice, sr-extension,
    mixed-512 / mixed-2048 score, whale CIGAR and local-64k batches with
-   the device's idle share.
+   the device's idle share;
+7b. mesh times, alone: the halo kernel's round against its plain twin on
+   the 50 kb pair's widest block of 256 diagonals (one shard) beside its
+   bound, the pair's halo at 1 and 4 logical shards beside its bound,
+   and ``scaling_efficiency`` on 4 logical shards.
 
 It exits non-zero, before any result line, when there is no CUDA card or
 any phase fails.  The last line is the ``{"ok": true, ...}`` record.
@@ -189,6 +213,7 @@ any phase fails.  The last line is the ``{"ok": true, ...}`` record.
     python3 chip_smoke.py --rows-times
     python3 chip_smoke.py --exts-times
     python3 chip_smoke.py --local-times
+    python3 chip_smoke.py --mesh
     python3 chip_smoke.py --sass-diff PARENT
 
 print clock64 breakdowns of a tile-diagonal of kernels 12-14, 9-10 and
@@ -211,7 +236,8 @@ kernel and kernel A alone on the short pairs' launch, kernel 6 alone on
 the annotated splice launches and splice-wide's in the form each takes
 and in the wide form, with the band walker on its bytes (and E / E2's
 register form), kernel 18 alone on each local set (all three also run
-on the parent's tree), cycles of kernel 6's two forms (a tile-diagonal
+on the parent's tree), phases 5j and 7b alone (``--mesh``), cycles of
+kernel 6's two forms (a tile-diagonal
 of the wide form, a diagonal of the register form), a query row of
 kernel 18, a step of the rows kernel and a diagonal of kernels 8 and
 7's two forms (strip: head, chunk steps, walk; register:
@@ -236,6 +262,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -6751,6 +6778,447 @@ def phase_sass_diff(parent_root) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The mesh (ksw2_tpu_torch/parallel/): the pair batch sharded over logical
+# shards of the card (every card when there are more), one pair split over
+# them by the halo wavefront, and two processes of the dry-run worker.
+
+MESH_SHARDS = 4               # logical shards of cuda:0 on a one-card host
+HALO_K = 256                  # halo_extz_score's block_diagonals
+HALO_SRC = "ksw2_tpu_torch/csrc/halo_fwd.cu"
+# no pallas_call: the round is parallel/halo.py's fori_loop body
+HALO_REPLACES = "ksw2_tpu/parallel/halo.py:53"
+# the halo round computes the band route's one-piece recurrence, score
+# form (no bytes)
+OPS["halo_fwd"] = OPS["band_fwd"]
+
+
+def mesh_devices():
+    """The mesh phase's devices: every card when there are several, else
+    MESH_SHARDS logical shards of cuda:0 (one stream each)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return ([f"cuda:{i}" for i in range(n)] if n > 1
+            else ["cuda:0"] * MESH_SHARDS)
+
+
+def _padded(pairs):
+    """(Q, T, qlen, tlen) of (query, target) pairs, uint8, zero-padded."""
+    from ksw2_tpu_torch.batch.scheduler import pad_rows
+
+    return (pad_rows([q for q, _ in pairs]), pad_rows([t for _, t in pairs]),
+            np.array([len(q) for q, _ in pairs], np.int32),
+            np.array([len(t) for _, t in pairs], np.int32))
+
+
+def _digest(out, keys=None):
+    """A result in a comparable form: ExtzResults as (9 fields, reach_end,
+    CIGAR), or, with ``keys`` (a sharded field dict's), as that dict;
+    field dicts as lists."""
+    def ez(e):
+        return (e.max, e.max_t, e.max_q, e.mqe, e.mqe_t, e.mte, e.mte_q,
+                e.score, int(e.zdropped), int(e.reach_end), list(e.cigar))
+    if isinstance(out, dict):
+        return {k: np.asarray(v).tolist() for k, v in out.items()}
+    if keys is not None:
+        return {k: [int(getattr(e, k)) for e in out] for k in keys}
+    if isinstance(out, list):
+        return [ez(e) for e in out]
+    return ez(out)
+
+
+def _pin_of(out):
+    """sum of max (and CIGAR ops) of a result, as phase 6's anchors."""
+    if isinstance(out, dict):
+        return int(np.asarray(out["max"]).astype(np.int64).sum())
+    if any(e.cigar for e in out):
+        return [sum(e.max for e in out), sum(len(e.cigar) for e in out)]
+    return sum(e.max for e in out)
+
+
+class MeshCase(NamedTuple):
+    """A case of the mesh phase: the sharded call, the port's unsharded
+    route on the same input, the anchor (None: none), and the launches
+    the sharded call must make: ``per_shard`` kernels at least once a
+    shard, ``local`` ones at least once (the Aligner's local part), no
+    other kernel, and ``exact`` counts where the schedule fixes them."""
+    name: str
+    sharded: Callable
+    unsharded: Callable
+    anchor: object
+    per_shard: Tuple[str, ...]
+    local: Tuple[str, ...] = ()
+    exact: Optional[Dict[str, int]] = None
+
+
+def mesh_cases(shards: int):
+    """The mesh phase's cases on a mesh of ``shards``: the mixed-512
+    scores through make_sharded_run_fn and extend_batch(mesh=) (every
+    bucket effectively unbanded: the strips route) and its CIGARs through
+    extend_batch(mesh=) (targets up to 1536 on kernel E's CIG form and
+    walker D, the whale on the local strips route), the whale through
+    sharded_strips_cigar, the short-banded 4096 through kernels E, E2 and
+    the batched CIGAR route, the 1024 annotated splice pairs through
+    kernel 6, the CLI's batched extf pairs through kernel 7 and the 50 kb
+    pair through the halo; each beside the port's unsharded route
+    (``Aligner.extend_batch`` on the card, ``extf_batch_device`` for
+    kernel 7, kernel 12 for the halo's pair)."""
+    from ksw2_tpu_torch import Aligner
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.batch_extf import extf_batch_device
+    from ksw2_tpu_torch.parallel import halo as HL
+    from ksw2_tpu_torch.parallel import mesh as PM
+
+    jobs = mixed_jobs()
+    whale = [p for p in jobs if len(p[1]) > 2048]
+    sbj = short_banded_jobs()
+    sb = _padded(sbj)
+    wsb = np.full(len(sb[2]), SHORT_BANDED_W, np.int32)
+    spl4 = splice_jobs() * SPLICE_TILES
+    junc4 = [splice_junc()] * len(spl4)
+    extf = _padded(cli_split(jobs, "extf2_sse")[0])
+    single = single_pair(SINGLE_SEED, SINGLE_LEN)
+    mat, smat = simple_mat(5, 2, 4), simple_mat(5, 1, 2)
+    q, e, q2, noncan = SPLICE
+    SO = Flag.SCORE_ONLY
+    scorer = Aligner(a=2, b=4, q=4, e=2, zdrop=100, flag=SO)
+    cigar = Aligner(a=2, b=4, q=4, e=2, zdrop=100)
+    SW = SHORT_BANDED_W
+    sb_score = Aligner(w=SW, zdrop=100, flag=SO)
+    sb_extd = Aligner(q2=EXTD[2], e2=EXTD[3], w=SW, zdrop=100, flag=SO)
+    sb_cigar = Aligner(w=SW, zdrop=100)
+    j_score = splice_aligner(Flag.SPLICE_FOR | SO, SPLICE_JUNC_BONUS)
+    prm = HL.halo_params(*single, 5, mat, 4, 2, -1)
+    rounds = -(-HL.rows_limit(prm.qlen, prm.tlen, prm.w) // HALO_K)
+
+    return [
+        MeshCase("mixed512_run_fn", lambda m: scorer.extend_batch(
+            jobs, run_fn=PM.make_sharded_run_fn(m)),
+            lambda: scorer.extend_batch(jobs), MIXED_SCORE, ("strips_fwd",)),
+        MeshCase("mixed512_mesh_score",
+                 lambda m: scorer.extend_batch(jobs, mesh=m),
+                 lambda: scorer.extend_batch(jobs), MIXED_SCORE,
+                 ("strips_fwd",)),
+        MeshCase("mixed512_mesh_cigar",
+                 lambda m: cigar.extend_batch(jobs, mesh=m),
+                 lambda: cigar.extend_batch(jobs),
+                 [SHORT_CIGAR[0] + WHALE_CIGAR[0],
+                  SHORT_CIGAR[1] + WHALE_CIGAR[1]],
+                 ("batch_fwd", "band_walk"), ("strips_fwd", "strips_walk")),
+        MeshCase("whale_strips_cigar", lambda m: PM.sharded_strips_cigar(
+            m, *_padded(whale), 5, mat, 4, 2, zdrop=100),
+            lambda: cigar.extend_batch(whale), list(WHALE_CIGAR),
+            ("strips_fwd", "strips_walk")),
+        MeshCase("sb_extz_score", lambda m: PM.sharded_extz_scores_pallas(
+            m, *sb, wsb, 5, mat, 4, 2, zdrop=100),
+            lambda: sb_score.extend_batch(sbj),
+            BATCH_PINS["short_banded_score"][0], ("batch_fwd",)),
+        MeshCase("sb_extd_score", lambda m: PM.sharded_extd_scores_pallas(
+            m, *sb, wsb, 5, mat, *EXTD, zdrop=100),
+            lambda: sb_extd.extend_batch(sbj),
+            BATCH_PINS["short_banded_extd_score"][0], ("batch_extd_fwd",)),
+        MeshCase("sb_extz_align", lambda m: PM.sharded_extz_align(
+            m, *sb, 5, mat, 4, 2, w=wsb, zdrop=100),
+            lambda: sb_cigar.extend_batch(sbj),
+            list(BATCH_PINS["short_banded_cigar"][0]),
+            ("batch_fwd", "band_walk")),
+        MeshCase("splice_junc_score", lambda m: PM.sharded_exts_scores_pallas(
+            m, *_padded(spl4), 5, smat, q, e, q2, noncan,
+            zdrop=SPLICE_ZDROP, junc_bonus=SPLICE_JUNC_BONUS,
+            flag=Flag.SPLICE_FOR, junc=junc4),
+            lambda: j_score.extend_batch(spl4, juncs=junc4),
+            SPLICE_TILES * SPLICE_PINS["splice_junc_score"][0],
+            ("batch_exts_fwd",)),
+        MeshCase("cli_extf_score", lambda m: PM.sharded_extf_scores_pallas(
+            m, *extf, None, 2, 4, 2, xdrop=40),
+            lambda: extf_batch_device(*extf, 2, 4, 2, xdrop=40,
+                                      device="cuda"),
+            None, ("batch_extf_fwd",)),
+        MeshCase("single_halo", lambda m: HL.halo_extz_score(
+            m, *single, 5, mat, 4, 2, block_diagonals=HALO_K),
+            lambda: _k12_single(single, mat), None, ("halo_fwd",),
+            exact={"halo_fwd": shards * rounds}),
+    ]
+
+
+def _mesh_launches(case: MeshCase, counts: dict, shards: int) -> None:
+    """Fail unless a case's own launches are the ones its route makes."""
+    want = set(case.per_shard) | set(case.local)
+    got = {k for k, v in counts.items() if v}
+    low = [k for k in case.per_shard if counts.get(k, 0) < shards] + \
+        [k for k in case.local if not counts.get(k)]
+    off = {k: counts.get(k, 0) for k, v in (case.exact or {}).items()
+           if counts.get(k, 0) != v}
+    if got != want or low or off:
+        raise AssertionError(
+            f"mesh {case.name}: launches {counts}, want {sorted(want)} "
+            f"({list(case.per_shard)} at least {shards} times, exactly "
+            f"{case.exact})")
+
+
+def _k12_single(single, mat):
+    """Kernel 12's score-only fields of the 50 kb pair (the halo's
+    reference), the same ExtzResult contract."""
+    from ksw2_tpu_torch.core.flags import Flag
+    from ksw2_tpu_torch.ops.extz import extz2_device
+
+    return extz2_device(*single, 5, mat, 4, 2, flag=Flag.SCORE_ONLY,
+                        device="cuda")
+
+
+def _two_process_worker(expected: int, device: str = "cuda",
+                        timeout: int = 240):
+    """Two processes of ``python -m ksw2_tpu_torch.parallel.dryrun`` on
+    ``device`` with gloo: their ``OK <rank> <checksum>`` lines."""
+    import socket
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ksw2_tpu_torch.parallel.dryrun", "--rank",
+         str(r), "--world", "2", "--init", f"tcp://127.0.0.1:{port}",
+         "--backend", "gloo", "--device", device], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    lines = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            ok = [ln for ln in out.splitlines() if ln.startswith("OK ")]
+            if p.returncode != 0 or not ok:
+                raise AssertionError(f"worker rc {p.returncode}: {out}\n"
+                                     f"{err[-3000:]}")
+            lines.append(ok[-1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if sorted(int(ln.split()[1]) for ln in lines) != [0, 1] or \
+            any(int(ln.split()[2]) != expected for ln in lines):
+        raise AssertionError(f"two-process checksums {lines}, want "
+                             f"{expected}")
+    return lines
+
+
+def _halo_err(a, b) -> int:
+    return max(int(np.abs(x.astype(np.int64) - y).max(initial=0))
+               for x, y in zip(a.states + a.packages, b.states + b.packages))
+
+
+def phase_mesh():
+    """5j. mesh: every case of :func:`mesh_cases` on the mesh twice, the
+    launch counters set to 0 just before the case's first run and read
+    just after it (:func:`_mesh_launches` holds them to the case's
+    route); each run equal to the other, to the port's unsharded route on
+    the same input (run twice too, its walls beside the mesh's) and to
+    its anchor; the 50 kb pair's halo fields equal to
+    ``SINGLE_PINS["single_score"]`` and kernel 12's; then the halo kernel
+    against its plain twin on the 50 kb pair's 2 kb cut (every state
+    plane and package, exactly); then two processes of the dry-run worker
+    with gloo on the card.  Walls are the host's, beside the pool's other
+    workers."""
+    import torch
+
+    from ksw2_tpu_torch._build import LAUNCHES
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.ops.batch_xla import extz_batch_scores
+    from ksw2_tpu_torch.parallel import halo as HL
+    from ksw2_tpu_torch.parallel import mesh as PM
+    from ksw2_tpu_torch.parallel.dryrun import multihost_batch
+
+    mesh = PM.make_mesh(devices=mesh_devices())
+    out, total = {}, {}
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    for case in mesh_cases(mesh.size):
+        LAUNCHES.clear()
+        first, w0 = timed(case.sharded, mesh)
+        counts = dict(LAUNCHES)
+        _mesh_launches(case, counts, mesh.size)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        second, w1 = timed(case.sharded, mesh)
+        (ref0, l0), (ref1, l1) = (timed(case.unsharded) for _ in range(2))
+        keys = list(first) if isinstance(first, dict) else None
+        a, b = _digest(first), _digest(second)
+        if a != b or _digest(ref0, keys) != _digest(ref1, keys):
+            raise AssertionError(f"mesh {case.name}: two runs differ")
+        if case.name == "single_halo":
+            got = single_pin(first, False)
+            if list(got) != list(SINGLE_PINS["single_score"]):
+                raise AssertionError(f"single_halo {got} != "
+                                     f"{SINGLE_PINS['single_score']}")
+        if a != _digest(ref0, keys):
+            raise AssertionError(f"mesh {case.name}: != the unsharded "
+                                 "route")
+        pin = None if case.anchor is None else _pin_of(first)
+        if case.anchor is not None and pin != case.anchor:
+            raise AssertionError(f"mesh {case.name}: {pin} != anchor "
+                                 f"{case.anchor}")
+        out[case.name] = {"wall_ms": [w0, w1], "unsharded_wall_ms": [l0, l1],
+                          "launches": counts, "anchor": pin}
+        del first, second, ref0, ref1
+    # the halo kernel against its plain twin on the 2 kb cut
+    single = single_pair(SINGLE_SEED, SINGLE_LEN)
+    cut = (single[0][:LG_PREFIX], single[1][:LG_PREFIX])
+    prm = HL.halo_params(*cut, 5, simple_mat(5, 2, 4), 4, 2, -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kern = HL.halo_pipeline(mesh, *cut, prm, HALO_K, HL.halo_round)
+    k_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = HL.halo_pipeline(mesh, *cut, prm, HALO_K, HL.halo_round_plain)
+    p_ms = (time.perf_counter() - t0) * 1e3
+    err = _halo_err(kern, plain)
+    if err:
+        raise AssertionError(f"halo kernel != plain twin on the 2 kb cut "
+                             f"(max abs err {err})")
+    Q, T, spec = multihost_batch()
+    ln = np.full(len(Q), Q.shape[1], np.int32)
+    expected = int(extz_batch_scores(spec, Q, T, ln, ln, ln,
+                                     device="cuda")["score"].sum())
+    t0 = time.perf_counter()
+    lines = _two_process_worker(expected)
+    emit({"phase": "mesh", "devices": [str(d) for d in mesh.devices],
+          "cases": out, "launches": total,
+          "halo_cut": {"max_abs_err": err, "kernel_wall_ms": k_ms,
+                       "plain_wall_ms": p_ms, "shards": mesh.size,
+                       "K": HALO_K},
+          "two_process": {"lines": lines, "expected": expected,
+                          "wall_s": time.perf_counter() - t0}})
+    return {"counts": total, "err": err}
+
+
+def phase_mesh_alone() -> int:
+    """``--mesh``: phases 5j and 7b alone (the mesh cases, the halo
+    kernel against its twin, the two-process worker, the mesh times)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the mesh phase needs a CUDA card")
+    int_rate = phase_device()
+    phase_build()
+    phase_mesh()
+    mesh_times(int_rate)
+    return 0
+
+
+def _round_cells(prm, r0: int, nk: int) -> int:
+    """Cells of the true band [st0, en0] on diagonals r0 .. r0 + nk - 1."""
+    from ksw2_tpu_torch.ops.bands import band_bounds
+
+    st0, en0 = band_bounds(r0 + nk, prm.qlen, prm.tlen, prm.w)
+    return int(np.maximum(0, en0[r0:] - st0[r0:] + 1).sum())
+
+
+def mesh_times(int_rate):
+    """7b. mesh times, alone: the halo kernel's round against its plain
+    twin (exactly, and timed) on the 50 kb pair's widest block of HALO_K
+    diagonals on one shard, its bound; the 50 kb pair's halo at 1 and
+    MESH_SHARDS logical shards (host walls, and the device time of the
+    one-shard run by CUDA events) beside the pair's bound; and
+    scaling_efficiency on logical shards of cuda:0."""
+    import torch
+
+    from ksw2_tpu_torch.core.matrix import simple_mat
+    from ksw2_tpu_torch.parallel import halo as HL
+    from ksw2_tpu_torch.parallel import mesh as PM
+
+    single = single_pair(SINGLE_SEED, SINGLE_LEN)
+    mat = simple_mat(5, 2, 4)
+    prm = HL.halo_params(*single, 5, mat, 4, 2, -1)
+    K = HALO_K
+    C = -(-prm.tlen // 128) * 128
+    rlim = HL.rows_limit(prm.qlen, prm.tlen, prm.w)
+    n_blocks = -(-rlim // K)
+    cells = [_round_cells(prm, b * K, min(K, rlim - b * K))
+             for b in range(n_blocks)]
+    j = int(np.argmax(cells))
+    dev = torch.device("cuda", 0)
+    qs = torch.from_numpy(np.asarray(single[0], np.uint8)).to(dev)
+    tpad = np.zeros(C, np.uint8)
+    tpad[:prm.tlen] = single[1]
+    ts = torch.from_numpy(tpad).to(dev)
+    st = HL.init_state(C, dev)
+    pout = torch.zeros((K, 3), dtype=torch.int32, device=dev)
+    for b in range(j):
+        HL.halo_round(qs, ts, st, None, pout, prm, 0, b * K, K)
+    st_j = st.clone()
+    nk = min(K, rlim - j * K)
+    k_ms = []
+    for _ in range(3):
+        st.copy_(st_j)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        HL.halo_round(qs, ts, st, None, pout, prm, 0, j * K, nk)
+        e1.record()
+        e1.synchronize()
+        k_ms.append(e0.elapsed_time(e1))
+    kst, kout = st.clone(), pout.clone()
+    st.copy_(st_j)
+    plain_run("halo_round", HL.halo_round_plain, qs, ts, st, None, pout,
+              prm, 0, j * K, nk)
+    err = max(int((kst - st).abs().max()), int((kout - pout).abs().max()))
+    if err:
+        raise AssertionError(f"halo round {j}: kernel != plain twin "
+                             f"(max abs err {err})")
+    ops_ms = cells[j] * OPS["halo_fwd"] / int_rate * 1e3
+    bytes_ms = (2 * HL.NPLANES * 4 * C + prm.qlen + C + 2 * 3 * 4 * K) / \
+        HBM_BYTES_PER_S * 1e3
+    pair = {}
+    for D in (1, MESH_SHARDS):
+        mesh = PM.make_mesh(devices=["cuda:0"] * D)
+        walls = []
+        dev_ms = None
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ez = HL.halo_extz_score(mesh, *single, 5, mat, 4, 2,
+                                    block_diagonals=K)
+            e1.record()
+            e1.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dev_ms = e0.elapsed_time(e1)
+        if list(single_pin(ez, False)) != list(SINGLE_PINS["single_score"]):
+            raise AssertionError(f"halo D={D}: {single_pin(ez, False)}")
+        pair[D] = {"wall_ms": walls, "events_ms": dev_ms}
+    pair_cells = sum(cells)
+    t1, tn, eff = PM.scaling_efficiency(MESH_SHARDS, devices=["cuda:0"])
+    line = {"phase": "mesh_times", "K": K, "round": j, "round_cells":
+            cells[j], "round_ms": k_ms, "round_plain_ms":
+            PLAIN_MS["halo_round"], "round_bound_ms": max(ops_ms, bytes_ms),
+            "round_bound_by": "operations" if ops_ms >= bytes_ms
+            else "bytes", "rounds_one_shard": n_blocks,
+            "pair_cells": pair_cells,
+            "pair_bound_ms": pair_cells * OPS["halo_fwd"] / int_rate * 1e3,
+            "pair": {str(D): v for D, v in pair.items()},
+            "scaling": {"shards": MESH_SHARDS, "t1_ms": t1 * 1e3,
+                        "tn_ms": tn * 1e3, "wall_ratio": t1 / tn,
+                        "efficiency": eff}}
+    emit(line)
+    return {"fwd_ms": min(k_ms), "fwd_plain_ms": PLAIN_MS["halo_round"],
+            "fwd_bound_ms": line["round_bound_ms"],
+            "fwd_bound_by": line["round_bound_by"], "err": err}
+
+
 START = time.perf_counter()
 
 
@@ -6847,6 +7315,8 @@ def _pool_task(task):
     seconds, error)).  Its plain times stay in its phase's line."""
     if task[0] == "phase":
         res = _captured(run_kernel_phase, task[1], False, *task[2:])
+    elif task[0] == "mesh":
+        res = _captured(phase_mesh)
     else:
         _, _, kw, _, pairs, juncs = task
         res = _captured(oracle_refs, kw, pairs, juncs)
@@ -6898,8 +7368,8 @@ def run_kernel_phases(oracle):
         res[name], texts[name], secs[f"alone:{name}"] = out, [text], s
         torch.cuda.empty_cache()
     tasks = [("phase", n, k, POOL_SPLIT.get(n, 1)) for n in POOL_FIRST
-             for k in range(POOL_SPLIT.get(n, 1))] + list(oracle) + \
-        [("phase", n) for n in POOL_LAST]
+             for k in range(POOL_SPLIT.get(n, 1))] + [("mesh", "mesh")] + \
+        list(oracle) + [("phase", n) for n in POOL_LAST]
     assert {n for k, n, *_ in tasks if k == "phase"} | {"local"} == \
         set(KERNEL_PHASES)
     t0 = time.perf_counter()
@@ -6916,11 +7386,15 @@ def run_kernel_phases(oracle):
             if kind == "oracle":
                 refs[name] = out
                 continue
+            if kind == "mesh":
+                res[name], mesh_text = out, text
+                continue
             res[name] = _merge_worst(res[name], out)
             texts[name].append(text)
     secs["pool"] = time.perf_counter() - t0
     for name in KERNEL_PHASES:
         sys.stdout.write(_merge_lines(texts[name]))
+    sys.stdout.write(mesh_text)
     sys.stdout.flush()
     return res, refs, secs
 
@@ -6960,6 +7434,7 @@ def main() -> int:
     del results
     for name in KERNEL_PHASES:
         clock[name] = secs[f"alone:{name}"] + secs.get(f"phase:{name}", 0)
+    clock["mesh"] = secs["mesh:mesh"]
     clock["pool"] = secs["pool"]
     clock["oracle_cpu"] = sum(s for k, s in secs.items()
                               if k.startswith("oracle:"))
@@ -6972,6 +7447,7 @@ def main() -> int:
     lcases = lg_cases(jobs)
     times = timed("times", phase_times, cases, rcases, long, sb, scases,
                   single, spl, slong, int_rate, lcases, mt, jobs)
+    mtimes = timed("mesh_times", mesh_times, int_rate)
     timed("profile", phase_profile, long, sb, spl, jobs, mt)
     emit({"phase": "clock", "workers": PHASE_WORKERS, "seconds": clock})
     whale = times["whale_cig_z100"]
@@ -7030,6 +7506,9 @@ def main() -> int:
                 counts["batch_local_fwd"],
                 max(err_local, times["local_64k"]["max_abs_err"]),
                 times["local_64k"], "fwd"),
+        _kernel("halo_fwd", HALO_SRC, HALO_REPLACES,
+                errs["mesh"]["counts"]["halo_fwd"],
+                max(errs["mesh"]["err"], mtimes["err"]), mtimes, "fwd"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7052,6 +7531,8 @@ if __name__ == "__main__":
         sys.exit(phase_exts_times())
     if sys.argv[1:2] == ["--local-times"]:
         sys.exit(phase_local_times())
+    if sys.argv[1:2] == ["--mesh"]:
+        sys.exit(phase_mesh_alone())
     if sys.argv[1:2] == ["--sass-diff"]:
         sys.exit(phase_sass_diff(sys.argv[2]))
     if sys.argv[1:2] == ["--breakdown"]:

@@ -93,6 +93,9 @@ _SIGNATURES = {
     "ksw2t_gg2_fwd": [_P] * 9 + [_I] * 8 + [_P] * 6,
     # qs, ts, qlen, tlen, B, Lq, Lt, m, mch, mis, scN, q, e, res, stream
     "ksw2t_batch_local_fwd": [_P] * 4 + [_I] * 9 + [_P] * 2,
+    # qs, ts, st, pin, pout, qlen, tlen, w, t0, C, r0, nk, q, e, mch, mis,
+    # scN, m, threads, stream
+    "ksw2t_halo_round": [_P] * 5 + [_I] * 14 + [_P],
 }
 
 

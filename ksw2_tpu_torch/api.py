@@ -22,8 +22,10 @@ costs, as ``ksw2_tpu/api.py:96-112`` does: one-piece ``ops/extz.py``
 (M ops under EQX), two-piece ``ops/extd.py`` (=/X under EQX) and splice
 ``ops/exts.py`` (N ops, with the pair's junction track), and
 :meth:`Aligner.global_align` runs ``ops/gg2.py``.  Every bucket of a
-batch has a route.  Meshes and pluggable engines raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+batch has a route.  ``extend_batch(mesh=)`` shards a one-piece batch over
+a ``parallel.mesh.Mesh`` and ``extend_batch(run_fn=)`` plugs a score
+engine into the scheduler, with the JAX package's rules
+(``ksw2_tpu/api.py:145-208, 237-276``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .batch.scheduler import (AlignJob, align_batch_async,
-                              align_batch_splice_async, resolve_device)
+                              align_batch_scores, align_batch_splice_async,
+                              resolve_device)
 from .core.flags import Flag
 from .core.matrix import encode_dna, simple_mat
 from .core.result import ExtzResult
@@ -159,12 +162,72 @@ class Aligner:
         """Extension alignment of many pairs through the bucketing
         scheduler (scores + CIGARs; score-only when SCORE_ONLY is set).
         ``w`` optionally gives per-pair bands; ``juncs`` per-pair
-        junction tracks (splice mode, one array or None a pair)."""
-        if run_fn is not None or mesh is not None:
-            raise NotImplementedError(
-                "pluggable engines and multi-device meshes (ROADMAP "
-                "item 15)")
+        junction tracks (splice mode, one array or None a pair).
+
+        ``run_fn`` plugs a score engine into the scheduler (see
+        :func:`ksw2_tpu_torch.parallel.mesh.make_sharded_run_fn`) and is
+        valid for one-piece SCORE_ONLY configurations only: its records
+        carry extz scores.  ``mesh`` shards the batch over a
+        ``parallel.mesh.Mesh`` for one-piece configurations: SCORE_ONLY
+        runs ``make_sharded_run_fn``; CIGAR configurations run
+        ``sharded_extz_align`` for targets of 1 to 1536 and the local
+        scheduler on the Aligner's device for the rest
+        (``ksw2_tpu/api.py:145-208, 237-276``)."""
+        if mesh is not None:
+            if run_fn is not None:
+                raise ValueError("pass either mesh or run_fn, not both")
+            if self.splice or self.q2 is not None:
+                raise ValueError(
+                    "mesh batches support one-piece configurations only")
+        if run_fn is not None and (
+                self.splice or self.q2 is not None
+                or not (self.flag & Flag.SCORE_ONLY)):
+            raise ValueError(
+                "run_fn supports one-piece SCORE_ONLY batches only "
+                "(sharded records carry extz scores; q2/e2, splice, or "
+                "CIGAR configurations would silently lose information)")
+        if juncs is not None and not self.splice:
+            raise ValueError("juncs requires splice=True")
+        if mesh is not None and not (self.flag & Flag.SCORE_ONLY):
+            return self._extend_batch_mesh_cigar(mesh, self._jobs(pairs, w))
+        if mesh is not None:
+            from .parallel.mesh import make_sharded_run_fn
+            run_fn = make_sharded_run_fn(mesh)
+        if run_fn is not None:
+            return align_batch_scores(
+                self._jobs(pairs, w), self.m, self.mat, self.q, self.e,
+                zdrop=self.zdrop, flag=self.flag, device=self.device,
+                run_fn=run_fn)
         return self.extend_batch_async(pairs, w, juncs).result()
+
+    def _extend_batch_mesh_cigar(self, mesh, jobs) -> List[ExtzResult]:
+        """A one-piece CIGAR batch sharded over ``mesh``: targets of 1 to
+        1536 bp (and a non-empty query) through ``sharded_extz_align``'s
+        per-pair entry,
+        the rest through the local scheduler (``ksw2_tpu/api.py:
+        237-276``)."""
+        from .parallel.mesh import extz_align_pairs
+
+        results: List[Optional[ExtzResult]] = [None] * len(jobs)
+        short = [i for i, j in enumerate(jobs)
+                 if 0 < len(j.target) <= 1536 and len(j.query) > 0]
+        rest = sorted(set(range(len(jobs))) - set(short))
+        if short:
+            out = extz_align_pairs(
+                mesh, [jobs[i].query for i in short],
+                [jobs[i].target for i in short], self.m, self.mat, self.q,
+                self.e, w=[jobs[i].w for i in short], zdrop=self.zdrop,
+                end_bonus=self.end_bonus, flag=self.flag)
+            for k, i in enumerate(short):
+                results[i] = out[k]
+        if rest:
+            out = align_batch_async(
+                [jobs[i] for i in rest], self.m, self.mat, self.q, self.e,
+                zdrop=self.zdrop, end_bonus=self.end_bonus, flag=self.flag,
+                device=self.device).result()
+            for k, i in enumerate(rest):
+                results[i] = out[k]
+        return results
 
     def extend_batch_async(self, pairs: Sequence[Tuple[Seq, Seq]],
                            w: Optional[Sequence[int]] = None, juncs=None):

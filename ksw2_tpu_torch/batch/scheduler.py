@@ -26,6 +26,9 @@ host work with the next one's device work.  On ``device="cpu"`` the same
 path runs the kernels' plain versions synchronously.
 
 Every bucket of these paths has a ported route; nothing falls back.
+``align_batch_scores(_async)`` with ``run_fn`` sends every bucket through
+that engine instead, as the JAX scheduler does (``scheduler.py:160-290``;
+``parallel.mesh.make_sharded_run_fn`` is the sharded one).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from ..ops.band_walker import band_cigar_launch, unpack_band_cigars
 from ..ops.bands import n_col_bytes
 from ..ops.batch import (batch_form, batch_forward_cuda,
                          batch_ineligible_reason)
-from ..ops.batch_xla import any_device_prep
+from ..ops.batch_xla import BatchSpec, any_device_prep
 from ..ops.extd import (extd_cigar_launch, extd_prep, extd_records,
                         unpack_extd_cigars)
 from ..ops.exts import (exts_cigar_launch, exts_prep, exts_records,
@@ -55,7 +58,7 @@ from ..ops.batch_exts import (batch_exts_cigar_launch,
                               batch_exts_ineligible_reason, batch_exts_prep,
                               batch_exts_records, batch_exts_resets,
                               unpack_exts_cigars)
-from ..ops.records import NFIELDS
+from ..ops.records import FIELD_ORDER, NFIELDS, degenerate
 from ..ops.rows import rows_eligible, rows_records
 from ..ops.strips import (TMAX, QMAX, canonical_costs, launch_tv,
                           packing_fits, strips_extd_ineligible_reason,
@@ -461,14 +464,18 @@ def align_batch_scores_async(
     zdrop: int = -1,
     flag: Flag | int = Flag.SCORE_ONLY,
     device="cuda",
+    run_fn=None,
 ) -> PendingScores:
     """Submit a one-piece score batch without waiting.  Each bucket takes
     the first route that accepts it: rows, strips, band, batched, and the
     any-device route for the rest (``scheduler.py:202, 242-286`` in the
-    JAX package)."""
+    JAX package).  With ``run_fn`` every bucket goes through it instead
+    (:func:`_run_fn_scores`)."""
     dev = resolve_device(device)
     flag = Flag(int(flag)) | Flag.SCORE_ONLY
     mat = np.asarray(mat, dtype=np.int8).reshape(-1)
+    if run_fn is not None:
+        return _run_fn_scores(jobs, m, mat, q, e, zdrop, flag, run_fn)
     results: List[Optional[ExtzResult]] = [None] * len(jobs)
     buckets = _merged_batch(_route(jobs, mat, q + e, results,
                                    _score_chooser(flag, m, mat, zdrop, q, e),
@@ -496,12 +503,63 @@ def _pending_scores(results, pieces, dev, guard) -> PendingScores:
                          guard)
 
 
+def pad_rows(seqs, width: Optional[int] = None, dtype=np.uint8
+             ) -> np.ndarray:
+    """``(B, width)`` zero-padded rows of the 1-D symbol arrays ``seqs``
+    (``width`` None: the longest, at least 1)."""
+    if width is None:
+        width = max([len(s) for s in seqs] + [1])
+    out = np.zeros((len(seqs), width), dtype)
+    for k, s in enumerate(seqs):
+        out[k, :len(s)] = s
+    return out
+
+
+def _run_fn_scores(jobs, m, mat, q, e, zdrop, flag, run_fn) -> PendingScores:
+    """Every bucket through ``run_fn(spec, Q, T, qlen, tlen, w)`` on host
+    arrays, as the JAX scheduler runs a pluggable engine
+    (``scheduler.py:160-290``): ``(B, Lq)`` / ``(B, Lt)`` int32 sequences
+    padded to the bucket's key, the resolved bands, and a dict of ``(B,)``
+    fields back; the rows, strips, band and batched choices are off
+    (``scheduler.py:243-270``; a sharded ``run_fn`` makes its own).
+    Empty jobs and degenerate scoring reset, as on the other paths."""
+    results: List[Optional[ExtzResult]] = [None] * len(jobs)
+    guard = degenerate(mat, q, e)
+    sc_N = -e if int(mat[m * m - 1]) == 0 else int(mat[m * m - 1])
+    buckets: Dict[Tuple[int, int], List[int]] = {}
+    for i, job in enumerate(jobs):
+        if len(job.query) == 0 or len(job.target) == 0 or guard:
+            results[i] = ExtzResult()
+            results[i].reset()
+            continue
+        buckets.setdefault(_bucket_key(len(job.query), len(job.target)),
+                           []).append(i)
+    pieces = []
+    for (Lq, Lt), idxs in _heaviest_first(buckets, jobs):
+        qlen = np.array([len(jobs[i].query) for i in idxs], np.int32)
+        tlen = np.array([len(jobs[i].target) for i in idxs], np.int32)
+        raw = np.array([jobs[i].w for i in idxs], np.int32)
+        wv = np.where(raw >= 0, raw, np.maximum(qlen, tlen)).astype(np.int32)
+        spec = BatchSpec(Lq=Lq, Lt=Lt, m=int(m), sc_mch=int(mat[0]),
+                         sc_mis=int(mat[1]), sc_N=sc_N, q=int(q), e=int(e),
+                         zdrop=int(zdrop), flag=int(flag))
+        out = run_fn(spec,
+                     pad_rows([jobs[i].query for i in idxs], Lq, np.int32),
+                     pad_rows([jobs[i].target for i in idxs], Lt, np.int32),
+                     qlen, tlen, wv)
+        rec = np.stack([np.asarray(out[k]) for k in FIELD_ORDER], axis=1)
+        pieces.append((idxs, torch.from_numpy(rec.astype(np.int32))))
+    return PendingScores(results, pieces, None, guard)
+
+
 def align_batch_scores(jobs, m, mat, q, e, zdrop=-1,
                        flag: Flag | int = Flag.SCORE_ONLY,
-                       device="cuda") -> List[ExtzResult]:
-    """Score a batch of one-piece extension jobs, bucketed by shape."""
+                       device="cuda", run_fn=None) -> List[ExtzResult]:
+    """Score a batch of one-piece extension jobs, bucketed by shape
+    (through ``run_fn`` when one is given)."""
     return align_batch_scores_async(jobs, m, mat, q, e, zdrop=zdrop,
-                                    flag=flag, device=device).result()
+                                    flag=flag, device=device,
+                                    run_fn=run_fn).result()
 
 
 def align_batch_scores2_async(
@@ -822,4 +880,4 @@ __all__ = ["AlignJob", "PendingScores", "PendingAligns", "resolve_device",
            "align_batch_scores", "align_batch_scores_async",
            "align_batch_scores2", "align_batch_scores2_async", "align_batch",
            "align_batch_async", "align_batch_splice",
-           "align_batch_splice_async", "plan_splice"]
+           "align_batch_splice_async", "plan_splice", "pad_rows"]

@@ -253,6 +253,20 @@ def extf_forward(qs, ts, qlen, tlen, w, mch, mis, e, xdrop, cuda):
     return extf_forward_plain(qs, ts, qlen, tlen, w, mch, mis, e, xdrop)
 
 
+def extf_records(query, target, qlen, tlen, w, mch: int, mis: int, e: int,
+                 xdrop: int, device: torch.device) -> torch.Tensor:
+    """Kernel 7's ``(B, NFIELDS)`` records on ``device`` (its plain version
+    on the CPU) of padded host arrays and resolved bands, launched on the
+    current stream."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in
+            (np.asarray(query, np.uint8), np.asarray(target, np.uint8),
+             qlen, tlen, np.asarray(w, np.int32))]
+    ncol = int(extf_ncol(qlen, tlen, w).max()) if len(qlen) else 16
+    return extf_forward(*args, int(mch), canonical_mis(mis), int(e),
+                        int(xdrop), cuda=functools.partial(
+                            batch_extf_forward_cuda, ncol=ncol))
+
+
 def extf_batch_device(query: np.ndarray, target: np.ndarray, qlen, tlen,
                       mch: int, mis: int, e: int, w=None, xdrop: int = -1,
                       device="cuda") -> Dict[str, np.ndarray]:
@@ -271,15 +285,8 @@ def extf_batch_device(query: np.ndarray, target: np.ndarray, qlen, tlen,
     qlen = np.asarray(qlen, np.int32)
     tlen = np.asarray(tlen, np.int32)
     w = np.maximum(qlen, tlen) if w is None else np.asarray(w, np.int32)
-    dev = torch.device(device)
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-            (query.astype(np.uint8), target.astype(np.uint8), qlen, tlen,
-             w.astype(np.int32))]
-    ncol = int(extf_ncol(qlen, tlen, w).max()) if B else 16
-    rec = extf_forward(*args, int(mch), canonical_mis(mis), int(e),
-                       int(xdrop), cuda=functools.partial(
-                           batch_extf_forward_cuda, ncol=ncol)
-                       ).cpu().numpy()
+    rec = extf_records(query, target, qlen, tlen, w, mch, mis, e, xdrop,
+                       torch.device(device)).cpu().numpy()
     return {k: rec[:, i].copy() for k, i in
             (("max", 0), ("max_t", 1), ("max_q", 2), ("score", 7),
              ("zdropped", 8))}
@@ -288,4 +295,4 @@ def extf_batch_device(query: np.ndarray, target: np.ndarray, qlen, tlen,
 __all__ = ["LT_EXTF", "REG_W", "w8", "canonical_mis", "pack_pairs",
            "extf_forward_plain", "extf_ncol", "extf_form",
            "batch_extf_forward_cuda", "batch_extf_strip_cuda",
-           "extf_forward", "extf_batch_device"]
+           "extf_forward", "extf_records", "extf_batch_device"]

@@ -38,6 +38,15 @@ class BatchSpec(NamedTuple):
     flag: int
 
 
+def spec_mat(spec: BatchSpec) -> np.ndarray:
+    """The simple m*m matrix a spec's match / mismatch / wildcard scores
+    give (the wildcard's row and column 0 when ``sc_N == -e``)."""
+    mat = np.full((spec.m, spec.m), spec.sc_mis, np.int8)
+    np.fill_diagonal(mat, spec.sc_mch)
+    mat[-1, :] = mat[:, -1] = 0 if spec.sc_N == -spec.e else spec.sc_N
+    return mat.reshape(-1)
+
+
 def any_device_prep(query, target, qlen, tlen, w, m, mat, q, e, zdrop,
                     flag) -> List[ExtzLaunch]:
     """A bucket's score launches (``w`` resolved, >= 0)."""
@@ -54,9 +63,7 @@ def extz_batch_scores(spec: BatchSpec, query, target, qlen, tlen, w,
     spec's match / mismatch / wildcard scores give)."""
     qlen, tlen, w = (np.asarray(a, np.int32) for a in (qlen, tlen, w))
     if mat is None:
-        mat = np.full((spec.m, spec.m), spec.sc_mis, np.int8)
-        np.fill_diagonal(mat, spec.sc_mch)
-        mat[-1, :] = mat[:, -1] = 0 if spec.sc_N == -spec.e else spec.sc_N
+        mat = spec_mat(spec)
     qs = [np.asarray(query)[k, :qlen[k]] for k in range(len(qlen))]
     ts = [np.asarray(target)[k, :tlen[k]] for k in range(len(tlen))]
     launches = any_device_prep(qs, ts, qlen, tlen, w, spec.m, mat, spec.q,
@@ -66,4 +73,4 @@ def extz_batch_scores(spec: BatchSpec, query, target, qlen, tlen, w,
     return {k: rec[:, i].copy() for i, k in enumerate(FIELD_ORDER)}
 
 
-__all__ = ["BatchSpec", "any_device_prep", "extz_batch_scores"]
+__all__ = ["BatchSpec", "spec_mat", "any_device_prep", "extz_batch_scores"]

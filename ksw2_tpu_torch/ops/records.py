@@ -16,6 +16,13 @@ FIELD_ORDER = ("max", "max_t", "max_q", "mqe", "mqe_t", "mte", "mte_q",
 NFIELDS = len(FIELD_ORDER)
 
 
+def degenerate(mat, q: int, e: int) -> bool:
+    """The reference guard (ksw2_extz2_sse.c:78-82): mismatches are
+    invisible in the delta range (``-min_sc > 2 (q + e)``), and every pair
+    gets a reset ez."""
+    return -int(np.asarray(mat).reshape(-1)[1:].min()) > 2 * (q + e)
+
+
 def unpack_records(res: np.ndarray, min_sc: int, q: int, e: int
                    ) -> Dict[str, np.ndarray]:
     """(B, NFIELDS) int32 records -> per-pair ez field dict.
@@ -33,4 +40,4 @@ def unpack_records(res: np.ndarray, min_sc: int, q: int, e: int
     return out
 
 
-__all__ = ["FIELD_ORDER", "NFIELDS", "unpack_records"]
+__all__ = ["FIELD_ORDER", "NFIELDS", "degenerate", "unpack_records"]

@@ -4,8 +4,8 @@
 configuration by ``convert.aligner_from_jax``, is held against
 ``ksw2_tpu.Aligner.extend_batch`` (the JAX package on CPU, Pallas kernels
 interpreted) on a seeded mixed batch, and against the reference-binary
-golden corpus; jobs that no ported route takes must raise
-NotImplementedError.
+golden corpus; jobs beyond the batch routes run on the single-pair
+engines, and a mesh batch equals the local one.
 """
 import json
 import os
@@ -25,6 +25,7 @@ from ksw2_tpu_torch import Aligner
 from ksw2_tpu_torch.batch.scheduler import AlignJob, align_batch_scores_async
 from ksw2_tpu_torch.convert import aligner_from_jax
 from ksw2_tpu_torch.ops.strips import strips_ineligible_reason
+from ksw2_tpu_torch.parallel.mesh import make_mesh
 
 # one intra-op thread a process: tier-1 runs several pytest workers on
 # the CPU's cores, where per-process thread pools oversubscribe them
@@ -162,7 +163,8 @@ def _spec_row(q, t, w, flag, two=False, eqx=False):
 
 
 def test_out_of_envelope_raises():
-    """Meshes raise, naming their ROADMAP item; global alignment runs on
+    """A mesh batch (one-piece) equals the local one and a two-piece mesh
+    batch raises, as in the JAX package; global alignment runs on
     the single-pair gg2 engine; the buckets beyond the batch routes run
     on the single-pair engines
     (one-piece and two-piece CIGARs) and the any-device route (one-piece
@@ -202,8 +204,11 @@ def test_out_of_envelope_raises():
     ga = aln.global_align(q, t)
     ws, wc, _ = diagdiff.gg2_sse(q, t, 5, simple_mat(5, 2, -4), 4, 2)
     assert (ga.score, ga.cigar, ga.reach_end) == (ws, list(wc), True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        aln.extend_batch([(q, t)], mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert [_row(ez) for ez in aln.extend_batch([(q, t)] * 3, mesh=mesh)] \
+        == [_row(ez) for ez in aln.extend_batch([(q, t)] * 3)]
+    with pytest.raises(ValueError, match="one-piece configurations"):
+        Aligner(q2=13, e2=1, device="cpu").extend_batch([(q, t)], mesh=mesh)
     with pytest.raises(ValueError, match="splice"):
         aln.extend_batch([(q, t)], juncs=[None])
 
